@@ -6,22 +6,26 @@ Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit, torch and CUDA versions;
   2. build every kernel in ``src/repro_torch/csrc`` with nvcc (in parallel);
   3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the full-width yi-6b serving path gives it and at edge cases,
-     and time kernel, plain version and bound;
-  4. reduced yi-6b served on the CPU (plain versions) and on the card
-     (kernels): identical tokens;
-  5. the main path: full-width yi-6b (random weights from a seed) served
+     shapes the full-width yi-6b and qwen2-moe serving paths give it and at
+     edge cases, and time kernel, plain version, library call and bound;
+  4. reduced yi-6b and reduced qwen2-moe served on the CPU (plain
+     versions) and on the card (kernels): identical tokens;
+  5. the first path: full-width yi-6b (random weights from a seed) served
      through ``HarvestRuntime(...).server(...)`` with evictions, reloads and
-     quantized demotions; every kernel must have launched; then one
-     full-width decode step profiled (wall time, device-busy share, the
+     quantized demotions; every kernel of the path must have launched; then
+     one full-width decode step profiled (wall time, device-busy share, the
      largest kernels);
+  6. the second path: full-width qwen2-moe (15.15 B parameters) served the
+     same way, through the MoE expert FFN kernel too, and profiled;
 then the card's name and power limit, one JSON line of per-kernel
-numbers, and the JSON result line.  It imports neither JAX nor the JAX
-package.
+numbers, and the JSON result line.  The launch counts are set to 0 just
+before each path and read just after it.  It imports neither JAX nor the
+JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -36,15 +40,18 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import HarvestRuntime, paged_attention as tpa  # noqa: E402
+from repro_torch.core.tiers import kv_block_bytes  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.harvest_copy import ops as hops  # noqa: E402
+from repro_torch.kernels.moe_ffn import ops as mops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pops  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.serving import TenantSpec, Workload  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
-MiB = 2 ** 20
+BF16_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
 SEED = 0
 
 
@@ -91,9 +98,9 @@ def time_ms(fn, iters=50):
     return (us / 1e3 / iters if us > 0 else wall), wall
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak_flops: float = F32_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -290,8 +297,218 @@ def check_quant(full_cfg, bs):
     return out
 
 
+def _max_err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item() if a.numel() else 0.0
+
+
+def check_movers(configs, bs):
+    """K6 and K5 against their plain versions, bit for bit: f32, bf16 and
+    int8 rows, an odd width (the narrow vector path) and a layer row's
+    width, a repeated gather id, rows outside the copy kept, a pool copied
+    into itself, out-of-range ids refused.  Then at each model's per-pool
+    shape, the one the engine's evict (K6) and reload (K5, from a staging
+    pool of k and v rows) give them: one launch moves one slot's block of
+    every layer (L_kv rows of bs * nkv * hd f32).  There both are held to
+    their plain versions bit for bit on the first, second and last slot of
+    the timing loop, and then timed."""
+    rng = np.random.default_rng(SEED + 3)
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for width in (37, 16_384):
+            src = torch.from_numpy(rng.normal(size=(12, width)) * 40).to(
+                dtype).cuda()
+            dst = torch.from_numpy(rng.normal(size=(9, width)) * 40).to(
+                dtype).cuda()
+            ids = np.asarray([11, 0, 4, 11], np.int32)
+            assert torch.equal(hops.gather_blocks(src, ids),
+                               hops.gather_blocks_plain(src, ids))
+            sids, dids = [3, 10, 0], [8, 2, 5]
+            assert torch.equal(
+                hops.copy_blocks(src, dst.clone(), sids, dids),
+                hops.copy_blocks_plain(src, dst.clone(), sids, dids))
+            pool = src.clone()
+            hops.copy_blocks(pool, pool, [0, 1], [5, 6])
+            assert torch.equal(pool, hops.copy_blocks_plain(
+                src, src.clone(), [0, 1], [5, 6]))
+    pool = torch.zeros((4, 16), device="cuda")
+    for call in (lambda: hops.gather_blocks(pool, np.asarray([0, 4])),
+                 lambda: hops.copy_blocks(pool, pool.clone(), [0], [-1])):
+        try:
+            call()
+        except IndexError:
+            pass
+        else:
+            raise AssertionError("out-of-range slot ids were not refused")
+    torch.cuda.synchronize()
+
+    out, err = {}, {"gather_blocks": 0.0, "copy_blocks": 0.0}
+    for cfg in configs:
+        L = M.num_kv_layers(cfg)
+        elems = bs * cfg.num_kv_heads * cfg.resolved_head_dim
+        # 128 slots: the pool (64 MiB at yi-6b, 192 MiB at qwen2-moe)
+        # exceeds the 50 MB L2, and each call takes the next slot
+        n_slots = 128
+        pool = torch.from_numpy(rng.normal(size=(L * n_slots, elems)).astype(
+            np.float32)).cuda()
+        staging = torch.from_numpy(rng.normal(size=(2 * L, elems)).astype(
+            np.float32)).cuda()
+        layer_rows = np.arange(L, dtype=np.int32) * n_slots
+        k_rows = 2 * np.arange(L, dtype=np.int32)
+        dev_ids = [torch.from_numpy(layer_rows + i).long().cuda()
+                   for i in range(n_slots)]
+        dev_k_rows = torch.from_numpy(k_rows).long().cuda()
+        nxt = [0]
+
+        def slot():
+            nxt[0] = (nxt[0] + 1) % n_slots
+            return nxt[0]
+
+        row_bytes = 4 * elems
+        cases = (
+            ("gather_blocks", "harvest_gather", 68,
+             lambda: hops.gather_blocks(pool, layer_rows + slot()),
+             lambda: hops.gather_blocks_plain(pool, layer_rows + slot()),
+             lambda: torch.index_select(pool, 0, dev_ids[slot()]),
+             2 * L * row_bytes + 4 * L),
+            ("copy_blocks", "harvest_copy", 96,
+             lambda: hops.copy_blocks(staging, pool, k_rows,
+                                      layer_rows + slot()),
+             lambda: hops.copy_blocks_plain(staging, pool, k_rows,
+                                            layer_rows + slot()),
+             lambda: pool.index_copy_(0, dev_ids[slot()], torch.index_select(
+                 staging, 0, dev_k_rows)),
+             2 * L * row_bytes + 8 * L),
+        )
+        for s in (0, 1, n_slots - 1):
+            got = hops.gather_blocks(pool, layer_rows + s)
+            ref = hops.gather_blocks_plain(pool, layer_rows + s)
+            assert torch.equal(got, ref), f"gather_blocks at {cfg.name}"
+            err["gather_blocks"] = max(err["gather_blocks"],
+                                       _max_err(got, ref))
+            got = hops.copy_blocks(staging, pool.clone(), k_rows,
+                                   layer_rows + s)
+            ref = hops.copy_blocks_plain(staging, pool.clone(), k_rows,
+                                         layer_rows + s)
+            assert torch.equal(got, ref), f"copy_blocks at {cfg.name}"
+            err["copy_blocks"] = max(err["copy_blocks"], _max_err(got, ref))
+            del got, ref
+        torch.cuda.synchronize()
+        for name, pallas, line, fn_k, fn_p, fn_lib, nbytes in cases:
+            (ms, ms_wall), (plain_ms, _) = time_ms(fn_k, 200), \
+                time_ms(fn_p, 100)
+            library_ms, _ = time_ms(fn_lib, 200)
+            bound_ms, bound_by = bound(nbytes, 0)
+            print(f"  {name} at {cfg.name} ({L} rows of {row_bytes} B): "
+                  f"{ms:.5f} ms device, {ms_wall:.5f} ms between events, "
+                  f"plain {plain_ms:.5f}, library {library_ms:.5f}, bound "
+                  f"{bound_ms:.6f}")
+            out[name] = dict(
+                name=name, route="cuda",
+                source="src/repro_torch/csrc/harvest_copy.cu",
+                replaces=f"src/repro/kernels/harvest_copy/kernel.py:{line}",
+                max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                shape=cfg.name)
+        del pool, staging
+    return [out["gather_blocks"], out["copy_blocks"]]
+
+
+#: K7 against its plain version.  bf16: the kernel and cuBLAS sum each
+#: product in another order, so where a sum lies at a rounding boundary an
+#: intermediate (h, g, act(g) * h) rounds one bf16 step apart, and the
+#: outputs that read it move by |wo| times that step: one bf16 step at
+#: magnitude 1.  f32: sums of d and f terms in another order.
+MOE_TOL = {torch.bfloat16: dict(rtol=1.6e-2, atol=2.0 ** -7),
+           torch.float32: dict(rtol=1e-4, atol=1e-4)}
+
+
+def dispatch_buffer(cfg, t, gen):
+    """An (E, C, d) bf16 dispatch buffer as the MoE layer builds it from
+    t rows routed by a random router; returns (xd, slot_token, t)."""
+    mc = cfg.moe
+    d = cfg.d_model
+    x = torch.randn((t, d), generator=gen, device="cuda").bfloat16()
+    router = torch.randn((d, mc.num_experts), generator=gen,
+                         device="cuda") * 0.02
+    weights, ids, _ = MOE.router_topk(x.float() @ router, mc.top_k)
+    cap = max(int(t * mc.top_k / mc.num_experts * mc.capacity_factor), 4)
+    st, _ = MOE.build_dispatch(ids, weights, mc.num_experts, cap)
+    xpad = torch.cat([x, x.new_zeros((1, d))])
+    return xpad[st.long()].view(mc.num_experts, cap, d), st, t
+
+
+def expert_weights(e, d, f, dtype, gen):
+    return [(torch.randn(shape, generator=gen, device="cuda") * 0.02).to(dtype)
+            for shape in ((e, d, f), (e, d, f), (e, f, d))]
+
+
+def check_moe_ffn(cfg, odd_cfg):
+    """K7 against its plain version at qwen2-moe's decode shape (4 rows,
+    capacity 4) and a prefill shape (128 rows, capacity 10), in bf16 and
+    on the same values widened to f32, and at phi-tiny-moe's expert width
+    (f = 915) in bf16 and f32; then timed at the decode shape.  The bound
+    counts the weights of the experts that this dispatch gives a token,
+    and the operations of the filled rows."""
+    mc = cfg.moe
+    e, d, f = mc.num_experts, cfg.d_model, mc.d_ff_expert
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    w = expert_weights(e, d, f, torch.bfloat16, gen)
+    err = 0.0
+    decode = None
+    for t in (4, 128):
+        xd, st, _ = dispatch_buffer(cfg, t, gen)
+        empty = (st == t).view(e, -1)
+        for dtype in (torch.bfloat16, torch.float32):
+            args = [a.to(dtype) for a in [xd] + w]
+            got = mops.moe_ffn(*args, activation=cfg.activation)
+            ref = mops.moe_ffn_plain(*args, activation=cfg.activation)
+            torch.testing.assert_close(got.float(), ref.float(),
+                                       **MOE_TOL[dtype])
+            assert torch.all(got[empty] == 0), "empty slots must give zeros"
+            err = max(err, (got.float() - ref.float()).abs().max().item())
+            del args
+        print(f"  moe_ffn at {t} rows: C {xd.shape[1]}, "
+              f"{int((~empty).any(1).sum())} of {e} experts hold a token")
+        if t == 4:
+            decode = (xd, st)
+    oe, od, of = odd_cfg.moe.num_experts, odd_cfg.d_model, \
+        odd_cfg.moe.d_ff_expert
+    for dtype in (torch.bfloat16, torch.float32):
+        ow = expert_weights(oe, od, of, dtype, gen)
+        xd = torch.randn((oe, 6, od), generator=gen, device="cuda").to(dtype)
+        xd[:, 4:] = 0
+        got = mops.moe_ffn(xd, *ow, activation=odd_cfg.activation)
+        ref = mops.moe_ffn_plain(xd, *ow, activation=odd_cfg.activation)
+        torch.testing.assert_close(got.float(), ref.float(), **MOE_TOL[dtype])
+        assert torch.all(got[:, 4:] == 0)
+        err = max(err, (got.float() - ref.float()).abs().max().item())
+    torch.cuda.synchronize()
+
+    xd, st = decode
+    silu = torch.nn.functional.silu
+    (ms, ms_wall) = time_ms(lambda: mops.moe_ffn(xd, *w), 50)
+    plain_ms, _ = time_ms(lambda: mops.moe_ffn_plain(xd, *w), 50)
+    library_ms, _ = time_ms(lambda: torch.bmm(
+        silu(torch.bmm(xd, w[1])) * torch.bmm(xd, w[0]), w[2]), 50)
+    filled = (st < 4).view(e, -1)
+    used, rows = int(filled.any(1).sum()), int(filled.sum())
+    w_bytes = 3 * d * f * 2
+    nbytes = used * w_bytes + 2 * xd.numel() * 2
+    bound_ms, bound_by = bound(nbytes, rows * 2 * 3 * d * f, BF16_FLOPS)
+    all_ms = (e * w_bytes + 2 * xd.numel() * 2) / HBM_BYTES_PER_S * 1e3
+    print(f"  moe_ffn decode shape (E {e}, C {xd.shape[1]}, d {d}, f {f}): "
+          f"{ms:.5f} ms device, {ms_wall:.5f} ms between events; plain "
+          f"{plain_ms:.5f}; library (composition: bmm, silu, bmm, bmm) "
+          f"{library_ms:.5f}; bound {bound_ms:.6f} ({used} experts, {rows} "
+          f"rows); all-experts read {all_ms:.5f} ms")
+    return dict(name="moe_ffn", route="cuda",
+                source="src/repro_torch/csrc/moe_ffn.cu",
+                replaces="src/repro/kernels/moe_ffn/kernel.py:53",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
 # ---------------------------------------------------------------------------
-# phases 4 and 5: the serving path
+# phases 4 to 6: the serving paths
 # ---------------------------------------------------------------------------
 
 
@@ -329,22 +546,30 @@ def serve(cfg, params, device, *, num_requests, local_slots, peer_budget,
     return server, stats, step_s
 
 
-def check_reduced_tokens():
-    """Reduced yi-6b on the CPU (plain versions) and on the card (kernels).
-    The weights are f32 here: with bf16 logits a near tie can flip on a
-    rounding step between two GEMM libraries; in f32 the rounding noise is
-    far below any gap, so identical tokens show the kernels right."""
-    cfg = get_config("yi-6b").reduced()
+def peer_budget(cfg, bs):
+    """Six blocks of the store's accounting (bf16 k and v of every layer):
+    3 MiB at full-width yi-6b, 9 MiB at qwen2-moe.  With 10 local slots
+    and 4 rows, evictions reach the peer and, once it is full, the host."""
+    return 6 * kv_block_bytes(cfg, bs)
+
+
+def check_reduced_tokens(arch):
+    """A reduced model on the CPU (plain versions) and on the card
+    (kernels).  The weights are f32 here: with bf16 logits a near tie can
+    flip on a rounding step between two GEMM libraries; in f32 the
+    rounding noise is far below any gap, so identical tokens show the
+    kernels right."""
+    cfg = get_config(arch).reduced()
     params = _map(M.init_params(cfg, torch.Generator().manual_seed(SEED),
                                 "cpu"), lambda t: t.float())
     runs = {}
     for device in ("cpu", "cuda"):
         p = _map(params, lambda t: t.to(device))
-        # the main path's geometry with the peer budget scaled to the
-        # reduced block size: evictions to peer and host, int8 demotions
+        # the main path's geometry at the reduced block size: evictions to
+        # peer and host, int8 demotions
         server, stats, _ = serve(cfg, p, device, num_requests=6,
-                                 local_slots=10, peer_budget=24 * 1024,
-                                 max_batch=4)
+                                 local_slots=10,
+                                 peer_budget=peer_budget(cfg, 8), max_batch=4)
         stats.check_clock_identity()
         runs[device] = ([h.tokens for h in server.handles],
                         dict(server.engine.kv_mgr.stats), stats.clock_s)
@@ -415,6 +640,72 @@ def profile_decode_step(cfg, params, bs, steps=5):
     return wall_ms, sum(ms for _, ms in rows), rows[:5]
 
 
+#: every kernel's wrapper, by the name in the kernels line
+COUNTERS = {"paged_decode_partials": pops.paged_decode_partials,
+            "quantize_demote": hops.quantize_blocks,
+            "dequantize_reload": hops.dequantize_blocks,
+            "gather_blocks": hops.gather_blocks,
+            "copy_blocks": hops.copy_blocks,
+            "moe_ffn": mops.moe_ffn}
+
+
+def main_path(arch, bs, kernels_of_path):
+    """Serve the full-width model through the front door with the launch
+    counts set to 0 just before and read just after; every kernel of the
+    path must have launched.  Then profile one decode step.  Returns the
+    launch counts; the weights are freed on return."""
+    full = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(full, torch.Generator(device="cuda")
+                           .manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    print(f"{arch} full width: {M.param_count(params) / 1e9:.3f} B params "
+          f"initialised on the card in {time.perf_counter() - t0:.1f} s")
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    server, stats, step_s = serve(full, params, "cuda", num_requests=6,
+                                  local_slots=10,
+                                  peer_budget=peer_budget(full, bs),
+                                  max_batch=4, bs=bs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    eng = server.engine
+    served = [h for h in server.handles if h.state == "done"]
+    kv = dict(eng.kv_mgr.stats)
+    print(f"{arch}: served {len(served)}/{len(server.handles)} requests, "
+          f"{stats.tokens_out} tokens, kv {kv}")
+    print(f"{arch}: fidelity {eng.runtime.stats().get('fid', {})}")
+    print(f"{arch}: launches on the path: {launches}")
+    assert len(served) == len(server.handles) == 6
+    assert all(len(h.tokens) == 16 for h in served)
+    assert kv["evict_to_peer"] > 0 and kv["evict_to_host"] > 0, kv
+    assert kv["reload_peer"] + kv["reload_host"] > 0, kv
+    assert all(launches[n] > 0 for n in kernels_of_path), launches
+    stats.check_clock_identity()
+    for h in served:
+        assert all(0 <= tok < full.vocab_size for tok in h.tokens)
+    decode_ms = 1e3 * float(np.mean(step_s))
+    print(f"{arch}: decode step wall {decode_ms:.2f} ms (mean of "
+          f"{len(step_s)}), {stats.tokens_out / wall:.1f} tokens/s wall over "
+          f"{wall:.2f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"{arch}: simulated (H100/NVLink cost model, not the card): clock "
+          f"{stats.clock_s * 1e3:.4f} ms, "
+          f"{stats.tokens_out / stats.clock_s:.0f} tokens/s")
+    del server, eng
+    step_ms, busy_ms, top = profile_decode_step(full, params, bs)
+    print(f"{arch}: decode step profile: {step_ms:.2f} ms wall, "
+          f"{busy_ms:.2f} ms device-busy ({100 * busy_ms / step_ms:.1f}%)")
+    for name, ms in top:
+        print(f"  {ms:8.3f} ms/step  {name[:90]}")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -435,72 +726,38 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    full = get_config("yi-6b")
+    yi, moe = get_config("yi-6b"), get_config("qwen2-moe")
     bs = 8
-    kernels = [check_paged_decode(full, bs)] + check_quant(full, bs)
+    kernels = [check_paged_decode(yi, bs)] + check_quant(yi, bs) \
+        + check_movers((yi, moe), bs) \
+        + [check_moe_ffn(moe, get_config("phi-tiny-moe"))]
     tolerance = {"paged_decode_partials": "rtol 1e-4, atol 1e-4 (f32 sums "
                  "in another order)", "quantize_demote": "bit-identical",
-                 "dequantize_reload": "bit-identical"}
+                 "dequantize_reload": "bit-identical",
+                 "gather_blocks": "bit-identical",
+                 "copy_blocks": "bit-identical",
+                 "moe_ffn": "bf16 rtol 1.6e-2, atol 2^-7; f32 rtol 1e-4, "
+                 "atol 1e-4 (sums in another order than cuBLAS)"}
     for k in kernels:
         print(f"kernel {k['name']}: ms {k['ms']:.5f}  plain_ms "
-              f"{k['plain_ms']:.5f}  bound_ms {k['bound_ms']:.6f} "
-              f"({k['bound_by']})  max_abs_err {k['max_abs_err']:.3g} "
-              f"against the plain version, tolerance "
+              f"{k['plain_ms']:.5f}  library_ms {k['library_ms']}  bound_ms "
+              f"{k['bound_ms']:.6f} ({k['bound_by']})  max_abs_err "
+              f"{k['max_abs_err']:.3g} against the plain version, tolerance "
               f"{tolerance[k['name']]}")
 
-    tokens = check_reduced_tokens()
-    print(f"reduced yi-6b: cpu and cuda tokens identical ({tokens[:2]} ...)")
+    for arch in ("yi-6b", "qwen2-moe"):
+        tokens = check_reduced_tokens(arch)
+        print(f"reduced {arch}: cpu and cuda tokens identical "
+              f"({tokens[:2]} ...)")
 
-    # ---- phase 5: the main path at full width ----
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = M.init_params(full, torch.Generator(device="cuda")
-                           .manual_seed(SEED), "cuda")
-    torch.cuda.synchronize()
-    print(f"yi-6b full width: {M.param_count(params) / 1e9:.3f} B params "
-          f"initialised on the card in {time.perf_counter() - t0:.1f} s")
-    counters = {"paged_decode_partials": pops.paged_decode_partials,
-                "quantize_demote": hops.quantize_blocks,
-                "dequantize_reload": hops.dequantize_blocks}
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    server, stats, step_s = serve(full, params, "cuda", num_requests=6,
-                                  local_slots=10, peer_budget=3 * MiB,
-                                  max_batch=4, bs=bs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    eng = server.engine
-    served = [h for h in server.handles if h.state == "done"]
-    kv = dict(eng.kv_mgr.stats)
-    print(f"served {len(served)}/{len(server.handles)} requests, "
-          f"{stats.tokens_out} tokens, kv {kv}")
-    print(f"fidelity {eng.runtime.stats().get('fid', {})}")
-    print(f"launches on the main path: {launches}")
-    assert len(served) == len(server.handles) == 6
-    assert all(len(h.tokens) == 16 for h in served)
-    assert kv["evict_to_peer"] + kv["evict_to_host"] > 0, kv
-    assert kv["reload_peer"] + kv["reload_host"] > 0, kv
-    assert all(n > 0 for n in launches.values()), launches
-    stats.check_clock_identity()
-    for h in served:
-        assert all(0 <= tok < full.vocab_size for tok in h.tokens)
-    decode_ms = 1e3 * float(np.mean(step_s))
-    print(f"decode step wall {decode_ms:.2f} ms (mean of {len(step_s)}), "
-          f"{stats.tokens_out / wall:.1f} tokens/s wall over {wall:.2f} s, "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"simulated (H100/NVLink cost model, not the card): clock "
-          f"{stats.clock_s * 1e3:.4f} ms, "
-          f"{stats.tokens_out / stats.clock_s:.0f} tokens/s")
-    step_ms, busy_ms, top = profile_decode_step(full, params, bs)
-    print(f"decode step profile: {step_ms:.2f} ms wall, {busy_ms:.2f} ms "
-          f"device-busy ({100 * busy_ms / step_ms:.1f}%)")
-    for name, ms in top:
-        print(f"  {ms:8.3f} ms/step  {name[:90]}")
-
+    # ---- phases 5 and 6: the two paths at full width ----
+    movers = ["paged_decode_partials", "quantize_demote",
+              "dequantize_reload", "gather_blocks", "copy_blocks"]
+    paths = {"yi-6b": main_path("yi-6b", bs, movers),
+             "qwen2-moe": main_path("qwen2-moe", bs, movers + ["moe_ffn"])}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -1,13 +1,17 @@
-"""Harvest block movers: quantize-on-demote and dequantize-on-reload
-(kernels K2 and K3, ``csrc/harvest_quant.cu``), plus the plain scatter and
-copy of pool rows.
+"""Harvest block movers: the gather of pool rows into a staging buffer and
+the fused copy of pool rows into pool rows (kernels K6 and K5,
+``csrc/harvest_copy.cu``), quantize-on-demote and dequantize-on-reload
+(kernels K2 and K3, ``csrc/harvest_quant.cu``), and the plain scatter.
 
-``quantize_blocks`` and ``dequantize_blocks`` launch their kernel on a CUDA
-tensor and run their plain PyTorch version (``*_plain``) on the CPU.  The
-checks of the JAX wrappers are kept and raise the same exceptions:
-``IndexError`` for slot ids out of range, ``ValueError`` for an unknown
-fidelity or a bad shape, ``TypeError`` for a pool that is not floating.
-``scatter_blocks`` and ``copy_blocks`` are plain PyTorch on any device.
+``gather_blocks``, ``copy_blocks``, ``quantize_blocks`` and
+``dequantize_blocks`` launch their kernel on a CUDA tensor and run their
+plain PyTorch version (``*_plain``) on the CPU.  The checks of the JAX
+wrappers are kept and raise the same exceptions: ``IndexError`` for slot
+ids out of range, ``ValueError`` for an unknown fidelity or a bad shape,
+``TypeError`` for a pool that is not floating.  Ids may lie on the host or
+on the device; ids on the device are read back to be checked, which waits
+for the card, so the engine passes host ids.  ``scatter_blocks`` is plain
+PyTorch on any device.
 """
 from __future__ import annotations
 
@@ -60,10 +64,14 @@ def _check_fidelity(fidelity: str, what: str) -> None:
                          f"{sorted(FIDELITY_QMAX)}")
 
 
-def _check_pool(pool, what: str) -> None:
+def _check_rows(pool, what: str) -> None:
     if getattr(pool, "ndim", None) != 2:
         raise ValueError(f"{what}: pool must be 2-D (n_slots, block_elems), "
                          f"got shape {tuple(getattr(pool, 'shape', ()))}")
+
+
+def _check_pool(pool, what: str) -> None:
+    _check_rows(pool, what)
     if not pool.dtype.is_floating_point:
         raise TypeError(f"{what}: pool dtype {pool.dtype} is not floating — "
                         "quantization needs a full-precision source")
@@ -75,14 +83,18 @@ def _ids_tensor(slot_ids, device) -> torch.Tensor:
     return ids.to(device=device, dtype=torch.int32).contiguous()
 
 
+def _check_device_operands(what: str, device, *tensors) -> None:
+    if any(t.device != device for t in tensors):
+        raise ValueError(f"{what}: every operand must be on {device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: operands must be contiguous")
+
+
 def _check_kernel_operands(what: str, pool, *tensors) -> None:
     if pool.dtype != torch.float32:
         raise TypeError(f"{what}: the kernel takes an f32 pool, got "
                         f"{pool.dtype}")
-    if any(t.device != pool.device for t in tensors):
-        raise ValueError(f"{what}: every operand must be on {pool.device}")
-    if not all(t.is_contiguous() for t in (pool,) + tensors):
-        raise ValueError(f"{what}: operands must be contiguous")
+    _check_device_operands(what, pool.device, pool, *tensors)
     if pool.shape[1] == 0:
         raise ValueError(f"{what}: empty block rows")
 
@@ -240,7 +252,133 @@ dequantize_blocks.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# plain movers (no kernel on this slice's path)
+# K6 gather and K5 fused copy
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _movers():
+    lib = build.library("harvest_copy")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.harvest_gather_rows.argtypes = [p, p, p, i, ll, p]
+    lib.harvest_gather_rows.restype = i
+    lib.harvest_copy_rows.argtypes = [p, p, p, p, i, ll, p]
+    lib.harvest_copy_rows.restype = i
+    lib.harvest_copy_error_string.argtypes = [i]
+    lib.harvest_copy_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_mover(what: str, fn, *args) -> None:
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what}: launch failed: "
+                           + _movers().harvest_copy_error_string(rc).decode())
+
+
+def gather_blocks_plain(src_pool, slot_ids, out=None):
+    """``src_pool[slot_ids]`` as a new (m, block_elems) staging buffer, or
+    written into ``out``."""
+    rows = src_pool[_ids_tensor(slot_ids, src_pool.device).long()]
+    return rows if out is None else out.copy_(rows)
+
+
+def gather_blocks(src_pool, slot_ids, out=None):
+    """Gather rows ``slot_ids`` of ``src_pool`` (any dtype) into a dense
+    (m, block_elems) staging buffer: a new one, or ``out``, which must be
+    contiguous and of the pool's dtype and device.  Returns the buffer."""
+    _check_rows(src_pool, "gather_blocks")
+    _check_slot_ids(slot_ids, src_pool.shape[0], "gather_blocks")
+    m = _ids_host(slot_ids).size
+    if out is not None:
+        if tuple(out.shape) != (m, src_pool.shape[1]) \
+                or out.dtype != src_pool.dtype:
+            raise ValueError(
+                f"gather_blocks: out is {out.dtype} {tuple(out.shape)}, "
+                f"the gather gives {src_pool.dtype} "
+                f"{(m, src_pool.shape[1])}")
+        if not out.is_contiguous():
+            raise ValueError("gather_blocks: out must be contiguous")
+    if src_pool.device.type == "cpu":
+        return gather_blocks_plain(src_pool, slot_ids, out)
+    dev = src_pool.device
+    ids = _ids_tensor(slot_ids, dev)
+    if out is None:
+        out = torch.empty((ids.shape[0], src_pool.shape[1]),
+                          dtype=src_pool.dtype, device=dev)
+    _check_device_operands("gather_blocks", dev, src_pool, ids, out)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        _launch_mover("gather_blocks", _movers().harvest_gather_rows,
+                      src_pool.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                      ids.shape[0],
+                      src_pool.shape[1] * src_pool.element_size())
+    gather_blocks.launches += 1
+    return out
+
+
+def copy_blocks_plain(src_pool, dst_pool, src_ids, dst_ids):
+    """``dst_pool[dst_ids[i]] = src_pool[src_ids[i]]`` in place; returns
+    ``dst_pool``."""
+    sids = _ids_tensor(src_ids, src_pool.device).long()
+    dids = _ids_tensor(dst_ids, dst_pool.device).long()
+    dst_pool[dids] = src_pool[sids]
+    return dst_pool
+
+
+def copy_blocks(src_pool, dst_pool, src_ids, dst_ids):
+    """Fused gather->scatter ``dst_pool[dst_ids[i]] = src_pool[src_ids[i]]``
+    in place, with no staging buffer; rows outside ``dst_ids`` keep their
+    bytes.  Both pools share dtype and row size and may be one tensor.
+    Destinations must be unique, and with one pool no row may be both read
+    and written: either would make the result depend on the order of the
+    writes.  Returns ``dst_pool``."""
+    _check_rows(src_pool, "copy_blocks(src)")
+    _check_rows(dst_pool, "copy_blocks(dst)")
+    if src_pool.shape[1:] != dst_pool.shape[1:]:
+        raise ValueError(f"copy_blocks: pool block sizes differ: "
+                         f"{tuple(src_pool.shape[1:])} vs "
+                         f"{tuple(dst_pool.shape[1:])}")
+    if src_pool.dtype != dst_pool.dtype:
+        raise TypeError(f"copy_blocks: pool dtypes differ: {src_pool.dtype} "
+                        f"vs {dst_pool.dtype}")
+    _check_slot_ids(src_ids, src_pool.shape[0], "copy_blocks(src)")
+    _check_slot_ids(dst_ids, dst_pool.shape[0], "copy_blocks(dst)")
+    sh, dh = _ids_host(src_ids).reshape(-1), _ids_host(dst_ids).reshape(-1)
+    if sh.shape != dh.shape:
+        raise ValueError(f"copy_blocks: id list shapes differ: {sh.shape} "
+                         f"vs {dh.shape}")
+    if np.unique(dh).size != dh.size:
+        raise ValueError("copy_blocks: destination ids must be unique")
+    if src_pool.data_ptr() == dst_pool.data_ptr() \
+            and np.intersect1d(sh, dh).size:
+        raise ValueError("copy_blocks: a row is both read and written in "
+                         "one pool; the copy would race")
+    if dst_pool.device.type == "cpu":
+        return copy_blocks_plain(src_pool, dst_pool, src_ids, dst_ids)
+    if dh.size == 0 or dst_pool.shape[1] == 0:
+        return dst_pool
+    dev = dst_pool.device
+    sids, dids = _ids_tensor(sh, dev), _ids_tensor(dh, dev)
+    _check_device_operands("copy_blocks", dev, src_pool, dst_pool, sids,
+                           dids)
+    with torch.cuda.device(dev):
+        _launch_mover("copy_blocks", _movers().harvest_copy_rows,
+                      src_pool.data_ptr(), dst_pool.data_ptr(),
+                      sids.data_ptr(), dids.data_ptr(), sids.shape[0],
+                      src_pool.shape[1] * src_pool.element_size())
+    copy_blocks.launches += 1
+    return dst_pool
+
+
+gather_blocks.launches = 0
+copy_blocks.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# plain scatter (no kernel: the JAX package's harvest_scatter is a jnp
+# scatter, not a Pallas kernel)
 # ---------------------------------------------------------------------------
 
 
@@ -249,19 +387,4 @@ def scatter_blocks(dst_pool, staging, slot_ids):
     _check_slot_ids(slot_ids, dst_pool.shape[0], "scatter_blocks")
     ids = _ids_tensor(slot_ids, dst_pool.device).long()
     dst_pool[ids] = staging.to(dst_pool.dtype)
-    return dst_pool
-
-
-def copy_blocks(src_pool, dst_pool, src_ids, dst_ids):
-    """``dst_pool[dst_ids[i]] = src_pool[src_ids[i]]`` in place; returns
-    ``dst_pool``."""
-    if src_pool.shape[1:] != dst_pool.shape[1:]:
-        raise ValueError(f"copy_blocks: pool block sizes differ: "
-                         f"{tuple(src_pool.shape[1:])} vs "
-                         f"{tuple(dst_pool.shape[1:])}")
-    _check_slot_ids(src_ids, src_pool.shape[0], "copy_blocks(src)")
-    _check_slot_ids(dst_ids, dst_pool.shape[0], "copy_blocks(dst)")
-    sids = _ids_tensor(src_ids, src_pool.device).long()
-    dids = _ids_tensor(dst_ids, dst_pool.device).long()
-    dst_pool[dids] = src_pool[sids].to(dst_pool.dtype)
     return dst_pool

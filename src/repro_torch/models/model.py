@@ -1,4 +1,5 @@
-"""The dense decoder of the port.
+"""The decoder of the port: dense blocks, and MoE blocks where every layer's
+FFN is a mixture of experts (``layer_period == 1``).
 
 Entry points:
   forward(params, batch, cfg, want_kv)      -> (logits, ForwardOut)
@@ -22,15 +23,16 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import paged_attention as pa
 from repro_torch.models import layers as L
+from repro_torch.models.moe import load_balance_loss, moe_layer
 from repro_torch.models.params import (  # noqa: F401  (re-exported)
-    build_schema, init_params, param_count)
+    build_schema, check_family, init_params, param_count)
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.parallel_block:
+    check_family(cfg)
+    if cfg.parallel_block:
         raise NotImplementedError(
-            f"{cfg.name}: the port covers the dense sequential-block family "
-            f"so far (family {cfg.family!r})")
+            f"{cfg.name}: parallel blocks belong to a later slice of the port")
 
 
 def _layer(params, i: int):
@@ -72,31 +74,48 @@ def _residual_norm(x, a, scale, cfg: ModelConfig):
     return s.to(x.dtype), L.rms_norm(s, scale, cfg.norm_eps).to(x.dtype)
 
 
+def _ffn(x, u2, lp, cfg: ModelConfig):
+    """The FFN half of a block on the normed residual ``u2``: the MLP, or
+    the MoE layer.  Returns (x + y, the MoE layer's (probs, ids) routing
+    or None)."""
+    if "moe" in lp:
+        y, probs, ids = moe_layer(u2, lp["moe"], cfg)
+        return x + y, (probs, ids)
+    return x + L.mlp(u2, lp["mlp"], cfg), None
+
+
 def dense_block(x, lp, cfg: ModelConfig, positions):
-    """Pre-LN block. Returns (x, kv)."""
+    """Pre-LN block (MLP or MoE FFN). Returns (x, kv, aux): aux is the MoE
+    layer's load-balance loss, or None."""
     u = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     a, kv = L.attention_layer(u, lp["attn"], cfg, positions)
     x, u2 = _residual_norm(x, a, lp["ln2"], cfg)
-    x = x + L.mlp(u2, lp["mlp"], cfg)
-    return x, kv
+    x, routing = _ffn(x, u2, lp, cfg)
+    aux = None if routing is None \
+        else load_balance_loss(*routing, cfg.moe.num_experts)
+    return x, kv, aux
 
 
 class ForwardOut(NamedTuple):
     hidden: torch.Tensor         # (b, s, d)
     kv: Optional[Any]            # stacked (L_kv, b, s, nkv, hd) k and v
+    aux: torch.Tensor            # scalar f32 aux loss (MoE load balance)
 
 
 def backbone(params, x, positions, cfg: ModelConfig,
              want_kv: bool = True) -> ForwardOut:
     _check_family(cfg)
     ks, vs = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        x, (k, v) = dense_block(x, _layer(params, i), cfg, positions)
+        x, (k, v), a = dense_block(x, _layer(params, i), cfg, positions)
+        if a is not None:
+            aux = aux + a
         if want_kv:
             ks.append(k)
             vs.append(v)
     kv = (torch.stack(ks), torch.stack(vs)) if want_kv else None
-    return ForwardOut(x, kv)
+    return ForwardOut(x, kv, aux)
 
 
 def forward(params, batch, cfg: ModelConfig, want_kv: bool = False):
@@ -174,7 +193,7 @@ def serve_step(params, state: DecodeState, cfg: ModelConfig,
         lp = _layer(params, i)
         a = _decode_attn_sublayer(x, lp, cfg, state, i, use_peer)
         x, u2 = _residual_norm(x, a, lp["ln2"], cfg)
-        x = x + L.mlp(u2, lp["mlp"], cfg)
+        x, _ = _ffn(x, u2, lp, cfg)
     logits = unembed(params, x, cfg)[:, 0]
     new_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
     return logits, state._replace(tokens=new_tokens, pos=state.pos + 1)

@@ -1,0 +1,151 @@
+"""Mixture-of-experts layer with capacity-based sort dispatch: the unsharded
+path of ``repro.models.moe``.
+
+Tokens are routed to their top-k experts, sorted by expert id (a stable
+sort), ranked within their expert's segment and placed into an (E, C, d)
+dispatch buffer; a token beyond an expert's capacity C is dropped.  The
+expert FFN runs on the buffer (kernel K7 on the card) and the outputs are
+combined back per token with the gate weights.  Everything stays on the
+device: ``capacity`` is a Python int from static shapes, and no step reads
+a value back to the host.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.moe_ffn.ops import moe_ffn
+from repro_torch.models.layers import mlp
+
+
+def router_topk(logits, top_k: int):
+    """Top-k routing with softmax-renormalised gate weights.
+
+    logits: (t, E) f32.  Returns (weights (t, k), ids (t, k) int32,
+    probs (t, E)).  Among equal probabilities the lower expert id comes
+    first, as ``jax.lax.top_k`` orders them (``torch.topk`` promises no
+    order, so a stable descending sort takes its place)."""
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = e / e.sum(dim=-1, keepdim=True)
+    weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, ids = weights[:, :top_k], ids[:, :top_k]
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+    return weights, ids.to(torch.int32), probs
+
+
+def load_balance_loss(probs, ids, num_experts: int):
+    """Switch-style auxiliary loss: E * sum_e f_e * P_e."""
+    counts = torch.zeros((num_experts,), dtype=torch.float32,
+                         device=probs.device)
+    flat = ids.reshape(-1).long()
+    counts.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))
+    frac_tokens = counts / max(ids.numel(), 1)
+    return num_experts * torch.sum(frac_tokens * probs.mean(dim=0))
+
+
+def _dispatch_slots(ids, num_experts: int, capacity: int):
+    """The dispatch slot of every (token, choice) assignment, flattened to
+    (t * k,): ``expert * capacity + rank within the expert``, or
+    ``num_experts * capacity`` (the drop slot) past the capacity.  Ranks
+    follow a stable sort by expert id, i.e. token order within an
+    expert.  Returns (order, slot of the sorted assignments)."""
+    flat_ids = ids.reshape(-1).long()
+    order = torch.argsort(flat_ids, stable=True)     # group by expert
+    sorted_ids = flat_ids[order]
+    seg_start = torch.searchsorted(
+        sorted_ids, torch.arange(num_experts, device=ids.device), side="left")
+    rank = torch.arange(flat_ids.shape[0], device=ids.device) \
+        - seg_start[sorted_ids]
+    drop = num_experts * capacity
+    slot = torch.where(rank < capacity, sorted_ids * capacity + rank,
+                       torch.full_like(rank, drop))
+    return order, slot
+
+
+def build_dispatch(ids, weights, num_experts: int, capacity: int):
+    """Capacity-buffer dispatch tables from top-k assignments.
+
+    ids/weights: (t, k).  Returns slot_token (E*C,) int32, the token
+    feeding each expert slot (t = empty), and slot_weight (E*C,) f32, its
+    combine weight.  Tokens over capacity are dropped."""
+    return _build_dispatch(ids, weights, num_experts, capacity)[:2]
+
+
+def _build_dispatch(ids, weights, num_experts: int, capacity: int):
+    """:func:`build_dispatch`'s tables plus :func:`_dispatch_slots`'
+    (order, slot), which the combine reads."""
+    t, k = ids.shape
+    order, slot = _dispatch_slots(ids, num_experts, capacity)
+    n = num_experts * capacity
+    token_of = torch.arange(t * k, device=ids.device) // k
+    # one extra row catches the drop slot, as mode="drop" does in JAX
+    slot_token = torch.full((n + 1,), t, dtype=torch.int32, device=ids.device)
+    slot_token[slot] = token_of[order].to(torch.int32)
+    slot_weight = torch.zeros((n + 1,), dtype=torch.float32,
+                              device=ids.device)
+    slot_weight[slot] = weights.reshape(-1)[order].float()
+    return slot_token[:n], slot_weight[:n], order, slot
+
+
+def expert_ffn(xd, p, cfg: ModelConfig):
+    """Each expert's FFN on its dispatch buffer.
+
+    xd: (E, C, d);  p["wi"]/p["wg"]: (E, d, ffe);  p["wo"]: (E, ffe, d)."""
+    return moe_ffn(xd, p["wi"], p["wg"], p["wo"], activation=cfg.activation)
+
+
+def _combine(out, slot_weight, slot, order, t: int, k: int):
+    """y[token] = sum over its slots of out[slot] * weight, in the working
+    dtype.  The JAX code scatter-adds the (E*C, d) products into y in slot
+    order, rounding after each add (XLA's CPU scatter applies updates in
+    order); here each token sums its own k products in ascending slot
+    order, which is the same sequence of roundings, in a fixed order on
+    any device (``index_add_`` on CUDA adds with atomics in no fixed
+    order).  A dropped choice adds an exact zero."""
+    d = out.shape[-1]
+    contrib = out * slot_weight[:, None].to(out.dtype)
+    contrib = torch.cat([contrib, contrib.new_zeros((1, d))])   # drop row
+    slot_of = torch.empty_like(slot)
+    slot_of[order] = slot                       # per (token, choice)
+    per_token = torch.sort(slot_of.view(t, k), dim=1).values
+    y = contrib[per_token[:, 0]]
+    for j in range(1, k):
+        y = y + contrib[per_token[:, j]]
+    return y
+
+
+def moe_layer(x, p, cfg: ModelConfig,
+              capacity_factor: Optional[float] = None):
+    """MoE FFN sublayer.  x: (b, s, d) -> (y, probs, ids): the output and
+    the routing that :func:`load_balance_loss` reads.  The loss is left to
+    the caller that wants it, so a decode step launches none of its work.
+
+    The capacity comes from all b * s rows, so every row the caller
+    passes (padding and idle batch rows included) takes its share of
+    it, as in the JAX package."""
+    mc = cfg.moe
+    if capacity_factor is None:
+        capacity_factor = mc.capacity_factor
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+
+    # a bf16 x against the f32 router promotes to f32, as jnp.einsum does
+    logits = torch.einsum("td,de->te", xt.float(), p["router"].float())
+    weights, ids, probs = router_topk(logits, mc.top_k)
+
+    capacity = max(int(t * mc.top_k / mc.num_experts * capacity_factor), 4)
+    slot_token, slot_weight, order, slot = _build_dispatch(
+        ids, weights, mc.num_experts, capacity)
+
+    # empty slots read row t, a zero row
+    xpad = torch.cat([xt, xt.new_zeros((1, d))])
+    xd = xpad[slot_token.long()].view(mc.num_experts, capacity, d)
+    out = expert_ffn(xd, p, cfg).view(mc.num_experts * capacity, d)
+    y = _combine(out, slot_weight, slot, order, t, mc.top_k)
+
+    if mc.num_shared_experts:
+        y = y + mlp(xt[None], p["shared"], cfg)[0]
+    return y.view(b, s, d), probs, ids

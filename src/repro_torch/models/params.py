@@ -1,7 +1,7 @@
-"""Parameter schema of the dense decoder: one declaration drives init and
-the bridge's shape checks.  Leaves are stacked over layers (leading dim)
-exactly as in the JAX package, so the two parameter trees line up key by
-key and shape by shape.
+"""Parameter schema of the decoder (dense, and MoE with every layer an MoE
+layer): one declaration drives init and the bridge's shape checks.  Leaves
+are stacked over layers (leading dim) exactly as in the JAX package, so the
+two parameter trees line up key by key and shape by shape.
 """
 from __future__ import annotations
 
@@ -59,6 +59,36 @@ def mlp_schema(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
     return s
 
 
+def moe_schema(cfg: ModelConfig) -> dict:
+    """Router (f32, as in the JAX package), the stacked expert FFNs and the
+    optional shared expert (an MLP of the experts' summed width)."""
+    mc = cfg.moe
+    d, e, f = cfg.d_model, mc.num_experts, mc.d_ff_expert
+    s = {
+        "router": ParamDef((d, e), dtype="float32"),
+        "wi": ParamDef((e, d, f)),
+        "wg": ParamDef((e, d, f)),
+        "wo": ParamDef((e, f, d)),
+    }
+    if mc.num_shared_experts:
+        s["shared"] = mlp_schema(cfg, mc.d_ff_shared * mc.num_shared_experts)
+    return s
+
+
+def is_moe(cfg: ModelConfig) -> bool:
+    """Every layer is an MoE layer (``layer_period == 1``)."""
+    return cfg.family == "moe" and cfg.moe.layer_period == 1
+
+
+def check_family(cfg: ModelConfig) -> None:
+    """The families the port covers so far: dense, and MoE with every layer
+    an MoE layer."""
+    if not (cfg.family == "dense" or is_moe(cfg)):
+        raise NotImplementedError(
+            f"{cfg.name}: the port covers the dense family and MoE with "
+            f"every layer an MoE layer so far (family {cfg.family!r})")
+
+
 def _norms(cfg: ModelConfig, parallel: bool) -> dict:
     s = {"ln1": ParamDef((cfg.d_model,), "ones")}
     if not parallel:
@@ -67,9 +97,7 @@ def _norms(cfg: ModelConfig, parallel: bool) -> dict:
 
 
 def build_schema(cfg: ModelConfig) -> dict:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the port covers the dense family so far, not {cfg.family!r}")
+    check_family(cfg)
     d = cfg.d_model
     schema: dict = {"embed": ParamDef((cfg.vocab_size, d))}
     if not cfg.tie_embeddings:
@@ -77,7 +105,10 @@ def build_schema(cfg: ModelConfig) -> dict:
     schema["final_norm"] = ParamDef((d,), "ones")
     layer = dict(_norms(cfg, cfg.parallel_block))
     layer["attn"] = attention_schema(cfg)
-    layer["mlp"] = mlp_schema(cfg)
+    if is_moe(cfg):
+        layer["moe"] = moe_schema(cfg)
+    else:
+        layer["mlp"] = mlp_schema(cfg)
     schema["layers"] = _stack(layer, cfg.num_layers)
     return schema
 

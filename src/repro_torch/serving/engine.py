@@ -5,7 +5,8 @@ for the CPU) while the Harvest runtime manages placement: the local pool
 is a live f32 tensor on the device, consumed by ``serve_step`` and
 updated in place (the JAX engine rebuilds it with ``.at[].set``);
 evicted blocks' payloads move into the KVOffloadManager's store (peer /
-host tier), reloads copy them back, revocations drop or fall back per
+host tier) through the gather kernel (K6), reloads copy them back through
+the fused copy kernel (K5), revocations drop or fall back per
 the durability mode, and the cluster-trace monitor injects the external
 memory pressure that drives revocations.
 
@@ -99,7 +100,10 @@ from repro_torch.core.runtime import HarvestRuntime
 from repro_torch.core.store import Residency, Transfer
 from repro_torch.core.tiers import H100_NVLINK, Fidelity, HardwareModel, Tier
 from repro_torch.device import resolve_device
-from repro_torch.kernels.harvest_copy.ops import dequantize_blocks, quantize_blocks
+from repro_torch.kernels.harvest_copy.ops import (copy_blocks,
+                                                  dequantize_blocks,
+                                                  gather_blocks,
+                                                  quantize_blocks)
 from repro_torch.models import model as M
 from repro_torch.serving.admission import (ADMISSION, AdmissionPolicy,
                                      AdmissionView, StabilityAdmission)
@@ -527,10 +531,7 @@ class HarvestServingEngine:
                  controller: "str | ControllerConfig | StabilityController "
                              "| None" = None,
                  device="cuda"):
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"{cfg.name}: the port serves the dense family so far "
-                f"(family {cfg.family!r})")
+        M.check_family(cfg)
         self.device = resolve_device(device)
         off = [t.device for t in _leaves(params) if t.device != self.device]
         if off:
@@ -629,6 +630,11 @@ class HarvestServingEngine:
                                        nkv, hd), dtype=torch.float32,
                                       device=self.device)
             self.pool_v = torch.zeros_like(self.pool_k)
+            # row l * n_slots + slot of a pool's (L_kv * n_slots, block)
+            # view is layer l of that slot: one mover launch per pool
+            # covers every layer
+            self._layer_rows = np.arange(self.L_kv, dtype=np.int32) \
+                * self.n_slots
         else:
             self.pool_k = self.pool_v = None
         self.slot_req = np.full((self.n_slots,), -1, np.int32)
@@ -784,25 +790,47 @@ class HarvestServingEngine:
         return deg.reshape(data.shape).to(data.dtype)
 
     # ----------------------------------------------------------- payload
+    def _rows(self, pool):
+        """``pool`` as the (L_kv * n_slots, block elements) rows the block
+        movers take (a view: writes land in the pool)."""
+        return pool.view(self.L_kv * self.n_slots, -1)
+
+    def _copy_slot(self, k_src, v_src, slot) -> None:
+        """Write every layer's k and v of pool ``slot`` with the fused copy
+        kernel (K5); ``k_src``/``v_src`` are (source rows, row ids), the
+        ids in layer order."""
+        dst = self._layer_rows + slot
+        for pool, (rows, ids) in ((self.pool_k, k_src),
+                                  (self.pool_v, v_src)):
+            copy_blocks(rows, self._rows(pool), ids, dst)
+
     def _on_evict(self, bid, slot):
         if self.prefetcher is not None:
             self.prefetcher.on_evict(bid)
         if self.pool_k is None:
             return
-        data = torch.stack([self.pool_k[:, slot], self.pool_v[:, slot]],
-                           dim=1)
+        # K6 gathers k and v straight into one (2, L_kv, ...) buffer; the
+        # payload is laid out (L_kv, 2, ...), k and v layer by layer
+        ids = self._layer_rows + slot
+        buf = self.pool_k.new_empty((2, self.L_kv) + self.pool_k.shape[2:])
+        for p, half in zip((self.pool_k, self.pool_v), buf):
+            gather_blocks(self._rows(p), ids, out=half.view(self.L_kv, -1))
+        data = buf.transpose(0, 1)
         ent = self.kv_mgr.table.get(bid)
         if ent is not None and ent.fidelity.is_quantized:
             data = self._degrade(data, ent.fidelity)
-        self.kv_mgr.write_payload(*bid, data.cpu().numpy())
+        self.kv_mgr.write_payload(*bid, data.cpu().contiguous().numpy())
         self.slot_req[slot] = -1
 
     def _on_reload(self, bid, slot):
         data = self.kv_mgr.read_payload(*bid)
         assert data is not None, f"reload of lost block {bid}"
-        data = torch.from_numpy(data).to(self.device)
-        self.pool_k[:, slot] = data[:, 0]
-        self.pool_v[:, slot] = data[:, 1]
+        # the payload lands in a staging pool on the device whose rows
+        # alternate k and v layer by layer; K5 moves them into the slot
+        staging = torch.from_numpy(np.ascontiguousarray(data)).to(
+            self.device, self.pool_k.dtype).view(2 * self.L_kv, -1)
+        k_ids = 2 * np.arange(self.L_kv, dtype=np.int32)
+        self._copy_slot((staging, k_ids), (staging, k_ids + 1), slot)
         self.slot_req[slot] = self.row_of.get(bid[0], -1)
         self.slot_base[slot] = self.kv_mgr.table[bid].base_pos
 
@@ -912,8 +940,9 @@ class HarvestServingEngine:
                 t += self._charge_critical(reload_ops)
                 self._charge_writeback(alloc_ops)
                 src = self.kv_mgr.store.table[ckey].local_slot
-                self.pool_k[:, slot] = self.pool_k[:, src]
-                self.pool_v[:, slot] = self.pool_v[:, src]
+                ids = self._layer_rows + src
+                self._copy_slot((self._rows(self.pool_k), ids),
+                                (self._rows(self.pool_v), ids), slot)
             else:
                 t += self._charge_critical(
                     self.kv_mgr.adopt_block(r.req_id, j, ckey))

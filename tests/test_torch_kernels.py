@@ -1,7 +1,8 @@
 """The port's kernels held against the JAX package.
 
-Kernel K1 (paged decode partials) and K2/K3 (quantize-on-demote /
-dequantize-on-reload) run here through their plain PyTorch versions, which
+Kernel K1 (paged decode partials), K2/K3 (quantize-on-demote /
+dequantize-on-reload) and K5/K6 (fused copy / gather of pool rows) run
+here through their plain PyTorch versions, which
 are what the wrappers take for CPU tensors; the same numpy inputs go through
 ``repro.core.paged_attention`` and the Pallas kernels in interpret mode.
 The CUDA kernels are held against these plain versions on the card by
@@ -16,6 +17,8 @@ import torch
 
 from repro.configs import get_config
 from repro.core import paged_attention as jpa
+from repro.kernels.harvest_copy.kernel import harvest_copy as pallas_copy
+from repro.kernels.harvest_copy.kernel import harvest_gather as pallas_gather
 from repro.kernels.harvest_copy.ops import dequantize_blocks as j_dequant
 from repro.kernels.harvest_copy.ops import quantize_blocks as j_quant
 from repro.kernels.harvest_copy.ref import (harvest_copy_ref,
@@ -341,3 +344,108 @@ def test_scatter_and_copy_match_jax_refs():
     with pytest.raises(IndexError):
         hops.scatter_blocks(torch.from_numpy(dst), torch.from_numpy(staging),
                             np.asarray([0, -1, 2]))
+
+
+# ---------------------------------------------------------------------------
+# K6 gather and K5 fused copy against the Pallas kernels (interpret mode)
+# ---------------------------------------------------------------------------
+
+MOVER_DTYPES = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _mover_pools(seed, dtype, elems):
+    jdt, tdt = MOVER_DTYPES[dtype]
+    src, dst = _pool(seed, 9, elems), _pool(seed + 1, 7, elems)
+    return ((jnp.asarray(src, jdt), jnp.asarray(dst, jdt)),
+            (torch.from_numpy(src).to(tdt), torch.from_numpy(dst).to(tdt)))
+
+
+def _same_bits(t: torch.Tensor, a) -> bool:
+    return np.array_equal(_bits(t), np.asarray(a).view(np.uint8).reshape(
+        t.shape[0], -1))
+
+
+@pytest.mark.parametrize("dtype", sorted(MOVER_DTYPES))
+@pytest.mark.parametrize("elems", [16, 37, 600])
+def test_gather_blocks_bit_identical_to_pallas(dtype, elems):
+    """Odd widths (the Pallas kernel pads its trailing 16-element chunk)
+    and a repeated id, bit for bit."""
+    (jsrc, _), (tsrc, _) = _mover_pools(20, dtype, elems)
+    ids = np.asarray([7, 0, 3, 7], np.int32)
+    ref = pallas_gather(jsrc, jnp.asarray(ids), chunk=16, interpret=True)
+    got = hops.gather_blocks(tsrc, ids)
+    assert got.dtype == tsrc.dtype and tuple(got.shape) == (4, elems)
+    assert _same_bits(got, ref)
+
+
+@pytest.mark.parametrize("dtype", sorted(MOVER_DTYPES))
+@pytest.mark.parametrize("elems", [16, 37, 600])
+def test_copy_blocks_bit_identical_to_pallas(dtype, elems):
+    """Rows outside the destination ids keep their bits; two pools, and
+    one pool copied into itself."""
+    (jsrc, jdst), (tsrc, tdst) = _mover_pools(21, dtype, elems)
+    sids = np.asarray([5, 0, 8], np.int32)
+    dids = np.asarray([1, 6, 2], np.int32)
+    ref = pallas_copy(jsrc, jdst, jnp.asarray(sids), jnp.asarray(dids),
+                      chunk=16, interpret=True)
+    got = hops.copy_blocks(tsrc, tdst.clone(), sids, dids)
+    assert _same_bits(got, ref)
+    assert torch.equal(got[[0, 3, 4, 5]], tdst[[0, 3, 4, 5]])
+    ref = pallas_copy(jsrc, jsrc, jnp.asarray(sids), jnp.asarray([1, 2, 3]),
+                      chunk=16, interpret=True)
+    pool = tsrc.clone()
+    assert hops.copy_blocks(pool, pool, sids, [1, 2, 3]) is pool
+    assert _same_bits(pool, ref)
+
+
+def test_movers_reject_like_jax():
+    """Out-of-range ids raise IndexError in both packages; the port also
+    refuses what would make the copy depend on the order of its writes
+    (a repeated destination, a row both read and written in one pool) and
+    pools that differ in dtype or row size."""
+    (jsrc, jdst), (tsrc, tdst) = _mover_pools(22, "float32", 24)
+    for jcall, tcall in (
+            (lambda: pallas_gather(jsrc, jnp.asarray([0, 9])),
+             lambda: hops.gather_blocks(tsrc, np.asarray([0, 9]))),
+            (lambda: pallas_copy(jsrc, jdst, jnp.asarray([0, 1]),
+                                 jnp.asarray([7, 0])),
+             lambda: hops.copy_blocks(tsrc, tdst, [0, 1], [7, 0])),
+            (lambda: pallas_copy(jsrc, jdst, jnp.asarray([-1, 1]),
+                                 jnp.asarray([2, 0])),
+             lambda: hops.copy_blocks(tsrc, tdst, [-1, 1], [2, 0]))):
+        with pytest.raises(IndexError):
+            jcall()
+        with pytest.raises(IndexError):
+            tcall()
+    with pytest.raises(ValueError, match="unique"):
+        hops.copy_blocks(tsrc, tdst, [0, 1], [3, 3])
+    with pytest.raises(ValueError, match="race"):
+        hops.copy_blocks(tsrc, tsrc, [0, 1], [1, 2])
+    with pytest.raises(ValueError):
+        hops.copy_blocks(tsrc, tdst[:, :20].contiguous(), [0], [0])
+    with pytest.raises(TypeError):
+        hops.copy_blocks(tsrc, tdst.double(), [0], [0])
+    with pytest.raises(ValueError):
+        hops.gather_blocks(tsrc[0], [0])
+
+
+@pytest.mark.parametrize("dtype", sorted(MOVER_DTYPES))
+def test_gather_blocks_into_out_matches_pallas(dtype):
+    """Gathering into a caller's buffer (the engine gathers k and v into
+    the two halves of one) writes the same bits as the Pallas gather and
+    leaves the rest of the buffer alone; a buffer of the wrong shape,
+    dtype or layout is refused."""
+    (jsrc, _), (tsrc, _) = _mover_pools(23, dtype, 37)
+    ids = np.asarray([8, 2, 5], np.int32)
+    ref = pallas_gather(jsrc, jnp.asarray(ids), chunk=16, interpret=True)
+    buf = torch.full((2, 3, 37), 7.0, dtype=tsrc.dtype)
+    out = buf[1]
+    assert hops.gather_blocks(tsrc, ids, out=out) is out
+    assert _same_bits(buf[1], ref)
+    assert torch.all(buf[0] == 7.0)
+    for bad in (torch.empty((2, 37), dtype=tsrc.dtype),
+                torch.empty((3, 37), dtype=torch.float64),
+                torch.empty((37, 3), dtype=tsrc.dtype).t()):
+        with pytest.raises(ValueError):
+            hops.gather_blocks(tsrc, ids, out=bad)

@@ -13,6 +13,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core import paged_attention as tpa
 from repro_torch.kernels.harvest_copy import ops as hops
+from repro_torch.kernels.moe_ffn import ops as mops
 from repro_torch.kernels.paged_attention import ops as pops
 
 pytestmark = pytest.mark.gpu
@@ -114,3 +115,115 @@ def test_kernel_wrappers_raise_on_cuda(cuda):
     with pytest.raises(ValueError):
         pops.paged_decode_partials(q, pool, pool, ids, ids,
                                    ids[:1], scale=0.25)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+@pytest.mark.parametrize("elems", [37, 16_384])
+def test_movers_bit_identical_to_plain(cuda, dtype, elems):
+    """K6 gather and K5 copy move bytes: any dtype, odd row widths (the
+    narrow vector path), the engine's layer-row width (16 KiB of f32),
+    untouched rows kept, ids from the host or the device."""
+    rng = np.random.default_rng(15)
+    src = torch.from_numpy(rng.normal(size=(12, elems)) * 40).to(dtype)
+    dst = torch.from_numpy(rng.normal(size=(9, elems)) * 40).to(dtype)
+    ids = np.asarray([11, 0, 4, 11], np.int32)
+    before = hops.gather_blocks.launches
+    got = hops.gather_blocks(src.to(cuda), torch.from_numpy(ids).to(cuda))
+    assert hops.gather_blocks.launches == before + 1
+    assert torch.equal(got.cpu(), hops.gather_blocks_plain(src, ids))
+    sids, dids = [3, 10, 0], [8, 2, 5]
+    ref = hops.copy_blocks_plain(src, dst.clone(), sids, dids)
+    before = hops.copy_blocks.launches
+    got = hops.copy_blocks(src.to(cuda), dst.to(cuda), sids, dids)
+    torch.cuda.synchronize()
+    assert hops.copy_blocks.launches == before + 1
+    assert torch.equal(got.cpu(), ref)
+    pool = src.to(cuda)
+    hops.copy_blocks(pool, pool, [0, 1], [5, 6])
+    assert torch.equal(pool.cpu(), hops.copy_blocks_plain(
+        src, src.clone(), [0, 1], [5, 6]))
+
+
+def test_gather_blocks_into_out_on_cuda(cuda):
+    """K6 writes into a caller's buffer (one half of the engine's k/v
+    eviction buffer) and leaves the other half alone."""
+    src = torch.from_numpy(np.random.default_rng(18).normal(
+        size=(10, 37)).astype(np.float32))
+    ids = np.asarray([9, 1, 4], np.int32)
+    buf = torch.full((2, 3, 37), 7.0, device=cuda)
+    before = hops.gather_blocks.launches
+    hops.gather_blocks(src.to(cuda), ids, out=buf[1])
+    assert hops.gather_blocks.launches == before + 1
+    assert torch.equal(buf[1].cpu(), hops.gather_blocks_plain(src, ids))
+    assert torch.all(buf[0] == 7.0)
+
+
+def test_movers_raise_on_cuda(cuda):
+    pool = torch.zeros((4, 16), device=cuda)
+    with pytest.raises(IndexError):
+        hops.gather_blocks(pool, np.asarray([0, 4]))
+    with pytest.raises(IndexError):
+        hops.copy_blocks(pool, pool.clone(), [0], [-1])
+    with pytest.raises(ValueError):
+        hops.copy_blocks(pool, pool.clone(), [0, 1], [2, 2])
+    with pytest.raises(ValueError):
+        hops.copy_blocks(pool, pool, [0, 1], [1, 2])
+    with pytest.raises(ValueError):
+        hops.gather_blocks(pool.t(), [0])
+    with pytest.raises(TypeError):
+        hops.copy_blocks(pool, pool.double(), [0], [1])
+
+
+def _expert_inputs(seed, e, c, d, f, dtype, empty_slots=0):
+    rng = np.random.default_rng(seed)
+    xd = rng.normal(size=(e, c, d))
+    if empty_slots:
+        xd[:, -empty_slots:] = 0.0
+    # scaled so that h, g and the outputs are O(1), where the stated bf16
+    # tolerance (one step at magnitude 1) is tight
+    ws = [rng.normal(size=(e, d, f)) / np.sqrt(d),
+          rng.normal(size=(e, d, f)) / np.sqrt(d),
+          rng.normal(size=(e, f, d)) / np.sqrt(f)]
+    return [torch.from_numpy(a.astype(np.float32)).to(dtype).cuda()
+            for a in [xd] + ws]
+
+
+# bf16: the kernel and the plain version (cuBLAS) sum each product in
+# another order, so an intermediate may round one bf16 step apart and move
+# the outputs that read it by |wo| times that step: one bf16 step at
+# magnitude 1; f32: sums of d and f terms in another order
+MOE_TOL = {torch.bfloat16: dict(rtol=1.6e-2, atol=2.0 ** -7),
+           torch.float32: dict(rtol=1e-4, atol=1e-4)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("activation", ["silu", "gelu", "relu2"])
+@pytest.mark.parametrize("shape", [(8, 4, 256, 1408 // 4), (3, 21, 96, 915),
+                                   (2, 1, 33, 17)])
+def test_moe_ffn_kernel_matches_plain(cuda, dtype, activation, shape):
+    """K7 against its plain version: ragged C, d and f tiles (f = 915 and
+    odd widths), empty capacity slots giving exact zeros."""
+    e, c, d, f = shape
+    args = _expert_inputs(16, e, c, d, f, dtype, empty_slots=c // 3)
+    before = mops.moe_ffn.launches
+    got = mops.moe_ffn(*args, activation=activation)
+    torch.cuda.synchronize()
+    assert mops.moe_ffn.launches == before + 1
+    assert got.dtype == dtype and got.shape == (e, c, d)
+    ref = mops.moe_ffn_plain(*args, activation=activation)
+    torch.testing.assert_close(got.float(), ref.float(), **MOE_TOL[dtype])
+    if c // 3:
+        assert torch.all(got[:, -(c // 3):] == 0)
+
+
+def test_moe_ffn_raises_on_cuda(cuda):
+    x, wi, wg, wo = _expert_inputs(17, 2, 3, 8, 5, torch.bfloat16)
+    with pytest.raises(ValueError):
+        mops.moe_ffn(x, wi.transpose(1, 2).contiguous(), wg, wo)
+    with pytest.raises(ValueError):
+        mops.moe_ffn(x.transpose(0, 1), wi, wg, wo)
+    with pytest.raises(TypeError):
+        mops.moe_ffn(x.float(), wi, wg, wo)
+    with pytest.raises(ValueError):
+        mops.moe_ffn(x, wi.cpu(), wg, wo)
