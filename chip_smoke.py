@@ -6,10 +6,14 @@ Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit, torch and CUDA versions;
   2. build every kernel in ``src/repro_torch/csrc`` with nvcc (in parallel);
   3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the full-width yi-6b and qwen2-moe serving paths give it and at
-     edge cases, and time kernel, plain version, library call and bound;
-  4. reduced yi-6b and reduced qwen2-moe served on the CPU (plain
-     versions) and on the card (kernels): identical tokens;
+     shapes the full-width yi-6b, qwen2-moe and h2o-danube-3-4b serving
+     paths give it and at edge cases, and time kernel, plain version,
+     library call and bound (prefill attention at 40-, 1,032- and
+     6,000-token prompts, with a sliding window, an attention chunk and a
+     logit softcap, in bf16 and f32);
+  4. reduced yi-6b, qwen2-moe and h2o-danube-3-4b (prompts past its
+     64-token window) served on the CPU (plain versions) and on the card
+     (kernels): identical tokens;
   5. the first path: full-width yi-6b (random weights from a seed) served
      through ``HarvestRuntime(...).server(...)`` with evictions, reloads and
      quantized demotions; every kernel of the path must have launched; then
@@ -17,6 +21,12 @@ Phases (any failure raises and the script exits non-zero):
      largest kernels);
   6. the second path: full-width qwen2-moe (15.15 B parameters) served the
      same way, through the MoE expert FFN kernel too, and profiled;
+  7. the long-prompt path: full-width h2o-danube-3-4b (sliding window
+     4,096, head dim 120) serving 4 requests of 4,500-6,000 prompt tokens
+     over 16-token blocks, each preemption evicting hundreds of blocks to
+     the peer and the host; then a decode step over that pool profiled,
+     K1 timed at that pool, and one 6,000-token prefill profiled for
+     prefill attention's share;
 then the card's name and power limit, one JSON line of per-kernel
 numbers, and the JSON result line.  The launch counts are set to 0 just
 before each path and read just after it.  It imports neither JAX nor the
@@ -42,6 +52,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import HarvestRuntime, paged_attention as tpa  # noqa: E402
 from repro_torch.core.tiers import kv_block_bytes  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.harvest_copy import ops as hops  # noqa: E402
 from repro_torch.kernels.moe_ffn import ops as mops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pops  # noqa: E402
@@ -211,17 +222,23 @@ def check_paged_decode(full_cfg, bs):
                 bound_by=bound_by, library_ms=None)
 
 
-def check_quant(full_cfg, bs):
+def block_elems(cfg, bs) -> int:
+    """f32 elements of one demoted block: a row of L_kv * 2 * bs * nkv * hd,
+    as the engine's _degrade passes it."""
+    return (M.num_kv_layers(cfg) * 2 * bs * cfg.num_kv_heads
+            * cfg.resolved_head_dim)
+
+
+def check_quant(full_cfg, bs, more=()):
     """K2 and K3 against their plain versions: every fidelity, an odd
-    width, an all-zero row, the full-width demoted block (one row of
-    L_kv * 2 * bs * nkv * hd f32, as the engine's _degrade passes it),
-    out-of-range ids raising; values, scales and pools bit for bit."""
+    width, an all-zero row, the full-width demoted block of ``full_cfg``
+    and of each (cfg, bs) in ``more``, out-of-range ids raising; values,
+    scales and pools bit for bit.  Timed at ``full_cfg``'s block."""
     rng = np.random.default_rng(SEED + 1)
-    elems = (M.num_kv_layers(full_cfg) * 2 * bs * full_cfg.num_kv_heads
-             * full_cfg.resolved_head_dim)
+    elems = block_elems(full_cfg, bs)
     err = {"quantize_demote": 0.0, "dequantize_reload": 0.0}
     for fid in ("int8", "fp8", "int4"):
-        for width in (37, elems):
+        for width in (37, elems) + tuple(block_elems(*cb) for cb in more):
             src = (rng.normal(size=(6, width))
                    * rng.uniform(0.01, 30, size=(6, 1))).astype(np.float32)
             src[3] = 0.0
@@ -301,16 +318,17 @@ def _max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item() if a.numel() else 0.0
 
 
-def check_movers(configs, bs):
+def check_movers(configs):
     """K6 and K5 against their plain versions, bit for bit: f32, bf16 and
     int8 rows, an odd width (the narrow vector path) and a layer row's
     width, a repeated gather id, rows outside the copy kept, a pool copied
     into itself, out-of-range ids refused.  Then at each model's per-pool
     shape, the one the engine's evict (K6) and reload (K5, from a staging
     pool of k and v rows) give them: one launch moves one slot's block of
-    every layer (L_kv rows of bs * nkv * hd f32).  There both are held to
-    their plain versions bit for bit on the first, second and last slot of
-    the timing loop, and then timed."""
+    every layer (L_kv rows of bs * nkv * hd f32), for each (cfg, bs) of
+    ``configs``.  There both are held to their plain versions bit for bit
+    on the first, second and last slot of the timing loop, and then timed;
+    the kernels line keeps the last shape's numbers."""
     rng = np.random.default_rng(SEED + 3)
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         for width in (37, 16_384):
@@ -341,11 +359,12 @@ def check_movers(configs, bs):
     torch.cuda.synchronize()
 
     out, err = {}, {"gather_blocks": 0.0, "copy_blocks": 0.0}
-    for cfg in configs:
+    for cfg, bs in configs:
         L = M.num_kv_layers(cfg)
         elems = bs * cfg.num_kv_heads * cfg.resolved_head_dim
-        # 128 slots: the pool (64 MiB at yi-6b, 192 MiB at qwen2-moe)
-        # exceeds the 50 MB L2, and each call takes the next slot
+        # 128 slots: the pool (64 MiB at yi-6b, 180 MiB at h2o-danube-3-4b,
+        # 192 MiB at qwen2-moe) exceeds the 50 MB L2, and each call takes
+        # the next slot
         n_slots = 128
         pool = torch.from_numpy(rng.normal(size=(L * n_slots, elems)).astype(
             np.float32)).cuda()
@@ -507,6 +526,112 @@ def check_moe_ffn(cfg, odd_cfg):
                 bound_by=bound_by, library_ms=library_ms)
 
 
+#: K4 against its plain version.  bf16: the plain version rounds each
+#: probability to bf16 against the running max of its 1024-key chunk, the
+#: kernel against that of its 64-key tile, so p differs by about one bf16
+#: step and the rounded outputs by up to one step more: two bf16 steps at
+#: magnitude 1.  f32: sums over hd and over keys in another order.
+FLASH_TOL = {torch.bfloat16: dict(rtol=1.6e-2, atol=2.0 ** -7),
+             torch.float32: dict(rtol=1e-4, atol=1e-4)}
+
+
+def top_kernel(fn) -> str:
+    """The name of the kernel that takes the most device time in one call
+    of ``fn``: which backend a library call took."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    return device_rows(prof, 1)[0][0]
+
+
+def check_flash_prefill(yi, moe, danube):
+    """K4 against its plain version at the shapes the three paths'
+    prefills give it and at an attention-chunk and a softcap case, in bf16
+    and f32, then each timed with the plain version and
+    ``scaled_dot_product_attention`` (causal, or a band mask; none takes a
+    softcap) beside it.  The bound counts the (q, k) pairs the mask keeps
+    in this data: 4 * hd flops each, over the bf16 tensor-core rate or the
+    f32 rate, against q, k, v and o moved once."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows, err = [], 0.0
+    # the three paths' prefills, and two small cases for the masks they lack
+    shapes = [("yi-6b smoke prompt", yi, 40, {}),
+              ("yi-6b padded tail", yi, 1032, {}),
+              ("qwen2-moe smoke prompt", moe, 40, {}),
+              ("h2o-danube-3-4b long prompt", danube, 6000,
+               dict(sliding_window=danube.sliding_window)),
+              ("attention chunk 128", yi, 300, dict(attention_chunk=128)),
+              ("logit softcap 30", yi, 300, dict(logit_softcap=30.0))]
+    for label, cfg, n, masks in shapes:
+        nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        pos = torch.arange(n, dtype=torch.int32, device="cuda")[None]
+        base = [torch.randn((1, n, h, hd), generator=gen, device="cuda")
+                for h in (nq, nkv, nkv)]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (t.to(dtype) for t in base)
+            got = fops.prefill_attention(q, k, v, pos, pos, **masks)
+            ref = fops.prefill_attention_plain(q, k, v, pos, pos, **masks)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), ref.float(),
+                                       **FLASH_TOL[dtype])
+            e = _max_err(got, ref)
+            err = max(err, e)
+            del got, ref
+            iters = 5 if n > 2000 else 20
+            (ms, ms_wall) = time_ms(lambda: fops.prefill_attention(
+                q, k, v, pos, pos, **masks), iters)
+            plain_ms, _ = time_ms(lambda: fops.prefill_attention_plain(
+                q, k, v, pos, pos, **masks), iters)
+            library_ms, backend = None, "none (no softcap in the library)"
+            if not masks.get("logit_softcap"):
+                qt, kt, vt = (t.transpose(1, 2).contiguous()
+                              for t in (q, k, v))
+                if masks:
+                    band = fops.band_mask(pos[0], pos[0], **masks)
+                    lib = lambda: sdpa(qt, kt, vt, attn_mask=band,  # noqa
+                                       enable_gqa=True)
+                else:
+                    lib = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa
+                                       enable_gqa=True)
+                library_ms, _ = time_ms(lib, iters)
+                backend = top_kernel(lib)
+                del qt, kt, vt
+            pairs = int(fops.band_mask(
+                pos, pos, masks.get("sliding_window"),
+                masks.get("attention_chunk")).sum())
+            nbytes = q.element_size() * n * hd * (2 * nq + 2 * nkv) + 8 * n
+            bound_ms, bound_by = bound(
+                nbytes, 4 * hd * nq * pairs,
+                BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+            print(f"  prefill_attention {label} ({n} tokens, {nq}/{nkv} "
+                  f"heads, hd {hd}, {str(dtype)[6:]}): {ms:.5f} ms device, "
+                  f"{ms_wall:.5f} between events; plain {plain_ms:.5f}; "
+                  f"library {library_ms} [{backend[:60]}]; bound "
+                  f"{bound_ms:.5f} ({bound_by}, {pairs} pairs per head); "
+                  f"max_abs_err {e:.3g}")
+            rows.append(dict(shape=label, tokens=n, dtype=str(dtype)[6:],
+                             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             library_backend=backend, bound_ms=bound_ms,
+                             bound_by=bound_by, max_abs_err=e))
+            del q, k, v
+    main = next(r for r in rows if r["tokens"] == 6000
+                and r["dtype"] == "bfloat16")
+    return dict(name="prefill_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_prefill.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:74",
+                max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"],
+                library_backend=main["library_backend"], shape=main["shape"],
+                by_shape=rows)
+
+
 # ---------------------------------------------------------------------------
 # phases 4 to 6: the serving paths
 # ---------------------------------------------------------------------------
@@ -516,15 +641,16 @@ def serve(cfg, params, device, *, num_requests, local_slots, peer_budget,
           max_batch, bs=8, max_new_tokens=16, prompt=(5, 40)):
     """Serve a seeded Poisson workload (a latency tenant kept at full
     precision and a batch tenant demoted at int8) through the front door;
-    returns (server, stats, per-step decode wall times)."""
+    returns (server, stats, per-step decode wall times, per-prefill wall
+    times)."""
     runtime = HarvestRuntime({1: peer_budget})
     server = runtime.server(cfg, params, max_batch=max_batch, block_size=bs,
                             num_local_slots=local_slots, scheduler="fair",
                             mode="async", fidelity_policy="slo",
                             device=device)
     eng = server.engine
-    step_s = []
-    compute = eng._compute
+    step_s, prefill_s = [], []
+    compute, prefill_fn = eng._compute, eng._prefill_fn
 
     def timed_compute():
         t0 = time.perf_counter()
@@ -535,7 +661,16 @@ def serve(cfg, params, device, *, num_requests, local_slots, peer_budget,
         assert torch.isfinite(logits).all(), "non-finite logits"
         return logits
 
+    def timed_prefill(p, batch):
+        t0 = time.perf_counter()
+        out = prefill_fn(p, batch)
+        if out[0].is_cuda:
+            torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        return out
+
     eng._compute = timed_compute
+    eng._prefill_fn = timed_prefill
     stats = server.run(Workload(
         num_requests=num_requests, arrival="poisson", rate=2e4, seed=SEED,
         vocab=(3, min(cfg.vocab_size, 250)),
@@ -543,17 +678,18 @@ def serve(cfg, params, device, *, num_requests, local_slots, peer_budget,
                             max_new_tokens=max_new_tokens),
                  TenantSpec("batch", slo="batch", prompt_len=prompt,
                             max_new_tokens=max_new_tokens))))
-    return server, stats, step_s
+    return server, stats, step_s, prefill_s
 
 
-def peer_budget(cfg, bs):
-    """Six blocks of the store's accounting (bf16 k and v of every layer):
-    3 MiB at full-width yi-6b, 9 MiB at qwen2-moe.  With 10 local slots
-    and 4 rows, evictions reach the peer and, once it is full, the host."""
-    return 6 * kv_block_bytes(cfg, bs)
+def peer_budget(cfg, bs, blocks=6):
+    """``blocks`` blocks of the store's accounting (bf16 k and v of every
+    layer): six are 3 MiB at full-width yi-6b, 9 MiB at qwen2-moe.  With
+    10 local slots and 4 rows, evictions reach the peer and, once it is
+    full, the host."""
+    return blocks * kv_block_bytes(cfg, bs)
 
 
-def check_reduced_tokens(arch):
+def check_reduced_tokens(arch, prompt=(5, 40), local_slots=10):
     """A reduced model on the CPU (plain versions) and on the card
     (kernels).  The weights are f32 here: with bf16 logits a near tie can
     flip on a rounding step between two GEMM libraries; in f32 the
@@ -567,9 +703,10 @@ def check_reduced_tokens(arch):
         p = _map(params, lambda t: t.to(device))
         # the main path's geometry at the reduced block size: evictions to
         # peer and host, int8 demotions
-        server, stats, _ = serve(cfg, p, device, num_requests=6,
-                                 local_slots=10,
-                                 peer_budget=peer_budget(cfg, 8), max_batch=4)
+        server, stats, _, _ = serve(cfg, p, device, num_requests=6,
+                                    local_slots=local_slots,
+                                    peer_budget=peer_budget(cfg, 8),
+                                    max_batch=4, prompt=prompt)
         stats.check_clock_identity()
         runs[device] = ([h.tokens for h in server.handles],
                         dict(server.engine.kv_mgr.stats), stats.clock_s)
@@ -584,20 +721,33 @@ def _map(tree, fn):
             for k, v in tree.items()}
 
 
-def profile_decode_step(cfg, params, bs, steps=5):
-    """Where one full-width decode step's time goes: 4 rows at positions
-    of 18-42 tokens over a 20-slot pool, the step run ``steps`` times
+def device_rows(prof, steps):
+    """[(kernel name, device ms per step)] of a profile, largest first."""
+    rows = [(row.key, getattr(row, "self_device_time_total",
+                              getattr(row, "self_cuda_time_total", 0.0))
+             / 1e3 / steps) for row in prof.key_averages()]
+    rows.sort(key=lambda kv: -kv[1])
+    return rows
+
+
+def profile_decode_step(cfg, params, bs, pos=(41, 24, 33, 17), n_slots=20,
+                        steps=5):
+    """Where one full-width decode step's time goes: one row per entry of
+    ``pos`` (its position) over a pool of ``n_slots`` slots, each row
+    owning the slots its positions need, the step run ``steps`` times
     under the profiler.  Returns (wall ms per step, device-busy ms per
-    step, [(kernel name, device ms per step)] of the five largest)."""
+    step, [(kernel name, device ms per step)] of the five largest, the
+    pools and the slot table as K1 sees them)."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(SEED + 2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     L, nkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
-    n_slots, pos = 20, [41, 24, 33, 17]
-    pool = torch.from_numpy(rng.normal(
-        size=(2, L, n_slots, bs, nkv, hd)).astype(np.float32)).cuda()
+    b = len(pos)
+    pool = torch.randn((2, L, n_slots, bs, nkv, hd), generator=gen,
+                       device="cuda")
     slot_req = np.full((n_slots,), -1, np.int32)
     slot_base = np.zeros((n_slots,), np.int32)
-    append_slot = np.zeros((4,), np.int32)
+    append_slot = np.zeros((b,), np.int32)
     slot = 0
     for r, p in enumerate(pos):
         for j in range(p // bs + 1):
@@ -605,11 +755,12 @@ def profile_decode_step(cfg, params, bs, steps=5):
             if j == p // bs:
                 append_slot[r] = slot
             slot += 1
+    assert slot <= n_slots, (slot, n_slots)
     dev = {k: torch.from_numpy(v).cuda() for k, v in dict(
         slot_req=slot_req, slot_base=slot_base, append_slot=append_slot,
         append_off=np.asarray(pos, np.int32) % bs,
         pos=np.asarray(pos, np.int32),
-        tokens=rng.integers(3, 250, size=4).astype(np.int32)).items()}
+        tokens=rng.integers(3, 250, size=b).astype(np.int32)).items()}
     state = M.DecodeState(
         tokens=dev["tokens"], pos=dev["pos"], peer=None, kv=M.KVPools(
             pool[0], pool[1], dev["slot_req"], dev["slot_base"],
@@ -633,27 +784,92 @@ def profile_decode_step(cfg, params, bs, steps=5):
             for _ in range(steps):
                 step()
             torch.cuda.synchronize()
-    rows = [(row.key, getattr(row, "self_device_time_total",
-                              getattr(row, "self_cuda_time_total", 0.0))
-             / 1e3 / steps) for row in prof.key_averages()]
-    rows.sort(key=lambda kv: -kv[1])
-    return wall_ms, sum(ms for _, ms in rows), rows[:5]
+    rows = device_rows(prof, steps)
+    return wall_ms, sum(ms for _, ms in rows), rows[:5], (pool, dev)
+
+
+def profile_prefill(cfg, params, n):
+    """One full-width prefill of ``n`` tokens (the engine's forward): wall
+    ms, device-busy ms and K4's device ms, from one profiled call after a
+    warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    batch = {"tokens": torch.randint(3, 250, (1, n), generator=gen,
+                                     device="cuda", dtype=torch.int32),
+             "positions": torch.arange(n, dtype=torch.int32,
+                                       device="cuda")[None]}
+
+    def prefill():
+        return M.forward(params, batch, cfg, want_kv=True)
+
+    prefill()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prefill()
+            torch.cuda.synchronize()
+    rows = device_rows(prof, 1)
+    k4 = sum(ms for name, ms in rows if "flash_prefill" in name)
+    return wall_ms, sum(ms for _, ms in rows), k4
+
+
+def long_pool_k1(cfg, pools, bs):
+    """K1 at the long path's pool size: one layer's pools of the profiled
+    decode step (the rows' positions and slot table as there), timed and
+    held to the plain version.  The bound counts the k and v rows of the
+    positions the window keeps."""
+    pool, dev = pools
+    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    b = dev["pos"].shape[0]
+    q = torch.randn((b, nq, hd), generator=gen, device="cuda")
+    args = (q, pool[0, 0], pool[1, 0], dev["slot_req"], dev["slot_base"],
+            dev["pos"])
+    kw = dict(scale=hd ** -0.5, sliding_window=cfg.sliding_window)
+    got = pops.paged_decode_partials(*args, **kw)
+    ref = pops.paged_decode_partials_plain(*args, **kw)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
+    ms, ms_wall = time_ms(lambda: pops.paged_decode_partials(*args, **kw), 50)
+    w = cfg.sliding_window or 10 ** 9
+    positions = sum(min(int(p) + 1, w) for p in dev["pos"].tolist())
+    n_slots = dev["slot_req"].shape[0]
+    nbytes = 4 * (2 * positions * nkv * hd + b * nq * hd + 2 * n_slots + b
+                  + b * nq * (2 + hd))
+    bound_ms, bound_by = bound(nbytes, 4 * positions * nq * hd)
+    owned = int((dev["slot_req"] >= 0).sum())
+    return (f"K1 at the long path's pool ({n_slots} slots of {bs}, {owned} "
+            f"owned, positions {dev['pos'].tolist()}): {ms:.5f} ms device, "
+            f"{ms_wall:.5f} between events, bound {bound_ms:.6f} "
+            f"({bound_by})"), dict(ms=ms, bound_ms=bound_ms, n_slots=n_slots)
 
 
 #: every kernel's wrapper, by the name in the kernels line
 COUNTERS = {"paged_decode_partials": pops.paged_decode_partials,
             "quantize_demote": hops.quantize_blocks,
             "dequantize_reload": hops.dequantize_blocks,
+            "prefill_attention": fops.prefill_attention,
             "gather_blocks": hops.gather_blocks,
             "copy_blocks": hops.copy_blocks,
             "moe_ffn": mops.moe_ffn}
 
 
-def main_path(arch, bs, kernels_of_path):
+def main_path(arch, bs, kernels_of_path, *, num_requests=6, local_slots=10,
+              peer_blocks=6, max_batch=4, prompt=(5, 40),
+              profile_pos=(41, 24, 33, 17), profile_slots=20,
+              prefill_tokens=None):
     """Serve the full-width model through the front door with the launch
     counts set to 0 just before and read just after; every kernel of the
-    path must have launched.  Then profile one decode step.  Returns the
-    launch counts; the weights are freed on return."""
+    path must have launched.  Then profile one decode step (rows at
+    ``profile_pos`` over ``profile_slots`` slots) and, given
+    ``prefill_tokens``, one prefill of that length and K1 at the profiled
+    pool.  Returns (launch counts, K1's numbers at that pool or None); the
+    weights are freed on return."""
     full = get_config(arch)
     gc.collect()
     torch.cuda.empty_cache()
@@ -667,10 +883,11 @@ def main_path(arch, bs, kernels_of_path):
     for fn in COUNTERS.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    server, stats, step_s = serve(full, params, "cuda", num_requests=6,
-                                  local_slots=10,
-                                  peer_budget=peer_budget(full, bs),
-                                  max_batch=4, bs=bs)
+    server, stats, step_s, prefill_s = serve(
+        full, params, "cuda", num_requests=num_requests,
+        local_slots=local_slots,
+        peer_budget=peer_budget(full, bs, peer_blocks), max_batch=max_batch,
+        bs=bs, prompt=prompt)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in COUNTERS.items()}
@@ -681,7 +898,7 @@ def main_path(arch, bs, kernels_of_path):
           f"{stats.tokens_out} tokens, kv {kv}")
     print(f"{arch}: fidelity {eng.runtime.stats().get('fid', {})}")
     print(f"{arch}: launches on the path: {launches}")
-    assert len(served) == len(server.handles) == 6
+    assert len(served) == len(server.handles) == num_requests
     assert all(len(h.tokens) == 16 for h in served)
     assert kv["evict_to_peer"] > 0 and kv["evict_to_host"] > 0, kv
     assert kv["reload_peer"] + kv["reload_host"] > 0, kv
@@ -694,16 +911,36 @@ def main_path(arch, bs, kernels_of_path):
           f"{len(step_s)}), {stats.tokens_out / wall:.1f} tokens/s wall over "
           f"{wall:.2f} s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"{arch}: prefill wall ms per call: "
+          f"{[round(1e3 * t, 2) for t in prefill_s]} (prompt lengths "
+          f"{[len(h._req.prompt) for h in server.handles]})")
     print(f"{arch}: simulated (H100/NVLink cost model, not the card): clock "
           f"{stats.clock_s * 1e3:.4f} ms, "
           f"{stats.tokens_out / stats.clock_s:.0f} tokens/s")
     del server, eng
-    step_ms, busy_ms, top = profile_decode_step(full, params, bs)
-    print(f"{arch}: decode step profile: {step_ms:.2f} ms wall, "
-          f"{busy_ms:.2f} ms device-busy ({100 * busy_ms / step_ms:.1f}%)")
+    step_ms, busy_ms, top, pools = profile_decode_step(
+        full, params, bs, profile_pos, profile_slots)
+    print(f"{arch}: decode step profile ({len(profile_pos)} rows at "
+          f"{list(profile_pos)}, {profile_slots} slots): {step_ms:.2f} ms "
+          f"wall, {busy_ms:.2f} ms device-busy "
+          f"({100 * busy_ms / step_ms:.1f}%)")
     for name, ms in top:
         print(f"  {ms:8.3f} ms/step  {name[:90]}")
-    return launches
+    k1 = None
+    if prefill_tokens:
+        line, k1 = long_pool_k1(full, pools, bs)
+        print(f"{arch}: {line}")
+        del pools
+        wall_ms, busy_ms, k4_ms = profile_prefill(full, params,
+                                                  prefill_tokens)
+        print(f"{arch}: prefill profile ({prefill_tokens} tokens): "
+              f"{wall_ms:.2f} ms wall, {busy_ms:.2f} ms device-busy "
+              f"({100 * busy_ms / wall_ms:.1f}%), K4 {k4_ms:.2f} ms "
+              f"({100 * k4_ms / busy_ms:.1f}% of device time, "
+              f"{100 * k4_ms / wall_ms:.1f}% of wall)")
+        print(f"{arch}: peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches, k1
 
 
 def main() -> int:
@@ -727,13 +964,19 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     yi, moe = get_config("yi-6b"), get_config("qwen2-moe")
+    danube = get_config("h2o-danube-3-4b")
     bs = 8
-    kernels = [check_paged_decode(yi, bs)] + check_quant(yi, bs) \
-        + check_movers((yi, moe), bs) \
+    kernels = [check_paged_decode(yi, bs)] \
+        + check_quant(yi, bs, more=[(moe, bs), (danube, 16)]) \
+        + [check_flash_prefill(yi, moe, danube)] \
+        + check_movers([(yi, bs), (danube, 16), (moe, bs)]) \
         + [check_moe_ffn(moe, get_config("phi-tiny-moe"))]
     tolerance = {"paged_decode_partials": "rtol 1e-4, atol 1e-4 (f32 sums "
                  "in another order)", "quantize_demote": "bit-identical",
                  "dequantize_reload": "bit-identical",
+                 "prefill_attention": "bf16 rtol 1.6e-2, atol 2^-7 (p "
+                 "rounded against another running max); f32 rtol 1e-4, "
+                 "atol 1e-4",
                  "gather_blocks": "bit-identical",
                  "copy_blocks": "bit-identical",
                  "moe_ffn": "bf16 rtol 1.6e-2, atol 2^-7; f32 rtol 1e-4, "
@@ -745,19 +988,33 @@ def main() -> int:
               f"{k['max_abs_err']:.3g} against the plain version, tolerance "
               f"{tolerance[k['name']]}")
 
-    for arch in ("yi-6b", "qwen2-moe"):
-        tokens = check_reduced_tokens(arch)
+    for arch, prompt, slots in (("yi-6b", (5, 40), 10),
+                                ("qwen2-moe", (5, 40), 10),
+                                ("h2o-danube-3-4b", (70, 150), 24)):
+        tokens = check_reduced_tokens(arch, prompt, slots)
         print(f"reduced {arch}: cpu and cuda tokens identical "
               f"({tokens[:2]} ...)")
 
-    # ---- phases 5 and 6: the two paths at full width ----
+    # ---- phases 5 to 7: the three paths at full width ----
     movers = ["paged_decode_partials", "quantize_demote",
-              "dequantize_reload", "gather_blocks", "copy_blocks"]
-    paths = {"yi-6b": main_path("yi-6b", bs, movers),
-             "qwen2-moe": main_path("qwen2-moe", bs, movers + ["moe_ffn"])}
+              "dequantize_reload", "prefill_attention", "gather_blocks",
+              "copy_blocks"]
+    paths, k1_long = {}, None
+    paths["yi-6b"], _ = main_path("yi-6b", bs, movers)
+    paths["qwen2-moe"], _ = main_path("qwen2-moe", bs, movers + ["moe_ffn"])
+    # the long-prompt path: 4 requests of 4,500-6,000 tokens (past the
+    # 4,096-token window), 2 rows, 16-token blocks; 800 local slots hold
+    # two requests' blocks, and each preemption evicts a request's 280-375
+    # blocks past a peer budget of 64 into the host
+    paths["h2o-danube-3-4b"], k1_long = main_path(
+        "h2o-danube-3-4b", 16, movers, num_requests=4, local_slots=800,
+        peer_blocks=64, max_batch=2, prompt=(4500, 6000),
+        profile_pos=(5999, 4700), profile_slots=800, prefill_tokens=6000)
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
+        if k["name"] == "paged_decode_partials":
+            k["long_pool"] = k1_long
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
 """Core transformer layers of the dense decoder: RMS norm, rotary
-embeddings, memory-bounded (chunked, online-softmax) attention and the MLP.
+embeddings, prefill attention (kernel K4, online softmax) and the MLP.
 
 Every function mirrors its namesake in ``repro.models.layers`` dtype for
 dtype: bf16 operands, f32 accumulation where the JAX code asks for it, and a
@@ -13,8 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-
-NEG_INF = -1e30
+from repro_torch.kernels.flash_attention import ops as flash
 
 
 def rms_norm(x, scale, eps: float = 1e-5):
@@ -49,74 +48,22 @@ def position_embedding(x, positions, cfg: ModelConfig):
         f"rope_style {cfg.rope_style!r} belongs to a later slice of the port")
 
 
-def _band_mask(q_pos, k_pos, cfg: ModelConfig):
-    """(..., q, k) boolean mask combining causal + sliding-window +
-    chunked-local; leading dims of ``q_pos``/``k_pos`` batch over."""
-    qp, kp = q_pos[..., :, None], k_pos[..., None, :]
-    m = kp <= qp                                           # causal
-    if cfg.sliding_window is not None:
-        m &= kp > (qp - cfg.sliding_window)
-    if cfg.attention_chunk is not None:                    # chunked local
-        c = cfg.attention_chunk
-        m &= torch.div(kp, c, rounding_mode="floor") == \
-            torch.div(qp, c, rounding_mode="floor")
-    return m
-
-
 def chunked_attention(q, k, v, q_positions, k_positions, cfg: ModelConfig,
                       kv_chunk: int = 1024, logit_softcap=None):
-    """Causal GQA attention with an online softmax over KV chunks.
+    """Causal GQA attention with an online softmax over KV chunks, the
+    masks taken from ``cfg``: the plain version of kernel K4
+    (``flash_attention.ops.prefill_attention_plain``) under the JAX
+    package's name.
 
     q: (b, sq, nq, hd);  k, v: (b, sk, nkv, hd)
     q_positions: (b, sq);  k_positions: (b, sk)
     Returns (b, sq, nq, hd) in q's dtype.
-
-    The grouped layout of the JAX path without a mesh: q is folded to
-    (b, sq, nkv, gq, hd); products take the working-dtype operands and sum
-    in f32, and the probabilities are rounded to v's dtype before the
-    second product, as ``preferred_element_type=f32`` does there.
     """
-    b, sq, nq, hd = q.shape
-    sk, nkv = k.shape[1], k.shape[2]
-    gq = nq // nkv
-    scale = hd ** -0.5
-
-    kv_chunk = min(kv_chunk, sk)
-    n_chunks = -(-sk // kv_chunk)
-    pad = n_chunks * kv_chunk - sk
-    if pad:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-        k_positions = torch.nn.functional.pad(k_positions, (0, pad),
-                                              value=-(10 ** 9))
-
-    qf = (q * torch.tensor(scale, dtype=q.dtype)).reshape(b, sq, nkv, gq, hd)
-    qf = qf.float()
-    m = torch.full((b, sq, nkv, gq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((b, sq, nkv, gq, hd), dtype=torch.float32,
-                      device=q.device)
-    for c in range(n_chunks):
-        sl = slice(c * kv_chunk, (c + 1) * kv_chunk)
-        kj, vj, posj = k[:, sl], v[:, sl], k_positions[:, sl]
-        mask = _band_mask(q_positions, posj, cfg)           # (b, sq, C)
-        s = torch.einsum("bqKgh,bcKh->bqKgc", qf, kj.float())
-        if logit_softcap:
-            s = logit_softcap * torch.tanh(s / logit_softcap)
-        mask = mask[:, :, None, None, :]
-        s = torch.where(mask, s, torch.tensor(NEG_INF, dtype=s.dtype,
-                                              device=s.device))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        upd = torch.einsum("bqKgc,bcKh->bqKgh", p.to(vj.dtype).float(),
-                           vj.float())
-        acc = acc * corr[..., None] + upd
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(b, sq, nq, hd).to(q.dtype)
+    return flash.prefill_attention_plain(
+        q, k, v, q_positions, k_positions,
+        sliding_window=cfg.sliding_window,
+        attention_chunk=cfg.attention_chunk, logit_softcap=logit_softcap,
+        kv_chunk=kv_chunk)
 
 
 def attention_qkv(x, p, cfg: ModelConfig):
@@ -139,8 +86,10 @@ def attention_layer(x, p, cfg: ModelConfig, positions):
     q, k, v = attention_qkv(x, p, cfg)
     q = position_embedding(q, positions, cfg)
     k = position_embedding(k, positions, cfg)
-    o = chunked_attention(q, k, v, positions, positions, cfg,
-                          logit_softcap=cfg.logit_softcap)
+    o = flash.prefill_attention(
+        q, k, v, positions, positions,
+        sliding_window=cfg.sliding_window,
+        attention_chunk=cfg.attention_chunk, logit_softcap=cfg.logit_softcap)
     y = torch.einsum("bsnh,nhd->bsd", o, p["wo"])
     return y, (k, v)
 

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import paged_attention as tpa
+from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.harvest_copy import ops as hops
 from repro_torch.kernels.moe_ffn import ops as mops
 from repro_torch.kernels.paged_attention import ops as pops
@@ -227,3 +228,71 @@ def test_moe_ffn_raises_on_cuda(cuda):
         mops.moe_ffn(x.float(), wi, wg, wo)
     with pytest.raises(ValueError):
         mops.moe_ffn(x, wi.cpu(), wg, wo)
+
+
+# K4 against its plain version.  bf16: the plain version rounds each
+# probability to bf16 against the running max of its 1024-key chunk, the
+# kernel against that of its 64-key tile, so the two differ by about one
+# bf16 step of p, and the rounded outputs by up to one bf16 step more: two
+# bf16 steps at magnitude 1.  f32: sums over hd and over keys in another
+# order.
+FLASH_TOL = {torch.bfloat16: dict(rtol=1.6e-2, atol=2.0 ** -7),
+             torch.float32: dict(rtol=1e-4, atol=1e-4)}
+FLASH_MASKS = [dict(), dict(sliding_window=20), dict(attention_chunk=24),
+               dict(logit_softcap=2.0), dict(sliding_window=33,
+                                             attention_chunk=48,
+                                             logit_softcap=30.0)]
+
+
+def _flash_inputs(seed, b, sq, sk, nq, nkv, hd, dtype, q0=None):
+    """Normal q, k, v; keys at positions 0..sk-1 and queries at the last
+    sq of them (``q0`` shifts the queries of batch row 1)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(dtype).cuda()
+               for s in ((b, sq, nq, hd), (b, sk, nkv, hd), (b, sk, nkv, hd)))
+    kp = np.broadcast_to(np.arange(sk, dtype=np.int32), (b, sk)).copy()
+    qp = kp[:, sk - sq:].copy()
+    if q0 is not None:
+        qp[1] = np.arange(q0, q0 + sq, dtype=np.int32)
+    return q, k, v, torch.from_numpy(qp).cuda(), torch.from_numpy(kp).cuda()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("masks", FLASH_MASKS,
+                         ids=["causal", "window", "chunk", "softcap", "all"])
+@pytest.mark.parametrize("shape", [(2, 77, 77, 8, 2, 120),
+                                   (1, 45, 130, 8, 1, 128),
+                                   (2, 131, 131, 3, 3, 64),
+                                   (2, 5, 70, 40, 8, 96)])
+def test_prefill_attention_kernel_matches_plain(cuda, dtype, masks, shape):
+    """K4 against its plain version at ragged shapes: sq and sk no
+    multiple of the tiles, hd 120, 96 and 64, gq 4, 8, 1 and 5, queries
+    after a prefix of keys, batch row 1's queries at other positions,
+    every mask alone and together."""
+    b, sq, sk, nq, nkv, hd = shape
+    q, k, v, qp, kp = _flash_inputs(19, b, sq, sk, nq, nkv, hd, dtype,
+                                    q0=sk // 3 if b > 1 else None)
+    before = fops.prefill_attention.launches
+    got = fops.prefill_attention(q, k, v, qp, kp, **masks)
+    torch.cuda.synchronize()
+    assert fops.prefill_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    ref = fops.prefill_attention_plain(q, k, v, qp, kp, **masks)
+    torch.testing.assert_close(got.float(), ref.float(), **FLASH_TOL[dtype])
+
+
+def test_prefill_attention_raises_on_cuda(cuda):
+    q, k, v, qp, kp = _flash_inputs(20, 1, 8, 8, 4, 2, 32, torch.bfloat16)
+    with pytest.raises(TypeError):
+        fops.prefill_attention(q.float(), k, v, qp, kp)
+    with pytest.raises(TypeError):
+        fops.prefill_attention(q, k, v, qp.long(), kp)
+    with pytest.raises(ValueError):
+        fops.prefill_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                               k, v, qp, kp)
+    with pytest.raises(ValueError):
+        fops.prefill_attention(q, k.cpu(), v, qp, kp)
+    wide = torch.zeros((1, 8, 2, 160), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        fops.prefill_attention(wide, wide, wide, qp, kp)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro.configs import get_config
+from repro.kernels.flash_attention.ref import flash_attention_ref
 from repro.models import layers as JL
 from repro.models import model as JM
 from repro_torch.bridge import params_from_numpy
@@ -91,9 +92,35 @@ def _map(tree, fn):
             for k, v in tree.items()}
 
 
+def _jax_flash_ref(q, k, v, cfg):
+    """JAX's ``flash_attention_ref`` (the Pallas kernel's oracle) on
+    model-layout numpy inputs at positions 0..s-1, folded as ``mha``
+    folds them."""
+    b, sq, nq, hd = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    gq = nq // nkv
+    qf = q.reshape(b, sq, nkv, gq, hd).transpose(0, 2, 3, 1, 4).reshape(
+        b * nkv, gq * sq, hd)
+    kf, vf = (a.transpose(0, 2, 1, 3).reshape(b * nkv, sk, hd)
+              for a in (k, v))
+    of = flash_attention_ref(jnp.asarray(qf), jnp.asarray(kf),
+                             jnp.asarray(vf), sq=sq,
+                             sliding_window=cfg.sliding_window,
+                             attention_chunk=cfg.attention_chunk)
+    return np.asarray(of).reshape(b, nkv, gq, sq, hd).transpose(
+        0, 3, 1, 2, 4).reshape(b, sq, nq, hd)
+
+
 @pytest.mark.parametrize("changes", [{}, {"sliding_window": 6},
                                      {"attention_chunk": 8}])
 def test_chunked_attention_matches_jax(changes):
+    """kv_chunk 8 pads the 19 keys to 24 and runs the online softmax over
+    three chunks.  With a window or an attention chunk the pad keys are
+    rejected in both packages, and the port is held to JAX's
+    ``chunked_attention``.  Without either, JAX's ``chunked_attention``
+    lets the pad keys into the softmax (its fault, see
+    test_jax_chunked_attention_pads_its_tail_wrong), so there the port is
+    held to ``flash_attention_ref``, the Pallas kernel's oracle."""
     cfg = dataclasses.replace(get_config("yi-6b").reduced(), **changes)
     tcfg = dataclasses.replace(t_get_config("yi-6b").reduced(), **changes)
     rng = np.random.default_rng(0)
@@ -101,13 +128,42 @@ def test_chunked_attention_matches_jax(changes):
     k = rng.normal(size=(2, 19, 1, 64)).astype(np.float32)
     v = rng.normal(size=(2, 19, 1, 64)).astype(np.float32)
     pos = np.broadcast_to(np.arange(19, dtype=np.int32), (2, 19)).copy()
-    # kv_chunk 8 exercises the padded tail and the online softmax
-    ref = JL.chunked_attention(*(jnp.asarray(a) for a in (q, k, v, pos, pos)),
-                               cfg, kv_chunk=8)
+    if changes:
+        ref = np.asarray(JL.chunked_attention(
+            *(jnp.asarray(a) for a in (q, k, v, pos, pos)), cfg, kv_chunk=8))
+    else:
+        ref = _jax_flash_ref(q, k, v, cfg)
     got = TL.chunked_attention(*(torch.from_numpy(a) for a in
                                  (q, k, v, pos, pos)), tcfg, kv_chunk=8)
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
-                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("sk,kv_chunk", [(19, 8), (1032, 1024)])
+def test_jax_chunked_attention_pads_its_tail_wrong(sk, kv_chunk):
+    """JAX's ``chunked_attention`` pads k and v to a multiple of
+    ``kv_chunk`` and gives the pad keys position -10**9, which the causal
+    mask accepts: every pad key scores 0 and adds to the softmax's
+    denominator.  So where sk is no multiple of the chunk, and no window
+    or attention chunk rejects the pad keys, it disagrees with
+    ``flash_attention_ref``; the port, whose pad keys every mask rejects,
+    agrees with the oracle.  sk 1032 is a 1,032-token prompt at the
+    default 1024-key chunk."""
+    cfg = get_config("yi-6b").reduced()
+    tcfg = t_get_config("yi-6b").reduced()
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(1, sk, 4, 16)).astype(np.float32)
+    k = rng.normal(size=(1, sk, 2, 16)).astype(np.float32)
+    v = rng.normal(size=(1, sk, 2, 16)).astype(np.float32)
+    pos = np.arange(sk, dtype=np.int32)[None]
+    ref = _jax_flash_ref(q, k, v, cfg)
+    jax_chunked = np.asarray(JL.chunked_attention(
+        *(jnp.asarray(a) for a in (q, k, v, pos, pos)), cfg,
+        kv_chunk=kv_chunk))
+    assert np.abs(jax_chunked - ref).max() > 0.1
+    got = TL.chunked_attention(*(torch.from_numpy(a) for a in
+                                 (q, k, v, pos, pos)), tcfg,
+                               kv_chunk=kv_chunk)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("activation", ["silu", "gelu", "relu2"])
