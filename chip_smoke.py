@@ -4,13 +4,19 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit, torch and CUDA versions;
-  2. build every kernel in ``src/repro_torch/csrc`` with nvcc (in parallel);
+  2. build every kernel in ``src/repro_torch/csrc`` with nvcc (in parallel),
+     print each kernel's registers and spills, and the tensor-core (HMMA)
+     instructions in the SASS of prefill attention's kernels; the bf16
+     kernel must have some and spill nothing;
   3. hold each kernel against its plain PyTorch version on the card, at the
      shapes the full-width yi-6b, qwen2-moe and h2o-danube-3-4b serving
      paths give it and at edge cases, and time kernel, plain version,
      library call and bound (prefill attention at 40-, 1,032- and
      6,000-token prompts, with a sliding window, an attention chunk and a
-     logit softcap, in bf16 and f32);
+     logit softcap, in bf16 on the tensor cores and f32 on the CUDA cores,
+     the kernel that ran read from the trace; the block movers split into
+     their kernels' own time and their ids' host-to-device copies, beside
+     the library calls with device ids and with host ids);
   4. reduced yi-6b, qwen2-moe and h2o-danube-3-4b (prompts past its
      64-token window) served on the CPU (plain versions) and on the card
      (kernels): identical tokens;
@@ -37,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -73,6 +80,43 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_label(mangled: str) -> str:
+    """``name<ints>`` of a mangled kernel name: the identifier that ends in
+    ``kernel`` and its template's integer arguments."""
+    m = re.search(r"\d+([a-z_]+kernel)(I\w*?E)?E*v", mangled)
+    if not m:
+        return mangled
+    args = m.group(2) or ""
+    ints = re.findall(r"Li(\d+)E", args)
+    return m.group(1) + (f"<{','.join(ints) or args[1:-1]}>" if args else "")
+
+
+def ptxas_by_kernel(report: str):
+    """{kernel: (registers line, stack and spills line)} from ``ptxas -v``."""
+    out, fn, spills = {}, None, ""
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            fn = kernel_label(line.split()[-1])
+        elif "spill" in line and fn:
+            spills = line.strip()
+        elif "Used" in line and fn:
+            out[fn] = (line.split(":", 1)[1].strip(), spills)
+            fn = None
+    return out
+
+
+def hmma_by_kernel(sass: str):
+    """{kernel: tensor-core (HMMA/HGMMA) instructions in its SASS}."""
+    out, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = kernel_label(line.split()[-1])
+            out[fn] = 0
+        elif fn and ("HMMA" in line or "HGMMA" in line):
+            out[fn] += 1
+    return out
+
+
 def events_ms(fn, iters) -> float:
     """Mean time per call of ``fn`` between CUDA events around ``iters``
     back-to-back calls: device time plus any gap the host leaves."""
@@ -86,27 +130,31 @@ def events_ms(fn, iters) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_ms(fn, iters=50):
-    """(device ms, events ms) per call of ``fn``.  Device ms is the sum of
-    the durations of every kernel, memset and copy the call puts on the
-    card, from the profiler's trace; where the trace shows no device time
-    it falls back to the events time."""
+def trace_rows(fn, iters):
+    """[(name, device ms per call)] of every kernel, memset and copy that
+    ``iters`` calls of ``fn`` put on the card, from the profiler's trace,
+    largest first."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    wall = events_ms(fn, iters)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")     # one profiling cycle is all
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-    us = 0.0
-    for row in prof.key_averages():
-        us += getattr(row, "self_device_time_total",
-                      getattr(row, "self_cuda_time_total", 0.0))
-    return (us / 1e3 / iters if us > 0 else wall), wall
+    return device_rows(prof, iters)
+
+
+def time_ms(fn, iters=50):
+    """(device ms, events ms) per call of ``fn``.  Device ms is the sum of
+    the durations of every kernel, memset and copy the call puts on the
+    card, from the profiler's trace; where the trace shows no device time
+    it falls back to the events time."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    wall = events_ms(fn, iters)
+    ms = sum(t for _, t in trace_rows(fn, iters))
+    return (ms if ms > 0 else wall), wall
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = F32_FLOPS):
@@ -327,8 +375,12 @@ def check_movers(configs):
     pool of k and v rows) give them: one launch moves one slot's block of
     every layer (L_kv rows of bs * nkv * hd f32), for each (cfg, bs) of
     ``configs``.  There both are held to their plain versions bit for bit
-    on the first, second and last slot of the timing loop, and then timed;
-    the kernels line keeps the last shape's numbers."""
+    on the first, second and last slot of the timing loop, and then timed
+    like for like: each wrapper as the engine calls it, with host ids,
+    split into its kernel's own device time and the ids' host-to-device
+    copies; the library calls with device ids and again with host ids.
+    The kernels line keeps the last shape's numbers, ``ms`` the kernel's
+    own and ``library_ms`` the library's with device ids."""
     rng = np.random.default_rng(SEED + 3)
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         for width in (37, 16_384):
@@ -372,29 +424,45 @@ def check_movers(configs):
             np.float32)).cuda()
         layer_rows = np.arange(L, dtype=np.int32) * n_slots
         k_rows = 2 * np.arange(L, dtype=np.int32)
-        dev_ids = [torch.from_numpy(layer_rows + i).long().cuda()
+        # the library calls' ids on the device (int32 as the kernels take
+        # them; index_copy_ takes int64 only)
+        dev_ids = [torch.from_numpy(layer_rows + i).cuda()
                    for i in range(n_slots)]
-        dev_k_rows = torch.from_numpy(k_rows).long().cuda()
+        dev_ids64 = [t.long() for t in dev_ids]
+        dev_k_rows = torch.from_numpy(k_rows).cuda()
         nxt = [0]
 
         def slot():
             nxt[0] = (nxt[0] + 1) % n_slots
             return nxt[0]
 
+        def host(ids, dtype=torch.int32):
+            # ids from the host, copied as the kernels' wrappers copy them
+            return torch.as_tensor(ids).to(device="cuda", dtype=dtype)
+
         row_bytes = 4 * elems
+        # (name, Pallas line, kernel, plain version, library call, it with
+        # device ids, it with host ids, bytes): the kernels and the plain
+        # versions take host ids, as the engine's evict and reload pass them
         cases = (
-            ("gather_blocks", "harvest_gather", 68,
+            ("gather_blocks", 68,
              lambda: hops.gather_blocks(pool, layer_rows + slot()),
              lambda: hops.gather_blocks_plain(pool, layer_rows + slot()),
+             "index_select",
              lambda: torch.index_select(pool, 0, dev_ids[slot()]),
+             lambda: torch.index_select(pool, 0, host(layer_rows + slot())),
              2 * L * row_bytes + 4 * L),
-            ("copy_blocks", "harvest_copy", 96,
+            ("copy_blocks", 96,
              lambda: hops.copy_blocks(staging, pool, k_rows,
                                       layer_rows + slot()),
              lambda: hops.copy_blocks_plain(staging, pool, k_rows,
                                             layer_rows + slot()),
-             lambda: pool.index_copy_(0, dev_ids[slot()], torch.index_select(
+             "index_select + index_copy_",
+             lambda: pool.index_copy_(0, dev_ids64[slot()], torch.index_select(
                  staging, 0, dev_k_rows)),
+             lambda: pool.index_copy_(
+                 0, host(layer_rows + slot(), torch.long),
+                 torch.index_select(staging, 0, host(k_rows))),
              2 * L * row_bytes + 8 * L),
         )
         for s in (0, 1, n_slots - 1):
@@ -411,22 +479,37 @@ def check_movers(configs):
             err["copy_blocks"] = max(err["copy_blocks"], _max_err(got, ref))
             del got, ref
         torch.cuda.synchronize()
-        for name, pallas, line, fn_k, fn_p, fn_lib, nbytes in cases:
-            (ms, ms_wall), (plain_ms, _) = time_ms(fn_k, 200), \
-                time_ms(fn_p, 100)
-            library_ms, _ = time_ms(fn_lib, 200)
+        for name, line, fn_k, fn_p, lib, fn_dev, fn_host, nbytes in cases:
+            # the wrapper as the engine calls it: its kernel's own rows of
+            # the trace, and the host-to-device copies of its ids
+            ms_wall = time_ms(fn_k, 200)[1]
+            rows = trace_rows(fn_k, 200)
+            call_ms = sum(t for _, t in rows)
+            own = sum(t for n, t in rows if "copy_rows_kernel" in n)
+            h2d = sum(t for n, t in rows if "HtoD" in n)
+            rest = [n for n, t in rows if t > 0
+                    and "copy_rows_kernel" not in n and "HtoD" not in n]
+            assert own > 0 and not rest, rows
+            plain_ms, _ = time_ms(fn_p, 100)
+            library_ms, _ = time_ms(fn_dev, 200)
+            library_host_ms, _ = time_ms(fn_host, 200)
             bound_ms, bound_by = bound(nbytes, 0)
             print(f"  {name} at {cfg.name} ({L} rows of {row_bytes} B): "
-                  f"{ms:.5f} ms device, {ms_wall:.5f} ms between events, "
-                  f"plain {plain_ms:.5f}, library {library_ms:.5f}, bound "
+                  f"kernel {own:.5f} ms device + ids host-to-device "
+                  f"{h2d:.5f} = {call_ms:.5f} per call as the engine makes "
+                  f"it ({ms_wall:.5f} between events); {lib} with device "
+                  f"ids {library_ms:.5f}, with ids from the host "
+                  f"{library_host_ms:.5f}; plain {plain_ms:.5f}; bound "
                   f"{bound_ms:.6f}")
             out[name] = dict(
                 name=name, route="cuda",
                 source="src/repro_torch/csrc/harvest_copy.cu",
                 replaces=f"src/repro/kernels/harvest_copy/kernel.py:{line}",
-                max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
+                max_abs_err=err[name], ms=own, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                shape=cfg.name)
+                library=f"{lib}, ids on the device",
+                ids_h2d_ms=h2d, call_ms=call_ms,
+                library_host_ids_ms=library_host_ms, shape=cfg.name)
         del pool, staging
     return [out["gather_blocks"], out["copy_blocks"]]
 
@@ -535,6 +618,11 @@ FLASH_TOL = {torch.bfloat16: dict(rtol=1.6e-2, atol=2.0 ** -7),
              torch.float32: dict(rtol=1e-4, atol=1e-4)}
 
 
+#: K4's kernel for each dtype: (the name it has in the trace, the route)
+ROUTES = {torch.bfloat16: ("flash_prefill_mma_kernel", "mma bf16"),
+          torch.float32: ("flash_prefill_kernel", "fma f32")}
+
+
 def top_kernel(fn) -> str:
     """The name of the kernel that takes the most device time in one call
     of ``fn``: which backend a library call took."""
@@ -583,6 +671,12 @@ def check_flash_prefill(yi, moe, danube):
             e = _max_err(got, ref)
             err = max(err, e)
             del got, ref
+            # which kernel ran, from the trace: bf16 on the tensor cores,
+            # f32 on the CUDA cores
+            ran = top_kernel(lambda: fops.prefill_attention(
+                q, k, v, pos, pos, **masks))
+            route = ROUTES[dtype]
+            assert route[0] in ran, (dtype, ran)
             iters = 5 if n > 2000 else 20
             (ms, ms_wall) = time_ms(lambda: fops.prefill_attention(
                 q, k, v, pos, pos, **masks), iters)
@@ -610,14 +704,16 @@ def check_flash_prefill(yi, moe, danube):
                 nbytes, 4 * hd * nq * pairs,
                 BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
             print(f"  prefill_attention {label} ({n} tokens, {nq}/{nkv} "
-                  f"heads, hd {hd}, {str(dtype)[6:]}): {ms:.5f} ms device, "
+                  f"heads, hd {hd}, {str(dtype)[6:]}, {route[1]}): "
+                  f"{ms:.5f} ms device, "
                   f"{ms_wall:.5f} between events; plain {plain_ms:.5f}; "
                   f"library {library_ms} [{backend[:60]}]; bound "
                   f"{bound_ms:.5f} ({bound_by}, {pairs} pairs per head); "
                   f"max_abs_err {e:.3g}")
             rows.append(dict(shape=label, tokens=n, dtype=str(dtype)[6:],
-                             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                             library_backend=backend, bound_ms=bound_ms,
+                             route=route[1], ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, library_backend=backend,
+                             bound_ms=bound_ms,
                              bound_by=bound_by, max_abs_err=e))
             del q, k, v
     main = next(r for r in rows if r["tokens"] == 6000
@@ -722,10 +818,17 @@ def _map(tree, fn):
 
 
 def device_rows(prof, steps):
-    """[(kernel name, device ms per step)] of a profile, largest first."""
+    """[(kernel name, device ms per step)] of a profile's device-side rows
+    (kernels, memsets, copies), largest first.  The runtime calls' rows are
+    left out: the profiler can hang a kernel's time on the runtime call
+    that shares its correlation id (a cudaFuncSetAttribute before the
+    launch), which would name that call as the kernel and count the
+    kernel's time twice."""
+    from torch.autograd import DeviceType
     rows = [(row.key, getattr(row, "self_device_time_total",
                               getattr(row, "self_cuda_time_total", 0.0))
-             / 1e3 / steps) for row in prof.key_averages()]
+             / 1e3 / steps) for row in prof.key_averages()
+            if row.device_type != DeviceType.CPU]
     rows.sort(key=lambda kv: -kv[1])
     return rows
 
@@ -959,9 +1062,16 @@ def main() -> int:
     t = build.build_all()
     print(f"build: {len(build.sources())} sources in {t:.1f} s")
     for name in build.sources():
-        for line in build.ptxas_report(name).splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for fn, (regs, spills) in ptxas_by_kernel(
+                build.ptxas_report(name)).items():
+            print(f"  ptxas {name}: {fn}: {regs}; {spills}")
+            if "mma" in fn:
+                assert spills.startswith("0 bytes stack frame, 0 bytes spill "
+                                         "stores, 0 bytes spill loads"), fn
+    hmma = hmma_by_kernel(build.sass("flash_prefill"))
+    print(f"  sass flash_prefill: HMMA instructions per kernel {hmma}")
+    assert all(n > 0 for fn, n in hmma.items() if "mma" in fn), hmma
+    assert any("mma" in fn for fn in hmma), hmma
 
     yi, moe = get_config("yi-6b"), get_config("qwen2-moe")
     danube = get_config("h2o-danube-3-4b")

@@ -81,6 +81,14 @@ def ptxas_report(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def sass(name: str) -> str:
+    """The SASS of the library of ``csrc/<name>.cu`` (``cuobjdump -sass``):
+    the instructions each kernel compiled to."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(_target(name))],
+                          capture_output=True, text=True, check=True).stdout
+
+
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""

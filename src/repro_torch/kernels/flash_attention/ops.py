@@ -3,7 +3,8 @@
 ``prefill_attention`` computes causal GQA attention of a full sequence in
 the model layout, masked from token positions (causal, optional sliding
 window, optional chunked-local) with an optional logit softcap.  On a CUDA
-tensor it launches the kernel; on the CPU it runs
+tensor it launches the kernel: bf16 on the tensor cores (head dim a
+multiple of 8), f32 on the CUDA cores; on the CPU it runs
 ``prefill_attention_plain``, the same function in PyTorch: an online
 softmax over key chunks, which ``repro_torch.models.layers.
 chunked_attention`` is under the JAX package's name.
@@ -164,6 +165,14 @@ def prefill_attention(q, k, v, q_positions, k_positions, *,
         raise ValueError(f"prefill_attention: the kernel takes at most "
                          f"{MAX_GQ} query heads per kv head and head dim "
                          f"{MAX_HEAD_DIM}; got {nq // nkv} and {hd}")
+    if q.dtype == torch.bfloat16:
+        # the tensor-core kernel moves rows in 16-byte copies
+        if hd % 8:
+            raise ValueError(f"prefill_attention: the bf16 kernel takes a "
+                             f"head dim that is a multiple of 8; got {hd}")
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("prefill_attention: the bf16 kernel takes q, k "
+                             "and v at 16-byte aligned addresses")
     out = torch.empty_like(q)
     # the plain version scales q by hd ** -0.5 rounded to q's dtype
     scale = torch.tensor(hd ** -0.5, dtype=q.dtype).item()

@@ -264,12 +264,14 @@ def _flash_inputs(seed, b, sq, sk, nq, nkv, hd, dtype, q0=None):
 @pytest.mark.parametrize("shape", [(2, 77, 77, 8, 2, 120),
                                    (1, 45, 130, 8, 1, 128),
                                    (2, 131, 131, 3, 3, 64),
-                                   (2, 5, 70, 40, 8, 96)])
+                                   (2, 5, 70, 40, 8, 96),
+                                   (2, 60, 90, 16, 4, 112),
+                                   (1, 70, 70, 6, 1, 128)])
 def test_prefill_attention_kernel_matches_plain(cuda, dtype, masks, shape):
     """K4 against its plain version at ragged shapes: sq and sk no
-    multiple of the tiles, hd 120, 96 and 64, gq 4, 8, 1 and 5, queries
-    after a prefix of keys, batch row 1's queries at other positions,
-    every mask alone and together."""
+    multiple of the tiles, hd 120, 96, 64, 112 (zamba2) and 128, gq 4, 8,
+    1, 5 and 6 (dbrx), queries after a prefix of keys, batch row 1's
+    queries at other positions, every mask alone and together."""
     b, sq, sk, nq, nkv, hd = shape
     q, k, v, qp, kp = _flash_inputs(19, b, sq, sk, nq, nkv, hd, dtype,
                                     q0=sk // 3 if b > 1 else None)
@@ -280,6 +282,56 @@ def test_prefill_attention_kernel_matches_plain(cuda, dtype, masks, shape):
     assert got.dtype == dtype and got.shape == q.shape
     ref = fops.prefill_attention_plain(q, k, v, qp, kp, **masks)
     torch.testing.assert_close(got.float(), ref.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("masks", [dict(), dict(sliding_window=300),
+                                   dict(attention_chunk=256)],
+                         ids=["causal", "window", "chunk"])
+def test_prefill_attention_many_tiles(cuda, dtype, masks):
+    """1,100 queries over 1,100 keys at danube's heads (gq 4, hd 120):
+    18 q tiles by 18 K/V tiles, so the copy ring turns many times, tiles
+    are skipped behind the window and past the diagonal, and the tiles
+    inside the band take the mask-free path."""
+    q, k, v, qp, kp = _flash_inputs(21, 1, 1100, 1100, 16, 4, 120, dtype)
+    got = fops.prefill_attention(q, k, v, qp, kp, **masks)
+    ref = fops.prefill_attention_plain(q, k, v, qp, kp, **masks)
+    torch.testing.assert_close(got.float(), ref.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prefill_attention_pad_keys_and_empty_rows(cuda, dtype):
+    """Keys padded at ``PAD_POSITION`` (random k and v behind them) add
+    nothing, and a query row whose every key is rejected (before the first
+    key, or with the window past the last) comes out zero, as in the
+    plain version."""
+    q, k, v, qp, kp = _flash_inputs(22, 2, 40, 100, 8, 2, 128, dtype)
+    kp[1] += 10                      # row 1's keys start at position 10
+    kp[:, 70:] = fops.PAD_POSITION
+    qp[1, :3] = torch.tensor([0, 5, 9], dtype=torch.int32)
+    masks = dict(sliding_window=50)
+    qp[0, -1] = 200                  # window (150, 200]: no real key in it
+    got = fops.prefill_attention(q, k, v, qp, kp, **masks)
+    ref = fops.prefill_attention_plain(q, k, v, qp, kp, **masks)
+    torch.testing.assert_close(got.float(), ref.float(), **FLASH_TOL[dtype])
+    assert torch.all(got[1, :3] == 0) and torch.all(got[0, -1] == 0)
+    assert torch.all(got[0, :-1].abs().sum(-1) > 0)
+    unpadded = fops.prefill_attention(q[:1], k[:1, :70].contiguous(),
+                                      v[:1, :70].contiguous(), qp[:1],
+                                      kp[:1, :70].contiguous(), **masks)
+    torch.testing.assert_close(got[:1], unpadded, rtol=0, atol=0)
+
+
+def test_prefill_attention_head_dim_not_multiple_of_8(cuda):
+    """hd 36: bf16 raises (the tensor-core kernel copies 16-byte rows),
+    f32 takes the CUDA-core kernel."""
+    q, k, v, qp, kp = _flash_inputs(23, 1, 30, 30, 4, 2, 36, torch.float32)
+    with pytest.raises(ValueError):
+        fops.prefill_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), qp,
+                               kp)
+    got = fops.prefill_attention(q, k, v, qp, kp)
+    ref = fops.prefill_attention_plain(q, k, v, qp, kp)
+    torch.testing.assert_close(got, ref, **FLASH_TOL[torch.float32])
 
 
 def test_prefill_attention_raises_on_cuda(cuda):
@@ -296,3 +348,7 @@ def test_prefill_attention_raises_on_cuda(cuda):
     wide = torch.zeros((1, 8, 2, 160), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
         fops.prefill_attention(wide, wide, wide, qp, kp)
+    shifted = torch.zeros(q.numel() + 1, dtype=q.dtype,
+                          device=cuda)[1:].view(q.shape)   # 2-byte aligned
+    with pytest.raises(ValueError):
+        fops.prefill_attention(shifted, k, v, qp, kp)
