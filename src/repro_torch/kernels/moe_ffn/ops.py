@@ -26,7 +26,7 @@ _ACT_CODE = {"silu": 0, "gelu": 1, "relu2": 2}
 def _kernels():
     lib = build.library("moe_ffn")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.moe_ffn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.moe_ffn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p, p]
     lib.moe_ffn.restype = i
     lib.moe_ffn_error_string.argtypes = [i]
     lib.moe_ffn_error_string.restype = ctypes.c_char_p
@@ -65,11 +65,19 @@ def moe_ffn_plain(xd, wi, wg, wo, activation: str = "silu"):
     return torch.einsum("ecf,efd->ecd", act(g) * h, wo)
 
 
-def moe_ffn(xd, wi, wg, wo, *, activation: str = "silu"):
+def moe_ffn(xd, wi, wg, wo, *, activation: str = "silu", skipped=None):
     """xd (E, C, d); wi, wg (E, d, f); wo (E, f, d) -> (E, C, d) in xd's
     dtype.  One call launches the kernel pair (gate-up, then down) and
-    counts one launch."""
+    counts one launch.  An expert's tile of 16 dispatch rows that are all
+    zero reads no weight and gives exact zeros.  ``skipped``: an optional
+    one-element int32 tensor on the card to which the kernel adds the
+    number of (expert, 16-row tile) pairs it skipped."""
     _check(xd, wi, wg, wo, activation)
+    if skipped is not None and (skipped.device != xd.device
+                                or skipped.dtype != torch.int32
+                                or skipped.numel() != 1):
+        raise ValueError("moe_ffn: skipped must be one int32 on "
+                         f"{xd.device}")
     if xd.device.type == "cpu":
         return moe_ffn_plain(xd, wi, wg, wo, activation)
     if not all(t.is_contiguous() for t in (xd, wi, wg, wo)):
@@ -86,6 +94,7 @@ def moe_ffn(xd, wi, wg, wo, *, activation: str = "silu"):
                          wo.data_ptr(), work.data_ptr(), out.data_ptr(),
                          e, c, d, f, _DTYPE_CODE[xd.dtype],
                          _ACT_CODE[activation],
+                         None if skipped is None else skipped.data_ptr(),
                          torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError("moe_ffn: launch failed: "

@@ -4,7 +4,10 @@
 partials ``(m, l, acc)`` of one query token per request over the slots that
 request owns, on the engine's inverted layout (``slot_req``/``slot_base``).
 On a CUDA tensor it launches the kernel; on the CPU it runs
-``paged_decode_partials_plain``, the same function in PyTorch.
+``paged_decode_partials_plain``, the same function in PyTorch.  The kernel
+takes any GQA group from 1 to 16 query heads per kv head and head dims that
+are a multiple of 4 up to 128; it splits each request's slots over
+``num_splits`` blocks and merges the splits by LSE.
 """
 from __future__ import annotations
 
@@ -17,7 +20,12 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-SUPPORTED_GQ = (1, 2, 4, 8, 16)
+MAX_GQ = 16
+MAX_HEAD_DIM = 128
+#: the kernel's grid aims at about one wave of this many blocks per SM
+BLOCKS_PER_SM = 4
+#: a split takes at least this many of a request's slots on average
+MIN_SLOTS_PER_SPLIT = 2
 
 
 class Partials(NamedTuple):
@@ -92,13 +100,30 @@ def paged_decode_partials_plain(q, pool_k, pool_v, slot_req, slot_base,
     return Partials(m=m_r, l=l_r, acc=acc_r)
 
 
+def num_splits(b: int, nkv: int, n_slots: int, sms: int) -> int:
+    """Blocks each (request, kv head) is split over, from the pool's shape
+    and the card's ``sms`` alone: about one wave of ``BLOCKS_PER_SM``
+    blocks per SM, where the pool holds ``MIN_SLOTS_PER_SPLIT`` slots per
+    split and request.  It does not grow with the pool past that: a block
+    takes any number of slots, in rounds."""
+    want = -(-BLOCKS_PER_SM * sms // (b * nkv))
+    return min(want, max(1, n_slots // (b * MIN_SLOTS_PER_SPLIT)))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     lib = build.library("paged_decode")
     fn = lib.paged_decode_partials
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + \
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + \
         [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.paged_decode_workspace_bytes.argtypes = [ctypes.c_int] * 6
+    lib.paged_decode_workspace_bytes.restype = ctypes.c_size_t
     lib.paged_decode_error_string.argtypes = [ctypes.c_int]
     lib.paged_decode_error_string.restype = ctypes.c_char_p
     return lib
@@ -151,23 +176,37 @@ def paged_decode_partials(q, pool_k, pool_v, slot_req, slot_base, q_pos, *,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_decode_partials: operands must be contiguous")
     gq = nq // nkv
-    if gq not in SUPPORTED_GQ:
+    if gq > MAX_GQ:
         raise ValueError(f"paged_decode_partials: {gq} query heads per kv "
-                         f"head; the kernel takes {SUPPORTED_GQ}")
+                         f"head; the kernel takes 1 to {MAX_GQ}")
+    if hd % 4 or hd > MAX_HEAD_DIM:
+        raise ValueError(f"paged_decode_partials: head dim {hd}; the kernel "
+                         f"takes a multiple of 4 up to {MAX_HEAD_DIM}")
+    if any(t.data_ptr() % 16 for t in (q, pool_k, pool_v)):
+        raise ValueError("paged_decode_partials: q and the pools must be "
+                         "16-byte aligned (the kernel reads float4 rows)")
     m = torch.empty((b, nkv, gq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     acc = torch.empty((b, nkv, gq, hd), dtype=torch.float32, device=q.device)
     if b == 0:
         return Partials(m, l, acc)
+    splits = num_splits(b, nkv, n_slots, sm_count(q.device))
     lib = _kernel()
+    # the splits' partials when there are several, and the slot counts of
+    # a table of more than one chunk
+    nbytes = lib.paged_decode_workspace_bytes(b, nkv, gq, hd, n_slots,
+                                              splits)
+    work = torch.empty((nbytes,), dtype=torch.uint8,
+                       device=q.device) if nbytes else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.paged_decode_partials(
             q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
             slot_req.data_ptr(), slot_base.data_ptr(), q_pos.data_ptr(),
-            m.data_ptr(), l.data_ptr(), acc.data_ptr(), b, nq, nkv, hd,
-            n_slots, bs, sliding_window or 0, attention_chunk or 0, scale,
-            logit_softcap or 0.0, stream)
+            m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+            None if work is None else work.data_ptr(), b,
+            nq, nkv, hd, n_slots, bs, splits, sliding_window or 0,
+            attention_chunk or 0, scale, logit_softcap or 0.0, stream)
     if rc != 0:
         raise RuntimeError("paged_decode_partials: launch failed: "
                            + lib.paged_decode_error_string(rc).decode())

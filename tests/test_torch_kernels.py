@@ -84,15 +84,24 @@ def _torch_partials(s, cfg):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("changes", [
+POOL_CHANGES = [
     {},                              # causal only (yi-6b)
     {"sliding_window": 12},          # sliding window
     {"attention_chunk": 16},         # chunked-local
     {"logit_softcap": 5.0},          # softcapped scores
-])
-def test_pool_partials_match_jax(changes):
+]
+
+
+@pytest.mark.parametrize("changes,heads", [
+    pytest.param(c, heads, id=f"changes{i}{name}")
+    for name, heads in (("", (4, 1)), ("-gq3", (6, 2)), ("-gq6", (12, 2)))
+    for i, c in enumerate(POOL_CHANGES)])
+def test_pool_partials_match_jax(changes, heads):
+    """gq 4 (the reduced configs), 3, and 6 (dbrx-132b and
+    nemotron-4-15b, 48 q over 8 kv heads)."""
+    nq, nkv = heads
     jcfg, tcfg = _cfgs(**changes)
-    s = _scenario()
+    s = _scenario(nq=nq, nkv=nkv)
     jp, tp = _jax_partials(s, jcfg), _torch_partials(s, tcfg)
     for name in ("m", "l", "acc"):
         np.testing.assert_allclose(getattr(tp, name).numpy(),
@@ -192,6 +201,23 @@ def test_paged_partials_wrapper_checks_shapes():
         pops.paged_decode_partials(t["q"], t["pk"], t["pv"],
                                    t["slot_req"][:4], t["slot_base"],
                                    t["q_pos"], scale=0.125)
+
+
+@pytest.mark.parametrize("b,nkv,n_slots,sms,want", [
+    (2, 8, 800, 132, 33),        # h2o-danube-3-4b's long pool on an H100
+    (2, 8, 60_000, 132, 33),     # the same rows in a pool 75x larger
+    (4, 4, 10, 132, 1),          # yi-6b's decode shape: 2 slots a split
+    (64, 4, 58_593, 132, 3),     # a card-filling pool of short contexts
+    (33, 32, 2_400, 132, 1),     # more (request, kv head) pairs than a wave
+])
+def test_paged_splits_follow_card_not_pool(b, nkv, n_slots, sms, want):
+    """K1's split count: about one wave of BLOCKS_PER_SM blocks per SM,
+    no split with fewer than MIN_SLOTS_PER_SPLIT slots per request on
+    average, and no growth with the pool past that."""
+    splits = pops.num_splits(b, nkv, n_slots, sms)
+    assert splits == want
+    assert b * nkv * (splits - 1) < pops.BLOCKS_PER_SM * sms
+    assert splits == 1 or splits <= n_slots // (b * pops.MIN_SLOTS_PER_SPLIT)
 
 
 # ---------------------------------------------------------------------------

@@ -72,6 +72,74 @@ def test_paged_partials_kernel_matches_plain(cuda, window, chunk, gq, hd,
     assert torch.all(got.l[1] == 0) and torch.all(got.m[1] == -1e30)
 
 
+# (name, sliding window, attention chunk, logit softcap)
+K1_MASKS = [("causal", None, None, None), ("window", 21, None, None),
+            ("chunk", None, 24, None), ("softcap", 37, None, 5.0)]
+
+
+@pytest.mark.parametrize("mask", K1_MASKS, ids=[m[0] for m in K1_MASKS])
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("hd", [64, 120, 128])
+@pytest.mark.parametrize("gq", [3, 5, 6, 12, 16])
+def test_paged_partials_any_gq(cuda, gq, hd, bs, mask):
+    """K1 at GQA groups that are no power of two (3; 5 as in llama-4; 6
+    as in dbrx and nemotron; 12) and at 16, the most it takes: the
+    register rows past gq hold zero queries and are never written."""
+    _, window, chunk, softcap = mask
+    cfg = dataclasses.replace(get_config("yi-6b").reduced(),
+                              sliding_window=window, attention_chunk=chunk,
+                              logit_softcap=softcap)
+    s = _scenario(24 + gq, 20, bs, 2, 2 * gq, hd, (70, 0, 33, 9),
+                  empty_row=1)
+    got = _partials(s, cfg, cuda)
+    ref = _partials(s, cfg, "cpu")
+    assert got.m.shape == (4, 2, gq) and got.acc.shape == (4, 2, gq, hd)
+    for name in ("m", "l", "acc"):
+        torch.testing.assert_close(getattr(got, name).cpu(),
+                                   getattr(ref, name), rtol=1e-4, atol=1e-4)
+    assert torch.all(got.l[1] == 0) and torch.all(got.m[1] == -1e30)
+    assert torch.all(got.acc[1] == 0)
+
+
+@pytest.mark.parametrize("case", ["window", "causal", "rounds",
+                                  "card_pool"])
+def test_paged_partials_many_splits(cuda, case):
+    """Each request's slots split over many blocks and merged by LSE: some
+    300 owned slots per request among free slots, an empty request, a
+    window that leaves whole owned slots out.  "rounds": a 2,400-slot
+    table (past 1,024 slots, so the live-slot bitmap comes from the
+    pre-pass) under 1,056 (request, kv head) pairs, one block each, whose
+    2,000-slot request is listed and folded in rounds.  "card_pool": short
+    contexts scattered over a 12,000-slot table."""
+    if case == "rounds":
+        b, nkv, gq, hd, bs, n_slots = 33, 32, 1, 64, 8, 2400
+        q_pos = (15_999,) + tuple(range(3, 33 * 3, 3))[:b - 2] + (0,)
+        window, empty = None, b - 1
+    elif case == "card_pool":
+        b, nkv, gq, hd, bs, n_slots = 16, 4, 2, 64, 8, 12_000
+        q_pos = tuple(np.random.default_rng(32).integers(50, 600, size=b))
+        window, empty = 256, 5
+    else:
+        b, nkv, gq, hd, bs, n_slots = 3, 8, 4, 120, 16, 1000
+        q_pos, empty = (4_799, 0, 4_500), 1
+        window = 4096 if case == "window" else None
+    cfg = dataclasses.replace(get_config("yi-6b").reduced(),
+                              sliding_window=window)
+    s = _scenario(31, n_slots, bs, nkv, nkv * gq, hd, q_pos, empty_row=empty)
+    splits = pops.num_splits(b, nkv, n_slots, pops.sm_count(cuda))
+    if case == "rounds":
+        assert splits == 1 and (s["slot_req"] == 0).sum() > 1024
+    else:
+        assert splits > 1
+    got = _partials(s, cfg, cuda)
+    ref = _partials(s, cfg, "cpu")
+    for name in ("m", "l", "acc"):
+        torch.testing.assert_close(getattr(got, name).cpu(),
+                                   getattr(ref, name), rtol=1e-4, atol=1e-4)
+    assert torch.all(got.m[empty] == -1e30) and torch.all(got.l[empty] == 0)
+    assert torch.all(got.acc[empty] == 0)
+
+
 def _pool(seed, n_slots, elems, zero_row=None):
     rng = np.random.default_rng(seed)
     src = (rng.normal(size=(n_slots, elems))
@@ -110,9 +178,14 @@ def test_kernel_wrappers_raise_on_cuda(cuda):
     v, s = hops.quantize_blocks(src, np.asarray([0, 1], np.int32))
     with pytest.raises(IndexError):
         hops.dequantize_blocks(src, v, s, np.asarray([0, 7], np.int32))
-    q = torch.zeros((1, 3, 16), device=cuda)       # gq 3 has no kernel
+    q = torch.zeros((1, 17, 16), device=cuda)      # gq 17: past 16
     pool = torch.zeros((2, 4, 1, 16), device=cuda)
     ids = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        pops.paged_decode_partials(q, pool, pool, ids, ids,
+                                   ids[:1], scale=0.25)
+    q, pool = torch.zeros((1, 2, 18), device=cuda), \
+        torch.zeros((2, 4, 1, 18), device=cuda)  # hd 18: no float4 rows
     with pytest.raises(ValueError):
         pops.paged_decode_partials(q, pool, pool, ids, ids,
                                    ids[:1], scale=0.25)
@@ -216,6 +289,37 @@ def test_moe_ffn_kernel_matches_plain(cuda, dtype, activation, shape):
     torch.testing.assert_close(got.float(), ref.float(), **MOE_TOL[dtype])
     if c // 3:
         assert torch.all(got[:, -(c // 3):] == 0)
+
+
+# rows of each expert that hold a token (the dispatch buffer fills an
+# expert from row 0): experts 1 and 4 empty; experts 2, 3, 6 and 7 fill
+# only the first 16-row tile, expert 5 reaches the second by one row
+FILLED = (20, 0, 16, 5, 0, 17, 1, 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("activation", ["silu", "gelu", "relu2"])
+@pytest.mark.parametrize("shape", [(256, 352), (96, 915)],
+                         ids=["aligned", "ragged"])
+def test_moe_ffn_skips_empty_experts(cuda, dtype, activation, shape):
+    """Experts without a token and 16-row tiles without one read no
+    weights (the kernel's count of skipped tiles says so) and give exact
+    zeros; the filled rows still match the plain version.  ``ragged``
+    (f = 915) stages by plain loads instead of cp.async."""
+    d, f = shape
+    e, c = len(FILLED), 20
+    args = _expert_inputs(25, e, c, d, f, dtype)
+    for ex, n in enumerate(FILLED):
+        args[0][ex, n:] = 0
+    skipped = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    got = mops.moe_ffn(*args, activation=activation, skipped=skipped)
+    ref = mops.moe_ffn_plain(*args, activation=activation)
+    torch.testing.assert_close(got.float(), ref.float(), **MOE_TOL[dtype])
+    tiles = sum(not args[0][ex, t:t + 16].any().item()
+                for ex in range(e) for t in (0, 16))
+    assert tiles == 8 and int(skipped.item()) == tiles
+    for ex, n in enumerate(FILLED):
+        assert torch.all(got[ex, n:] == 0), ex
 
 
 def test_moe_ffn_raises_on_cuda(cuda):
