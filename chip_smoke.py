@@ -16,11 +16,14 @@ Phases (any failure raises and the script exits non-zero):
      pool of 65,536 slots holding 64 short contexts; prefill attention at 40-, 1,032-
      and 6,000-token prompts, with a sliding window, an attention chunk and
      a logit softcap, in bf16 on the tensor cores and f32 on the CUDA
-     cores, the kernel that ran read from the trace; the block movers split
-     into their kernels' own time and their ids' host-to-device copies,
-     beside the library calls with device ids and with host ids; the
-     expert FFN at a decode and a prefill shape, with the experts it
-     skipped for want of a token counted on the card);
+     cores, the kernel that ran read from the trace; quantize-on-demote and
+     dequantize-on-reload at each path's demoted block, one quantize call's
+     trace holding its one kernel and nothing else; the block movers as the
+     engine calls them (the gather's ids in its launch, the copy's copied
+     to the card), split into their kernels' own time and their ids'
+     host-to-device copies, beside the library calls with device ids and
+     with host ids; the expert FFN at a decode and a prefill shape, with
+     the experts it skipped for want of a token counted on the card);
   4. reduced yi-6b, qwen2-moe, h2o-danube-3-4b (prompts past its 64-token
      window) and nemotron-4-15b at 12 / 2 heads (its GQA group of 6)
      served on the CPU (plain versions) and on the card (kernels):
@@ -38,7 +41,10 @@ Phases (any failure raises and the script exits non-zero):
      the peer and the host; then a decode step over that pool profiled,
      paged decode timed at that pool (its slots split over many blocks;
      cold, cycling through the layers' pools, and on one layer's pool),
-     and one 6,000-token prefill profiled for prefill attention's share;
+     one eviction of the served engine profiled (the gather and the
+     quantized round trip only: no id copied to the card, no copy of the
+     payload on it), and one 6,000-token prefill profiled for prefill
+     attention's share;
 then the card's name and power limit, one JSON line of per-kernel
 numbers, and the JSON result line.  The launch counts are set to 0 just
 before each path and read just after it.  It imports neither JAX nor the
@@ -63,7 +69,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import HarvestRuntime, paged_attention as tpa  # noqa: E402
-from repro_torch.core.tiers import kv_block_bytes  # noqa: E402
+from repro_torch.core.tiers import Fidelity, kv_block_bytes  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.harvest_copy import ops as hops  # noqa: E402
@@ -368,39 +374,66 @@ def block_elems(cfg, bs) -> int:
             * cfg.resolved_head_dim)
 
 
-def check_quant(full_cfg, bs, more=()):
-    """K2 and K3 against their plain versions: every fidelity, an odd
-    width, an all-zero row, the full-width demoted block of ``full_cfg``
-    and of each (cfg, bs) in ``more``, out-of-range ids raising; values,
-    scales and pools bit for bit.  Timed at ``full_cfg``'s block."""
+#: runtime calls the profiler may hang the next kernel's time on: no row of
+#: a trace may carry their names
+RUNTIME_CALLS = ("cudaFuncSetAttribute", "cudaLaunchKernelEx")
+
+
+def traced_rows(fn, iters):
+    """``trace_rows`` of ``iters`` calls of ``fn``, taken again (up to three
+    times) where a trace came back without a device row; asserts that no
+    row is named after a runtime call."""
+    for _ in range(3):
+        rows = [(n, t) for n, t in trace_rows(fn, iters) if t > 0]
+        if rows:
+            assert not any(c in n for n, _ in rows for c in RUNTIME_CALLS), \
+                rows
+            return rows
+    raise RuntimeError("three traces showed no device row")
+
+
+def check_quant(paths):
+    """K2 and K3 against their plain versions: every fidelity; three rows
+    (one all zero) at an odd width, at each (cfg, bs) path's full-width
+    demoted block and at a 4 MiB row; slices longer than K2 keeps in
+    shared memory, a whole odd row per block (200 rows of 60,001) and a
+    row spread over the card (3 rows of 3,000,000); out-of-range ids
+    raising; values, scales and pools bit for bit.  Then both timed at
+    each path's block as _degrade calls them (one row; device ids with
+    their host mirror), a trace of one K2 call showing its one kernel and
+    nothing else.  The kernels line keeps the first path's numbers and
+    every path's under ``by_shape``."""
     rng = np.random.default_rng(SEED + 1)
-    elems = block_elems(full_cfg, bs)
     err = {"quantize_demote": 0.0, "dequantize_reload": 0.0}
-    for fid in ("int8", "fp8", "int4"):
-        for width in (37, elems) + tuple(block_elems(*cb) for cb in more):
-            src = (rng.normal(size=(6, width))
-                   * rng.uniform(0.01, 30, size=(6, 1))).astype(np.float32)
-            src[3] = 0.0
-            ids = np.asarray([3, 5, 0], np.int32)
-            src_t = torch.from_numpy(src)
-            pv, ps = hops.quantize_blocks_plain(src_t.cuda(), ids, fid)
-            gv, gs = hops.quantize_blocks(src_t.cuda(), ids, fidelity=fid)
+    cases = [(3, w) for w in (37, *(block_elems(c, b) for c, b in paths),
+                              1_048_576)] + [(200, 60_001), (3, 3_000_000)]
+    for m, width in cases:
+        src = (rng.normal(size=(m + 3, width))
+               * rng.uniform(0.01, 30, size=(m + 3, 1))).astype(np.float32)
+        src[3] = 0.0
+        ids = rng.permutation(m + 3)[:m].astype(np.int32)
+        ids[0] = 3
+        src_t = torch.from_numpy(src).cuda()
+        dst = torch.from_numpy(rng.normal(size=(m + 4, width)).astype(
+            np.float32)).cuda()
+        dids = rng.permutation(m + 4)[:m].astype(np.int32)
+        for fid in ("int8", "fp8", "int4"):
+            pv, ps = hops.quantize_blocks_plain(src_t, ids, fid)
+            gv, gs = hops.quantize_blocks(src_t, ids, fidelity=fid)
             assert torch.equal(gv.view(torch.uint8), pv.view(torch.uint8)), \
-                (fid, width)
-            assert torch.equal(gs, ps), (fid, width)
+                (fid, m, width)
+            assert torch.equal(gs, ps), (fid, m, width)
             err["quantize_demote"] = max(
                 err["quantize_demote"],
                 (gv.float() - pv.float()).abs().max().item(),
                 (gs - ps).abs().max().item())
-            dst = torch.from_numpy(rng.normal(size=(7, width)).astype(
-                np.float32)).cuda()
-            dids = np.asarray([6, 1, 2], np.int32)
             ref = hops.dequantize_blocks_plain(dst.clone(), pv, ps, dids, fid)
             got = hops.dequantize_blocks(dst.clone(), gv, gs, dids,
                                          fidelity=fid)
             assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
             err["dequantize_reload"] = max(err["dequantize_reload"],
                                            (got - ref).abs().max().item())
+        del src_t, dst
     src = torch.zeros((4, 16), device="cuda")
     for call in (lambda: hops.quantize_blocks(src, np.asarray([0, 4])),
                  lambda: hops.dequantize_blocks(
@@ -416,40 +449,69 @@ def check_quant(full_cfg, bs, more=()):
     torch.cuda.synchronize()
 
     # timing: the main path demotes one block per eviction at int8 (the
-    # slo policy's quantized classes), a (1, elems) row on the device;
-    # rows cycle through a 64 MiB pool so the source is not L2-resident
-    pool = torch.from_numpy(rng.normal(size=(64, elems)).astype(
-        np.float32)).cuda()
-    row_ids = [torch.tensor([i], dtype=torch.int32, device="cuda")
-               for i in range(64)]
-    nxt = [0]
+    # slo policy's quantized classes), a (1, elems) row on the device, its
+    # id on the device with a host mirror; rows cycle through a pool of 64
+    # (64 MiB and more) so the source is not L2-resident
+    by_shape = {"quantize_demote": {}, "dequantize_reload": {}}
+    for cfg, bs in paths:
+        elems = block_elems(cfg, bs)
+        pool = torch.from_numpy(rng.normal(size=(64, elems)).astype(
+            np.float32)).cuda()
+        row_ids = [torch.tensor([i], dtype=torch.int32, device="cuda")
+                   for i in range(64)]
+        mirrors = [np.asarray([i], np.int32) for i in range(64)]
+        nxt = [0]
 
-    def ids():
-        nxt[0] = (nxt[0] + 1) % 64
-        return row_ids[nxt[0]]
+        def ids():
+            nxt[0] = (nxt[0] + 1) % 64
+            return row_ids[nxt[0]], mirrors[nxt[0]]
 
-    vals, scales = hops.quantize_blocks(pool, row_ids[0], fidelity="int8")
-    dst = torch.zeros_like(pool)
+        def quant():
+            dev_ids, host = ids()
+            return hops.quantize_blocks(pool, dev_ids, fidelity="int8",
+                                        host_ids=host)
+
+        def dequant():
+            dev_ids, host = ids()
+            return hops.dequantize_blocks(dst, vals, scales, dev_ids,
+                                          fidelity="int8", host_ids=host)
+
+        vals, scales = quant()
+        dst = torch.zeros_like(pool)
+        rows = traced_rows(quant, 1)
+        assert len(rows) == 1 and "quantize_rows_kernel" in rows[0][0], rows
+        print(f"  quantize_demote at {cfg.name}: one call's trace "
+              f"{[(n[:50], round(t, 6)) for n, t in rows]}")
+        for fn_k, fn_p, nbytes, name in (
+            (quant, lambda: hops.quantize_blocks_plain(pool, ids()[0],
+                                                       "int8"),
+             4 * elems + elems + 4, "quantize_demote"),
+            (dequant, lambda: hops.dequantize_blocks_plain(dst, vals, scales,
+                                                  ids()[0], "int8"),
+             elems + 4 + 4 * elems, "dequantize_reload"),
+        ):
+            (ms, ms_wall), (plain_ms, _) = time_ms(fn_k, 200), \
+                time_ms(fn_p, 50)
+            bound_ms, bound_by = bound(nbytes, 3 * elems)
+            print(f"  {name} at {cfg.name} ({elems} f32): {ms:.5f} ms "
+                  f"device ({ms_wall:.5f} between events), plain "
+                  f"{plain_ms:.5f}, bound {bound_ms:.6f} ({bound_by})")
+            by_shape[name][cfg.name] = dict(
+                elems=elems, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+        del pool, dst
     out = []
-    for fn_k, fn_p, nbytes, name, src_file, line in (
-        (lambda: hops.quantize_blocks(pool, ids(), fidelity="int8"),
-         lambda: hops.quantize_blocks_plain(pool, ids(), "int8"),
-         4 * elems + elems + 4, "quantize_demote", "harvest_quant.cu", 199),
-        (lambda: hops.dequantize_blocks(dst, vals, scales, ids(),
-                                        fidelity="int8"),
-         lambda: hops.dequantize_blocks_plain(dst, vals, scales, ids(),
-                                              "int8"),
-         elems + 4 + 4 * elems, "dequantize_reload", "harvest_quant.cu",
-         246),
-    ):
-        (ms, ms_wall), (plain_ms, _) = time_ms(fn_k, 200), time_ms(fn_p, 50)
-        print(f"  {name}: {ms_wall:.4f} ms per call between events")
-        bound_ms, bound_by = bound(nbytes, 3 * elems)
+    for name, line in (("quantize_demote", 199), ("dequantize_reload", 246)):
+        first = by_shape[name][paths[0][0].name]
         out.append(dict(
-            name=name, route="cuda", source=f"src/repro_torch/csrc/{src_file}",
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/harvest_quant.cu",
             replaces=f"src/repro/kernels/harvest_copy/kernel.py:{line}",
-            max_abs_err=err[name], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=None))
+            max_abs_err=err[name], ms=first["ms"],
+            plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+            bound_by=first["bound_by"], library_ms=None,
+            shape=paths[0][0].name,
+            by_shape=by_shape[name]))
     return out
 
 
@@ -467,11 +529,14 @@ def check_movers(configs):
     every layer (L_kv rows of bs * nkv * hd f32), for each (cfg, bs) of
     ``configs``.  There both are held to their plain versions bit for bit
     on the first, second and last slot of the timing loop, and then timed
-    like for like: each wrapper as the engine calls it, with host ids,
-    split into its kernel's own device time and the ids' host-to-device
-    copies; the library calls with device ids and again with host ids.
-    The kernels line keeps the last shape's numbers, ``ms`` the kernel's
-    own and ``library_ms`` the library's with device ids."""
+    like for like: each wrapper as the engine calls it, K6 with host ids
+    (they ride in its launch) into one half of an (L, 2, ...) payload, K5
+    with host ids copied to the card, split into its kernel's own device
+    time and the ids' host-to-device copies (K6 must have none); the
+    library calls with device ids and again with host ids.  The kernels
+    line keeps the last shape's numbers, ``ms`` the kernel's own and
+    ``library_ms`` the library's with device ids, and every shape's under
+    ``by_shape``."""
     rng = np.random.default_rng(SEED + 3)
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         for width in (37, 16_384):
@@ -490,6 +555,12 @@ def check_movers(configs):
             hops.copy_blocks(pool, pool, [0, 1], [5, 6])
             assert torch.equal(pool, hops.copy_blocks_plain(
                 src, src.clone(), [0, 1], [5, 6]))
+    # past the rows whose ids ride in the launch, K6 reads them from the
+    # card
+    src = torch.from_numpy(rng.normal(size=(50, 96)).astype(np.float32))
+    ids = rng.integers(0, 50, size=300).astype(np.int32)
+    assert torch.equal(hops.gather_blocks(src.cuda(), torch.from_numpy(
+        ids).cuda(), host_ids=ids).cpu(), hops.gather_blocks_plain(src, ids))
     pool = torch.zeros((4, 16), device="cuda")
     for call in (lambda: hops.gather_blocks(pool, np.asarray([0, 4])),
                  lambda: hops.copy_blocks(pool, pool.clone(), [0], [-1])):
@@ -502,6 +573,7 @@ def check_movers(configs):
     torch.cuda.synchronize()
 
     out, err = {}, {"gather_blocks": 0.0, "copy_blocks": 0.0}
+    by_shape = {"gather_blocks": {}, "copy_blocks": {}}
     for cfg, bs in configs:
         L = M.num_kv_layers(cfg)
         elems = bs * cfg.num_kv_heads * cfg.resolved_head_dim
@@ -513,6 +585,8 @@ def check_movers(configs):
             np.float32)).cuda()
         staging = torch.from_numpy(rng.normal(size=(2 * L, elems)).astype(
             np.float32)).cuda()
+        # the eviction's payload: K6 gathers k into one half of it
+        half = torch.empty((L, 2, elems), device="cuda")[:, 0]
         layer_rows = np.arange(L, dtype=np.int32) * n_slots
         k_rows = 2 * np.arange(L, dtype=np.int32)
         # the library calls' ids on the device (int32 as the kernels take
@@ -532,18 +606,19 @@ def check_movers(configs):
             return torch.as_tensor(ids).to(device="cuda", dtype=dtype)
 
         row_bytes = 4 * elems
-        # (name, Pallas line, kernel, plain version, library call, it with
-        # device ids, it with host ids, bytes): the kernels and the plain
-        # versions take host ids, as the engine's evict and reload pass them
+        # (name, Pallas line, its kernel's name, kernel, plain version,
+        # library call, it with device ids, it with host ids, bytes): the
+        # kernels and the plain versions take host ids, as the engine's
+        # evict and reload pass them
         cases = (
-            ("gather_blocks", 68,
-             lambda: hops.gather_blocks(pool, layer_rows + slot()),
+            ("gather_blocks", 68, "gather_rows_kernel",
+             lambda: hops.gather_blocks(pool, layer_rows + slot(), out=half),
              lambda: hops.gather_blocks_plain(pool, layer_rows + slot()),
              "index_select",
              lambda: torch.index_select(pool, 0, dev_ids[slot()]),
              lambda: torch.index_select(pool, 0, host(layer_rows + slot())),
              2 * L * row_bytes + 4 * L),
-            ("copy_blocks", 96,
+            ("copy_blocks", 96, "copy_rows_kernel",
              lambda: hops.copy_blocks(staging, pool, k_rows,
                                       layer_rows + slot()),
              lambda: hops.copy_blocks_plain(staging, pool, k_rows,
@@ -557,7 +632,7 @@ def check_movers(configs):
              2 * L * row_bytes + 8 * L),
         )
         for s in (0, 1, n_slots - 1):
-            got = hops.gather_blocks(pool, layer_rows + s)
+            got = hops.gather_blocks(pool, layer_rows + s, out=half)
             ref = hops.gather_blocks_plain(pool, layer_rows + s)
             assert torch.equal(got, ref), f"gather_blocks at {cfg.name}"
             err["gather_blocks"] = max(err["gather_blocks"],
@@ -570,17 +645,18 @@ def check_movers(configs):
             err["copy_blocks"] = max(err["copy_blocks"], _max_err(got, ref))
             del got, ref
         torch.cuda.synchronize()
-        for name, line, fn_k, fn_p, lib, fn_dev, fn_host, nbytes in cases:
+        for name, line, kname, fn_k, fn_p, lib, fn_dev, fn_host, nbytes \
+                in cases:
             # the wrapper as the engine calls it: its kernel's own rows of
             # the trace, and the host-to-device copies of its ids
             ms_wall = time_ms(fn_k, 200)[1]
-            rows = trace_rows(fn_k, 200)
+            rows = traced_rows(fn_k, 200)
             call_ms = sum(t for _, t in rows)
-            own = sum(t for n, t in rows if "copy_rows_kernel" in n)
+            own = sum(t for n, t in rows if kname in n)
             h2d = sum(t for n, t in rows if "HtoD" in n)
-            rest = [n for n, t in rows if t > 0
-                    and "copy_rows_kernel" not in n and "HtoD" not in n]
+            rest = [n for n, t in rows if kname not in n and "HtoD" not in n]
             assert own > 0 and not rest, rows
+            assert name != "gather_blocks" or h2d == 0, rows
             plain_ms, _ = time_ms(fn_p, 100)
             library_ms, _ = time_ms(fn_dev, 200)
             library_host_ms, _ = time_ms(fn_host, 200)
@@ -600,8 +676,13 @@ def check_movers(configs):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                 library=f"{lib}, ids on the device",
                 ids_h2d_ms=h2d, call_ms=call_ms,
-                library_host_ids_ms=library_host_ms, shape=cfg.name)
-        del pool, staging
+                library_host_ids_ms=library_host_ms, shape=cfg.name,
+                by_shape=by_shape[name])
+            by_shape[name][cfg.name] = dict(
+                ms=own, ids_h2d_ms=h2d, plain_ms=plain_ms,
+                library_ms=library_ms, library_host_ids_ms=library_host_ms,
+                bound_ms=bound_ms)
+        del pool, staging, half
     return [out["gather_blocks"], out["copy_blocks"]]
 
 
@@ -734,16 +815,10 @@ ROUTES = {torch.bfloat16: ("flash_prefill_mma_kernel", "mma bf16"),
 
 def top_kernel(fn) -> str:
     """The name of the kernel that takes the most device time in a few
-    calls of ``fn``: which backend a library call took.  A trace that came
-    back with no device row (a single-call trace did so once in several
-    runs) is taken again, up to three times."""
+    calls of ``fn``: which backend a library call took."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        rows = trace_rows(fn, 5)
-        if rows:
-            return rows[0][0]
-    raise RuntimeError("top_kernel: three traces showed no device row")
+    return traced_rows(fn, 5)[0][0]
 
 
 def check_flash_prefill(yi, moe, danube):
@@ -1085,16 +1160,40 @@ COUNTERS = {"paged_decode_partials": pops.paged_decode_partials,
             "moe_ffn": mops.moe_ffn}
 
 
+#: what one eviction may put on the card: K6 (twice), K2 and K3 (a
+#: quantized block) and the payload's one copy to the host
+EVICTION_ROWS = ("gather_rows_kernel", "quantize_rows_kernel",
+                 "dequantize_kernel", "Memcpy DtoH")
+
+
+def profile_eviction(eng):
+    """One eviction's device rows (the engine's ``_evict_payload`` of slot
+    0, at int8 and at full fidelity): K6 and the quantized round trip
+    only, with no id copied to the card and no copy of the payload on
+    it."""
+    for fid in (Fidelity.INT8, None):
+        rows = traced_rows(lambda f=fid: eng._evict_payload(0, f), 5)
+        print(f"  eviction at {fid.value if fid else 'full fidelity'}, "
+              f"device ms per call: "
+              f"{[(n[:40], round(t, 6)) for n, t in rows]}")
+        assert all(any(k in n for k in EVICTION_ROWS) for n, _ in rows), \
+            rows
+        assert any("gather_rows_kernel" in n for n, _ in rows), rows
+        assert (fid is None) != any("quantize_rows_kernel" in n
+                                    for n, _ in rows), rows
+
+
 def main_path(arch, bs, kernels_of_path, *, num_requests=6, local_slots=10,
               peer_blocks=6, max_batch=4, prompt=(5, 40),
               profile_pos=(41, 24, 33, 17), profile_slots=20,
-              prefill_tokens=None):
+              prefill_tokens=None, profile_evict=False):
     """Serve the full-width model through the front door with the launch
     counts set to 0 just before and read just after; every kernel of the
     path must have launched.  Then profile one decode step (rows at
     ``profile_pos`` over ``profile_slots`` slots) and, given
     ``prefill_tokens``, one prefill of that length and K1 at the profiled
-    pool.  Returns (launch counts, K1's numbers at that pool or None); the
+    pool; given ``profile_evict``, one eviction of the served engine.
+    Returns (launch counts, K1's numbers at that pool or None); the
     weights are freed on return."""
     full = get_config(arch)
     gc.collect()
@@ -1143,6 +1242,9 @@ def main_path(arch, bs, kernels_of_path, *, num_requests=6, local_slots=10,
     print(f"{arch}: simulated (H100/NVLink cost model, not the card): clock "
           f"{stats.clock_s * 1e3:.4f} ms, "
           f"{stats.tokens_out / stats.clock_s:.0f} tokens/s")
+    if profile_evict:
+        print(f"{arch}: one eviction profiled")
+        profile_eviction(eng)
     del server, eng
     step_ms, busy_ms, top, pools = profile_decode_step(
         full, params, bs, profile_pos, profile_slots)
@@ -1201,7 +1303,7 @@ def main() -> int:
     bs = 8
     kernels = [check_paged_decode(yi, bs, more=[get_config(
         "nemotron-4-15b")])] \
-        + check_quant(yi, bs, more=[(moe, bs), (danube, 16)]) \
+        + check_quant([(yi, bs), (moe, bs), (danube, 16)]) \
         + [check_flash_prefill(yi, moe, danube)] \
         + check_movers([(yi, bs), (danube, 16), (moe, bs)]) \
         + [check_moe_ffn(moe, get_config("phi-tiny-moe"))]
@@ -1247,7 +1349,8 @@ def main() -> int:
     paths["h2o-danube-3-4b"], k1_long = main_path(
         "h2o-danube-3-4b", 16, movers, num_requests=4, local_slots=800,
         peer_blocks=64, max_batch=2, prompt=(4500, 6000),
-        profile_pos=(5999, 4700), profile_slots=800, prefill_tokens=6000)
+        profile_pos=(5999, 4700), profile_slots=800, prefill_tokens=6000,
+        profile_evict=True)
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -21,15 +21,26 @@
 // once with a handful of integer and float operations, so the time floor is
 // (4 B in + 1 or 1/2 B out) per element over 3.35 TB/s.
 //
-// Design: the Pallas kernel gives one grid step a whole row.  A full-width
-// demoted block is one row of 262,144 f32 (1 MiB), which one thread block
-// would stream alone, so the row is split into chunks of 2,048 elements
-// (128 thread blocks for that row, about one per SM): pass 1 has them
-// fold |x| into the row's absmax with an atomicMax on the float's bits
-// (exact for non-negative floats, and the max does not depend on the
-// order), pass 2 has as many blocks quantize their chunk with the finished
-// scale.  Dequantize is one pass, one thread per output element.  Scratch
-// (the absmax row) is allocated and zeroed by the caller.
+// Design of quantize_demote: the Pallas kernel gives one grid step a whole
+// row and keeps it in VMEM for both the absmax and the quantization.  Here
+// one launch spreads the rows over the card, one block per SM (a row of
+// 2.8 MiB gives each of 132 blocks a 22 KB slice).  A block brings its
+// slice into shared memory once, all of it in flight together (TMA bulk
+// copies, or 4-byte cp.async where the slice is not 16-byte aligned), in
+// four parts whose absmax it folds as each lands.  The blocks' maxima meet
+// in one exchange through device memory (below: a slot per block, one
+// block folding them, one word releasing the rest), and each block then
+// quantizes its slice from shared memory with 4-byte stores, 128
+// contiguous bytes per warp.  One launch, one read of the row from device
+// memory, no memset.  With more rows than half the SMs a block takes a
+// whole row and needs no exchange.  A slice longer than the 224 KiB a
+// block keeps reads the rest from device memory again in the quantize
+// phase: chosen by shape.  A thread block cluster of 16 would exchange
+// through distributed shared memory instead, but it sits on one GPC, whose
+// share of the memory system caps the read (tools/probe_k2_cluster.py).
+//
+// Design of dequantize_reload: one pass, one thread per output element, the
+// row split into chunks of 2,048 elements.
 
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -47,61 +58,303 @@ __device__ __forceinline__ float qmax_of(int fid) {
   return fid == kInt8 ? 127.f : (fid == kFp8 ? 448.f : 7.f);
 }
 
-__global__ void __launch_bounds__(kThreads)
-absmax_kernel(const float* __restrict__ src, const int* __restrict__ ids,
-              int elems, float* __restrict__ absmax) {
-  const int i = blockIdx.y;
-  const float* row = src + (size_t)ids[i] * elems;
-  const int lo = blockIdx.x * kChunk;
-  const int hi = min(lo + kChunk, elems);
-  float mx = 0.f;
-  for (int e = lo + threadIdx.x; e < hi; e += kThreads)
-    mx = fmaxf(mx, fabsf(row[e]));
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  __shared__ float warp_max[kThreads / 32];
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = mx;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kThreads / 32; ++w) mx = fmaxf(mx, warp_max[w]);
-    // non-negative floats order like their bit patterns as signed ints
-    atomicMax(reinterpret_cast<int*>(absmax + i), __float_as_int(mx));
-  }
-}
-
 __device__ __forceinline__ int round_clip(float x, float lim) {
   return (int)fminf(fmaxf(rintf(x), -lim), lim);
 }
 
-__global__ void __launch_bounds__(kThreads)
-quantize_kernel(const float* __restrict__ src, const int* __restrict__ ids,
-                int elems, int width, int fid,
-                const float* __restrict__ absmax, uint8_t* __restrict__ values,
-                float* __restrict__ scales) {
-  const int i = blockIdx.y;
-  const float am = absmax[i];
+constexpr int kQThreads = 512;
+constexpr int kStages = 4;           // commit groups of a slice's loads
+constexpr int kSliceAlign = 32;      // elements: 128-byte slices
+constexpr int kMaxCached = 57344;    // f32 of a slice kept on chip (224 KiB)
+constexpr int kIdsByValue = 128;     // rows whose ids may ride in the launch
+
+__device__ __forceinline__ void cp_async4(float* s, const float* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"((uint32_t)__cvta_generic_to_shared(s)), "l"(g)
+               : "memory");
+}
+
+// wait until at most ``left`` of this thread's commit groups are in flight
+__device__ __forceinline__ void cp_async_wait(int left) {
+  switch (left) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+// round_clip(x / scale, lim) for |x| <= the row's absmax, where lim <=
+// 127 and inv = 1 / scale.  x * inv lies within 2.5 ulp (at most 2^-15
+// here) of the true quotient, as the division does within half of one, so
+// unless it lies within 2^-14 of a rounding boundary k + 1/2 both round to
+// the same integer; there (and for an inf or NaN product) it divides.
+__device__ __forceinline__ int quant_int(float x, float scale, float inv,
+                                         float lim) {
+  float y = x * inv;
+  if (!(fabsf(y - floorf(y) - 0.5f) >= 0x1p-14f)) y = x / scale;
+  return round_clip(y, lim);
+}
+
+// one output byte of int8 / fp8
+__device__ __forceinline__ uint32_t quant8(float x, float scale, float inv,
+                                           int fid) {
+  return fid == kInt8
+      ? (uint32_t)(uint8_t)(int8_t)quant_int(x, scale, inv, 127.f)
+      : (uint32_t)__nv_cvt_float_to_fp8(x / scale, __NV_SATFINITE,
+                                        __NV_E4M3);
+}
+
+// one int4 nibble pair, elements a (low) and b (high)
+__device__ __forceinline__ uint32_t quant4(float a, float b, float scale,
+                                           float inv) {
+  return (uint32_t)((quant_int(a, scale, inv, 7.f) & 15)
+                    | ((quant_int(b, scale, inv, 7.f) & 15) << 4));
+}
+
+// The row maxima's exchange across the grid, with no atomic and no second
+// hop.  ``state`` (per stream, zeroed once) is u64 words: the epoch word at
+// 0 and one slot per block from kSlotWords.  Every block reads the epoch at
+// its start and stores (epoch + 1 << 32 | its max) into its slot; then one
+// warp of every block reads all the slots (a load instruction covers 32)
+// until each carries epoch + 1, folds its row's, and stores epoch + 1 into
+// the epoch word for the next launch (by then every block of this one has
+// read it).  A slot of an older launch carries an older epoch (a 32-bit
+// epoch wraps after 2^32 launches on one stream).  Every block of the grid
+// must be resident at once.
+constexpr int kMaxGrid = 256;          // blocks of one launch, at most
+constexpr int kSlotWords = 16;         // the slots start on their own line
+constexpr int kStateWords = kSlotWords + kMaxGrid;
+
+__device__ __forceinline__ uint64_t ld_relaxed(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];\n" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(uint64_t* p, uint64_t v) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;\n" :: "l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ float warp_fold_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// row ids passed in the launch itself, for a few rows whose ids the host
+// holds: no load stands between the launch and the row's first bytes
+struct RowIds {
+  int id[kIdsByValue];
+};
+
+// grid (blocks per row, m); row i is ids[i], or by_value.id[i] where ids
+// is null.  With more than one block per row the blocks exchange their
+// maxima through ``state``.
+__global__ void __launch_bounds__(kQThreads)
+quantize_rows_kernel(const float* __restrict__ src,
+                     const int* __restrict__ ids,
+                     const __grid_constant__ RowIds by_value,
+                     int elems, int width, int fid, int slice, int cached,
+                     uint64_t* __restrict__ state,
+                     uint8_t* __restrict__ values,
+                     float* __restrict__ scales) {
+  extern __shared__ __align__(128) float sm[];
+  __shared__ float warp_max[kQThreads / 32];
+  __shared__ float block_max;
+  __shared__ __align__(8) uint64_t landed[kStages];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int i = blockIdx.y, nb = gridDim.x, rows = gridDim.y;
+  const float* row = src + (size_t)(ids ? ids[i] : by_value.id[i]) * elems;
+  const int lo = blockIdx.x * slice;
+  const int hi = min(lo + slice, elems);
+  const int n = max(hi - lo, 0);
+  const int nc = min(n, cached);             // elements held on chip
+  const float* g = row + lo;
+
+  // 1. every load of the slice's cached part in flight, in kStages parts:
+  // TMA bulk copies on an mbarrier each where the slice is 16-byte aligned
+  // (its length then is too, but for the row's end), 4-byte cp.async in
+  // commit groups otherwise
+  const int stage = ((nc + kStages - 1) / kStages + 3) & ~3;
+  const bool bulk = (reinterpret_cast<uintptr_t>(g) & 15) == 0
+                    && (nc & 3) == 0;
+  if (bulk) {
+    if (tid == 0) {
+      for (int s = 0; s < kStages; ++s)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                     :: "r"(smem_addr(&landed[s])) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      for (int s = 0; s < kStages; ++s) {
+        const int a = min(s * stage, nc), b = min(a + stage, nc);
+        const uint32_t bytes = 4u * (uint32_t)(b - a);
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], "
+                     "%1;\n" :: "r"(smem_addr(&landed[s])), "r"(bytes)
+                     : "memory");
+        if (bytes)
+          asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::"
+                       "complete_tx::bytes [%0], [%1], %2, [%3];\n"
+                       :: "r"(smem_addr(sm + a)), "l"(g + a), "r"(bytes),
+                          "r"(smem_addr(&landed[s])) : "memory");
+      }
+    }
+  }
+  // the last launch on this stream has ended, so a relaxed read finds its
+  // epoch; read after the loads are issued (the mbarrier fence would wait
+  // for it)
+  uint32_t epoch = 0;
+  if (nb > 1 && tid == 0)
+    epoch = (uint32_t)(ld_relaxed(state) >> 32) + 1;
+  if (bulk) {
+    __syncthreads();                 // the mbarriers are initialised
+  } else {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      const int a = min(s * stage, nc), b = min(a + stage, nc);
+      for (int e = a + tid; e < b; e += kQThreads) cp_async4(sm + e, g + e);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+  }
+
+  // 2. fold |x| into the block's maximum, each part as it lands; the part
+  // past what shared memory holds straight from device memory
+  float mx = 0.f;
+  for (int s = 0; s < kStages; ++s) {
+    if (bulk) {
+      uint32_t done = 0;
+      while (!done)
+        asm volatile("{\n .reg .pred p;\n"
+                     " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+                     "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(smem_addr(&landed[s])), "r"(0u)
+                     : "memory");
+    } else {
+      cp_async_wait(kStages - 1 - s);
+      __syncthreads();
+    }
+    const int a = min(s * stage, nc), b = min(a + stage, nc);
+    const int quads = (b - a) >> 2;
+    const float4* q4 = reinterpret_cast<const float4*>(sm + a);
+    for (int q = tid; q < quads; q += kQThreads) {
+      const float4 v = q4[q];
+      mx = fmaxf(mx, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
+                           fmaxf(fabsf(v.z), fabsf(v.w))));
+    }
+    for (int e = a + 4 * quads + tid; e < b; e += kQThreads)
+      mx = fmaxf(mx, fabsf(sm[e]));
+  }
+  for (int e = nc + tid; e < n; e += kQThreads) mx = fmaxf(mx, fabsf(g[e]));
+  mx = warp_fold_max(mx);
+  if (lane == 0) warp_max[tid >> 5] = mx;
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < kQThreads / 32; ++w) mx = fmaxf(mx, warp_max[w]);
+    block_max = mx;
+    if (nb > 1)     // the slot carries its own data: no fence needed
+      st_relaxed(state + kSlotWords + i * nb + blockIdx.x,
+                 (uint64_t)epoch << 32 | __float_as_uint(mx));
+  }
+
+  // 3. the row's maximum: one block holds it already; else the first warp
+  // reads every slot, all of a lane's at once (the maxima travel in the
+  // slots: relaxed loads suffice), until all are this launch's, and folds
+  // its row's
+  if (nb > 1 && tid < 32) {
+    const uint32_t ep = __shfl_sync(0xffffffffu, epoch, 0);
+    const int blocks = nb * rows;
+    constexpr int kSlotPoll = kMaxGrid / 32;
+    uint64_t v[kSlotPoll];
+    for (;;) {
+      bool all = true;
+#pragma unroll
+      for (int k = 0; k < kSlotPoll; ++k) {
+        const int b = lane + 32 * k;
+        v[k] = b < blocks ? ld_relaxed(state + kSlotWords + b)
+                          : (uint64_t)ep << 32;
+        all &= (uint32_t)(v[k] >> 32) == ep;
+      }
+      if (__all_sync(0xffffffffu, all)) break;
+    }
+    float x = 0.f;
+#pragma unroll
+    for (int k = 0; k < kSlotPoll; ++k) {
+      const int b = lane + 32 * k;
+      if (b < blocks && b / nb == i)
+        x = fmaxf(x, __uint_as_float((uint32_t)v[k]));
+    }
+    x = warp_fold_max(x);
+    if (lane == 0) {
+      block_max = x;
+      st_relaxed(state, (uint64_t)ep << 32);
+    }
+  }
+  __syncthreads();
+  const float am = block_max;
+
   // absmax times the f32 reciprocal of qmax: XLA compiles the JAX
   // kernel's division by a constant so, and the scales must match its bits
   const float scale = am == 0.f ? 1.f : am * (1.f / qmax_of(fid));
-  if (blockIdx.x == 0 && threadIdx.x == 0) scales[i] = scale;
-  const float* row = src + (size_t)ids[i] * elems;
+  if (lo == 0 && tid == 0) scales[i] = scale;
+  const float inv = 1.f / scale;
+
+  // 4. quantize: a group is the 4 output bytes of 4 elements (int8, fp8)
+  // or 8 (int4); a whole group on chip, 4-byte aligned, is one store
+  const bool i4 = fid == kInt4;
+  const int per = i4 ? 8 : 4;
+  const int groups = (n + per - 1) / per;
+  const int out_lo = i4 ? lo / 2 : lo;
+  const int out_hi = i4 ? (hi + 1) / 2 : hi;
   uint8_t* out = values + (size_t)i * width;
-  // one output column per thread: a byte for int8/fp8, a nibble pair for
-  // int4 (columns j of a chunk cover elements 2j, 2j + 1)
-  const int lo = blockIdx.x * kChunk;
-  const int hi = min(lo + kChunk, width);
-  for (int j = lo + threadIdx.x; j < hi; j += kThreads) {
-    if (fid == kInt8) {
-      out[j] = (uint8_t)(int8_t)round_clip(row[j] / scale, 127.f);
-    } else if (fid == kFp8) {
-      out[j] = (uint8_t)__nv_cvt_float_to_fp8(row[j] / scale, __NV_SATFINITE,
-                                              __NV_E4M3);
+  for (int gi = tid; gi < groups; gi += kQThreads) {
+    const int e0 = gi * per;                 // relative to lo
+    const int o0 = out_lo + 4 * gi;
+    uint32_t word = 0;
+    if (e0 + per <= nc) {
+      const float4* q4 = reinterpret_cast<const float4*>(sm + e0);
+      const float4 v = q4[0];
+      if (i4) {
+        const float4 w = q4[1];
+        word = quant4(v.x, v.y, scale, inv)
+               | quant4(v.z, v.w, scale, inv) << 8
+               | quant4(w.x, w.y, scale, inv) << 16
+               | quant4(w.z, w.w, scale, inv) << 24;
+      } else {
+        word = quant8(v.x, scale, inv, fid)
+               | quant8(v.y, scale, inv, fid) << 8
+               | quant8(v.z, scale, inv, fid) << 16
+               | quant8(v.w, scale, inv, fid) << 24;
+      }
     } else {
-      const int e = 2 * j;
-      const int q0 = round_clip(row[e] / scale, 7.f);
-      const int q1 = e + 1 < elems ? round_clip(row[e + 1] / scale, 7.f) : 0;
-      out[j] = (uint8_t)((q0 & 15) | ((q1 & 15) << 4));
+      // the slice's ragged end or its part past shared memory; int4 pads
+      // the element past the row with zero
+      for (int k = 0; k < 4; ++k) {
+        if (i4) {
+          const int e = e0 + 2 * k;
+          const float a = e < nc ? sm[e] : (e < n ? g[e] : 0.f);
+          const float b = e + 1 < nc ? sm[e + 1] : (e + 1 < n ? g[e + 1]
+                                                              : 0.f);
+          word |= quant4(a, b, scale, inv) << (8 * k);
+        } else {
+          const int e = e0 + k;
+          const float a = e < nc ? sm[e] : (e < n ? g[e] : 0.f);
+          word |= quant8(a, scale, inv, fid) << (8 * k);
+        }
+      }
+    }
+    uint8_t* o = out + o0;
+    if (o0 + 4 <= out_hi && (reinterpret_cast<uintptr_t>(o) & 3) == 0) {
+      *reinterpret_cast<uint32_t*>(o) = word;
+    } else {
+      for (int k = 0; k < 4 && o0 + k < out_hi; ++k)
+        o[k] = (uint8_t)(word >> (8 * k));
     }
   }
 }
@@ -138,24 +391,69 @@ dequantize_kernel(float* __restrict__ dst, const int* __restrict__ ids,
 
 extern "C" {
 
-// src (n_slots, elems) f32; ids (m,) int32 in range; absmax (m,) f32 zeroed
-// by the caller; values (m, width) bytes; scales (m,) f32.  Returns a
-// cudaError_t as int.
-int quantize_demote(const void* src, const void* ids, int m, int elems,
-                    int width, int fid, void* absmax, void* values,
-                    void* scales, void* stream) {
+// Blocks per row of quantize_demote: one block per SM over the whole
+// gather (at most kMaxGrid), at least one per row.
+int quantize_demote_blocks(int m, int sms) {
+  const int cap = sms < kMaxGrid ? sms : kMaxGrid;
+  return m > 0 && cap / m > 1 ? cap / m : 1;
+}
+
+// Bytes of quantize_demote's per-stream state, zeroed once by the caller.
+int quantize_demote_state_bytes() { return kStateWords * 8; }
+
+// src (n_slots, elems) f32; ids (m,) int32 in range on the device, or
+// null with host_ids (m <= 128 ids in host memory) passed in the launch
+// instead; state quantize_demote_state_bytes() bytes, zeroed once and then
+// used by this stream's launches only; values (m, width) bytes; scales
+// (m,) f32.  Returns a cudaError_t as int.
+int quantize_demote(const void* src, const void* ids, const int* host_ids,
+                    int m, int elems, int width, int fid, int sms,
+                    void* state, void* values, void* scales, void* stream) {
   if (m == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* id = static_cast<const int*>(ids);
-  absmax_kernel<<<dim3((elems + kChunk - 1) / kChunk, m), kThreads, 0, st>>>(
-      static_cast<const float*>(src), id, elems, static_cast<float*>(absmax));
-  cudaError_t e = cudaGetLastError();
+  if (m > 65535) return (int)cudaErrorInvalidValue;   // grid.y limit
+  RowIds by_value = {};
+  if (ids == nullptr) {
+    if (host_ids == nullptr || m > kIdsByValue)
+      return (int)cudaErrorInvalidValue;
+    for (int r = 0; r < m; ++r) by_value.id[r] = host_ids[r];
+  }
+  const int nb = quantize_demote_blocks(m, sms);
+  int slice = (elems + nb - 1) / nb;
+  slice = (slice + kSliceAlign - 1) / kSliceAlign * kSliceAlign;
+  const int cached = slice < kMaxCached ? slice : kMaxCached;
+  // once per device: shared memory past 48 KB
+  static bool ready[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  quantize_kernel<<<dim3((width + kChunk - 1) / kChunk, m), kThreads, 0,
-                    st>>>(static_cast<const float*>(src), id, elems, width,
-                          fid, static_cast<const float*>(absmax),
-                          static_cast<uint8_t*>(values),
-                          static_cast<float*>(scales));
+  if (dev < 64 && !ready[dev]) {
+    e = cudaFuncSetAttribute(quantize_rows_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)(kMaxCached * sizeof(float)));
+    if (e != cudaSuccess) return (int)e;
+    ready[dev] = true;
+  }
+  // nb * m <= sms blocks of at most 224 KiB: one per SM, all resident at
+  // once, as the grid barrier needs (a cooperative launch is refused
+  // otherwise)
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nb, m, 1);
+  cfg.blockDim = dim3(kQThreads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)cached * sizeof(float);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = nb > 1 ? 1 : 0;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, quantize_rows_kernel,
+                         static_cast<const float*>(src),
+                         static_cast<const int*>(ids), by_value, elems,
+                         width, fid, slice, cached,
+                         static_cast<uint64_t*>(state),
+                         static_cast<uint8_t*>(values),
+                         static_cast<float*>(scales));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -9,9 +9,12 @@ plain PyTorch version (``*_plain``) on the CPU.  The checks of the JAX
 wrappers are kept and raise the same exceptions: ``IndexError`` for slot
 ids out of range, ``ValueError`` for an unknown fidelity or a bad shape,
 ``TypeError`` for a pool that is not floating.  Ids may lie on the host or
-on the device; ids on the device are read back to be checked, which waits
-for the card, so the engine passes host ids.  ``scatter_blocks`` is plain
-PyTorch on any device.
+on the device.  Ids on the device are read back to be checked, which
+waits for the card, unless the caller also passes ``host_ids``, a host
+mirror of them that the checks read instead.  The gather and the
+quantize take the ids of up to ``IDS_BY_VALUE`` rows in the launch
+itself, from the host copy: no id copy to the card.  ``scatter_blocks``
+is plain PyTorch on any device.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.paged_attention.ops import sm_count
 
 #: symmetric quantization range per wire fidelity (e4m3's largest finite
 #: value is 448; int4 packs two's-complement nibbles, so +-7 keeps the
@@ -33,6 +37,10 @@ FIDELITY_QDTYPE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn,
                    "int4": torch.uint8}
 
 _FIDELITY_CODE = {"int8": 0, "fp8": 1, "int4": 2}
+
+#: quantize_blocks and gather_blocks pass the ids of up to this many rows
+#: in the launch (csrc's kIdsByValue)
+IDS_BY_VALUE = 128
 
 
 def _packed_width(elems: int, fidelity: str) -> int:
@@ -56,6 +64,23 @@ def _check_slot_ids(slot_ids, n_slots: int, what: str) -> None:
         raise IndexError(
             f"{what}: slot ids {bad.tolist()} out of range for a pool of "
             f"{n_slots} slots — refusing to drop the writes")
+
+
+def _checked_ids(slot_ids, host_ids, n_slots: int, what: str) -> np.ndarray:
+    """The ids as a flat host array, range-checked: ``host_ids`` where the
+    caller keeps a mirror of ``slot_ids`` (then device ids are not read
+    back), else ``slot_ids`` itself."""
+    if host_ids is None:
+        host = _ids_host(slot_ids).reshape(-1)
+    else:
+        host = np.asarray(host_ids).reshape(-1)
+        n = slot_ids.numel() if isinstance(slot_ids, torch.Tensor) \
+            else np.size(slot_ids)
+        if host.size != n:
+            raise ValueError(f"{what}: host_ids holds {host.size} ids for "
+                             f"{n} slot ids")
+    _check_slot_ids(host, n_slots, what)
+    return host
 
 
 def _check_fidelity(fidelity: str, what: str) -> None:
@@ -103,13 +128,30 @@ def _check_kernel_operands(what: str, pool, *tensors) -> None:
 def _kernels():
     lib = build.library("harvest_quant")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.quantize_demote.argtypes = [p, p, i, i, i, i, p, p, p, p]
+    lib.quantize_demote.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p]
     lib.quantize_demote.restype = i
+    lib.quantize_demote_state_bytes.argtypes = []
+    lib.quantize_demote_state_bytes.restype = i
     lib.dequantize_reload.argtypes = [p, p, i, i, i, i, p, p, p]
     lib.dequantize_reload.restype = i
     lib.harvest_quant_error_string.argtypes = [i]
     lib.harvest_quant_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_EXCHANGE = {}
+
+
+def _exchange_state(lib, stream) -> torch.Tensor:
+    """Where K2's blocks exchange their maxima on ``stream``: zeroed once,
+    then carried from launch to launch (each launch's epoch is one past
+    the last).  One per stream, since launches on one stream never
+    overlap."""
+    key = (stream.device, stream.cuda_stream)
+    if key not in _EXCHANGE:
+        _EXCHANGE[key] = torch.zeros((lib.quantize_demote_state_bytes(),),
+                                     dtype=torch.uint8, device=stream.device)
+    return _EXCHANGE[key]
 
 
 def _raise_on(lib, rc: int, what: str) -> None:
@@ -149,29 +191,39 @@ def quantize_blocks_plain(src_pool, slot_ids, fidelity: str = "int8"):
     return values, scales.float()
 
 
-def quantize_blocks(src_pool, slot_ids, *, fidelity: str = "int8"):
+def quantize_blocks(src_pool, slot_ids, *, fidelity: str = "int8",
+                    host_ids=None):
     """Quantize-on-demote: pack ``src_pool[slot_ids]`` into the wire
-    fidelity's ``(values (m, width), scales (m, 1) f32)`` pair."""
+    fidelity's ``(values (m, width), scales (m, 1) f32)`` pair.
+    ``host_ids``: an optional host mirror of ``slot_ids`` for the checks."""
     _check_fidelity(fidelity, "quantize_blocks")
     _check_pool(src_pool, "quantize_blocks")
-    _check_slot_ids(slot_ids, src_pool.shape[0], "quantize_blocks")
+    host = _checked_ids(slot_ids, host_ids, src_pool.shape[0],
+                        "quantize_blocks")
     if src_pool.device.type == "cpu":
         return quantize_blocks_plain(src_pool, slot_ids, fidelity)
-    ids = _ids_tensor(slot_ids, src_pool.device)
-    _check_kernel_operands("quantize_blocks", src_pool, ids)
-    m, elems = ids.shape[0], src_pool.shape[1]
+    m, elems = host.size, src_pool.shape[1]
+    # the ids ride in the launch: no id copy to the card, and no load
+    # between the launch and the rows
+    by_value = m <= IDS_BY_VALUE
+    host = np.ascontiguousarray(host, dtype=np.int32)
+    ids = None if by_value else _ids_tensor(slot_ids, src_pool.device)
+    _check_kernel_operands("quantize_blocks", src_pool,
+                           *(() if by_value else (ids,)))
     width = _packed_width(elems, fidelity)
     dev = src_pool.device
     values = torch.empty((m, width), dtype=FIDELITY_QDTYPE[fidelity],
                          device=dev)
     scales = torch.empty((m, 1), dtype=torch.float32, device=dev)
-    absmax = torch.zeros((m,), dtype=torch.float32, device=dev)
     lib = _kernels()
+    stream = torch.cuda.current_stream(dev)
     with torch.cuda.device(dev):
         rc = lib.quantize_demote(
-            src_pool.data_ptr(), ids.data_ptr(), m, elems, width,
-            _FIDELITY_CODE[fidelity], absmax.data_ptr(), values.data_ptr(),
-            scales.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            src_pool.data_ptr(), None if by_value else ids.data_ptr(),
+            host.ctypes.data if by_value else None, m, elems, width,
+            _FIDELITY_CODE[fidelity], sm_count(dev),
+            _exchange_state(lib, stream).data_ptr(), values.data_ptr(),
+            scales.data_ptr(), stream.cuda_stream)
     _raise_on(lib, rc, "quantize_blocks")
     quantize_blocks.launches += 1
     return values, scales
@@ -201,14 +253,16 @@ def dequantize_blocks_plain(dst_pool, values, scales, slot_ids,
 
 
 def dequantize_blocks(dst_pool, values, scales, slot_ids, *,
-                      fidelity: str = "int8"):
+                      fidelity: str = "int8", host_ids=None):
     """Dequantize-on-reload into ``dst_pool[slot_ids]``, in place (the
     JAX kernel aliases its output to the pool; here the pool is updated
-    where it lies).  ``slot_ids`` must be unique.  Returns ``dst_pool``."""
+    where it lies).  ``slot_ids`` must be unique.  ``host_ids``: an
+    optional host mirror of ``slot_ids`` for the checks.  Returns
+    ``dst_pool``."""
     _check_fidelity(fidelity, "dequantize_blocks")
     _check_pool(dst_pool, "dequantize_blocks")
-    _check_slot_ids(slot_ids, dst_pool.shape[0], "dequantize_blocks")
-    host_ids = _ids_host(slot_ids).reshape(-1)
+    host_ids = _checked_ids(slot_ids, host_ids, dst_pool.shape[0],
+                            "dequantize_blocks")
     m = host_ids.shape[0]
     elems = dst_pool.shape[1]
     width = _packed_width(elems + (elems % 2 if fidelity == "int4" else 0),
@@ -260,7 +314,7 @@ dequantize_blocks.launches = 0
 def _movers():
     lib = build.library("harvest_copy")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.harvest_gather_rows.argtypes = [p, p, p, i, ll, p]
+    lib.harvest_gather_rows.argtypes = [p, p, p, p, i, ll, ll, p]
     lib.harvest_gather_rows.restype = i
     lib.harvest_copy_rows.argtypes = [p, p, p, p, i, ll, p]
     lib.harvest_copy_rows.restype = i
@@ -283,13 +337,23 @@ def gather_blocks_plain(src_pool, slot_ids, out=None):
     return rows if out is None else out.copy_(rows)
 
 
-def gather_blocks(src_pool, slot_ids, out=None):
-    """Gather rows ``slot_ids`` of ``src_pool`` (any dtype) into a dense
-    (m, block_elems) staging buffer: a new one, or ``out``, which must be
-    contiguous and of the pool's dtype and device.  Returns the buffer."""
+def _rows_contiguous(t) -> bool:
+    """Each row of the 2-D ``t`` is contiguous and the rows do not overlap
+    (they may lie further apart: a half of the engine's payload)."""
+    m, w = t.shape
+    return (w <= 1 or t.stride(1) == 1) and (m <= 1 or t.stride(0) >= w)
+
+
+def gather_blocks(src_pool, slot_ids, out=None, *, host_ids=None):
+    """Gather rows ``slot_ids`` of ``src_pool`` (any dtype) into an
+    (m, block_elems) staging buffer: a new one, or ``out``, of the pool's
+    dtype and device, whose rows must each be contiguous but may lie
+    further apart.  ``host_ids``: an optional host mirror of ``slot_ids``
+    for the checks.  Returns the buffer."""
     _check_rows(src_pool, "gather_blocks")
-    _check_slot_ids(slot_ids, src_pool.shape[0], "gather_blocks")
-    m = _ids_host(slot_ids).size
+    host = _checked_ids(slot_ids, host_ids, src_pool.shape[0],
+                        "gather_blocks")
+    m = host.size
     if out is not None:
         if tuple(out.shape) != (m, src_pool.shape[1]) \
                 or out.dtype != src_pool.dtype:
@@ -297,23 +361,34 @@ def gather_blocks(src_pool, slot_ids, out=None):
                 f"gather_blocks: out is {out.dtype} {tuple(out.shape)}, "
                 f"the gather gives {src_pool.dtype} "
                 f"{(m, src_pool.shape[1])}")
-        if not out.is_contiguous():
-            raise ValueError("gather_blocks: out must be contiguous")
+        if not _rows_contiguous(out):
+            raise ValueError("gather_blocks: out's rows must be contiguous "
+                             "and must not overlap")
     if src_pool.device.type == "cpu":
         return gather_blocks_plain(src_pool, slot_ids, out)
     dev = src_pool.device
-    ids = _ids_tensor(slot_ids, dev)
+    # the ids ride in the launch: no id copy to the card, and no load
+    # between the launch and the rows
+    by_value = m <= IDS_BY_VALUE
+    host = np.ascontiguousarray(host, dtype=np.int32)
+    ids = None if by_value else _ids_tensor(slot_ids, dev)
     if out is None:
-        out = torch.empty((ids.shape[0], src_pool.shape[1]),
-                          dtype=src_pool.dtype, device=dev)
-    _check_device_operands("gather_blocks", dev, src_pool, ids, out)
+        out = torch.empty((m, src_pool.shape[1]), dtype=src_pool.dtype,
+                          device=dev)
+    _check_device_operands("gather_blocks", dev, src_pool,
+                           *(() if by_value else (ids,)))
+    if out.device != dev:
+        raise ValueError(f"gather_blocks: every operand must be on {dev}")
     if out.numel() == 0:
         return out
+    row_bytes = src_pool.shape[1] * src_pool.element_size()
+    stride = out.stride(0) * out.element_size() if m > 1 else row_bytes
     with torch.cuda.device(dev):
         _launch_mover("gather_blocks", _movers().harvest_gather_rows,
-                      src_pool.data_ptr(), ids.data_ptr(), out.data_ptr(),
-                      ids.shape[0],
-                      src_pool.shape[1] * src_pool.element_size())
+                      src_pool.data_ptr(),
+                      None if by_value else ids.data_ptr(),
+                      host.ctypes.data if by_value else None,
+                      out.data_ptr(), m, row_bytes, stride)
     gather_blocks.launches += 1
     return out
 

@@ -635,6 +635,12 @@ class HarvestServingEngine:
             # covers every layer
             self._layer_rows = np.arange(self.L_kv, dtype=np.int32) \
                 * self.n_slots
+            # the one-row id of _degrade's flat payload on the device (for
+            # K3), and its host mirror (the checks; K2 takes it in the
+            # launch)
+            self._row0 = torch.zeros((1,), dtype=torch.int32,
+                                     device=self.device)
+            self._row0_host = np.zeros((1,), np.int32)
         else:
             self.pool_k = self.pool_v = None
         self.slot_req = np.full((self.n_slots,), -1, np.int32)
@@ -783,10 +789,13 @@ class HarvestServingEngine:
         reads back exactly the dequantized values and quantized-class
         decodes genuinely run on reduced-precision KV."""
         flat = data.reshape(1, -1).float().contiguous()
-        ids = torch.zeros((1,), dtype=torch.int32, device=flat.device)
-        values, scales = quantize_blocks(flat, ids, fidelity=fid.value)
-        deg = dequantize_blocks(torch.zeros_like(flat), values, scales, ids,
-                                fidelity=fid.value)
+        ids, host = self._row0, self._row0_host
+        values, scales = quantize_blocks(flat, ids, fidelity=fid.value,
+                                         host_ids=host)
+        # K3 writes every element of its destination rows, and the one row
+        # here is the whole tensor: nothing of empty_like's bytes survives
+        deg = dequantize_blocks(torch.empty_like(flat), values, scales, ids,
+                                fidelity=fid.value, host_ids=host)
         return deg.reshape(data.shape).to(data.dtype)
 
     # ----------------------------------------------------------- payload
@@ -804,22 +813,30 @@ class HarvestServingEngine:
                                   (self.pool_v, v_src)):
             copy_blocks(rows, self._rows(pool), ids, dst)
 
+    def _evict_payload(self, slot, fid: Optional[Fidelity]) -> np.ndarray:
+        """Every layer's k and v of pool ``slot`` as the host payload
+        (L_kv, 2, bs, nkv, hd), round-tripped through ``fid``'s wire
+        format when it is quantized."""
+        # K6 gathers k and v straight into the two halves of one contiguous
+        # (L_kv, 2, ...) payload, the row ids riding in its launch: no id
+        # copy, no transpose, no copy behind .cpu() or _degrade's reshape
+        data = self.pool_k.new_empty((self.L_kv, 2) + self.pool_k.shape[2:])
+        ids = self._layer_rows + slot
+        for h, p in enumerate((self.pool_k, self.pool_v)):
+            gather_blocks(self._rows(p), ids,
+                          out=data[:, h].view(self.L_kv, -1))
+        if fid is not None and fid.is_quantized:
+            data = self._degrade(data, fid)
+        return data.cpu().numpy()
+
     def _on_evict(self, bid, slot):
         if self.prefetcher is not None:
             self.prefetcher.on_evict(bid)
         if self.pool_k is None:
             return
-        # K6 gathers k and v straight into one (2, L_kv, ...) buffer; the
-        # payload is laid out (L_kv, 2, ...), k and v layer by layer
-        ids = self._layer_rows + slot
-        buf = self.pool_k.new_empty((2, self.L_kv) + self.pool_k.shape[2:])
-        for p, half in zip((self.pool_k, self.pool_v), buf):
-            gather_blocks(self._rows(p), ids, out=half.view(self.L_kv, -1))
-        data = buf.transpose(0, 1)
         ent = self.kv_mgr.table.get(bid)
-        if ent is not None and ent.fidelity.is_quantized:
-            data = self._degrade(data, ent.fidelity)
-        self.kv_mgr.write_payload(*bid, data.cpu().contiguous().numpy())
+        self.kv_mgr.write_payload(*bid, self._evict_payload(
+            slot, ent.fidelity if ent is not None else None))
         self.slot_req[slot] = -1
 
     def _on_reload(self, bid, slot):

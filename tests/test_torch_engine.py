@@ -310,3 +310,22 @@ def test_port_imports_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=str(src)))
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_smoke_and_tools_import_neither_jax_nor_repro():
+    """``chip_smoke.py`` and the timing tools run on a machine without JAX:
+    none of them may import jax, ml_dtypes or the JAX package."""
+    import ast
+    root = Path(__file__).resolve().parent.parent
+    files = [root / "chip_smoke.py", *sorted((root / "tools").glob("*.py"))]
+    assert len(files) >= 3, files
+    for f in files:
+        names = set()
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                names.update(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names.add(node.module)
+        bad = sorted(n for n in names if n.split(".")[0] in
+                     ("jax", "jaxlib", "ml_dtypes", "repro"))
+        assert not bad, (f.name, bad)

@@ -475,3 +475,66 @@ def test_gather_blocks_into_out_matches_pallas(dtype):
                 torch.empty((37, 3), dtype=tsrc.dtype).t()):
         with pytest.raises(ValueError):
             hops.gather_blocks(tsrc, ids, out=bad)
+
+
+PAYLOAD_DTYPES = {"float32": (jnp.float32, torch.float32),
+                  "bfloat16": (jnp.bfloat16, torch.bfloat16),
+                  "int8": (jnp.int8, torch.int8)}
+
+
+@pytest.mark.parametrize("dtype", sorted(PAYLOAD_DTYPES))
+@pytest.mark.parametrize("elems", [37, 64])
+def test_gather_blocks_into_strided_payload_matches_pallas(dtype, elems):
+    """The engine's eviction: k and v of one slot's every layer gathered
+    into the two halves ``payload[:, 0]`` and ``payload[:, 1]`` of one
+    (L, 2, ...) buffer, strided views of it, with the ids as a tensor and
+    their host mirror; each half bit-identical to the Pallas gather."""
+    jdt, tdt = PAYLOAD_DTYPES[dtype]
+    L, n_slots, slot = 3, 5, 2
+    rng = np.random.default_rng(24)
+    pools = [np.clip(rng.normal(size=(L * n_slots, elems)) * 40, -127, 127)
+             for _ in range(2)]
+    host = np.arange(L, dtype=np.int32) * n_slots + slot
+    payload = torch.full((L, 2, elems), 7, dtype=tdt)
+    for h, pool in enumerate(pools):
+        out = payload[:, h]
+        assert not out.is_contiguous()
+        got = hops.gather_blocks(torch.from_numpy(pool).to(tdt),
+                                 torch.from_numpy(host), out=out,
+                                 host_ids=host)
+        assert got is out
+        ref = pallas_gather(jnp.asarray(pool, jdt), jnp.asarray(host),
+                            chunk=16, interpret=True)
+        assert _same_bits(payload[:, h], ref)
+    bad = torch.empty((elems + 2,), dtype=tdt).as_strided((L, elems), (1, 1))
+    with pytest.raises(ValueError, match="overlap"):
+        hops.gather_blocks(torch.from_numpy(pools[0]).to(tdt), host, out=bad)
+
+
+def test_host_mirror_is_what_the_checks_read():
+    """With ``host_ids`` the wrappers check the mirror, not the ids: an
+    out-of-range id in the mirror raises IndexError, a mirror of another
+    size ValueError; with a true mirror every result is the one without."""
+    src = _pool(25, 6, 40, zero_row=1)
+    tsrc = torch.from_numpy(src)
+    ids = torch.tensor([1, 4, 0], dtype=torch.int32)
+    host = ids.numpy().copy()
+    gv, gs = hops.quantize_blocks(tsrc, ids, fidelity="int4", host_ids=host)
+    v, s = hops.quantize_blocks(tsrc, ids, fidelity="int4")
+    assert torch.equal(gv, v) and torch.equal(gs, s)
+    got = hops.dequantize_blocks(tsrc.clone(), v, s, ids, fidelity="int4",
+                                 host_ids=host)
+    assert torch.equal(got, hops.dequantize_blocks(tsrc.clone(), v, s, ids,
+                                                   fidelity="int4"))
+    assert torch.equal(hops.gather_blocks(tsrc, ids, host_ids=host),
+                       hops.gather_blocks(tsrc, ids))
+    for mirror, exc in (([1, 6, 0], IndexError), ([1, -1, 0], IndexError),
+                        ([1, 4], ValueError)):
+        mirror = np.asarray(mirror, np.int32)
+        with pytest.raises(exc):
+            hops.gather_blocks(tsrc, ids, host_ids=mirror)
+        with pytest.raises(exc):
+            hops.quantize_blocks(tsrc, ids, host_ids=mirror)
+        with pytest.raises(exc):
+            hops.dequantize_blocks(tsrc.clone(), v, s, ids,
+                                   fidelity="int4", host_ids=mirror)

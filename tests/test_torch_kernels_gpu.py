@@ -150,8 +150,11 @@ def _pool(seed, n_slots, elems, zero_row=None):
 
 
 @pytest.mark.parametrize("fidelity", ["int8", "fp8", "int4"])
-@pytest.mark.parametrize("elems", [37, 262_144])
+@pytest.mark.parametrize("elems", [37, 262_144, 737_280, 786_432,
+                                   1_048_576])
 def test_quant_kernels_bit_identical_to_plain(cuda, fidelity, elems):
+    """Three rows, one all zero, at an odd width, the demoted blocks of
+    yi-6b, h2o-danube-3-4b and qwen2-moe, and a 4 MiB row."""
     src = _pool(12, 5, elems, zero_row=2)
     ids = np.asarray([2, 4, 0], np.int32)
     tv, ts = hops.quantize_blocks(torch.from_numpy(src), ids,
@@ -167,6 +170,48 @@ def test_quant_kernels_bit_identical_to_plain(cuda, fidelity, elems):
     got = hops.dequantize_blocks(torch.from_numpy(dst).to(cuda), gv, gs,
                                  dst_ids, fidelity=fidelity)
     assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("fidelity", ["int8", "fp8", "int4"])
+def test_quant_kernel_many_rows_bit_identical_to_plain(cuda, fidelity):
+    """More rows than half the card's SMs: K2 gives each block a whole row
+    (no grid barrier), with odd widths, ragged 4-byte groups and an
+    all-zero row among 300 gathered in shuffled order."""
+    src = _pool(21, 320, 301, zero_row=7)
+    ids = np.random.default_rng(22).permutation(320)[:300].astype(np.int32)
+    ids[0] = 7
+    tv, ts = hops.quantize_blocks(torch.from_numpy(src), ids,
+                                  fidelity=fidelity)
+    gv, gs = hops.quantize_blocks(torch.from_numpy(src).to(cuda), ids,
+                                  fidelity=fidelity)
+    assert torch.equal(gv.cpu().view(torch.uint8), tv.view(torch.uint8))
+    assert torch.equal(gs.cpu(), ts)
+
+
+#: f32 of one block's slice that K2 keeps in shared memory (csrc's
+#: kMaxCached)
+K2_CACHED_ELEMS = 57_344
+
+
+@pytest.mark.parametrize("fidelity", ["int8", "fp8", "int4"])
+@pytest.mark.parametrize("m,elems", [(200, 60_001), (3, 3_000_000)])
+def test_quant_kernel_rows_past_shared_memory_bit_identical_to_plain(
+        cuda, fidelity, m, elems):
+    """Slices longer than K2 keeps on chip, whose rest it reads again from
+    device memory to quantize: a whole odd row per block (200 rows, no
+    exchange, 4-byte loads) and a row spread over the card (3 rows, the
+    exchange, bulk copies), each with an all-zero row."""
+    lib = hops._kernels()
+    nb = lib.quantize_demote_blocks(m, hops.sm_count(cuda))
+    assert -(-elems // nb) > K2_CACHED_ELEMS, nb
+    src = _pool(25, m + 2, elems, zero_row=m // 2)
+    ids = np.random.default_rng(26).permutation(m + 2)[:m].astype(np.int32)
+    tv, ts = hops.quantize_blocks(torch.from_numpy(src), ids,
+                                  fidelity=fidelity)
+    gv, gs = hops.quantize_blocks(torch.from_numpy(src).to(cuda), ids,
+                                  fidelity=fidelity)
+    assert torch.equal(gv.cpu().view(torch.uint8), tv.view(torch.uint8))
+    assert torch.equal(gs.cpu(), ts)
 
 
 def test_kernel_wrappers_raise_on_cuda(cuda):
@@ -231,6 +276,68 @@ def test_gather_blocks_into_out_on_cuda(cuda):
     assert hops.gather_blocks.launches == before + 1
     assert torch.equal(buf[1].cpu(), hops.gather_blocks_plain(src, ids))
     assert torch.all(buf[0] == 7.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+@pytest.mark.parametrize("elems", [37, 16_384, 15_360])
+def test_gather_blocks_into_strided_payload_on_cuda(cuda, dtype, elems):
+    """The engine's eviction: k and v gathered into the two halves of one
+    (L, 2, elems) payload (strided views), with device ids and their host
+    mirror; bit for bit, one launch each, no byte of the buffer left
+    unwritten.  Odd widths take the narrow vectors, rows of whole 16-byte
+    vectors the wide ones."""
+    rng = np.random.default_rng(19)
+    L, n_slots, slot = 6, 9, 4
+    pools = [torch.from_numpy(rng.normal(size=(L * n_slots, elems)) * 40)
+             .to(dtype) for _ in range(2)]
+    host = np.arange(L, dtype=np.int32) * n_slots + slot
+    ids = torch.from_numpy(host).to(cuda)
+    payload = torch.full((L, 2, elems), 7, dtype=dtype, device=cuda)
+    before = hops.gather_blocks.launches
+    for h, pool in enumerate(pools):
+        hops.gather_blocks(pool.to(cuda), ids, out=payload[:, h],
+                           host_ids=host)
+    torch.cuda.synchronize()
+    assert hops.gather_blocks.launches == before + 2
+    for h, pool in enumerate(pools):
+        assert torch.equal(payload[:, h].cpu(),
+                           hops.gather_blocks_plain(pool, host))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_gather_blocks_many_rows_device_ids_on_cuda(cuda, dtype):
+    """Past the rows whose ids ride in the launch, K6 reads them from the
+    device: 300 rows, repeated ids, into a strided out."""
+    rng = np.random.default_rng(23)
+    src = torch.from_numpy(rng.normal(size=(50, 96)) * 40).to(dtype)
+    ids = rng.integers(0, 50, size=300).astype(np.int32)
+    assert ids.size > hops.IDS_BY_VALUE
+    buf = torch.zeros((300, 2, 96), dtype=dtype, device=cuda)
+    hops.gather_blocks(src.to(cuda), torch.from_numpy(ids).to(cuda),
+                       out=buf[:, 1], host_ids=ids)
+    assert torch.equal(buf[:, 1].cpu(), hops.gather_blocks_plain(src, ids))
+    assert torch.all(buf[:, 0] == 0)
+
+
+def test_host_mirror_out_of_range_raises_on_cuda(cuda):
+    """The range checks read the host mirror: an id out of range there
+    raises IndexError before any launch, whatever the device ids hold."""
+    pool = torch.from_numpy(_pool(20, 6, 64)).to(cuda)
+    ids = torch.tensor([0, 2], dtype=torch.int32, device=cuda)
+    v, s = hops.quantize_blocks(pool, ids, host_ids=np.asarray([0, 2]))
+    launches = (hops.gather_blocks.launches, hops.quantize_blocks.launches,
+                hops.dequantize_blocks.launches)
+    for mirror in (np.asarray([0, 6]), np.asarray([-1, 2])):
+        with pytest.raises(IndexError):
+            hops.gather_blocks(pool, ids, host_ids=mirror)
+        with pytest.raises(IndexError):
+            hops.quantize_blocks(pool, ids, host_ids=mirror)
+        with pytest.raises(IndexError):
+            hops.dequantize_blocks(pool, v, s, ids, host_ids=mirror)
+    assert launches == (hops.gather_blocks.launches,
+                        hops.quantize_blocks.launches,
+                        hops.dequantize_blocks.launches)
 
 
 def test_movers_raise_on_cuda(cuda):
