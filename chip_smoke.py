@@ -17,11 +17,12 @@ Phases (any failure raises and the script exits non-zero):
      and 6,000-token prompts, with a sliding window, an attention chunk and
      a logit softcap, in bf16 on the tensor cores and f32 on the CUDA
      cores, the kernel that ran read from the trace; quantize-on-demote and
-     dequantize-on-reload at each path's demoted block, one quantize call's
-     trace holding its one kernel and nothing else; the block movers as the
-     engine calls them (the gather's ids in its launch, the copy's copied
-     to the card), split into their kernels' own time and their ids'
-     host-to-device copies, beside the library calls with device ids and
+     dequantize-on-reload on f32, bf16 and f16 pools, timed at each path's
+     demoted block, one quantize call's trace holding its one kernel and
+     nothing else, the dequantize's kernel alone and as the engine calls
+     it; the block movers as the engine calls them (the ids in their
+     launches), split into their kernels' own time and any host-to-device
+     copy of their ids (none), beside the library calls with device ids and
      with host ids; the expert FFN at a decode and a prefill shape, with
      the experts it skipped for want of a token counted on the card);
   4. reduced yi-6b, qwen2-moe, h2o-danube-3-4b (prompts past its 64-token
@@ -43,8 +44,9 @@ Phases (any failure raises and the script exits non-zero):
      cold, cycling through the layers' pools, and on one layer's pool),
      one eviction of the served engine profiled (the gather and the
      quantized round trip only: no id copied to the card, no copy of the
-     payload on it), and one 6,000-token prefill profiled for prefill
-     attention's share;
+     payload on it), one reload (the payload's copy to the card and the
+     copy kernel, no id copied), and one 6,000-token prefill profiled for
+     prefill attention's share;
 then the card's name and power limit, one JSON line of per-kernel
 numbers, and the JSON result line.  The launch counts are set to 0 just
 before each path and read just after it.  It imports neither JAX nor the
@@ -397,32 +399,39 @@ def check_quant(paths):
     (one all zero) at an odd width, at each (cfg, bs) path's full-width
     demoted block and at a 4 MiB row; slices longer than K2 keeps in
     shared memory, a whole odd row per block (200 rows of 60,001) and a
-    row spread over the card (3 rows of 3,000,000); out-of-range ids
-    raising; values, scales and pools bit for bit.  Then both timed at
-    each path's block as _degrade calls them (one row; device ids with
-    their host mirror), a trace of one K2 call showing its one kernel and
-    nothing else.  The kernels line keeps the first path's numbers and
-    every path's under ``by_shape``."""
+    row spread over the card (3 rows of 3,000,000); 300 rows, whose ids
+    K3 reads from a device table; the odd width and the paths' blocks
+    again on bf16 and f16 pools; out-of-range ids raising; values, scales
+    and pools bit for bit.  Then both timed at each path's block as
+    _degrade calls them (one row; device ids with their host mirror), a
+    trace of one K2 call showing its one kernel and nothing else, K3 split
+    into its kernel's own device time and any copy of its ids to the card
+    (none).  The kernels line keeps the first path's numbers and every
+    path's under ``by_shape``."""
     rng = np.random.default_rng(SEED + 1)
     err = {"quantize_demote": 0.0, "dequantize_reload": 0.0}
-    cases = [(3, w) for w in (37, *(block_elems(c, b) for c, b in paths),
-                              1_048_576)] + [(200, 60_001), (3, 3_000_000)]
-    for m, width in cases:
+    widths = (37, *(block_elems(c, b) for c, b in paths))
+    cases = [(3, w, torch.float32) for w in (*widths, 1_048_576)] \
+        + [(200, 60_001, torch.float32), (3, 3_000_000, torch.float32),
+           (300, 1_024, torch.float32)] \
+        + [(3, w, dt) for dt in (torch.bfloat16, torch.float16)
+           for w in widths]
+    for m, width, dtype in cases:
         src = (rng.normal(size=(m + 3, width))
                * rng.uniform(0.01, 30, size=(m + 3, 1))).astype(np.float32)
         src[3] = 0.0
         ids = rng.permutation(m + 3)[:m].astype(np.int32)
         ids[0] = 3
-        src_t = torch.from_numpy(src).cuda()
+        src_t = torch.from_numpy(src).to(dtype).cuda()
         dst = torch.from_numpy(rng.normal(size=(m + 4, width)).astype(
-            np.float32)).cuda()
+            np.float32)).to(dtype).cuda()
         dids = rng.permutation(m + 4)[:m].astype(np.int32)
         for fid in ("int8", "fp8", "int4"):
             pv, ps = hops.quantize_blocks_plain(src_t, ids, fid)
             gv, gs = hops.quantize_blocks(src_t, ids, fidelity=fid)
             assert torch.equal(gv.view(torch.uint8), pv.view(torch.uint8)), \
-                (fid, m, width)
-            assert torch.equal(gs, ps), (fid, m, width)
+                (fid, m, width, dtype)
+            assert torch.equal(gs, ps), (fid, m, width, dtype)
             err["quantize_demote"] = max(
                 err["quantize_demote"],
                 (gv.float() - pv.float()).abs().max().item(),
@@ -430,9 +439,10 @@ def check_quant(paths):
             ref = hops.dequantize_blocks_plain(dst.clone(), pv, ps, dids, fid)
             got = hops.dequantize_blocks(dst.clone(), gv, gs, dids,
                                          fidelity=fid)
-            assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+            assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8)), \
+                (fid, m, width, dtype)
             err["dequantize_reload"] = max(err["dequantize_reload"],
-                                           (got - ref).abs().max().item())
+                                           _max_err(got, ref))
         del src_t, dst
     src = torch.zeros((4, 16), device="cuda")
     for call in (lambda: hops.quantize_blocks(src, np.asarray([0, 4])),
@@ -482,6 +492,17 @@ def check_quant(paths):
         assert len(rows) == 1 and "quantize_rows_kernel" in rows[0][0], rows
         print(f"  quantize_demote at {cfg.name}: one call's trace "
               f"{[(n[:50], round(t, 6)) for n, t in rows]}")
+        # K3 as _degrade calls it: its kernel's own rows and any
+        # host-to-device copy of its ids (none: they ride in the launch)
+        for _ in range(5):
+            dequant()
+        rows = traced_rows(dequant, 200)
+        k3_own = sum(t for n, t in rows if "dequantize_kernel" in n)
+        k3_h2d = sum(t for n, t in rows if "HtoD" in n)
+        assert k3_own > 0 and k3_h2d == 0 and len(rows) == 1, rows
+        print(f"  dequantize_reload at {cfg.name}: kernel {k3_own:.5f} ms "
+              f"device + ids host-to-device {k3_h2d:.5f} = "
+              f"{sum(t for _, t in rows):.5f} per call as _degrade makes it")
         for fn_k, fn_p, nbytes, name in (
             (quant, lambda: hops.quantize_blocks_plain(pool, ids()[0],
                                                        "int8"),
@@ -499,6 +520,8 @@ def check_quant(paths):
             by_shape[name][cfg.name] = dict(
                 elems=elems, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
+        by_shape["dequantize_reload"][cfg.name].update(
+            kernel_ms=k3_own, ids_h2d_ms=k3_h2d)
         del pool, dst
     out = []
     for name, line in (("quantize_demote", 199), ("dequantize_reload", 246)):
@@ -529,11 +552,13 @@ def check_movers(configs):
     every layer (L_kv rows of bs * nkv * hd f32), for each (cfg, bs) of
     ``configs``.  There both are held to their plain versions bit for bit
     on the first, second and last slot of the timing loop, and then timed
-    like for like: each wrapper as the engine calls it, K6 with host ids
-    (they ride in its launch) into one half of an (L, 2, ...) payload, K5
-    with host ids copied to the card, split into its kernel's own device
-    time and the ids' host-to-device copies (K6 must have none); the
-    library calls with device ids and again with host ids.  The kernels
+    like for like: each wrapper as the engine calls it, with host ids
+    (they ride in both kernels' launches), K6 into one half of an (L, 2,
+    ...) payload, K5 from a staging pool of k and v rows, split into the
+    kernel's own device time and any host-to-device copy of its ids (there
+    must be none); the library calls with device ids and again with host
+    ids.  Past the rows whose ids ride in the launch (300 rows), both read
+    them from a device table, bit for bit.  The kernels
     line keeps the last shape's numbers, ``ms`` the kernel's own and
     ``library_ms`` the library's with device ids, and every shape's under
     ``by_shape``."""
@@ -555,12 +580,20 @@ def check_movers(configs):
             hops.copy_blocks(pool, pool, [0, 1], [5, 6])
             assert torch.equal(pool, hops.copy_blocks_plain(
                 src, src.clone(), [0, 1], [5, 6]))
-    # past the rows whose ids ride in the launch, K6 reads them from the
-    # card
+    # past the rows whose ids ride in the launch, K6 and K5 read them from
+    # the card
     src = torch.from_numpy(rng.normal(size=(50, 96)).astype(np.float32))
     ids = rng.integers(0, 50, size=300).astype(np.int32)
     assert torch.equal(hops.gather_blocks(src.cuda(), torch.from_numpy(
         ids).cuda(), host_ids=ids).cpu(), hops.gather_blocks_plain(src, ids))
+    src = torch.from_numpy(rng.normal(size=(700, 96)).astype(np.float32))
+    perm = rng.permutation(700).astype(np.int32)
+    sids, dids = perm[:300], perm[300:600]
+    ref = hops.copy_blocks_plain(src, src.clone(), sids, dids)
+    pool = src.cuda()         # one pool, disjoint rows
+    assert torch.equal(hops.copy_blocks(pool, pool, sids, dids).cpu(), ref)
+    assert torch.equal(hops.copy_blocks(src.cuda(), src.cuda(), sids,
+                                        dids).cpu(), ref)
     pool = torch.zeros((4, 16), device="cuda")
     for call in (lambda: hops.gather_blocks(pool, np.asarray([0, 4])),
                  lambda: hops.copy_blocks(pool, pool.clone(), [0], [-1])):
@@ -602,7 +635,7 @@ def check_movers(configs):
             return nxt[0]
 
         def host(ids, dtype=torch.int32):
-            # ids from the host, copied as the kernels' wrappers copy them
+            # ids from the host, copied to the card for the library call
             return torch.as_tensor(ids).to(device="cuda", dtype=dtype)
 
         row_bytes = 4 * elems
@@ -648,15 +681,14 @@ def check_movers(configs):
         for name, line, kname, fn_k, fn_p, lib, fn_dev, fn_host, nbytes \
                 in cases:
             # the wrapper as the engine calls it: its kernel's own rows of
-            # the trace, and the host-to-device copies of its ids
+            # the trace, and any host-to-device copy of its ids
             ms_wall = time_ms(fn_k, 200)[1]
             rows = traced_rows(fn_k, 200)
             call_ms = sum(t for _, t in rows)
             own = sum(t for n, t in rows if kname in n)
             h2d = sum(t for n, t in rows if "HtoD" in n)
             rest = [n for n, t in rows if kname not in n and "HtoD" not in n]
-            assert own > 0 and not rest, rows
-            assert name != "gather_blocks" or h2d == 0, rows
+            assert own > 0 and not rest and h2d == 0, rows
             plain_ms, _ = time_ms(fn_p, 100)
             library_ms, _ = time_ms(fn_dev, 200)
             library_host_ms, _ = time_ms(fn_host, 200)
@@ -1183,6 +1215,26 @@ def profile_eviction(eng):
                                     for n, _ in rows), rows
 
 
+def profile_reload(eng):
+    """One reload's device rows as the engine's ``_on_reload`` makes them
+    (its three lines repeated here on a full-fidelity payload of slot 0):
+    the payload's copy from pageable host memory to a staging tensor on
+    the card, then K5 once per pool, with no copy of its ids."""
+    payload = eng._evict_payload(0, None)
+    k_ids = 2 * np.arange(eng.L_kv, dtype=np.int32)
+
+    def reload():
+        staging = torch.from_numpy(np.ascontiguousarray(payload)).to(
+            eng.device, eng.pool_k.dtype).view(2 * eng.L_kv, -1)
+        eng._copy_slot((staging, k_ids), (staging, k_ids + 1), 0)
+
+    rows = traced_rows(reload, 5)
+    print(f"  reload of {payload.nbytes} B, device ms per call: "
+          f"{[(n[:40], round(t, 6)) for n, t in rows]}")
+    assert {("copy_rows_kernel" in n) + 2 * ("HtoD" in n) for n, _ in rows} \
+        == {1, 2}, rows
+
+
 def main_path(arch, bs, kernels_of_path, *, num_requests=6, local_slots=10,
               peer_blocks=6, max_batch=4, prompt=(5, 40),
               profile_pos=(41, 24, 33, 17), profile_slots=20,
@@ -1192,7 +1244,8 @@ def main_path(arch, bs, kernels_of_path, *, num_requests=6, local_slots=10,
     path must have launched.  Then profile one decode step (rows at
     ``profile_pos`` over ``profile_slots`` slots) and, given
     ``prefill_tokens``, one prefill of that length and K1 at the profiled
-    pool; given ``profile_evict``, one eviction of the served engine.
+    pool; given ``profile_evict``, one eviction and one reload of the
+    served engine.
     Returns (launch counts, K1's numbers at that pool or None); the
     weights are freed on return."""
     full = get_config(arch)
@@ -1243,8 +1296,9 @@ def main_path(arch, bs, kernels_of_path, *, num_requests=6, local_slots=10,
           f"{stats.clock_s * 1e3:.4f} ms, "
           f"{stats.tokens_out / stats.clock_s:.0f} tokens/s")
     if profile_evict:
-        print(f"{arch}: one eviction profiled")
+        print(f"{arch}: one eviction and one reload profiled")
         profile_eviction(eng)
+        profile_reload(eng)
     del server, eng
     step_ms, busy_ms, top, pools = profile_decode_step(
         full, params, bs, profile_pos, profile_slots)

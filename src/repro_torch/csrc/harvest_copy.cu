@@ -34,73 +34,120 @@
 //
 // Design of copy_rows: the Pallas grid is (rows, chunks of 512 elements),
 // one step after another.  Here every (row, chunk) is its own thread block,
-// all in flight at once: a chunk is 16 KiB, moved in the widest vector (16
-// down to 1 bytes) that the row size and both base addresses allow,
-// neighbouring threads on neighbouring addresses.  A block reads its row id
-// itself (the TPU kernel's scalar prefetch).
+// all in flight at once, as in gather_rows: each thread issues all of its
+// loads (up to four vectors, 16 down to 1 bytes as the row size and both
+// base addresses allow, neighbouring threads on neighbouring addresses)
+// before any of its stores.  The chunk shrinks until the rows fill a wave
+// of blocks (one block per SM at least): 4 KiB at yi-6b's 16 KiB rows, 8
+// KiB at qwen2-moe's and h2o-danube-3-4b's 60-64 KiB.  The (src, dst) id
+// pairs of up to 128 rows ride in the launch (1 KiB of parameters, taken
+// from the host arrays the engine holds): no id copy to the card, and no
+// load between the launch and the row.  More rows read one device table
+// of src ids then dst ids in the same kernel.  Loads before stores are
+// safe with src and dst one pool because the caller refuses a row that is
+// both read and written.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr long long kChunkBytes = 16 * 1024;
+constexpr int kIdsByValue = 128;       // rows whose ids may ride in the launch
 
+// ---- copy_rows ----
+
+constexpr int kCopyThreads = 256;
+constexpr int kCopyUnroll = 4;         // vectors a thread may hold in flight
+
+// (src, dst) row id pairs passed in the launch itself
+struct RowPairs {
+  int src[kIdsByValue];
+  int dst[kIdsByValue];
+};
+
+// block (c, i) moves chunk c (kCopyThreads * unroll vectors) of row i,
+// from src row ids[i] to dst row ids[m + i] (by_value's where ids is
+// null): each thread loads its up to kCopyUnroll vectors before it stores
+// any
 template <typename V>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kCopyThreads)
 copy_rows_kernel(const V* __restrict__ src, V* __restrict__ dst,
-                 const int* __restrict__ src_ids,
-                 const int* __restrict__ dst_ids, long long row_vecs,
-                 long long chunk_vecs) {
+                 const int* __restrict__ ids,
+                 const __grid_constant__ RowPairs by_value, int m,
+                 int unroll, long long row_vecs) {
   const int i = blockIdx.y;
-  const V* s = src + (long long)src_ids[i] * row_vecs;
-  V* o = dst + (long long)(dst_ids ? dst_ids[i] : i) * row_vecs;
-  const long long lo = (long long)blockIdx.x * chunk_vecs;
-  const long long hi = lo + chunk_vecs < row_vecs ? lo + chunk_vecs : row_vecs;
-  for (long long v = lo + threadIdx.x; v < hi; v += kThreads) o[v] = s[v];
+  const V* s = src + (long long)(ids ? ids[i] : by_value.src[i]) * row_vecs;
+  V* o = dst + (long long)(ids ? ids[m + i] : by_value.dst[i]) * row_vecs;
+  const long long lo = (long long)blockIdx.x * kCopyThreads * unroll
+                       + threadIdx.x;
+  V v[kCopyUnroll];
+#pragma unroll
+  for (int u = 0; u < kCopyUnroll; ++u) {
+    const long long k = lo + (long long)u * kCopyThreads;
+    if (u < unroll && k < row_vecs) v[u] = s[k];
+  }
+#pragma unroll
+  for (int u = 0; u < kCopyUnroll; ++u) {
+    const long long k = lo + (long long)u * kCopyThreads;
+    if (u < unroll && k < row_vecs) o[k] = v[u];
+  }
 }
 
 template <typename V>
-int launch(const void* src, void* dst, const int* src_ids,
-           const int* dst_ids, int m, long long row_bytes,
-           cudaStream_t st) {
+int launch_copy(const void* src, void* dst, const int* ids,
+                const RowPairs& by_value, int m, long long row_bytes,
+                int sms, cudaStream_t st) {
   const long long row_vecs = row_bytes / (long long)sizeof(V);
-  const long long chunk_vecs = kChunkBytes / (long long)sizeof(V);
-  const long long chunks = (row_vecs + chunk_vecs - 1) / chunk_vecs;
-  if (chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  copy_rows_kernel<V><<<dim3((unsigned)chunks, m), kThreads, 0, st>>>(
-      static_cast<const V*>(src), static_cast<V*>(dst), src_ids, dst_ids,
-      row_vecs, chunk_vecs);
+  // the largest chunk whose blocks still fill a wave (at least one per SM)
+  int unroll = kCopyUnroll;
+  auto chunks = [&](int u) {
+    const long long per_block = (long long)kCopyThreads * u;
+    return (row_vecs + per_block - 1) / per_block;
+  };
+  while (unroll > 1 && chunks(unroll) * m < sms) unroll /= 2;
+  if (chunks(unroll) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  copy_rows_kernel<V><<<dim3((unsigned)chunks(unroll), m), kCopyThreads, 0,
+                        st>>>(
+      static_cast<const V*>(src), static_cast<V*>(dst), ids, by_value, m,
+      unroll, row_vecs);
   return (int)cudaGetLastError();
 }
 
-int copy_rows(const void* src, void* dst, const void* src_ids,
-              const void* dst_ids, int m, long long row_bytes, void* stream) {
+int copy_rows(const void* src, void* dst, const void* ids,
+              const int* host_src_ids, const int* host_dst_ids, int m,
+              long long row_bytes, int sms, void* stream) {
   if (m == 0 || row_bytes == 0) return 0;
   if (m > 65535) return (int)cudaErrorInvalidValue;   // grid.y limit
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* sid = static_cast<const int*>(src_ids);
-  const int* did = static_cast<const int*>(dst_ids);
+  const int* id = static_cast<const int*>(ids);
+  RowPairs v = {};
+  if (id == nullptr) {
+    if (host_src_ids == nullptr || host_dst_ids == nullptr
+        || m > kIdsByValue)
+      return (int)cudaErrorInvalidValue;
+    for (int r = 0; r < m; ++r) {
+      v.src[r] = host_src_ids[r];
+      v.dst[r] = host_dst_ids[r];
+    }
+  }
   // the widest vector that divides the row and both base addresses
   const uintptr_t align = (uintptr_t)src | (uintptr_t)dst
                           | (uintptr_t)row_bytes;
-  if (align % 16 == 0) return launch<uint4>(src, dst, sid, did, m, row_bytes,
-                                            st);
-  if (align % 8 == 0) return launch<uint2>(src, dst, sid, did, m, row_bytes,
-                                           st);
-  if (align % 4 == 0) return launch<uint32_t>(src, dst, sid, did, m,
-                                              row_bytes, st);
-  if (align % 2 == 0) return launch<uint16_t>(src, dst, sid, did, m,
-                                              row_bytes, st);
-  return launch<uint8_t>(src, dst, sid, did, m, row_bytes, st);
+  if (align % 16 == 0)
+    return launch_copy<uint4>(src, dst, id, v, m, row_bytes, sms, st);
+  if (align % 8 == 0)
+    return launch_copy<uint2>(src, dst, id, v, m, row_bytes, sms, st);
+  if (align % 4 == 0)
+    return launch_copy<uint32_t>(src, dst, id, v, m, row_bytes, sms, st);
+  if (align % 2 == 0)
+    return launch_copy<uint16_t>(src, dst, id, v, m, row_bytes, sms, st);
+  return launch_copy<uint8_t>(src, dst, id, v, m, row_bytes, sms, st);
 }
 
 // ---- gather_rows ----
 
 constexpr int kGatherThreads = 256;
 constexpr int kGatherUnroll = 2;       // vectors a thread holds in flight
-constexpr int kIdsByValue = 128;       // rows whose ids may ride in the launch
 
 // row ids passed in the launch itself, for rows whose ids the host holds:
 // no load stands between the launch and the row's first bytes
@@ -194,12 +241,18 @@ int harvest_gather_rows(const void* src, const void* ids,
                      stream);
 }
 
-// dst rows dst_ids[i] <- src rows src_ids[i]; ids in range, destinations
-// unique, and no destination row among the sources when src == dst.
-int harvest_copy_rows(const void* src, void* dst, const void* src_ids,
-                      const void* dst_ids, int m, long long row_bytes,
-                      void* stream) {
-  return copy_rows(src, dst, src_ids, dst_ids, m, row_bytes, stream);
+// dst rows dst_ids[i] <- src rows src_ids[i] for i < m: ids (2m,) int32
+// on the device, the m src ids then the m dst ids, or null with
+// host_src_ids and host_dst_ids (m <= 128 each, in host memory) passed in
+// the launch instead; ids in range, destinations unique, and no
+// destination row among the sources when src == dst; sms the card's SM
+// count (the chunk is sized to fill a wave).  Returns a cudaError_t as
+// int.
+int harvest_copy_rows(const void* src, void* dst, const void* ids,
+                      const int* host_src_ids, const int* host_dst_ids,
+                      int m, long long row_bytes, int sms, void* stream) {
+  return copy_rows(src, dst, ids, host_src_ids, host_dst_ids, m, row_bytes,
+                   sms, stream);
 }
 
 const char* harvest_copy_error_string(int e) {

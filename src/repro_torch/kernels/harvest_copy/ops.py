@@ -8,13 +8,14 @@ the fused copy of pool rows into pool rows (kernels K6 and K5,
 plain PyTorch version (``*_plain``) on the CPU.  The checks of the JAX
 wrappers are kept and raise the same exceptions: ``IndexError`` for slot
 ids out of range, ``ValueError`` for an unknown fidelity or a bad shape,
-``TypeError`` for a pool that is not floating.  Ids may lie on the host or
-on the device.  Ids on the device are read back to be checked, which
-waits for the card, unless the caller also passes ``host_ids``, a host
-mirror of them that the checks read instead.  The gather and the
-quantize take the ids of up to ``IDS_BY_VALUE`` rows in the launch
-itself, from the host copy: no id copy to the card.  ``scatter_blocks``
-is plain PyTorch on any device.
+``TypeError`` for a pool that is not floating.  On the card K2 and K3
+take f32, bf16 and f16 pools (``KERNEL_POOL_DTYPES``) and raise
+``TypeError`` on any other.  Ids may lie on the host or on the device.
+Ids on the device are read back to be checked, which waits for the card,
+unless the caller also passes ``host_ids``, a host mirror of them that the
+checks read instead.  Every kernel here takes the ids of up to
+``IDS_BY_VALUE`` rows in the launch itself, from the host copy: no id copy
+to the card.  ``scatter_blocks`` is plain PyTorch on any device.
 """
 from __future__ import annotations
 
@@ -38,8 +39,11 @@ FIDELITY_QDTYPE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn,
 
 _FIDELITY_CODE = {"int8": 0, "fp8": 1, "int4": 2}
 
-#: quantize_blocks and gather_blocks pass the ids of up to this many rows
-#: in the launch (csrc's kIdsByValue)
+#: pool dtypes that K2 and K3 take on the card, by csrc's PoolType code
+KERNEL_POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+#: the kernels pass the ids of up to this many rows in the launch (csrc's
+#: kIdsByValue)
 IDS_BY_VALUE = 128
 
 
@@ -116,9 +120,9 @@ def _check_device_operands(what: str, device, *tensors) -> None:
 
 
 def _check_kernel_operands(what: str, pool, *tensors) -> None:
-    if pool.dtype != torch.float32:
-        raise TypeError(f"{what}: the kernel takes an f32 pool, got "
-                        f"{pool.dtype}")
+    if pool.dtype not in KERNEL_POOL_DTYPES:
+        raise TypeError(f"{what}: the kernel takes an f32, bf16 or f16 pool, "
+                        f"got {pool.dtype}")
     _check_device_operands(what, pool.device, pool, *tensors)
     if pool.shape[1] == 0:
         raise ValueError(f"{what}: empty block rows")
@@ -128,11 +132,11 @@ def _check_kernel_operands(what: str, pool, *tensors) -> None:
 def _kernels():
     lib = build.library("harvest_quant")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.quantize_demote.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p]
+    lib.quantize_demote.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p]
     lib.quantize_demote.restype = i
     lib.quantize_demote_state_bytes.argtypes = []
     lib.quantize_demote_state_bytes.restype = i
-    lib.dequantize_reload.argtypes = [p, p, i, i, i, i, p, p, p]
+    lib.dequantize_reload.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p]
     lib.dequantize_reload.restype = i
     lib.harvest_quant_error_string.argtypes = [i]
     lib.harvest_quant_error_string.restype = ctypes.c_char_p
@@ -221,7 +225,8 @@ def quantize_blocks(src_pool, slot_ids, *, fidelity: str = "int8",
         rc = lib.quantize_demote(
             src_pool.data_ptr(), None if by_value else ids.data_ptr(),
             host.ctypes.data if by_value else None, m, elems, width,
-            _FIDELITY_CODE[fidelity], sm_count(dev),
+            _FIDELITY_CODE[fidelity], KERNEL_POOL_DTYPES[src_pool.dtype],
+            sm_count(dev),
             _exchange_state(lib, stream).data_ptr(), values.data_ptr(),
             scales.data_ptr(), stream.cuda_stream)
     _raise_on(lib, rc, "quantize_blocks")
@@ -280,20 +285,26 @@ def dequantize_blocks(dst_pool, values, scales, slot_ids, *,
     if dst_pool.device.type == "cpu":
         return dequantize_blocks_plain(dst_pool, values, scales, slot_ids,
                                        fidelity)
-    ids = _ids_tensor(slot_ids, dst_pool.device)
-    _check_kernel_operands("dequantize_blocks", dst_pool, ids, values,
-                           scales)
+    dev = dst_pool.device
+    # the ids ride in the launch: no id copy to the card, and no load
+    # between the launch and the rows
+    by_value = m <= IDS_BY_VALUE
+    host_ids = np.ascontiguousarray(host_ids, dtype=np.int32)
+    ids = None if by_value else _ids_tensor(slot_ids, dev)
+    _check_kernel_operands("dequantize_blocks", dst_pool, values, scales,
+                           *(() if by_value else (ids,)))
     if values.dtype != FIDELITY_QDTYPE[fidelity] \
             or scales.dtype != torch.float32:
         raise TypeError(f"dequantize_blocks: {fidelity} takes "
                         f"{FIDELITY_QDTYPE[fidelity]} values and f32 scales, "
                         f"got {values.dtype} / {scales.dtype}")
     lib = _kernels()
-    dev = dst_pool.device
     with torch.cuda.device(dev):
         rc = lib.dequantize_reload(
-            dst_pool.data_ptr(), ids.data_ptr(), m, elems, width,
-            _FIDELITY_CODE[fidelity], values.data_ptr(), scales.data_ptr(),
+            dst_pool.data_ptr(), None if by_value else ids.data_ptr(),
+            host_ids.ctypes.data if by_value else None, m, elems, width,
+            _FIDELITY_CODE[fidelity], KERNEL_POOL_DTYPES[dst_pool.dtype],
+            sm_count(dev), values.data_ptr(), scales.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, rc, "dequantize_blocks")
     dequantize_blocks.launches += 1
@@ -316,7 +327,7 @@ def _movers():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.harvest_gather_rows.argtypes = [p, p, p, p, i, ll, ll, p]
     lib.harvest_gather_rows.restype = i
-    lib.harvest_copy_rows.argtypes = [p, p, p, p, i, ll, p]
+    lib.harvest_copy_rows.argtypes = [p, p, p, p, p, i, ll, i, p]
     lib.harvest_copy_rows.restype = i
     lib.harvest_copy_error_string.argtypes = [i]
     lib.harvest_copy_error_string.restype = ctypes.c_char_p
@@ -435,14 +446,23 @@ def copy_blocks(src_pool, dst_pool, src_ids, dst_ids):
     if dh.size == 0 or dst_pool.shape[1] == 0:
         return dst_pool
     dev = dst_pool.device
-    sids, dids = _ids_tensor(sh, dev), _ids_tensor(dh, dev)
-    _check_device_operands("copy_blocks", dev, src_pool, dst_pool, sids,
-                           dids)
+    # the (src, dst) id pairs ride in the launch: no id copy to the card;
+    # more rows than that read one device table, src ids then dst ids
+    m = dh.size
+    by_value = m <= IDS_BY_VALUE
+    sh = np.ascontiguousarray(sh, dtype=np.int32)
+    dh = np.ascontiguousarray(dh, dtype=np.int32)
+    ids = None if by_value else _ids_tensor(np.concatenate([sh, dh]), dev)
+    _check_device_operands("copy_blocks", dev, src_pool, dst_pool,
+                           *(() if by_value else (ids,)))
     with torch.cuda.device(dev):
         _launch_mover("copy_blocks", _movers().harvest_copy_rows,
                       src_pool.data_ptr(), dst_pool.data_ptr(),
-                      sids.data_ptr(), dids.data_ptr(), sids.shape[0],
-                      src_pool.shape[1] * src_pool.element_size())
+                      None if by_value else ids.data_ptr(),
+                      sh.ctypes.data if by_value else None,
+                      dh.ctypes.data if by_value else None, m,
+                      src_pool.shape[1] * src_pool.element_size(),
+                      sm_count(dev))
     copy_blocks.launches += 1
     return dst_pool
 

@@ -238,14 +238,33 @@ def _bits(t: torch.Tensor) -> np.ndarray:
     return t.contiguous().view(torch.uint8).numpy()
 
 
+#: the pool dtypes K2 and K3 take (the Pallas kernels take any floating
+#: pool): (JAX dtype, torch dtype)
+POOL_DTYPES = {"float32": (jnp.float32, torch.float32),
+               "bfloat16": (jnp.bfloat16, torch.bfloat16),
+               "float16": (jnp.float16, torch.float16)}
+
+
+def _pools(src, dtype):
+    """``src`` (f32) rounded to ``dtype`` in both packages, the same bits."""
+    jdt, tdt = POOL_DTYPES[dtype]
+    j, t = jnp.asarray(src).astype(jdt), torch.from_numpy(src).to(tdt)
+    assert np.array_equal(np.asarray(j).view(np.uint8), _bits(t).reshape(
+        np.asarray(j).view(np.uint8).shape))
+    return j, t
+
+
+@pytest.mark.parametrize("dtype", sorted(POOL_DTYPES))
 @pytest.mark.parametrize("fidelity", ["int8", "fp8", "int4"])
 @pytest.mark.parametrize("elems", [64, 37])          # even and odd widths
-def test_quantize_bit_identical_to_pallas(fidelity, elems):
-    src = _pool(5, 9, elems, zero_row=4)
+def test_quantize_bit_identical_to_pallas(fidelity, elems, dtype):
+    """K2's plain version against the Pallas kernel on an f32, bf16 or f16
+    pool (each element read as f32)."""
+    jsrc, tsrc = _pools(_pool(5, 9, elems, zero_row=4), dtype)
     ids = np.asarray([4, 0, 7, 2], np.int32)
-    jv, js = j_quant(jnp.asarray(src), jnp.asarray(ids), fidelity=fidelity,
+    jv, js = j_quant(jsrc, jnp.asarray(ids), fidelity=fidelity,
                      interpret=True)
-    tv, ts = hops.quantize_blocks(torch.from_numpy(src), torch.from_numpy(ids),
+    tv, ts = hops.quantize_blocks(tsrc, torch.from_numpy(ids),
                                   fidelity=fidelity)
     assert tv.dtype == hops.FIDELITY_QDTYPE[fidelity]
     assert np.array_equal(_bits(tv), np.asarray(jv).view(np.uint8))
@@ -270,28 +289,32 @@ def test_fp8_saturation_boundary_matches_jax():
     assert tv[0, 0].float().item() == 448.0
 
 
+@pytest.mark.parametrize("dtype", sorted(POOL_DTYPES))
 @pytest.mark.parametrize("fidelity", ["int8", "fp8", "int4"])
 @pytest.mark.parametrize("elems", [64, 37])
-def test_dequantize_bit_identical_and_in_place(fidelity, elems):
-    src = _pool(6, 9, elems, zero_row=3)
-    dst = _pool(7, 11, elems)
+def test_dequantize_bit_identical_and_in_place(fidelity, elems, dtype):
+    """K3's plain version against the Pallas kernel into an f32, bf16 or
+    f16 pool (the f32 product rounded to the pool's dtype), from K2's
+    values of a pool of that dtype."""
+    jsrc, tsrc = _pools(_pool(6, 9, elems, zero_row=3), dtype)
+    jdst, dst = _pools(_pool(7, 11, elems), dtype)
     ids = np.asarray([3, 8, 1], np.int32)
     dst_ids = np.asarray([10, 0, 5], np.int32)
-    jv, js = j_quant(jnp.asarray(src), jnp.asarray(ids), fidelity=fidelity,
+    jv, js = j_quant(jsrc, jnp.asarray(ids), fidelity=fidelity,
                      interpret=True)
-    ref = j_dequant(jnp.asarray(dst), jv, js, jnp.asarray(dst_ids),
-                    fidelity=fidelity, interpret=True)
-    tv, ts = hops.quantize_blocks(torch.from_numpy(src), torch.from_numpy(ids),
+    ref = j_dequant(jdst, jv, js, jnp.asarray(dst_ids), fidelity=fidelity,
+                    interpret=True)
+    tv, ts = hops.quantize_blocks(tsrc, torch.from_numpy(ids),
                                   fidelity=fidelity)
-    tdst = torch.from_numpy(dst.copy())
+    tdst = dst.clone()
     out = hops.dequantize_blocks(tdst, tv, ts, torch.from_numpy(dst_ids),
                                  fidelity=fidelity)
-    assert out is tdst
+    assert out is tdst and tdst.dtype == dst.dtype
     # every slot, touched or not, bit for bit
-    assert np.array_equal(tdst.numpy().view(np.uint32),
-                          np.asarray(ref).view(np.uint32))
+    assert _same_bits(tdst, ref)
     untouched = np.setdiff1d(np.arange(11), dst_ids)
-    assert np.array_equal(tdst.numpy()[untouched], dst[untouched])
+    assert torch.equal(tdst[untouched].view(torch.uint8),
+                       dst[untouched].view(torch.uint8))
 
 
 def _quantize(impl, src, ids, fidelity="int8"):
@@ -346,6 +369,55 @@ def test_dequantize_refuses_duplicate_slots():
     with pytest.raises(ValueError):
         _dequantize("port", src.copy(), values, scales,
                     np.asarray([1, 1], np.int32))
+
+
+@pytest.mark.parametrize("m", [3, hops.IDS_BY_VALUE + 72])
+def test_copy_and_dequantize_refuse_bad_ids(m):
+    """The checks that make K5's and K3's launches safe hold at any row
+    count (on the card, ids in the launch up to ``IDS_BY_VALUE`` rows and a
+    device table past it) and for ids as arrays or tensors: an id out of
+    range raises IndexError; a repeated destination, a row both read and
+    written in one pool (copy) and a repeated slot (dequantize) raise
+    ValueError; a refused call writes nothing."""
+    n = 2 * m + 4
+    rng = np.random.default_rng(26)
+    src = torch.from_numpy(rng.normal(size=(n, 24)).astype(np.float32))
+    dst = src + 1.0
+    sids = np.arange(m, dtype=np.int32)
+    dids = np.arange(m, 2 * m, dtype=np.int32)
+    values, scales = hops.quantize_blocks(src, sids, fidelity="int4")
+    past, neg, twice = (np.r_[dids[:-1], n].astype(np.int32),
+                        np.r_[-1, dids[1:]].astype(np.int32),
+                        np.r_[dids[:-1], dids[0]].astype(np.int32))
+    overlap = np.r_[dids[:-1], sids[0]].astype(np.int32)
+    for wrap in (np.asarray, torch.from_numpy):
+        calls = [
+            (IndexError, lambda: hops.copy_blocks(src, dst, wrap(sids),
+                                                  wrap(past))),
+            (IndexError, lambda: hops.copy_blocks(src, dst, wrap(neg),
+                                                  wrap(dids))),
+            (ValueError, lambda: hops.copy_blocks(src, dst, wrap(sids),
+                                                  wrap(twice))),
+            (ValueError, lambda: hops.copy_blocks(dst, dst, wrap(sids),
+                                                  wrap(overlap))),
+            (IndexError, lambda: hops.dequantize_blocks(
+                dst, values, scales, wrap(past), fidelity="int4")),
+            (IndexError, lambda: hops.dequantize_blocks(
+                dst, values, scales, wrap(dids), fidelity="int4",
+                host_ids=neg)),
+            (ValueError, lambda: hops.dequantize_blocks(
+                dst, values, scales, wrap(twice), fidelity="int4"))]
+        for exc, call in calls:
+            before = dst.clone()
+            with pytest.raises(exc):
+                call()
+            assert torch.equal(dst, before)
+    # the same ids, unrefused, move every row
+    hops.copy_blocks(dst, dst, sids, dids)
+    assert torch.equal(dst[dids], dst[sids])
+    hops.dequantize_blocks(dst, values, scales, dids, fidelity="int4")
+    assert torch.equal(dst[dids], hops.dequantize_blocks_plain(
+        torch.empty((m, 24)), values, scales, np.arange(m), "int4"))
 
 
 def test_scatter_and_copy_match_jax_refs():

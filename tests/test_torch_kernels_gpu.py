@@ -189,7 +189,7 @@ def test_quant_kernel_many_rows_bit_identical_to_plain(cuda, fidelity):
 
 
 #: f32 of one block's slice that K2 keeps in shared memory (csrc's
-#: kMaxCached)
+#: kMaxCachedBytes over 4)
 K2_CACHED_ELEMS = 57_344
 
 
@@ -234,6 +234,120 @@ def test_kernel_wrappers_raise_on_cuda(cuda):
     with pytest.raises(ValueError):
         pops.paged_decode_partials(q, pool, pool, ids, ids,
                                    ids[:1], scale=0.25)
+
+
+def _quant_round_trip(cuda, dtype, fidelity, m, elems, seed):
+    """K2 then K3 on a pool of ``dtype`` against the plain versions on the
+    same card tensors, values, scales and pools bit for bit; each wrapper
+    launches its kernel once."""
+    rng = np.random.default_rng(seed)
+    src = torch.from_numpy(_pool(seed, m + 2, elems, zero_row=1)).to(
+        dtype).to(cuda)
+    ids = rng.permutation(m + 2)[:m].astype(np.int32)
+    dst = torch.from_numpy(_pool(seed + 1, m + 3, elems)).to(dtype).to(cuda)
+    dids = rng.permutation(m + 3)[:m].astype(np.int32)
+    pv, ps = hops.quantize_blocks_plain(src, ids, fidelity)
+    before = (hops.quantize_blocks.launches, hops.dequantize_blocks.launches)
+    gv, gs = hops.quantize_blocks(src, ids, fidelity=fidelity)
+    assert torch.equal(gv.view(torch.uint8), pv.view(torch.uint8))
+    assert torch.equal(gs, ps)
+    ref = hops.dequantize_blocks_plain(dst.clone(), pv, ps, dids, fidelity)
+    got = hops.dequantize_blocks(dst.clone(), gv, gs, dids, fidelity=fidelity)
+    torch.cuda.synchronize()
+    assert (hops.quantize_blocks.launches, hops.dequantize_blocks.launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype
+    assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("fidelity", ["int8", "fp8", "int4"])
+@pytest.mark.parametrize("m,elems", [(3, 37), (3, 737_280), (3, 3_000_000),
+                                     (200, 120_001)])
+def test_quant_kernels_half_pools_bit_identical_to_plain(cuda, dtype,
+                                                        fidelity, m, elems):
+    """K2 and K3 on bf16 and f16 pools: an odd width (rows not 16-byte
+    aligned: plain loads into shared memory, K3 one weight a thread),
+    h2o-danube-3-4b's demoted block, a row spread over the card, and 200
+    odd rows of one block each whose slices outgrow the 114,688 2-byte
+    elements K2 keeps on chip."""
+    _quant_round_trip(cuda, dtype, fidelity, m, elems, 40)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("fidelity", ["int8", "fp8", "int4"])
+@pytest.mark.parametrize("m,elems", [(5, 4_096), (hops.IDS_BY_VALUE, 1_000),
+                                     (300, 1_024), (300, 301)])
+def test_dequantize_ids_in_launch_and_device_table(cuda, dtype, fidelity, m,
+                                                   elems):
+    """K3 with its row ids in the launch (up to 128 rows, 128 the last)
+    and past them from a device table, by whole 16-byte vectors (widths
+    4,096 and 1,024) and one weight a thread (rows of packed values not
+    16-byte aligned: 1,000 and the odd 301)."""
+    _quant_round_trip(cuda, dtype, fidelity, m, elems, 41)
+
+
+def test_dequantize_device_ids_past_the_launch(cuda):
+    """Past 128 rows K3 reads the caller's device ids, with or without a
+    host mirror, into the rows they name."""
+    m, elems = 200, 64
+    src = torch.from_numpy(_pool(42, m, elems)).to(cuda)
+    v, s = hops.quantize_blocks(src, np.arange(m, dtype=np.int32))
+    dids = np.random.default_rng(43).permutation(m + 10)[:m].astype(np.int32)
+    dev = torch.from_numpy(dids).to(cuda)
+    ref = hops.dequantize_blocks_plain(torch.zeros((m + 10, elems),
+                                                   device=cuda), v, s, dids)
+    for mirror in (None, dids):
+        got = hops.dequantize_blocks(torch.zeros((m + 10, elems), device=cuda),
+                                     v, s, dev, host_ids=mirror)
+        assert torch.equal(got, ref)
+
+
+def test_quant_kernels_refuse_other_pool_dtypes(cuda):
+    """f64 (and any pool the kernels do not take) raises TypeError on the
+    card for both K2 and K3, before any launch."""
+    src = torch.from_numpy(_pool(44, 4, 16)).to(cuda)
+    v, s = hops.quantize_blocks(src, np.asarray([0, 1], np.int32))
+    launches = (hops.quantize_blocks.launches,
+                hops.dequantize_blocks.launches)
+    with pytest.raises(TypeError):
+        hops.quantize_blocks(src.double(), np.asarray([0], np.int32))
+    with pytest.raises(TypeError):
+        hops.dequantize_blocks(src.double(), v, s, np.asarray([2, 3]))
+    assert launches == (hops.quantize_blocks.launches,
+                        hops.dequantize_blocks.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+@pytest.mark.parametrize("m", [24, hops.IDS_BY_VALUE, 300])
+@pytest.mark.parametrize("elems", [37, 15_360, 16_384])
+def test_copy_blocks_ids_in_launch_and_device_table(cuda, dtype, m, elems):
+    """K5 with its (src, dst) id pairs in the launch (up to 128 rows) and
+    past them from a device table: across two pools and within one pool
+    on disjoint rows, rows of 16 and 15 KiB of f32 and an odd row size
+    (the narrow vector path), every other row keeping its bytes."""
+    rng = np.random.default_rng(45)
+    n = 2 * m + 7
+    src = torch.from_numpy(rng.normal(size=(n, elems)) * 40).to(dtype)
+    dst = torch.from_numpy(rng.normal(size=(n + 3, elems)) * 40).to(dtype)
+    sids = rng.permutation(n)[:m].astype(np.int32)
+    dids = rng.permutation(n + 3)[:m].astype(np.int32)
+    before = hops.copy_blocks.launches
+    got = hops.copy_blocks(src.to(cuda), dst.to(cuda), sids, dids)
+    torch.cuda.synchronize()
+    assert hops.copy_blocks.launches == before + 1
+    assert torch.equal(got.cpu(), hops.copy_blocks_plain(src, dst.clone(),
+                                                         sids, dids))
+    # one pool: the sources the first m of a permutation, the
+    # destinations the next m
+    perm = rng.permutation(n).astype(np.int32)
+    pool = src.to(cuda)
+    hops.copy_blocks(pool, pool, torch.from_numpy(perm[:m]).to(cuda),
+                     perm[m:2 * m])
+    assert torch.equal(pool.cpu(), hops.copy_blocks_plain(
+        src, src.clone(), perm[:m], perm[m:2 * m]))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
