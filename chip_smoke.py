@@ -9,12 +9,15 @@ Phases (any failure raises and the script exits non-zero):
      instructions in the SASS of prefill attention's kernels; the bf16
      kernel must have some and spill nothing;
   3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the full-width yi-6b, qwen2-moe and h2o-danube-3-4b serving
-     paths give it and at edge cases, and time kernel, plain version,
-     library call and bound (paged decode also at nemotron-4-15b's
-     full-width shape, a GQA group of 6, and at a card-filling yi-6b
-     pool of 65,536 slots holding 64 short contexts; prefill attention at 40-, 1,032-
-     and 6,000-token prompts, with a sliding window, an attention chunk and
+     shapes the full-width serving paths give it and at edge cases, and
+     time kernel, plain version, library call and bound (paged decode also
+     at nemotron-4-15b's, command-r-35b's and llama4-maverick-400b-a17b's
+     full-width shapes, GQA groups of 6, 8 and 5, at a card-filling yi-6b
+     pool of 65,536 slots holding 64 short contexts, and at Llama-4's heads
+     with its 8,192-token attention chunk, rows on both sides of the
+     boundary; prefill attention at 40-, 1,032- and 6,000-token prompts,
+     an 8,800-token Llama-4 prompt past its chunk, and Command-R's and
+     Nemotron's smoke prompts, with a sliding window, an attention chunk and
      a logit softcap, in bf16 on the tensor cores and f32 on the CUDA
      cores, the kernel that ran read from the trace; quantize-on-demote and
      dequantize-on-reload on f32, bf16 and f16 pools, timed at each path's
@@ -24,11 +27,13 @@ Phases (any failure raises and the script exits non-zero):
      launches), split into their kernels' own time and any host-to-device
      copy of their ids (none), beside the library calls with device ids and
      with host ids; the expert FFN at a decode and a prefill shape, with
-     the experts it skipped for want of a token counted on the card);
+     the experts it skipped for want of a token counted on the card; at
+     Llama-4's decode shape inside its path, below);
   4. reduced yi-6b, qwen2-moe, h2o-danube-3-4b (prompts past its 64-token
-     window) and nemotron-4-15b at 12 / 2 heads (its GQA group of 6)
-     served on the CPU (plain versions) and on the card (kernels):
-     identical tokens;
+     window), nemotron-4-15b at 12 / 2 heads (its GQA group of 6),
+     Llama-4 at 4 layers with its dense/MoE interleaving (prompts past its
+     64-token chunk) and Command-R at 4 layers (parallel blocks) served on
+     the CPU (plain versions) and on the card (kernels): identical tokens;
   5. the first path: full-width yi-6b (random weights from a seed) served
      through ``HarvestRuntime(...).server(...)`` with evictions, reloads and
      quantized demotions; every kernel of the path must have launched; then
@@ -47,6 +52,17 @@ Phases (any failure raises and the script exits non-zero):
      payload on it), one reload (the payload's copy to the card and the
      copy kernel, no id copied), and one 6,000-token prefill profiled for
      prefill attention's share;
+  8. Llama-4 (llama4-maverick-400b-a17b) at full width and 4 of its 48
+     layers (two dense/MoE pairs, 35.04 B parameters; the whole model does
+     not fit one card), 4 requests of 8,300-8,800 prompt tokens over
+     the long path's geometry, prefill and decode crossing its 8,192-token
+     attention chunk, through all seven kernels; then the expert FFN held
+     and timed at its decode shape on the model's own 128 experts, a
+     decode step profiled, paged decode at that pool, one 8,800-token
+     prefill profiled;
+  9. command-r-35b (parallel blocks, all 40 layers, 30.28 B parameters)
+     and nemotron-4-15b (squared ReLU, GQA group 6, all 32 layers, 15.63 B)
+     at full width on yi-6b's workload, each profiled;
 then the card's name and power limit, one JSON line of per-kernel
 numbers, and the JSON result line.  The launch counts are set to 0 just
 before each path and read just after it.  It imports neither JAX nor the
@@ -85,6 +101,12 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
 SEED = 0
+LLAMA4 = "llama4-maverick-400b-a17b"
+#: Llama-4's depth on the card: two (dense, MoE) pairs of its 48 layers
+LLAMA4_LAYERS = 4
+#: the least size of a timing pool that calls cycle through: past the
+#: card's 50 MB L2, so that each call finds its rows cold
+POOL_BYTES = 64 * 2 ** 20
 
 
 def card_line() -> str:
@@ -144,18 +166,37 @@ def events_ms(fn, iters) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: idle host time inside a profiler window on each side of the calls.  The
+#: profiler keeps only the device rows whose card timestamps fall inside
+#: the window's host timestamps, and on the H100 machine the card's clock
+#: was seen up to 4 ms off the host's (a kernel stamped before its own
+#: launch): a window that holds a short call alone came back without a
+#: device row in 13 of 600 traces, one padded so in none of 600
+#: (tools/probe_trace_window.py)
+TRACE_PAD_S = 0.025
+
+
+def profiled(fn, iters):
+    """The profiler (CUDA activity) after ``iters`` calls of ``fn``, the
+    card idle for ``TRACE_PAD_S`` before and after them in its window."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # one profiling cycle is all
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_PAD_S)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
+    return prof
+
+
 def trace_rows(fn, iters):
     """[(name, device ms per call)] of every kernel, memset and copy that
     ``iters`` calls of ``fn`` put on the card, from the profiler's trace,
     largest first."""
-    from torch.profiler import ProfilerActivity, profile
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")     # one profiling cycle is all
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-    return device_rows(prof, iters)
+    return device_rows(profiled(fn, iters), iters)
 
 
 def time_ms(fn, iters=50):
@@ -206,13 +247,19 @@ def paged_scenario(rng, b, n_slots, bs, nkv, nq, hd, q_pos, empty_row=None,
     return {k: v.to(dev) for k, v in t.items()}
 
 
-def k1_bound(q_pos, n_slots, nq, nkv, hd, window=None):
+def k1_bound(q_pos, n_slots, nq, nkv, hd, window=None, chunk=None):
     """The least time of one K1 call on these inputs: each position the
-    masks keep reads its k and v row of each kv head once, q is read,
-    (m, l, acc) written; 4 flops per q row per position per hd column
-    (score and weighted sum)."""
-    w = window or 10 ** 9
-    positions = sum(min(int(p) + 1, w) for p in q_pos)
+    masks keep (the window, and the attention chunk that holds the row)
+    reads its k and v row of each kv head once, q is read, (m, l, acc)
+    written; 4 flops per q row per position per hd column (score and
+    weighted sum)."""
+    def kept(p):
+        lo = max(p - (window or 10 ** 9) + 1, 0)
+        if chunk:
+            lo = max(lo, p // chunk * chunk)
+        return p - lo + 1
+
+    positions = sum(kept(int(p)) for p in q_pos)
     b = len(q_pos)
     nbytes = 4 * (2 * positions * nkv * hd          # k and v rows
                   + b * nq * hd                     # q
@@ -221,14 +268,16 @@ def k1_bound(q_pos, n_slots, nq, nkv, hd, window=None):
     return bound(nbytes, 4 * positions * nq * hd)
 
 
-def check_paged_decode(full_cfg, bs, more=()):
+def check_paged_decode(full_cfg, bs, more=(), chunked=()):
     """K1 at the full-width decode shape of ``full_cfg`` (yi-6b: gq 8, hd
-    128) and of each config in ``more`` (nemotron-4-15b: gq 6), held to the
-    plain version and timed; edge cases at ``full_cfg``'s heads: free
-    slots, an empty request, sliding window, chunked-local; then at a
-    card-filling pool of short contexts at ``full_cfg``'s heads.  The
-    kernels line keeps ``full_cfg``'s numbers, ``by_shape`` every
-    shape's."""
+    128) and of each config in ``more`` (nemotron-4-15b: gq 6, command-r-35b:
+    64 / 8 heads, llama4-maverick-400b-a17b: gq 5), held to the plain
+    version and timed; edge cases at ``full_cfg``'s heads: free slots, an
+    empty request, sliding window, chunked-local; then at a card-filling
+    pool of short contexts at ``full_cfg``'s heads, and at each config in
+    ``chunked`` with its attention chunk and rows on both sides of a chunk
+    boundary.  The kernels line keeps ``full_cfg``'s numbers,
+    ``by_shape`` every shape's."""
     rng = np.random.default_rng(SEED)
     nq, nkv, hd = (full_cfg.num_heads, full_cfg.num_kv_heads,
                    full_cfg.resolved_head_dim)
@@ -255,6 +304,7 @@ def check_paged_decode(full_cfg, bs, more=()):
     rows = [dict(shape=cfg.name, **time_paged_decode(cfg, bs, rng))
             for cfg in (full_cfg, *more)]
     rows.append(time_card_pool_k1(full_cfg, bs))
+    rows += [time_chunked_k1(cfg, 16, rng) for cfg in chunked]
     gc.collect()
     torch.cuda.empty_cache()
     main = rows[0]
@@ -304,6 +354,44 @@ def time_paged_decode(cfg, bs, rng):
           f"{plain_ms:.5f}; bound {bound_ms:.6f} ({bound_by})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, max_abs_err=err, gq=nq // nkv)
+
+
+def time_chunked_k1(cfg, bs, rng):
+    """K1 at ``cfg``'s heads with its attention chunk (Llama-4: 8,192),
+    four rows on both sides of the first chunk boundary (positions 8,191,
+    8,192, 8,300 and 9,000 at 8,192), each request's slots dealt out of
+    one pool of ``bs``-token blocks, so that the chunk mask cuts every
+    slot of an earlier chunk; held to the plain version and timed.  The
+    bound counts the positions the chunk keeps."""
+    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    c = cfg.attention_chunk
+    q_pos = (c - 1, c, c + 108, c + 808)
+    n_slots = sum(p // bs + 1 for p in q_pos) + 64
+    s = paged_scenario(rng, 4, n_slots, bs, nkv, nq, hd, q_pos)
+    args = (s["q"], s["pk"][0], s["pv"][0], s["slot_req"], s["slot_base"],
+            s["q_pos"])
+    kw = dict(scale=hd ** -0.5, attention_chunk=c)
+    got = pops.paged_decode_partials(*args, **kw)
+    ref = pops.paged_decode_partials_plain(*args, **kw)
+    err = 0.0
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        err = max(err, (a - b).abs().max().item())
+    # the row at the boundary keeps its own position alone: one key, p = 1
+    torch.testing.assert_close(got.l[1], torch.ones_like(got.l[1]))
+    ms, ms_wall = time_ms(lambda: pops.paged_decode_partials(*args, **kw),
+                          100)
+    plain_ms, _ = time_ms(
+        lambda: pops.paged_decode_partials_plain(*args, **kw), 10)
+    bound_ms, bound_by = k1_bound(q_pos, n_slots, nq, nkv, hd, chunk=c)
+    print(f"  paged_decode_partials at {cfg.name} ({nq}/{nkv} heads, gq "
+          f"{nq // nkv}, hd {hd}) with attention chunk {c}, rows at "
+          f"{list(q_pos)} over {n_slots} slots of {bs}: {ms:.5f} ms device, "
+          f"{ms_wall:.5f} between events; plain {plain_ms:.5f}; bound "
+          f"{bound_ms:.6f} ({bound_by})")
+    return dict(shape=f"{cfg.name} chunk {c}, rows {list(q_pos)}", ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=err, gq=nq // nkv, n_slots=n_slots)
 
 
 #: GiB of the card that a card-filling pool gives to the KV pools
@@ -391,6 +479,8 @@ def traced_rows(fn, iters):
             assert not any(c in n for n, _ in rows for c in RUNTIME_CALLS), \
                 rows
             return rows
+        print("  a trace came back without a device row: taken again",
+              file=sys.stderr)
     raise RuntimeError("three traces showed no device row")
 
 
@@ -461,19 +551,20 @@ def check_quant(paths):
     # timing: the main path demotes one block per eviction at int8 (the
     # slo policy's quantized classes), a (1, elems) row on the device, its
     # id on the device with a host mirror; rows cycle through a pool of 64
-    # (64 MiB and more) so the source is not L2-resident
+    # rows or more, 64 MiB and more, so the source is not L2-resident
     by_shape = {"quantize_demote": {}, "dequantize_reload": {}}
     for cfg, bs in paths:
         elems = block_elems(cfg, bs)
-        pool = torch.from_numpy(rng.normal(size=(64, elems)).astype(
+        n_rows = max(64, -(-POOL_BYTES // (4 * elems)))
+        pool = torch.from_numpy(rng.normal(size=(n_rows, elems)).astype(
             np.float32)).cuda()
         row_ids = [torch.tensor([i], dtype=torch.int32, device="cuda")
-                   for i in range(64)]
-        mirrors = [np.asarray([i], np.int32) for i in range(64)]
+                   for i in range(n_rows)]
+        mirrors = [np.asarray([i], np.int32) for i in range(n_rows)]
         nxt = [0]
 
         def ids():
-            nxt[0] = (nxt[0] + 1) % 64
+            nxt[0] = (nxt[0] + 1) % n_rows
             return row_ids[nxt[0]], mirrors[nxt[0]]
 
         def quant():
@@ -610,10 +701,10 @@ def check_movers(configs):
     for cfg, bs in configs:
         L = M.num_kv_layers(cfg)
         elems = bs * cfg.num_kv_heads * cfg.resolved_head_dim
-        # 128 slots: the pool (64 MiB at yi-6b, 180 MiB at h2o-danube-3-4b,
-        # 192 MiB at qwen2-moe) exceeds the 50 MB L2, and each call takes
-        # the next slot
-        n_slots = 128
+        # 128 slots or more: the pool (64 MiB at yi-6b and at the 4-layer
+        # Llama-4, 180 MiB at h2o-danube-3-4b, 192 MiB at qwen2-moe)
+        # exceeds the 50 MB L2, and each call takes the next slot
+        n_slots = max(128, -(-POOL_BYTES // (4 * L * elems)))
         pool = torch.from_numpy(rng.normal(size=(L * n_slots, elems)).astype(
             np.float32)).cuda()
         staging = torch.from_numpy(rng.normal(size=(2 * L, elems)).astype(
@@ -831,6 +922,58 @@ def check_moe_ffn(cfg, odd_cfg):
                 by_shape=rows_out)
 
 
+def check_moe_ffn_experts(cfg, params):
+    """K7 at Llama-4's decode shape on the served model's own experts
+    (the first MoE layer's 128 experts of d 5120 and f 8192, 32.2 GB in
+    bf16, which no second copy beside the model would leave room for): a
+    decode step's (E, 4, d) dispatch buffer in which 4 experts hold a
+    token, held to the plain version in bf16; the other experts are
+    skipped (counted on the card: one 16-row tile each) and give exact
+    zeros.  Then timed beside the plain version and the bmm composition;
+    the bound counts the weights of the experts that hold a token."""
+    mc = cfg.moe
+    e, d, f = mc.num_experts, cfg.d_model, mc.d_ff_expert
+    cap = max(int(2 * mc.top_k / e * mc.capacity_factor), 4)
+    filled = 4
+    w = [params["blocks"]["moe"]["moe"][k][0] for k in ("wi", "wg", "wo")]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    xd = torch.zeros((e, cap, d), dtype=torch.bfloat16, device="cuda")
+    held = torch.randperm(e, generator=gen, device="cuda")[:filled]
+    xd[held, 0] = torch.randn((filled, d), generator=gen,
+                              device="cuda").bfloat16()
+    skipped = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    got = mops.moe_ffn(xd, *w, activation=cfg.activation, skipped=skipped)
+    ref = mops.moe_ffn_plain(xd, *w, activation=cfg.activation)
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **MOE_TOL[torch.bfloat16])
+    empty = torch.ones((e, cap), dtype=torch.bool, device="cuda")
+    empty[held, 0] = False
+    assert torch.all(got[empty] == 0), "empty slots must give zeros"
+    assert int(skipped.item()) == e - filled, (skipped, filled)
+    err = (got.float() - ref.float()).abs().max().item()
+    del got, ref
+    silu = torch.nn.functional.silu
+    ms, ms_wall = time_ms(lambda: mops.moe_ffn(xd, *w), 50)
+    plain_ms, _ = time_ms(lambda: mops.moe_ffn_plain(xd, *w), 10)
+    library_ms, _ = time_ms(lambda: torch.bmm(
+        silu(torch.bmm(xd, w[1])) * torch.bmm(xd, w[0]), w[2]), 10)
+    w_bytes = 3 * d * f * 2
+    bound_ms, bound_by = bound(filled * w_bytes + 2 * xd.numel() * 2,
+                               filled * 2 * 3 * d * f, BF16_FLOPS)
+    print(f"  moe_ffn at {cfg.name}'s decode shape (E {e}, C {cap}, d {d}, "
+          f"f {f}; {filled} experts hold a token, the kernel skipped "
+          f"{e - filled}): {ms:.5f} ms device, {ms_wall:.5f} between "
+          f"events; plain {plain_ms:.5f}; library (bmm, silu, bmm, bmm) "
+          f"{library_ms:.5f}; bound {bound_ms:.6f} ({bound_by}); all "
+          f"experts' weights {e * w_bytes / 1e9:.1f} GB; max_abs_err "
+          f"{err:.3g}")
+    return dict(shape=f"{cfg.name} decode, E {e}, C {cap}, d {d}, f {f}",
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                experts_with_token=filled, experts_skipped=e - filled,
+                max_abs_err=err)
+
+
 #: K4 against its plain version.  bf16: the plain version rounds each
 #: probability to bf16 against the running max of its 1024-key chunk, the
 #: kernel against that of its 64-key tile, so p differs by about one bf16
@@ -853,10 +996,11 @@ def top_kernel(fn) -> str:
     return traced_rows(fn, 5)[0][0]
 
 
-def check_flash_prefill(yi, moe, danube):
-    """K4 against its plain version at the shapes the three paths'
-    prefills give it and at an attention-chunk and a softcap case, in bf16
-    and f32, then each timed with the plain version and
+def check_flash_prefill(yi, moe, danube, more=()):
+    """K4 against its plain version at the shapes the paths' prefills give
+    it (``more``: (label, cfg, tokens, masks) of the later paths) and at
+    an attention-chunk and a softcap case, in bf16 and f32, then each
+    timed with the plain version and
     ``scaled_dot_product_attention`` (causal, or a band mask; none takes a
     softcap) beside it.  The bound counts the (q, k) pairs the mask keeps
     in this data: 4 * hd flops each, over the bf16 tensor-core rate or the
@@ -871,7 +1015,8 @@ def check_flash_prefill(yi, moe, danube):
               ("h2o-danube-3-4b long prompt", danube, 6000,
                dict(sliding_window=danube.sliding_window)),
               ("attention chunk 128", yi, 300, dict(attention_chunk=128)),
-              ("logit softcap 30", yi, 300, dict(logit_softcap=30.0))]
+              ("logit softcap 30", yi, 300, dict(logit_softcap=30.0)),
+              *more]
     for label, cfg, n, masks in shapes:
         nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         pos = torch.arange(n, dtype=torch.int32, device="cuda")[None]
@@ -1057,7 +1202,6 @@ def profile_decode_step(cfg, params, bs, pos=(41, 24, 33, 17), n_slots=20,
     under the profiler.  Returns (wall ms per step, device-busy ms per
     step, [(kernel name, device ms per step)] of the five largest, the
     pools and the slot table as K1 sees them)."""
-    from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(SEED + 2)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     L, nkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -1097,13 +1241,7 @@ def profile_decode_step(cfg, params, bs, pos=(41, 24, 33, 17), n_slots=20,
         step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                step()
-            torch.cuda.synchronize()
-    rows = device_rows(prof, steps)
+    rows = trace_rows(step, steps)
     return wall_ms, sum(ms for _, ms in rows), rows[:5], (pool, dev)
 
 
@@ -1111,7 +1249,6 @@ def profile_prefill(cfg, params, n):
     """One full-width prefill of ``n`` tokens (the engine's forward): wall
     ms, device-busy ms and K4's device ms, from one profiled call after a
     warm-up call."""
-    from torch.profiler import ProfilerActivity, profile
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     batch = {"tokens": torch.randint(3, 250, (1, n), generator=gen,
                                      device="cuda", dtype=torch.int32),
@@ -1127,12 +1264,7 @@ def profile_prefill(cfg, params, n):
     prefill()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            prefill()
-            torch.cuda.synchronize()
-    rows = device_rows(prof, 1)
+    rows = trace_rows(prefill, 1)
     k4 = sum(ms for name, ms in rows if "flash_prefill" in name)
     return wall_ms, sum(ms for _, ms in rows), k4
 
@@ -1152,7 +1284,8 @@ def long_pool_k1(cfg, pools, bs):
     L = pool.shape[1]
     q = torch.randn((b, nq, hd), generator=gen, device="cuda")
     rest = (dev["slot_req"], dev["slot_base"], dev["pos"])
-    kw = dict(scale=hd ** -0.5, sliding_window=cfg.sliding_window)
+    kw = dict(scale=hd ** -0.5, sliding_window=cfg.sliding_window,
+              attention_chunk=cfg.attention_chunk)
     got = pops.paged_decode_partials(q, pool[0, 0], pool[1, 0], *rest, **kw)
     ref = pops.paged_decode_partials_plain(q, pool[0, 0], pool[1, 0], *rest,
                                            **kw)
@@ -1169,7 +1302,7 @@ def long_pool_k1(cfg, pools, bs):
         q, pool[0, 0], pool[1, 0], *rest, **kw), 50)
     n_slots = dev["slot_req"].shape[0]
     bound_ms, bound_by = k1_bound(dev["pos"].tolist(), n_slots, nq, nkv, hd,
-                                  cfg.sliding_window)
+                                  cfg.sliding_window, cfg.attention_chunk)
     owned = int((dev["slot_req"] >= 0).sum())
     splits = pops.num_splits(b, nkv, n_slots, pops.sm_count(q.device))
     return (f"K1 at the long path's pool ({n_slots} slots of {bs}, {owned} "
@@ -1238,17 +1371,21 @@ def profile_reload(eng):
 def main_path(arch, bs, kernels_of_path, *, num_requests=6, local_slots=10,
               peer_blocks=6, max_batch=4, prompt=(5, 40),
               profile_pos=(41, 24, 33, 17), profile_slots=20,
-              prefill_tokens=None, profile_evict=False):
-    """Serve the full-width model through the front door with the launch
-    counts set to 0 just before and read just after; every kernel of the
-    path must have launched.  Then profile one decode step (rows at
-    ``profile_pos`` over ``profile_slots`` slots) and, given
+              prefill_tokens=None, profile_evict=False, layers=None,
+              on_model=None):
+    """Serve the full-width model (its depth cut to ``layers`` if given)
+    through the front door with the launch counts set to 0 just before and
+    read just after; every kernel of the path must have launched.  Then
+    ``on_model(cfg, params)`` if given, then profile one decode step (rows
+    at ``profile_pos`` over ``profile_slots`` slots) and, given
     ``prefill_tokens``, one prefill of that length and K1 at the profiled
     pool; given ``profile_evict``, one eviction and one reload of the
     served engine.
-    Returns (launch counts, K1's numbers at that pool or None); the
-    weights are freed on return."""
+    Returns (launch counts, K1's numbers at that pool or None,
+    ``on_model``'s result or None); the weights are freed on return."""
     full = get_config(arch)
+    if layers:
+        full = dataclasses.replace(full, num_layers=layers)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1256,8 +1393,10 @@ def main_path(arch, bs, kernels_of_path, *, num_requests=6, local_slots=10,
     params = M.init_params(full, torch.Generator(device="cuda")
                            .manual_seed(SEED), "cuda")
     torch.cuda.synchronize()
-    print(f"{arch} full width: {M.param_count(params) / 1e9:.3f} B params "
-          f"initialised on the card in {time.perf_counter() - t0:.1f} s")
+    print(f"{arch} full width, {full.num_layers} layers: "
+          f"{M.param_count(params) / 1e9:.3f} B params initialised on the "
+          f"card in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak")
     for fn in COUNTERS.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1300,6 +1439,7 @@ def main_path(arch, bs, kernels_of_path, *, num_requests=6, local_slots=10,
         profile_eviction(eng)
         profile_reload(eng)
     del server, eng
+    extra = on_model(full, params) if on_model else None
     step_ms, busy_ms, top, pools = profile_decode_step(
         full, params, bs, profile_pos, profile_slots)
     print(f"{arch}: decode step profile ({len(profile_pos)} rows at "
@@ -1322,7 +1462,7 @@ def main_path(arch, bs, kernels_of_path, *, num_requests=6, local_slots=10,
               f"{100 * k4_ms / wall_ms:.1f}% of wall)")
         print(f"{arch}: peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches, k1
+    return launches, k1, extra
 
 
 def main() -> int:
@@ -1354,12 +1494,26 @@ def main() -> int:
 
     yi, moe = get_config("yi-6b"), get_config("qwen2-moe")
     danube = get_config("h2o-danube-3-4b")
+    nemotron, command_r = get_config("nemotron-4-15b"), \
+        get_config("command-r-35b")
+    # Llama-4 served at two dense/MoE pairs of its 48 layers: one MoE
+    # layer's experts are 32.2 GB, the whole model does not fit one card
+    llama4 = dataclasses.replace(get_config(LLAMA4), num_layers=LLAMA4_LAYERS)
     bs = 8
-    kernels = [check_paged_decode(yi, bs, more=[get_config(
-        "nemotron-4-15b")])] \
-        + check_quant([(yi, bs), (moe, bs), (danube, 16)]) \
-        + [check_flash_prefill(yi, moe, danube)] \
-        + check_movers([(yi, bs), (danube, 16), (moe, bs)]) \
+    # K1's 10-slot decode shape at Llama-4's 48 layers, so that its pools
+    # cycle past the L2 as the other models' do
+    kernels = [check_paged_decode(yi, bs, more=[nemotron, command_r,
+                                                get_config(LLAMA4)],
+                                  chunked=[llama4])] \
+        + check_quant([(yi, bs), (moe, bs), (danube, 16), (llama4, 16),
+                       (command_r, bs), (nemotron, bs)]) \
+        + [check_flash_prefill(yi, moe, danube, more=[
+            (f"{LLAMA4} prompt past its chunk", llama4, 8800,
+             dict(attention_chunk=llama4.attention_chunk)),
+            ("command-r-35b smoke prompt", command_r, 40, {}),
+            ("nemotron-4-15b smoke prompt", nemotron, 40, {})])] \
+        + check_movers([(yi, bs), (danube, 16), (llama4, 16),
+                        (command_r, bs), (nemotron, bs), (moe, bs)]) \
         + [check_moe_ffn(moe, get_config("phi-tiny-moe"))]
     tolerance = {"paged_decode_partials": "rtol 1e-4, atol 1e-4 (f32 sums "
                  "in another order)", "quantize_demote": "bit-identical",
@@ -1378,38 +1532,69 @@ def main() -> int:
               f"{k['max_abs_err']:.3g} against the plain version, tolerance "
               f"{tolerance[k['name']]}")
 
-    # nemotron-4-15b keeps its GQA group of 6 (48 / 8) at 12 / 2 heads
+    # nemotron-4-15b keeps its GQA group of 6 (48 / 8) at 12 / 2 heads;
+    # Llama-4 gets its interleaving back (reduced() sets layer_period 1),
+    # with 4 layers and prompts past its reduced attention chunk of 64;
+    # command-r-35b at 4 layers and 8 slots, where its requests overlap
+    # (at 2 layers each one ends before the next arrives: no eviction)
+    l4_moe = get_config(LLAMA4).reduced().moe
     for arch, prompt, slots, changes in (
             ("yi-6b", (5, 40), 10, {}),
             ("qwen2-moe", (5, 40), 10, {}),
             ("h2o-danube-3-4b", (70, 150), 24, {}),
             ("nemotron-4-15b", (5, 40), 8,
-             dict(num_heads=12, num_kv_heads=2))):
+             dict(num_heads=12, num_kv_heads=2)),
+            (LLAMA4, (70, 150), 24,
+             dict(num_layers=4, moe=dataclasses.replace(l4_moe,
+                                                        layer_period=2))),
+            ("command-r-35b", (5, 40), 8, dict(num_layers=4))):
         tokens = check_reduced_tokens(arch, prompt, slots, **changes)
-        print(f"reduced {arch} {changes or ''}: cpu and cuda tokens "
+        label = {k: v for k, v in changes.items() if k != "moe"}
+        if "moe" in changes:
+            label["layer_period"] = changes["moe"].layer_period
+        print(f"reduced {arch} {label or ''}: cpu and cuda tokens "
               f"identical ({tokens[:2]} ...)")
 
-    # ---- phases 5 to 7: the three paths at full width ----
+    # ---- phases 5 to 9: the paths at full width ----
     movers = ["paged_decode_partials", "quantize_demote",
               "dequantize_reload", "prefill_attention", "gather_blocks",
               "copy_blocks"]
-    paths, k1_long = {}, None
-    paths["yi-6b"], _ = main_path("yi-6b", bs, movers)
-    paths["qwen2-moe"], _ = main_path("qwen2-moe", bs, movers + ["moe_ffn"])
+    paths = {}
+    paths["yi-6b"], _, _ = main_path("yi-6b", bs, movers)
+    paths["qwen2-moe"], _, _ = main_path("qwen2-moe", bs,
+                                         movers + ["moe_ffn"])
     # the long-prompt path: 4 requests of 4,500-6,000 tokens (past the
     # 4,096-token window), 2 rows, 16-token blocks; 800 local slots hold
     # two requests' blocks, and each preemption evicts a request's 280-375
     # blocks past a peer budget of 64 into the host
-    paths["h2o-danube-3-4b"], k1_long = main_path(
+    paths["h2o-danube-3-4b"], k1_long, _ = main_path(
         "h2o-danube-3-4b", 16, movers, num_requests=4, local_slots=800,
         peer_blocks=64, max_batch=2, prompt=(4500, 6000),
         profile_pos=(5999, 4700), profile_slots=800, prefill_tokens=6000,
         profile_evict=True)
+    # Llama-4 at two dense/MoE pairs, the long path's geometry with
+    # prompts of 8,300-8,800 tokens: prefill and decode cross the 8,192
+    # attention chunk; K7 then runs at the decode shape on the model's own
+    # experts (no room for a second copy of them)
+    paths[LLAMA4], k1_llama4, k7_llama4 = main_path(
+        LLAMA4, 16, movers + ["moe_ffn"], num_requests=4, local_slots=800,
+        peer_blocks=64, max_batch=2, prompt=(8300, 8800),
+        profile_pos=(8799, 8350), profile_slots=1100, prefill_tokens=8800,
+        layers=LLAMA4_LAYERS, on_model=check_moe_ffn_experts)
+    # command-r-35b (parallel blocks, all 40 layers) and nemotron-4-15b
+    # (relu2, gq 6, all 32 layers) on yi-6b's workload
+    paths["command-r-35b"], _, _ = main_path("command-r-35b", bs, movers)
+    paths["nemotron-4-15b"], _, _ = main_path("nemotron-4-15b", bs, movers)
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
         if k["name"] == "paged_decode_partials":
             k["long_pool"] = k1_long
+            k["llama4_pool"] = k1_llama4
+        if k["name"] == "moe_ffn":
+            k["by_shape"].append(k7_llama4)
+            k["max_abs_err"] = max(k["max_abs_err"],
+                                   k7_llama4["max_abs_err"])
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -10,8 +10,9 @@ Public API (construct these):
 
 Components (the runtime wires these for you): allocator, policy, monitor,
 tiers (the simulated H100/NVLink and TPU cost models and topologies),
-rebalancer, kv_manager, coalesce, prefetch, prefix_cache and
-paged_attention.
+rebalancer, kv_manager, coalesce, prefetch, prefix_cache,
+paged_attention, and simulator (the CGOPipe pipeline model of the
+paper's Fig 5/6: simulated tokens/s, numpy only).
 """
 from repro_torch.core.allocator import (HarvestAllocator, HarvestHandle,
                                         RevokedError)
@@ -30,6 +31,8 @@ from repro_torch.core.prefix_cache import (PrefixCache, PrefixCacheConfig,
                                            block_digests)
 from repro_torch.core.rebalancer import ExpertRebalancer
 from repro_torch.core.runtime import HarvestRuntime
+from repro_torch.core.simulator import (AccessModelConfig, ExpertAccessModel,
+                                        SimResult, simulate_moe_decode)
 from repro_torch.core.store import (Durability, HarvestStore,
                                     LostObjectError, MetricsRegistry,
                                     ObjectEntry, Residency, Transfer,

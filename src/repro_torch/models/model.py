@@ -1,5 +1,7 @@
-"""The decoder of the port: dense blocks, and MoE blocks where every layer's
-FFN is a mixture of experts (``layer_period == 1``).
+"""The decoder of the port: dense blocks (serial, or parallel attention and
+MLP as in Command-R), and MoE blocks where every layer's FFN is a mixture
+of experts (``layer_period == 1``) or every other layer's, after a dense
+layer (``layer_period == 2``, Llama-4).
 
 Entry points:
   forward(params, batch, cfg, want_kv)      -> (logits, ForwardOut)
@@ -7,7 +9,10 @@ Entry points:
   serve_step(params, state, cfg)            -> (logits, new_state)  1 token
 
 Parameters are the nested dict of ``repro_torch.models.params`` (leaves
-stacked over layers); the JAX package's layer ``scan`` is a Python loop.
+stacked over layers); the JAX package's layer ``scan`` is a Python loop,
+and its scan over (dense, moe) pairs a loop over layers 0, 1, 2, ... that
+takes layer i from the pair stack of its kind (``_layer``), so stacked KV
+comes out in the JAX package's layer order.
 Decode attention runs against the Harvest KV pools through
 ``repro_torch.core.paged_attention``.  ``serve_step`` writes the step's k
 and v into the pools IN PLACE (the JAX code carries the pools through its
@@ -25,22 +30,20 @@ from repro_torch.core import paged_attention as pa
 from repro_torch.models import layers as L
 from repro_torch.models.moe import load_balance_loss, moe_layer
 from repro_torch.models.params import (  # noqa: F401  (re-exported)
-    build_schema, check_family, init_params, param_count)
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    check_family(cfg)
-    if cfg.parallel_block:
-        raise NotImplementedError(
-            f"{cfg.name}: parallel blocks belong to a later slice of the port")
+    build_schema, check_family, init_params, is_interleaved, param_count)
 
 
 def _layer(params, i: int):
-    """Layer ``i``'s slice of the stacked layer parameters."""
-    def pick(node):
-        return {k: pick(v) for k, v in node.items()} \
-            if isinstance(node, dict) else node[i]
-    return pick(params["layers"])
+    """Layer ``i``'s slice of the stacked layer parameters: of
+    ``params["layers"]``, or for interleaved dense/MoE pairs of
+    ``blocks["dense"][i // 2]`` (even i) or ``blocks["moe"][i // 2]`` (odd
+    i), as ``ModelConfig.is_moe_layer`` places the MoE layers."""
+    def pick(node, j):
+        return {k: pick(v, j) for k, v in node.items()} \
+            if isinstance(node, dict) else node[j]
+    if "blocks" in params:
+        return pick(params["blocks"]["moe" if i % 2 else "dense"], i // 2)
+    return pick(params["layers"], i)
 
 
 # ---------------------------------------------------------------------------
@@ -74,26 +77,37 @@ def _residual_norm(x, a, scale, cfg: ModelConfig):
     return s.to(x.dtype), L.rms_norm(s, scale, cfg.norm_eps).to(x.dtype)
 
 
-def _ffn(x, u2, lp, cfg: ModelConfig):
-    """The FFN half of a block on the normed residual ``u2``: the MLP, or
-    the MoE layer.  Returns (x + y, the MoE layer's (probs, ids) routing
-    or None)."""
+def _block(x, s, lp, cfg: ModelConfig, attend, keep_sum: bool = False):
+    """One pre-LN block on the residual ``x``: attention, then the MLP or
+    the MoE FFN on the second norm, or (parallel blocks) the MLP on the
+    attention's own normed input, ``x + a + mlp(u)`` rounded add by add as
+    the jitted JAX block rounds it (not as one f32 sum rounded once).
+
+    ``s``: the unrounded sum that ``x`` was rounded from, where the first
+    norm reads it, else None.  ``attend(u)`` -> (a, kv).  ``keep_sum``:
+    return the unrounded ``x + mlp`` as the next block's ``s``; the JAX
+    package scans interleaved (dense, moe) pairs in one body, where XLA
+    lets the MoE layer's first norm read the dense layer's sum before its
+    rounding, as it does for the second norm (``_residual_norm``).
+    Returns (x, s, kv, the MoE layer's (probs, ids) routing or None)."""
+    u = L.rms_norm(x if s is None else s, lp["ln1"], cfg.norm_eps).to(x.dtype)
+    a, kv = attend(u)
+    if cfg.parallel_block:
+        return x + a + L.mlp(u, lp["mlp"], cfg), None, kv, None
+    x, u2 = _residual_norm(x, a, lp["ln2"], cfg)
     if "moe" in lp:
         y, probs, ids = moe_layer(u2, lp["moe"], cfg)
-        return x + y, (probs, ids)
-    return x + L.mlp(u2, lp["mlp"], cfg), None
+        return x + y, None, kv, (probs, ids)
+    y = L.mlp(u2, lp["mlp"], cfg)
+    if not keep_sum:
+        return x + y, None, kv, None
+    s = x.float() + y.float()
+    return s.to(x.dtype), s, kv, None
 
 
-def dense_block(x, lp, cfg: ModelConfig, positions):
-    """Pre-LN block (MLP or MoE FFN). Returns (x, kv, aux): aux is the MoE
-    layer's load-balance loss, or None."""
-    u = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    a, kv = L.attention_layer(u, lp["attn"], cfg, positions)
-    x, u2 = _residual_norm(x, a, lp["ln2"], cfg)
-    x, routing = _ffn(x, u2, lp, cfg)
-    aux = None if routing is None \
-        else load_balance_loss(*routing, cfg.moe.num_experts)
-    return x, kv, aux
+def _keeps_sum(cfg: ModelConfig, i: int) -> bool:
+    """Layer ``i`` is the dense half of an interleaved pair."""
+    return is_interleaved(cfg) and i % 2 == 0
 
 
 class ForwardOut(NamedTuple):
@@ -104,13 +118,18 @@ class ForwardOut(NamedTuple):
 
 def backbone(params, x, positions, cfg: ModelConfig,
              want_kv: bool = True) -> ForwardOut:
-    _check_family(cfg)
+    check_family(cfg)
     ks, vs = [], []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    s = None
     for i in range(cfg.num_layers):
-        x, (k, v), a = dense_block(x, _layer(params, i), cfg, positions)
-        if a is not None:
-            aux = aux + a
+        lp = _layer(params, i)
+        x, s, (k, v), routing = _block(
+            x, s, lp, cfg,
+            lambda u: L.attention_layer(u, lp["attn"], cfg, positions),
+            _keeps_sum(cfg, i))
+        if routing is not None:
+            aux = aux + load_balance_loss(*routing, cfg.moe.num_experts)
         if want_kv:
             ks.append(k)
             vs.append(v)
@@ -161,11 +180,11 @@ def num_kv_layers(cfg: ModelConfig) -> int:
     return cfg.num_layers
 
 
-def _decode_attn_sublayer(x, lp, cfg, state: DecodeState, layer: int,
+def _decode_attn_sublayer(u, lp, cfg, state: DecodeState, layer: int,
                           use_peer: bool):
-    """x: (b, 1, d). Appends this step's k/v to layer ``layer`` of the
-    pools in place and returns the attention output (b, 1, d)."""
-    u = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    """u: (b, 1, d), the normed residual. Appends this step's k/v to layer
+    ``layer`` of the pools in place and returns the attention output (b,
+    1, d)."""
     q, k, v = L.attention_qkv(u, lp["attn"], cfg)
     positions = state.pos[:, None]
     q = L.position_embedding(q, positions, cfg)
@@ -179,21 +198,23 @@ def _decode_attn_sublayer(x, lp, cfg, state: DecodeState, layer: int,
         pools.append((pp.pool_k[layer], pp.pool_v[layer], pp.slot_req,
                       pp.slot_base))
     o = pa.paged_decode_attention(q[:, 0], pools, state.pos, cfg)
-    y = torch.einsum("bnh,nhd->bd", o.to(x.dtype), lp["attn"]["wo"])
+    y = torch.einsum("bnh,nhd->bd", o.to(u.dtype), lp["attn"]["wo"])
     return y[:, None]
 
 
 def serve_step(params, state: DecodeState, cfg: ModelConfig,
                harvest_inplace: bool = False):
     """Decode ONE token for every active request. Returns (logits, state)."""
-    _check_family(cfg)
+    check_family(cfg)
     x = embed(params, state.tokens[:, None], cfg)
     use_peer = harvest_inplace and state.peer is not None
+    s = None
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
-        a = _decode_attn_sublayer(x, lp, cfg, state, i, use_peer)
-        x, u2 = _residual_norm(x, a, lp["ln2"], cfg)
-        x, _ = _ffn(x, u2, lp, cfg)
+        x, s, _, _ = _block(
+            x, s, lp, cfg, lambda u: (_decode_attn_sublayer(
+                u, lp, cfg, state, i, use_peer), None),
+            _keeps_sum(cfg, i))
     logits = unembed(params, x, cfg)[:, 0]
     new_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
     return logits, state._replace(tokens=new_tokens, pos=state.pos + 1)

@@ -1,7 +1,8 @@
-"""Parameter schema of the decoder (dense, and MoE with every layer an MoE
-layer): one declaration drives init and the bridge's shape checks.  Leaves
-are stacked over layers (leading dim) exactly as in the JAX package, so the
-two parameter trees line up key by key and shape by shape.
+"""Parameter schema of the decoder (dense, with serial or parallel blocks;
+MoE with every layer an MoE layer; and MoE interleaved with dense layers,
+``layer_period == 2``): one declaration drives init and the bridge's shape
+checks.  Leaves are stacked over layers (leading dim) exactly as in the JAX
+package, so the two parameter trees line up key by key and shape by shape.
 """
 from __future__ import annotations
 
@@ -22,12 +23,15 @@ class ParamDef:
     shape: Tuple[int, ...]
     init: str = "normal"                 # normal | zeros | ones | const:<v>
     dtype: str = "bfloat16"
+    #: leading dims that stack weight matrices (layers, experts): init
+    #: draws one matrix, ``shape[stacked:]``, at a time
+    stacked: int = 0
 
 
 def _stack(defs: dict, n: int) -> dict:
     """Prefix every ParamDef with the stacked layer dim."""
     return {k: _stack(v, n) if isinstance(v, dict)
-            else ParamDef((n,) + v.shape, v.init, v.dtype)
+            else ParamDef((n,) + v.shape, v.init, v.dtype, v.stacked + 1)
             for k, v in defs.items()}
 
 
@@ -66,9 +70,9 @@ def moe_schema(cfg: ModelConfig) -> dict:
     d, e, f = cfg.d_model, mc.num_experts, mc.d_ff_expert
     s = {
         "router": ParamDef((d, e), dtype="float32"),
-        "wi": ParamDef((e, d, f)),
-        "wg": ParamDef((e, d, f)),
-        "wo": ParamDef((e, f, d)),
+        "wi": ParamDef((e, d, f), stacked=1),
+        "wg": ParamDef((e, d, f), stacked=1),
+        "wo": ParamDef((e, f, d), stacked=1),
     }
     if mc.num_shared_experts:
         s["shared"] = mlp_schema(cfg, mc.d_ff_shared * mc.num_shared_experts)
@@ -80,13 +84,23 @@ def is_moe(cfg: ModelConfig) -> bool:
     return cfg.family == "moe" and cfg.moe.layer_period == 1
 
 
+def is_interleaved(cfg: ModelConfig) -> bool:
+    """Dense and MoE layers alternate, the MoE layer second of each pair
+    (``layer_period == 2``, Llama-4)."""
+    return cfg.family == "moe" and cfg.moe.layer_period == 2
+
+
 def check_family(cfg: ModelConfig) -> None:
     """The families the port covers so far: dense, and MoE with every layer
-    an MoE layer."""
-    if not (cfg.family == "dense" or is_moe(cfg)):
+    an MoE layer or every other one."""
+    if not (cfg.family == "dense" or is_moe(cfg) or is_interleaved(cfg)):
         raise NotImplementedError(
             f"{cfg.name}: the port covers the dense family and MoE with "
-            f"every layer an MoE layer so far (family {cfg.family!r})")
+            f"every layer or every other layer an MoE layer so far "
+            f"(family {cfg.family!r})")
+    if is_interleaved(cfg) and cfg.num_layers % 2:
+        raise ValueError(f"{cfg.name}: interleaved dense/MoE pairs need an "
+                         f"even layer count, got {cfg.num_layers}")
 
 
 def _norms(cfg: ModelConfig, parallel: bool) -> dict:
@@ -103,6 +117,16 @@ def build_schema(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         schema["lm_head"] = ParamDef((d, cfg.vocab_size))
     schema["final_norm"] = ParamDef((d,), "ones")
+    if is_interleaved(cfg):
+        # the JAX package scans (dense, moe) pairs: layer 2i is
+        # blocks["dense"][i], layer 2i + 1 blocks["moe"][i]
+        dense = dict(_norms(cfg, False), attn=attention_schema(cfg),
+                     mlp=mlp_schema(cfg))
+        moe = dict(_norms(cfg, False), attn=attention_schema(cfg),
+                   moe=moe_schema(cfg))
+        schema["blocks"] = {"dense": _stack(dense, cfg.num_layers // 2),
+                            "moe": _stack(moe, cfg.num_layers // 2)}
+        return schema
     layer = dict(_norms(cfg, cfg.parallel_block))
     layer["attn"] = attention_schema(cfg)
     if is_moe(cfg):
@@ -122,10 +146,14 @@ def _walk(schema, fn, path=()):
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda"):
     """Materialise parameters directly on ``device`` from ``generator``
-    (which must live on that device).  Normal leaves are drawn in f32 one
-    leading-dim slice at a time and cast to their dtype, so a full-width
-    model never stages a whole f32 stack.  The draws differ from
-    ``jax.random``: tests carry JAX weights across with the bridge."""
+    (which must live on that device).  A normal leaf is drawn in f32 one
+    weight matrix at a time (the leaf past its stacked layer and expert
+    dims, as one 2-D draw: an attention projection's heads merged into its
+    columns), scaled in place and cast to its dtype, so a full-width model
+    never stages more than one matrix in f32: 168 MB for one of
+    Llama-4's experts, where a layer's 128 experts would be 21.5 GB.  The
+    draws differ from ``jax.random``: tests carry JAX weights across with
+    the bridge."""
     dev = resolve_device(device)
 
     def make(path, pd: ParamDef):
@@ -140,9 +168,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         fan_in = pd.shape[-2] if len(pd.shape) >= 2 else pd.shape[-1]
         scale = min(0.02, 1.0 / math.sqrt(max(fan_in, 1)))
         out = torch.empty(pd.shape, dtype=dtype, device=dev)
-        for part in (out if out.dim() >= 3 else (out,)):
-            part.copy_(torch.randn(part.shape, generator=generator,
-                                   device=dev) * scale)
+        mat = pd.shape[pd.stacked:]
+        draw = (mat[0], math.prod(mat[1:])) if len(mat) > 1 else mat
+        for part in out.view((-1,) + mat):
+            r = torch.randn(draw, generator=generator, device=dev)
+            part.copy_(r.mul_(scale).view(mat))
         return out
 
     return _walk(build_schema(cfg), make)

@@ -149,6 +149,34 @@ def _pool(seed, n_slots, elems, zero_row=None):
     return src
 
 
+# (q heads per kv head, kv heads, attention chunk): Llama-4's 40 / 8 and
+# Command-R's 64 / 8 heads at Llama-4's chunk of 8,192, and both groups
+# over 2 kv heads at a chunk of 64
+K1_CHUNKS = [(5, 8, 8192), (8, 8, 8192), (5, 2, 64), (8, 2, 64)]
+
+
+@pytest.mark.parametrize("gq,nkv,chunk", K1_CHUNKS,
+                         ids=["gq5-8192", "gq8-8192", "gq5-64", "gq8-64"])
+def test_paged_partials_across_a_chunk_boundary(cuda, gq, nkv, chunk):
+    """K1 with an attention chunk, rows on both sides of the first chunk
+    boundary (the chunk's last position, its first, and two past it): the
+    chunk mask cuts every slot of the earlier chunk, and the row at the
+    boundary keeps one key, its own (l = 1)."""
+    cfg = dataclasses.replace(get_config("yi-6b").reduced(),
+                              attention_chunk=chunk)
+    q_pos = (chunk - 1, chunk, chunk + chunk // 8 + 3, 2 * chunk - 5)
+    bs = 16
+    n_slots = sum(p // bs + 1 for p in q_pos) + 12
+    s = _scenario(41 + gq, n_slots, bs, nkv, nkv * gq, 128, q_pos,
+                  empty_row=None)
+    got = _partials(s, cfg, cuda)
+    ref = _partials(s, cfg, "cpu")
+    for name in ("m", "l", "acc"):
+        torch.testing.assert_close(getattr(got, name).cpu(),
+                                   getattr(ref, name), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.l[1].cpu(), torch.ones((nkv, gq)))
+
+
 @pytest.mark.parametrize("fidelity", ["int8", "fp8", "int4"])
 @pytest.mark.parametrize("elems", [37, 262_144, 737_280, 786_432,
                                    1_048_576])
@@ -543,6 +571,35 @@ def test_moe_ffn_skips_empty_experts(cuda, dtype, activation, shape):
         assert torch.all(got[ex, n:] == 0), ex
 
 
+@pytest.mark.parametrize("dtype,d,f,c", [
+    (torch.bfloat16, 5120, 8192, 4), (torch.bfloat16, 256, 352, 20),
+    (torch.float32, 256, 352, 20)], ids=["llama4-decode", "bf16", "f32"])
+def test_moe_ffn_skips_all_but_four_of_128_experts(cuda, dtype, d, f, c):
+    """128 experts of which 4 hold tokens (every row of their buffers), as
+    a decode step of Llama-4 gives them: each of the other 124 experts
+    skips its every 16-row tile (one at C 4, two at C 20; counted on the
+    card) and gives exact zeros, and the 4 match the plain version.  At
+    Llama-4's width (d 5120, f 8192) the weights are 32.2 GB in bf16."""
+    e, filled = 128, (3, 40, 77, 127)
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    xd = torch.zeros((e, c, d), dtype=dtype, device=cuda)
+    xd[list(filled)] = torch.randn((len(filled), c, d), generator=gen,
+                                   device=cuda).to(dtype)
+    # scaled so that h, g and the outputs are O(1), as _expert_inputs
+    wi, wg = (torch.randn((e, d, f), generator=gen, device=cuda,
+                          dtype=dtype).mul_(d ** -0.5) for _ in range(2))
+    wo = torch.randn((e, f, d), generator=gen, device=cuda,
+                     dtype=dtype).mul_(f ** -0.5)
+    skipped = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    got = mops.moe_ffn(xd, wi, wg, wo, skipped=skipped)
+    ref = mops.moe_ffn_plain(xd, wi, wg, wo)
+    torch.testing.assert_close(got.float(), ref.float(), **MOE_TOL[dtype])
+    tiles = (c + 15) // 16
+    assert int(skipped.item()) == (e - len(filled)) * tiles
+    empty = [x for x in range(e) if x not in filled]
+    assert torch.all(got[empty] == 0)
+
+
 def test_moe_ffn_raises_on_cuda(cuda):
     x, wi, wg, wo = _expert_inputs(17, 2, 3, 8, 5, torch.bfloat16)
     with pytest.raises(ValueError):
@@ -621,6 +678,26 @@ def test_prefill_attention_many_tiles(cuda, dtype, masks):
     q, k, v, qp, kp = _flash_inputs(21, 1, 1100, 1100, 16, 4, 120, dtype)
     got = fops.prefill_attention(q, k, v, qp, kp, **masks)
     ref = fops.prefill_attention_plain(q, k, v, qp, kp, **masks)
+    torch.testing.assert_close(got.float(), ref.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 8300, 40, 8, 8192),
+                                   (2, 600, 40, 8, 256),
+                                   (2, 600, 64, 8, 256)],
+                         ids=["llama4-8192", "gq5-256", "gq8-256"])
+def test_prefill_attention_across_a_chunk_boundary(cuda, dtype, shape):
+    """K4 with an attention chunk and a prompt past its first boundary, at
+    hd 128: Llama-4's heads (40 / 8) with its chunk of 8,192 at 8,300
+    tokens, and gq 5 and 8 at a chunk of 256 (batch row 1's queries at
+    other positions), where queries past the boundary see their own
+    chunk only."""
+    b, n, nq, nkv, chunk = shape
+    q, k, v, qp, kp = _flash_inputs(23, b, n, n, nq, nkv, 128, dtype,
+                                    q0=n // 3 if b > 1 else None)
+    got = fops.prefill_attention(q, k, v, qp, kp, attention_chunk=chunk)
+    ref = fops.prefill_attention_plain(q, k, v, qp, kp,
+                                       attention_chunk=chunk)
     torch.testing.assert_close(got.float(), ref.float(), **FLASH_TOL[dtype])
 
 

@@ -341,9 +341,14 @@ def test_serve_step_matches_jax_and_forward(setup):
 
 
 def test_interleaved_moe_still_raises():
-    """layer_period 2 (llama-4's interleaved MoE) belongs to a later
-    slice: params, the model and the engine refuse it."""
+    """Llama-4's interleaving (layer_period 2) is served now
+    (tests/test_torch_archs.py); any other period, which the JAX package
+    refuses too (its schema asserts a period of 2), still raises in the
+    params, the model and the engine."""
     cfg = t_get_config("llama4-maverick-400b-a17b")
+    assert TM.build_schema(cfg)["blocks"].keys() == {"dense", "moe"}
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           layer_period=3))
     with pytest.raises(NotImplementedError):
         TM.build_schema(cfg)
     with pytest.raises(NotImplementedError):

@@ -26,7 +26,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -42,17 +41,12 @@ def whole_trace(fn, iters, kernel=None):
     lost rows."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke as cs
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    fn()
-                torch.cuda.synchronize()
+        prof = cs.profiled(fn, iters)     # its window padded
         rows = [(r.key, r.count / iters,
                  getattr(r, "self_device_time_total",
                          getattr(r, "self_cuda_time_total", 0.0))
