@@ -12,12 +12,14 @@ Phases (any failure raises and the script exits non-zero):
      shapes the full-width serving paths give it and at edge cases, and
      time kernel, plain version, library call and bound (paged decode also
      at nemotron-4-15b's, command-r-35b's and llama4-maverick-400b-a17b's
-     full-width shapes, GQA groups of 6, 8 and 5, at a card-filling yi-6b
+     and qwen2-vl-72b's full-width shapes, GQA groups of 6, 8, 5 and 8,
+     at a card-filling yi-6b
      pool of 65,536 slots holding 64 short contexts, and at Llama-4's heads
      with its 8,192-token attention chunk, rows on both sides of the
      boundary; prefill attention at 40-, 1,032- and 6,000-token prompts,
-     an 8,800-token Llama-4 prompt past its chunk, and Command-R's and
-     Nemotron's smoke prompts, with a sliding window, an attention chunk and
+     an 8,800-token Llama-4 prompt past its chunk, Command-R's, Nemotron's
+     and DBRX's smoke prompts and qwen2-vl-72b's 1,024 prefix positions
+     ahead of one, with a sliding window, an attention chunk and
      a logit softcap, in bf16 on the tensor cores and f32 on the CUDA
      cores, the kernel that ran read from the trace; quantize-on-demote and
      dequantize-on-reload on f32, bf16 and f16 pools, timed at each path's
@@ -28,12 +30,13 @@ Phases (any failure raises and the script exits non-zero):
      copy of their ids (none), beside the library calls with device ids and
      with host ids; the expert FFN at a decode and a prefill shape, with
      the experts it skipped for want of a token counted on the card; at
-     Llama-4's decode shape inside its path, below);
+     Llama-4's and DBRX's decode shapes inside their paths, below);
   4. reduced yi-6b, qwen2-moe, h2o-danube-3-4b (prompts past its 64-token
      window), nemotron-4-15b at 12 / 2 heads (its GQA group of 6),
      Llama-4 at 4 layers with its dense/MoE interleaving (prompts past its
-     64-token chunk) and Command-R at 4 layers (parallel blocks) served on
-     the CPU (plain versions) and on the card (kernels): identical tokens;
+     64-token chunk), Command-R at 4 layers (parallel blocks), qwen2-vl-72b
+     (M-RoPE, qkv bias, 8 prefix embeddings) and DBRX served on the CPU
+     (plain versions) and on the card (kernels): identical tokens;
   5. the first path: full-width yi-6b (random weights from a seed) served
      through ``HarvestRuntime(...).server(...)`` with evictions, reloads and
      quantized demotions; every kernel of the path must have launched; then
@@ -63,6 +66,11 @@ Phases (any failure raises and the script exits non-zero):
   9. command-r-35b (parallel blocks, all 40 layers, 30.28 B parameters)
      and nemotron-4-15b (squared ReLU, GQA group 6, all 32 layers, 15.63 B)
      at full width on yi-6b's workload, each profiled;
+ 10. qwen2-vl-72b (M-RoPE, qkv bias, every prefill behind 1,024 prefix
+     embeddings) at 36 of its 80 layers (34.09 B parameters) and dbrx-132b
+     (16 experts top-4 of width 10,752, every layer) at 10 of its 40
+     (33.82 B) on yi-6b's workload, each profiled; the expert FFN held and
+     timed at DBRX's decode shape on the model's own 16 experts;
 then the card's name and power limit, one JSON line of per-kernel
 numbers, and the JSON result line.  The launch counts are set to 0 just
 before each path and read just after it.  It imports neither JAX nor the
@@ -104,6 +112,11 @@ SEED = 0
 LLAMA4 = "llama4-maverick-400b-a17b"
 #: Llama-4's depth on the card: two (dense, MoE) pairs of its 48 layers
 LLAMA4_LAYERS = 4
+QWEN2_VL, DBRX = "qwen2-vl-72b", "dbrx-132b"
+#: the depths that fit one card: 36 of qwen2-vl-72b's 80 layers (63.5 GiB
+#: of weights), 10 of dbrx-132b's 40 (63.0 GiB); every layer of each has
+#: the same shape
+QWEN2_VL_LAYERS, DBRX_LAYERS = 36, 10
 #: the least size of a timing pool that calls cycle through: past the
 #: card's 50 MB L2, so that each call finds its rows cold
 POOL_BYTES = 64 * 2 ** 20
@@ -271,7 +284,8 @@ def k1_bound(q_pos, n_slots, nq, nkv, hd, window=None, chunk=None):
 def check_paged_decode(full_cfg, bs, more=(), chunked=()):
     """K1 at the full-width decode shape of ``full_cfg`` (yi-6b: gq 8, hd
     128) and of each config in ``more`` (nemotron-4-15b: gq 6, command-r-35b:
-    64 / 8 heads, llama4-maverick-400b-a17b: gq 5), held to the plain
+    64 / 8 heads, llama4-maverick-400b-a17b: gq 5, qwen2-vl-72b: 64 / 8
+    heads), held to the plain
     version and timed; edge cases at ``full_cfg``'s heads: free slots, an
     empty request, sliding window, chunked-local; then at a card-filling
     pool of short contexts at ``full_cfg``'s heads, and at each config in
@@ -922,32 +936,41 @@ def check_moe_ffn(cfg, odd_cfg):
                 by_shape=rows_out)
 
 
-def check_moe_ffn_experts(cfg, params):
-    """K7 at Llama-4's decode shape on the served model's own experts
-    (the first MoE layer's 128 experts of d 5120 and f 8192, 32.2 GB in
-    bf16, which no second copy beside the model would leave room for): a
-    decode step's (E, 4, d) dispatch buffer in which 4 experts hold a
-    token, held to the plain version in bf16; the other experts are
-    skipped (counted on the card: one 16-row tile each) and give exact
-    zeros.  Then timed beside the plain version and the bmm composition;
-    the bound counts the weights of the experts that hold a token."""
+def check_moe_ffn_experts(cfg, params, rows=None):
+    """K7 at a decode shape on the served model's own experts (the first
+    MoE layer's: Llama-4's 128 experts of d 5120 and f 8192, 32.2 GB in
+    bf16, or DBRX's 16 of d 6144 and f 10752, 6.3 GB, which no second copy
+    beside the model would leave room for).  ``rows``: a decode step's
+    batch rows, routed by a random router into the (E, C, d) dispatch
+    buffer as the MoE layer fills it (DBRX: 4 rows at top-4, C 4); None:
+    Llama-4's buffer of C 4 in which 4 experts hold a token.  Held to the
+    plain version in bf16; the experts without a token are skipped
+    (counted on the card: one 16-row tile each) and give exact zeros.
+    Then timed beside the plain version and the bmm composition; the bound
+    counts the weights of the experts that hold a token and the operations
+    of the rows that hold one."""
     mc = cfg.moe
     e, d, f = mc.num_experts, cfg.d_model, mc.d_ff_expert
-    cap = max(int(2 * mc.top_k / e * mc.capacity_factor), 4)
-    filled = 4
-    w = [params["blocks"]["moe"]["moe"][k][0] for k in ("wi", "wg", "wo")]
+    layer = params["blocks"]["moe"] if "blocks" in params else params["layers"]
+    w = [layer["moe"][k][0] for k in ("wi", "wg", "wo")]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
-    xd = torch.zeros((e, cap, d), dtype=torch.bfloat16, device="cuda")
-    held = torch.randperm(e, generator=gen, device="cuda")[:filled]
-    xd[held, 0] = torch.randn((filled, d), generator=gen,
-                              device="cuda").bfloat16()
+    if rows is None:
+        cap = max(int(2 * mc.top_k / e * mc.capacity_factor), 4)
+        xd = torch.zeros((e, cap, d), dtype=torch.bfloat16, device="cuda")
+        held = torch.randperm(e, generator=gen, device="cuda")[:4]
+        xd[held, 0] = torch.randn((len(held), d), generator=gen,
+                                  device="cuda").bfloat16()
+    else:
+        xd = dispatch_buffer(cfg, rows, gen)[0]
+        cap = xd.shape[1]
+    empty = (xd == 0).all(-1)
+    filled = int((~empty).any(1).sum())
+    tokens = int((~empty).sum())
     skipped = torch.zeros((1,), dtype=torch.int32, device="cuda")
     got = mops.moe_ffn(xd, *w, activation=cfg.activation, skipped=skipped)
     ref = mops.moe_ffn_plain(xd, *w, activation=cfg.activation)
     torch.testing.assert_close(got.float(), ref.float(),
                                **MOE_TOL[torch.bfloat16])
-    empty = torch.ones((e, cap), dtype=torch.bool, device="cuda")
-    empty[held, 0] = False
     assert torch.all(got[empty] == 0), "empty slots must give zeros"
     assert int(skipped.item()) == e - filled, (skipped, filled)
     err = (got.float() - ref.float()).abs().max().item()
@@ -959,14 +982,14 @@ def check_moe_ffn_experts(cfg, params):
         silu(torch.bmm(xd, w[1])) * torch.bmm(xd, w[0]), w[2]), 10)
     w_bytes = 3 * d * f * 2
     bound_ms, bound_by = bound(filled * w_bytes + 2 * xd.numel() * 2,
-                               filled * 2 * 3 * d * f, BF16_FLOPS)
+                               tokens * 2 * 3 * d * f, BF16_FLOPS)
     print(f"  moe_ffn at {cfg.name}'s decode shape (E {e}, C {cap}, d {d}, "
-          f"f {f}; {filled} experts hold a token, the kernel skipped "
-          f"{e - filled}): {ms:.5f} ms device, {ms_wall:.5f} between "
-          f"events; plain {plain_ms:.5f}; library (bmm, silu, bmm, bmm) "
-          f"{library_ms:.5f}; bound {bound_ms:.6f} ({bound_by}); all "
-          f"experts' weights {e * w_bytes / 1e9:.1f} GB; max_abs_err "
-          f"{err:.3g}")
+          f"f {f}; {tokens} dispatched rows, {filled} experts hold a token, "
+          f"the kernel skipped {e - filled}): {ms:.5f} ms device, "
+          f"{ms_wall:.5f} between events; plain {plain_ms:.5f}; library "
+          f"(bmm, silu, bmm, bmm) {library_ms:.5f}; bound {bound_ms:.6f} "
+          f"({bound_by}); all experts' weights {e * w_bytes / 1e9:.1f} GB; "
+          f"max_abs_err {err:.3g}")
     return dict(shape=f"{cfg.name} decode, E {e}, C {cap}, d {d}, f {f}",
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
@@ -1499,21 +1522,31 @@ def main() -> int:
     # Llama-4 served at two dense/MoE pairs of its 48 layers: one MoE
     # layer's experts are 32.2 GB, the whole model does not fit one card
     llama4 = dataclasses.replace(get_config(LLAMA4), num_layers=LLAMA4_LAYERS)
+    qwen2_vl = dataclasses.replace(get_config(QWEN2_VL),
+                                   num_layers=QWEN2_VL_LAYERS)
+    dbrx = dataclasses.replace(get_config(DBRX), num_layers=DBRX_LAYERS)
+    npre = qwen2_vl.modality.num_prefix_embeddings
     bs = 8
-    # K1's 10-slot decode shape at Llama-4's 48 layers, so that its pools
-    # cycle past the L2 as the other models' do
+    # K1's 10-slot decode shape at Llama-4's 48 and qwen2-vl-72b's 80
+    # layers, so that its pools cycle past the L2 as the other models' do
     kernels = [check_paged_decode(yi, bs, more=[nemotron, command_r,
-                                                get_config(LLAMA4)],
+                                                get_config(LLAMA4),
+                                                get_config(QWEN2_VL)],
                                   chunked=[llama4])] \
         + check_quant([(yi, bs), (moe, bs), (danube, 16), (llama4, 16),
-                       (command_r, bs), (nemotron, bs)]) \
+                       (command_r, bs), (nemotron, bs), (qwen2_vl, bs),
+                       (dbrx, bs)]) \
         + [check_flash_prefill(yi, moe, danube, more=[
             (f"{LLAMA4} prompt past its chunk", llama4, 8800,
              dict(attention_chunk=llama4.attention_chunk)),
             ("command-r-35b smoke prompt", command_r, 40, {}),
-            ("nemotron-4-15b smoke prompt", nemotron, 40, {})])] \
+            ("nemotron-4-15b smoke prompt", nemotron, 40, {}),
+            (f"{QWEN2_VL} {npre} prefix positions and a smoke prompt",
+             qwen2_vl, npre + 40, {}),
+            ("dbrx-132b smoke prompt", dbrx, 40, {})])] \
         + check_movers([(yi, bs), (danube, 16), (llama4, 16),
-                        (command_r, bs), (nemotron, bs), (moe, bs)]) \
+                        (command_r, bs), (nemotron, bs), (qwen2_vl, bs),
+                        (dbrx, bs), (moe, bs)]) \
         + [check_moe_ffn(moe, get_config("phi-tiny-moe"))]
     tolerance = {"paged_decode_partials": "rtol 1e-4, atol 1e-4 (f32 sums "
                  "in another order)", "quantize_demote": "bit-identical",
@@ -1547,7 +1580,9 @@ def main() -> int:
             (LLAMA4, (70, 150), 24,
              dict(num_layers=4, moe=dataclasses.replace(l4_moe,
                                                         layer_period=2))),
-            ("command-r-35b", (5, 40), 8, dict(num_layers=4))):
+            ("command-r-35b", (5, 40), 8, dict(num_layers=4)),
+            (QWEN2_VL, (5, 40), 10, {}),
+            (DBRX, (5, 40), 10, {})):
         tokens = check_reduced_tokens(arch, prompt, slots, **changes)
         label = {k: v for k, v in changes.items() if k != "moe"}
         if "moe" in changes:
@@ -1555,7 +1590,7 @@ def main() -> int:
         print(f"reduced {arch} {label or ''}: cpu and cuda tokens "
               f"identical ({tokens[:2]} ...)")
 
-    # ---- phases 5 to 9: the paths at full width ----
+    # ---- phases 5 to 10: the paths at full width ----
     movers = ["paged_decode_partials", "quantize_demote",
               "dequantize_reload", "prefill_attention", "gather_blocks",
               "copy_blocks"]
@@ -1585,6 +1620,16 @@ def main() -> int:
     # (relu2, gq 6, all 32 layers) on yi-6b's workload
     paths["command-r-35b"], _, _ = main_path("command-r-35b", bs, movers)
     paths["nemotron-4-15b"], _, _ = main_path("nemotron-4-15b", bs, movers)
+    # qwen2-vl-72b (every prefill 1,024 prefix positions ahead of the
+    # prompt) and dbrx-132b at the depths that fit the card, on yi-6b's
+    # workload; K7 then at DBRX's decode shape (4 rows, top-4 of 16) on the
+    # model's own experts
+    paths[QWEN2_VL], _, _ = main_path(QWEN2_VL, bs, movers,
+                                      layers=QWEN2_VL_LAYERS)
+    paths[DBRX], _, k7_dbrx = main_path(
+        DBRX, bs, movers + ["moe_ffn"], layers=DBRX_LAYERS,
+        on_model=lambda cfg, params: check_moe_ffn_experts(cfg, params,
+                                                           rows=4))
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -1592,9 +1637,10 @@ def main() -> int:
             k["long_pool"] = k1_long
             k["llama4_pool"] = k1_llama4
         if k["name"] == "moe_ffn":
-            k["by_shape"].append(k7_llama4)
+            k["by_shape"] += [k7_llama4, k7_dbrx]
             k["max_abs_err"] = max(k["max_abs_err"],
-                                   k7_llama4["max_abs_err"])
+                                   k7_llama4["max_abs_err"],
+                                   k7_dbrx["max_abs_err"])
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
 """Core transformer layers of the dense decoder: RMS norm, rotary
-embeddings, prefill attention (kernel K4, online softmax) and the MLP.
+embeddings (RoPE and Qwen2-VL's three-section M-RoPE), prefill attention
+(kernel K4, online softmax) and the MLP.
 
 Every function mirrors its namesake in ``repro.models.layers`` dtype for
 dtype: bf16 operands, f32 accumulation where the JAX code asks for it, and a
@@ -41,11 +42,34 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
-def position_embedding(x, positions, cfg: ModelConfig):
+def apply_mrope(x, positions_3d, theta: float, sections):
+    """Qwen2-VL multimodal RoPE.  positions_3d: (..., seq, 3), the (t, h,
+    w) position ids; ``sections``: how many of the head_dim/2 frequency
+    slots t, h and w own (their sum is head_dim // 2).  Angles in f32, one
+    rounding back to x's dtype, as ``apply_rope``."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                # (hd/2,)
+    pos = positions_3d.float()                             # (..., seq, 3)
+    # frequency slots of section i turn with position id i (t, h, w)
+    angles = torch.cat([pos[..., i, None] * f for i, f in
+                        enumerate(torch.split(freqs, list(sections)))],
+                       dim=-1)[..., None, :]               # over heads
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def position_embedding(x, positions, cfg: ModelConfig, positions_3d=None):
     if cfg.rope_style == "rope":
         return apply_rope(x, positions, cfg.rope_theta)
-    raise NotImplementedError(
-        f"rope_style {cfg.rope_style!r} belongs to a later slice of the port")
+    if cfg.rope_style == "mrope":
+        if positions_3d is None:  # text only: the three sections share pos
+            positions_3d = positions[..., None].expand(
+                positions.shape + (3,))
+        return apply_mrope(x, positions_3d, cfg.rope_theta,
+                           cfg.modality.mrope_sections)
+    return x  # "none": non-rotary positions
 
 
 def chunked_attention(q, k, v, q_positions, k_positions, cfg: ModelConfig,
@@ -67,13 +91,15 @@ def chunked_attention(q, k, v, q_positions, k_positions, cfg: ModelConfig,
 
 
 def attention_qkv(x, p, cfg: ModelConfig):
-    """Project x -> (q, k, v) with GQA head layout and optional QK-norm."""
+    """Project x -> (q, k, v) with GQA head layout and optional QK-norm.
+    With a qkv bias, q + bq and k + bk come back in f32, not rounded to
+    x's dtype: ``rotary_qkv`` rotates them and rounds once."""
     q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
     k = torch.einsum("bsd,dnh->bsnh", x, p["wk"])
     v = torch.einsum("bsd,dnh->bsnh", x, p["wv"])
     if cfg.attn_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
+        q = q.float() + p["bq"].float()
+        k = k.float() + p["bk"].float()
         v = v + p["bv"]
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
@@ -81,11 +107,20 @@ def attention_qkv(x, p, cfg: ModelConfig):
     return q, k, v
 
 
-def attention_layer(x, p, cfg: ModelConfig, positions):
-    """Full-sequence attention sublayer (prefill). Returns (y, (k, v))."""
+def rotary_qkv(x, p, cfg: ModelConfig, positions, positions_3d=None):
+    """q, k and v of x, q and k rotated, all in x's dtype, as the jitted
+    JAX sublayer computes them: XLA lets the rotary read the bias sums
+    before their rounding (it folds the bf16 round trip between the add
+    and the rotary's upcast away), so they round once, after it."""
     q, k, v = attention_qkv(x, p, cfg)
-    q = position_embedding(q, positions, cfg)
-    k = position_embedding(k, positions, cfg)
+    q = position_embedding(q, positions, cfg, positions_3d).to(x.dtype)
+    k = position_embedding(k, positions, cfg, positions_3d).to(x.dtype)
+    return q, k, v
+
+
+def attention_layer(x, p, cfg: ModelConfig, positions, positions_3d=None):
+    """Full-sequence attention sublayer (prefill). Returns (y, (k, v))."""
+    q, k, v = rotary_qkv(x, p, cfg, positions, positions_3d)
     o = flash.prefill_attention(
         q, k, v, positions, positions,
         sliding_window=cfg.sliding_window,

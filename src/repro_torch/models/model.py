@@ -1,7 +1,8 @@
 """The decoder of the port: dense blocks (serial, or parallel attention and
-MLP as in Command-R), and MoE blocks where every layer's FFN is a mixture
-of experts (``layer_period == 1``) or every other layer's, after a dense
-layer (``layer_period == 2``, Llama-4).
+MLP as in Command-R; the vlm family's are dense blocks with qkv bias and
+M-RoPE, behind a prefix of patch embeddings), and MoE blocks where every
+layer's FFN is a mixture of experts (``layer_period == 1``) or every other
+layer's, after a dense layer (``layer_period == 2``, Llama-4).
 
 Entry points:
   forward(params, batch, cfg, want_kv)      -> (logits, ForwardOut)
@@ -116,7 +117,7 @@ class ForwardOut(NamedTuple):
     aux: torch.Tensor            # scalar f32 aux loss (MoE load balance)
 
 
-def backbone(params, x, positions, cfg: ModelConfig,
+def backbone(params, x, positions, cfg: ModelConfig, positions_3d=None,
              want_kv: bool = True) -> ForwardOut:
     check_family(cfg)
     ks, vs = [], []
@@ -126,7 +127,8 @@ def backbone(params, x, positions, cfg: ModelConfig,
         lp = _layer(params, i)
         x, s, (k, v), routing = _block(
             x, s, lp, cfg,
-            lambda u: L.attention_layer(u, lp["attn"], cfg, positions),
+            lambda u: L.attention_layer(u, lp["attn"], cfg, positions,
+                                        positions_3d),
             _keeps_sum(cfg, i))
         if routing is not None:
             aux = aux + load_balance_loss(*routing, cfg.moe.num_experts)
@@ -138,9 +140,15 @@ def backbone(params, x, positions, cfg: ModelConfig,
 
 
 def forward(params, batch, cfg: ModelConfig, want_kv: bool = False):
-    """batch: dict(tokens (b, s), positions (b, s))."""
+    """batch: dict(tokens (b, s), positions (b, npre + s)[, prefix_embeddings
+    (b, npre, d), positions_3d (b, npre + s, 3)]).  A model with prefix
+    embeddings (the vision frontend's patches, precomputed) reads them
+    ahead of the tokens."""
     x = embed(params, batch["tokens"], cfg)
-    out = backbone(params, x, batch["positions"], cfg, want_kv=want_kv)
+    if cfg.modality is not None and cfg.modality.num_prefix_embeddings:
+        x = torch.cat([batch["prefix_embeddings"].to(x.dtype), x], dim=1)
+    out = backbone(params, x, batch["positions"], cfg,
+                   batch.get("positions_3d"), want_kv=want_kv)
     return unembed(params, out.hidden, cfg), out
 
 
@@ -170,6 +178,7 @@ class DecodeState(NamedTuple):
     pos: torch.Tensor         # (b,) int32 current position
     kv: Optional[KVPools]
     peer: Optional[KVPools]   # harvested peer tier (in-place mode)
+    positions_3d: Optional[torch.Tensor] = None   # (b, 3) M-RoPE ids
 
 
 def num_kv_layers(cfg: ModelConfig) -> int:
@@ -185,10 +194,8 @@ def _decode_attn_sublayer(u, lp, cfg, state: DecodeState, layer: int,
     """u: (b, 1, d), the normed residual. Appends this step's k/v to layer
     ``layer`` of the pools in place and returns the attention output (b,
     1, d)."""
-    q, k, v = L.attention_qkv(u, lp["attn"], cfg)
-    positions = state.pos[:, None]
-    q = L.position_embedding(q, positions, cfg)
-    k = L.position_embedding(k, positions, cfg)
+    p3 = None if state.positions_3d is None else state.positions_3d[:, None]
+    q, k, v = L.rotary_qkv(u, lp["attn"], cfg, state.pos[:, None], p3)
     kvp = state.kv
     pk, pv = kvp.pool_k[layer], kvp.pool_v[layer]
     pa.append_kv(pk, pv, k[:, 0], v[:, 0], kvp.append_slot, kvp.append_off)

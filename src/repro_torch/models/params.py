@@ -1,8 +1,9 @@
 """Parameter schema of the decoder (dense, with serial or parallel blocks;
-MoE with every layer an MoE layer; and MoE interleaved with dense layers,
-``layer_period == 2``): one declaration drives init and the bridge's shape
-checks.  Leaves are stacked over layers (leading dim) exactly as in the JAX
-package, so the two parameter trees line up key by key and shape by shape.
+vlm, the dense stack with qkv bias; MoE with every layer an MoE layer;
+and MoE interleaved with dense layers, ``layer_period == 2``): one
+declaration drives init and the bridge's shape checks.  Leaves are
+stacked over layers (leading dim) exactly as in the JAX package, so the
+two parameter trees line up key by key and shape by shape.
 """
 from __future__ import annotations
 
@@ -91,12 +92,14 @@ def is_interleaved(cfg: ModelConfig) -> bool:
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """The families the port covers so far: dense, and MoE with every layer
+    """The families the port covers so far: dense, vlm (the dense stack
+    with M-RoPE, qkv bias and prefix embeddings), and MoE with every layer
     an MoE layer or every other one."""
-    if not (cfg.family == "dense" or is_moe(cfg) or is_interleaved(cfg)):
+    if not (cfg.family in ("dense", "vlm") or is_moe(cfg)
+            or is_interleaved(cfg)):
         raise NotImplementedError(
-            f"{cfg.name}: the port covers the dense family and MoE with "
-            f"every layer or every other layer an MoE layer so far "
+            f"{cfg.name}: the port covers the dense and vlm families and "
+            f"MoE with every layer or every other layer an MoE layer so far "
             f"(family {cfg.family!r})")
     if is_interleaved(cfg) and cfg.num_layers % 2:
         raise ValueError(f"{cfg.name}: interleaved dense/MoE pairs need an "

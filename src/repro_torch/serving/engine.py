@@ -618,6 +618,11 @@ class HarvestServingEngine:
         self._pcache: Optional[PrefixCache] = None
         if prefix_cache:
             assert self.L_kv, "prefix cache needs a paged KV cache"
+            npre = (cfg.modality.num_prefix_embeddings
+                    if cfg.modality else 0)
+            assert npre == 0, \
+                "prefix cache keys on token blocks only — prefix-embedding " \
+                "models cannot be content-addressed by tokens"
             self._pcache = PrefixCache(
                 self.kv_mgr,
                 prefix_cache if isinstance(prefix_cache, PrefixCacheConfig)
@@ -972,23 +977,35 @@ class HarvestServingEngine:
 
     def _prefill_forward(self, prefix: List[int]):
         """One REAL forward over the (padded) prefix; returns
-        ``(logits, out, n_pad)``.  Shared by the inline prefill and
+        ``(logits, out, npre, n_pad)``.  Shared by the inline prefill and
         the final chunk of a chunked prefill — token fidelity comes from
-        this single full-prefix forward in both paths."""
+        this single full-prefix forward in both paths.  A model with
+        ``npre`` prefix embeddings gets zeros for them (the frontend is a
+        stub) ahead of the tokens, positions over both, and, with M-RoPE,
+        its (t, h, w) ids all equal to the position."""
         n = len(prefix)
         n_pad = self.bs * math.ceil(n / self.bs)
         toks = np.zeros((1, n_pad), np.int32)
         toks[0, :n] = prefix
+        npre = self.cfg.modality.num_prefix_embeddings \
+            if self.cfg.modality else 0
+        s_all = n_pad + npre
+        pos = torch.arange(s_all, dtype=torch.int32, device=self.device)
         batch = {"tokens": torch.from_numpy(toks).to(self.device),
-                 "positions": torch.arange(n_pad, dtype=torch.int32,
-                                           device=self.device)[None]}
+                 "positions": pos[None]}
+        if npre:
+            batch["prefix_embeddings"] = torch.zeros(
+                (1, npre, self.cfg.d_model), dtype=torch.bfloat16,
+                device=self.device)
+        if self.cfg.rope_style == "mrope":
+            batch["positions_3d"] = pos[None, :, None].expand(1, s_all, 3)
         logits, out = self._prefill_fn(self.params, batch)
-        return logits, out, n_pad
+        return logits, out, npre, n_pad
 
     def _prefill(self, r: Request) -> None:
         prefix = r.prompt + r.output            # rollback re-prefills output
         n = len(prefix)
-        logits, out, n_pad = self._prefill_forward(prefix)
+        logits, out, npre, n_pad = self._prefill_forward(prefix)
         row = r.row
         # prefix-cache lookup: adopt (or COW-split) the longest cached
         # block chain BEFORE the prefill window — a hit's only cost is
@@ -1014,6 +1031,8 @@ class HarvestServingEngine:
 
         if self.L_kv:
             k, v = out.kv
+            if npre:   # prefix embeddings occupy the first npre positions
+                k, v = k[:, :, npre:], v[:, :, npre:]
             nb = math.ceil(n / self.bs)
             for j in range(len(matched), nb):
                 slot, ops = self.kv_mgr.allocate_block(r.req_id, j, j * self.bs)
@@ -1026,7 +1045,7 @@ class HarvestServingEngine:
                 ent = self.kv_mgr.table[(r.req_id, j)]
                 ent.filled = min(self.bs, n - lo) if lo < n else 0
 
-        nxt = self._sample(_host(logits[0, n - 1]))
+        nxt = self._sample(_host(logits[0, npre + n - 1]))
         if not r.output:
             r.output.append(int(nxt))
             self.stats.tokens_out += 1
@@ -1105,10 +1124,12 @@ class HarvestServingEngine:
         TTFT is the end of the step window the chunk completed in."""
         prefix = r.prompt + r.output
         n = len(prefix)
-        logits, out, n_pad = self._prefill_forward(prefix)
+        logits, out, npre, n_pad = self._prefill_forward(prefix)
         row = r.row
         if self.L_kv:
             k, v = out.kv
+            if npre:
+                k, v = k[:, :, npre:], v[:, :, npre:]
             nb = math.ceil(n / self.bs)
             for j in range(r.cached_prefix_blocks, nb):
                 # blocks were allocated chunk by chunk; fill payloads now
@@ -1120,7 +1141,7 @@ class HarvestServingEngine:
                 self.slot_req[slot] = row
                 self.slot_base[slot] = j * self.bs
                 ent.filled = min(self.bs, n - lo) if lo < n else 0
-        nxt = self._sample(_host(logits[0, n - 1]))
+        nxt = self._sample(_host(logits[0, npre + n - 1]))
         if not r.output:
             # a rollback re-prefill replays the prefix without re-emitting
             r.output.append(int(nxt))
@@ -1180,10 +1201,12 @@ class HarvestServingEngine:
         te = self.runtime.transfers
         prefix = r.prompt + r.output
         n = len(prefix)
-        logits, out, n_pad = self._prefill_forward(prefix)
+        logits, out, npre, n_pad = self._prefill_forward(prefix)
         k = v = None
         if self.L_kv:
             kk, vv = out.kv
+            if npre:
+                kk, vv = kk[:, :, npre:], vv[:, :, npre:]
             k = kk[:, 0].float().cpu().numpy()
             v = vv[:, 0].float().cpu().numpy()
 
@@ -1234,7 +1257,7 @@ class HarvestServingEngine:
                     self.stats.writeback_s += tr.seconds
                     stream.append(tr)
 
-        nxt = self._sample(_host(logits[0, n - 1]))
+        nxt = self._sample(_host(logits[0, npre + n - 1]))
         if not r.output:
             r.output.append(int(nxt))
             self.stats.tokens_out += 1
@@ -1669,16 +1692,20 @@ class HarvestServingEngine:
         def dev(a):
             return torch.from_numpy(a).to(self.device)
 
+        pos = dev(self.row_pos)
         state = M.DecodeState(
             tokens=dev(self.row_tokens),
-            pos=dev(self.row_pos),
+            pos=pos,
             kv=None if not self.L_kv else M.KVPools(
                 pool_k=self.pool_k, pool_v=self.pool_v,
                 slot_req=dev(self.slot_req),
                 slot_base=dev(self.slot_base),
                 append_slot=dev(self._append_slot),
                 append_off=dev(self._append_off)),
-            peer=None)
+            peer=None,
+            # M-RoPE of text: the (t, h, w) ids all equal the position
+            positions_3d=(pos[:, None].expand(-1, 3)
+                          if self.cfg.rope_style == "mrope" else None))
         logits, _ = self._decode_fn(self.params, state)
         return logits
 

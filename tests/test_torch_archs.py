@@ -2,7 +2,9 @@
 held against the JAX package at the reduced size: Llama-4 (interleaved
 dense/MoE pairs, ``layer_period`` 2 put back after ``reduced()`` with 4
 layers; 4 experts top-1 plus a shared expert, qk-norm, an attention chunk
-of 64) and Command-R (parallel attention+MLP blocks, tied embeddings).
+of 64), Command-R (parallel attention+MLP blocks, tied embeddings) and
+DBRX (fine-grained MoE, every layer: 4 experts top-2 when reduced, 16
+top-4 at full width).
 JAX weights cross with the bridge; the schema, ``param_count``, forward,
 prefill, four decode steps and the serving engine's seed-golden workload
 agree with the JAX package on the same inputs, each at its stated
@@ -27,6 +29,7 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.models import model as TM
 from repro_torch.models import params as TP
+from repro_torch.models.moe import moe_layer
 from repro_torch.serving.engine import HarvestServingEngine as TorchEngine
 from test_torch_engine import _assert_same_run, _run
 from test_torch_model import _leaves, _map, _pools, _to_numpy
@@ -45,6 +48,7 @@ MiB = 2 ** 20
 
 LLAMA4 = "llama4-maverick-400b-a17b"
 COMMAND_R = "command-r-35b"
+DBRX = "dbrx-132b"
 
 
 def _reduced(get, arch):
@@ -58,7 +62,7 @@ def _reduced(get, arch):
     return cfg
 
 
-@pytest.fixture(scope="module", params=[LLAMA4, COMMAND_R])
+@pytest.fixture(scope="module", params=[LLAMA4, COMMAND_R, DBRX])
 def arch(request):
     cfg, tcfg = _reduced(get_config, request.param), \
         _reduced(t_get_config, request.param)
@@ -77,7 +81,11 @@ def _f32_params(jp, tp):
             _map(tp, lambda t: t.float()))
 
 
-def _close(got: torch.Tensor, want, dtype, kv=False):
+def _close(got: torch.Tensor, want, dtype, kv=False, ties=(), gaps=None):
+    """``got`` against ``want`` at ``dtype``'s tolerance.  bf16 logits:
+    every row (index over all but the vocab dim) within LOGIT_TOL but the
+    rows ``ties`` names, each of which must be out of it and a router near
+    tie (``gaps`` at it below ROUTER_TIE)."""
     got, want = got.float().numpy(), np.asarray(want, np.float32)
     assert got.shape == want.shape
     if dtype == "float32":
@@ -85,8 +93,45 @@ def _close(got: torch.Tensor, want, dtype, kv=False):
     elif kv:
         np.testing.assert_allclose(got, want, **KV_TOL)
     else:
-        err = np.abs(got - want).max()
-        assert err < LOGIT_TOL, err
+        row_err = np.abs(got - want).max(-1)
+        assert [tuple(int(i) for i in r) for r in np.argwhere(
+            row_err >= LOGIT_TOL)] == list(ties), row_err.max()
+        assert all(gaps[r] < ROUTER_TIE for r in ties), \
+            [float(gaps[r]) for r in ties]
+
+
+#: the largest gap between a row's k-th and (k + 1)-th router logit that
+#: counts as a near tie: the one-ulp bf16 differences of the normed input
+#: (ROADMAP C) move a router logit by up to about 1e-4 at these widths
+ROUTER_TIE = 1e-3
+
+#: bf16 rows (batch row, position) whose logits leave LOGIT_TOL because a
+#: router near tie sent them to another expert in one package than in the
+#: other (forward), or in the port's decode step than in its forward
+#: (serve_step: (step, batch row)); their gaps in the reduced DBRX's second
+#: layer are 2.5e-5 to 2.5e-4.  Every other row is held to LOGIT_TOL, and
+#: in f32 every row to F32_TOL.
+KNOWN_ROUTER_TIES = {(DBRX, "forward"): [(1, 21), (1, 26), (1, 71)],
+                     (DBRX, "serve_step"): [(1, 1)]}
+
+
+def _router_gaps(monkeypatch, run):
+    """Run ``run()`` with the port's MoE layers watched; returns the least
+    gap over the layers between each row's k-th and (k + 1)-th router
+    logit, (b, s), or None for a model without MoE layers."""
+    gaps = []
+
+    def watched(x, p, cfg, **kw):
+        y, probs, ids = moe_layer(x, p, cfg, **kw)
+        top = torch.sort(probs, dim=-1, descending=True).values
+        k = cfg.moe.top_k
+        gaps.append(torch.log(top[:, k - 1] / top[:, k]).view(x.shape[:2]))
+        return y, probs, ids
+
+    monkeypatch.setattr(TM, "moe_layer", watched)
+    out = run()
+    monkeypatch.undo()
+    return out, (torch.stack(gaps).amin(0).numpy() if gaps else None)
 
 
 # ---------------------------------------------------------------------------
@@ -103,10 +148,16 @@ def test_schema_and_param_count_match_jax(arch):
         td = tschema[path]
         assert (td.shape, td.init, td.dtype) == \
             (tuple(jd.shape), jd.init, jd.dtype), path
-    if cfg.moe is not None:
+    if cfg.moe is not None and cfg.moe.layer_period == 2:
         assert set(tp) == {"embed", "lm_head", "final_norm", "blocks"}
         assert set(tp["blocks"]["dense"]) == {"ln1", "ln2", "attn", "mlp"}
         assert set(tp["blocks"]["moe"]) == {"ln1", "ln2", "attn", "moe"}
+    elif cfg.moe is not None:     # every layer an MoE layer
+        assert set(tp) == {"embed", "lm_head", "final_norm", "layers"}
+        assert set(tp["layers"]) == {"ln1", "ln2", "attn", "moe"}
+        assert tuple(tp["layers"]["moe"]["wi"].shape) == (
+            cfg.num_layers, cfg.moe.num_experts, cfg.d_model,
+            cfg.moe.d_ff_expert)
     else:     # parallel blocks keep one norm; the embedding is tied
         assert set(tp) == {"embed", "final_norm", "layers"}
         assert set(tp["layers"]) == {"ln1", "attn", "mlp"}
@@ -138,11 +189,13 @@ def test_bridge_carries_the_blocks_tree(arch):
 
 
 @pytest.mark.parametrize("arch_id,layers,billions", [
-    (LLAMA4, 4, 35.04), (COMMAND_R, 40, 30.28), ("nemotron-4-15b", 32, 15.63)])
+    (LLAMA4, 4, 35.04), (COMMAND_R, 40, 30.28), ("nemotron-4-15b", 32, 15.63),
+    ("qwen2-vl-72b", 36, 34.09), (DBRX, 10, 33.82)])
 def test_full_width_param_counts_match_jax(arch_id, layers, billions):
     """The full-width schemas that chip_smoke.py serves (Llama-4 cut to
-    two dense/MoE pairs) count what the JAX package's count, leaf for
-    leaf, without allocating them."""
+    two dense/MoE pairs, qwen2-vl-72b to 36 of 80 layers, dbrx-132b to 10
+    of 40) count what the JAX package's count, leaf for leaf, without
+    allocating them."""
     cfg = dataclasses.replace(get_config(arch_id), num_layers=layers)
     tcfg = dataclasses.replace(t_get_config(arch_id), num_layers=layers)
     jcount = JM.param_count(JP.abstract_params(cfg))
@@ -200,10 +253,11 @@ def _jit_forward(cfg):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_forward_and_prefill_match_jax(arch, dtype):
+def test_forward_and_prefill_match_jax(arch, dtype, monkeypatch):
     """80 tokens: past Llama-4's reduced attention chunk of 64.  Logits
     and the stacked KV (layers in the JAX order, 0, 1, 2, ...) of
-    ``forward``, and ``prefill``'s last-token logits."""
+    ``forward``, and ``prefill``'s last-token logits; in bf16 every row
+    but DBRX's named router near ties."""
     cfg, tcfg, jp, tp = arch
     if dtype == "float32":
         jp, tp = _f32_params(jp, tp)
@@ -213,13 +267,19 @@ def test_forward_and_prefill_match_jax(arch, dtype):
     jl, jo = _jit_forward(cfg)(jp, jnp.asarray(toks), jnp.asarray(pos))
     batch = {"tokens": torch.from_numpy(toks),
              "positions": torch.from_numpy(pos)}
-    tl, to = TM.forward(tp, batch, tcfg, want_kv=True)
+    (tl, to), gaps = _router_gaps(monkeypatch, lambda: TM.forward(
+        tp, batch, tcfg, want_kv=True))
     assert str(tl.dtype) == f"torch.{dtype}"
-    _close(tl, jl, dtype)
+    ties = KNOWN_ROUTER_TIES.get((cfg.name.removesuffix("-smoke"),
+                                  "forward"), ()) \
+        if dtype == "bfloat16" else ()
+    _close(tl, jl, dtype, ties=ties, gaps=gaps)
     for jt, tt in zip(jo.kv, to.kv):
         assert tt.shape[0] == cfg.num_layers
         _close(tt, jt, dtype, kv=True)
-    if cfg.moe is not None:
+    if cfg.moe is not None and not ties:
+        # a tie's other expert moves the load-balance loss: where one is
+        # named, the loss is held in f32 alone
         np.testing.assert_allclose(to.aux.item(), float(jo.aux), rtol=1e-5)
     jlast, _ = jax.jit(lambda p, t, s: JM.prefill(
         p, {"tokens": t, "positions": s}, cfg))(jp, jnp.asarray(toks),
@@ -229,12 +289,12 @@ def test_forward_and_prefill_match_jax(arch, dtype):
     assert tout.kv[0].shape == to.kv[0].shape
 
 
-def test_serve_step_matches_jax_and_forward(arch):
+def test_serve_step_matches_jax_and_forward(arch, monkeypatch):
     """Four decode steps from pools filled by a 61-token prefill (the steps
     cross Llama-4's reduced attention chunk at 64): the port's logits
-    against the jitted JAX serve_step and against its own forward; each
-    step's k and v land in the pools in place, layer for layer in the
-    JAX order."""
+    against the jitted JAX serve_step and against its own forward (every
+    row but a named router near tie); each step's k and v land in the
+    pools in place, layer for layer in the JAX order."""
     cfg, tcfg, jp, tp = arch
     b, s, bs, n_extra = 2, 61, 8, 4
     npb = (s + n_extra + bs - 1) // bs
@@ -246,8 +306,9 @@ def test_serve_step_matches_jax_and_forward(arch):
     _, out = _jit_forward(cfg)(jp, jnp.asarray(toks[:, :s]),
                                jnp.asarray(pos[:, :s]))
     pk, pv, sr, sb = _pools(out.kv, s, bs, npb)
-    t_full, _ = TM.forward(tp, {"tokens": torch.from_numpy(toks),
-                                "positions": torch.from_numpy(pos)}, tcfg)
+    (t_full, _), gaps = _router_gaps(monkeypatch, lambda: TM.forward(
+        tp, {"tokens": torch.from_numpy(toks),
+             "positions": torch.from_numpy(pos)}, tcfg))
     jstep = jax.jit(lambda p, st: JM.serve_step(p, st, cfg))
     jkv = JM.KVPools(*(jnp.asarray(a) for a in (pk, pv, sr, sb)),
                      jnp.zeros((b,), jnp.int32), jnp.zeros((b,), jnp.int32))
@@ -257,6 +318,7 @@ def test_serve_step_matches_jax_and_forward(arch):
     jst = JM.DecodeState(tokens=None, pos=None, kv=jkv, peer=None,
                          states=None)
     tst = TM.DecodeState(tokens=None, pos=None, kv=tkv, peer=None)
+    steps = []
     for t in range(n_extra):
         p = s + t
         aslot = np.asarray([r * npb + p // bs for r in range(b)], np.int32)
@@ -274,8 +336,12 @@ def test_serve_step_matches_jax_and_forward(arch):
         tl, tst = TM.serve_step(tp, tst, tcfg)
         assert tst.kv.pool_k is tkv.pool_k        # appended in place
         _close(tl, jl, "bfloat16")
-        ferr = (tl.float() - t_full[:, p].float()).abs().max().item()
-        assert ferr < LOGIT_TOL, (t, ferr)
+        steps.append(tl)
+    # (step, batch row) against the forward's rows at those positions
+    _close(torch.stack(steps), t_full[:, s:].transpose(0, 1).float(),
+           "bfloat16", ties=KNOWN_ROUTER_TIES.get(
+               (cfg.name.removesuffix("-smoke"), "serve_step"), ()),
+           gaps=None if gaps is None else gaps[:, s:].T)
     np.testing.assert_allclose(tkv.pool_k.numpy(), np.asarray(jst.kv.pool_k),
                                **KV_TOL)
     np.testing.assert_allclose(tkv.pool_v.numpy(), np.asarray(jst.kv.pool_v),
@@ -292,9 +358,11 @@ def test_serve_step_matches_jax_and_forward(arch):
 #: while the two deciding logits differ by a bf16 step (ROADMAP C's known
 #: limit): at Llama-4's steps 4 and 41 the gap is one step (2^-7), at
 #: step 39 JAX's two deciding logits tie exactly and the port's differ
-#: by one step.  The tokens agree there all the same, and in f32 every
-#: step is decided.
-KNOWN_NEAR_TIES = {(LLAMA4, "bfloat16"): [4, 39, 41]}
+#: by one step; at DBRX's step 30 the gap is 2^-8 and the port's
+#: runner-up one step lower.  The tokens agree there all the same, and
+#: in f32 every step is decided.
+KNOWN_NEAR_TIES = {(LLAMA4, "bfloat16"): [4, 39, 41],
+                   (DBRX, "bfloat16"): [30]}
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -315,10 +383,12 @@ def test_engine_matches_jax(arch, dtype):
         (cfg.name.removesuffix("-smoke"), dtype), ()))
 
 
-@pytest.mark.parametrize("arch_id", [LLAMA4, COMMAND_R, "nemotron-4-15b"])
+@pytest.mark.parametrize("arch_id", [LLAMA4, COMMAND_R, "nemotron-4-15b",
+                                     "qwen2-vl-72b", DBRX])
 def test_cli_serves_the_arch_on_the_cpu(capsys, monkeypatch, arch_id):
     """``--arch`` serves ``cfg.reduced()`` as the JAX CLI does (Llama-4's
-    reduced config has ``layer_period`` 1)."""
+    reduced config has ``layer_period`` 1; qwen2-vl-72b's prefills run
+    behind its 8 prefix embeddings)."""
     from repro_torch.launch import serve
     monkeypatch.setattr(sys, "argv", [
         "serve", "--arch", arch_id, "--device", "cpu", "--scheduler",

@@ -163,6 +163,38 @@ def test_gq6_engine_matches_jax():
 SHARED_PREFIX = [9, 4, 7, 11, 13, 2, 5, 8, 21, 30, 31, 32, 40, 41, 42, 43]
 
 
+def _run_variant(engine_cls, core, params, cfg, variant, **kw):
+    """``test_engine_variants_match_jax``'s workload for ``variant``
+    through one engine (``core``: its package's ``core``)."""
+    if variant == "disaggregated":
+        topo = core.get_topology("h100-dcn-2host")
+        runtime = core.HarvestRuntime(topo.device_budgets(64 * MiB),
+                                      topology=topo)
+        kw["disaggregated"] = True
+    else:
+        runtime = core.HarvestRuntime({1: 64 * MiB})
+    if variant == "chunked_prefill":
+        kw["chunk_prefill_tokens"] = 8
+    if variant == "prefix_cache":
+        kw["prefix_cache"] = True
+    eng = engine_cls(cfg, params, max_batch=2, block_size=8,
+                     num_local_slots=10, max_seq_len=96,
+                     runtime=runtime, scheduler="fair", mode="async", **kw)
+    sampled = _record_sampled_logits(eng)
+    if variant == "prefix_cache":
+        # the first request publishes the prefix on retiring; the next
+        # three arrive together after it and share it
+        reqs = [eng.submit_request(prompt=SHARED_PREFIX + [50],
+                                   max_new_tokens=6)]
+        reqs += [eng.submit_request(prompt=SHARED_PREFIX + [60 + i],
+                                    max_new_tokens=6, arrival_t=2e-4)
+                 for i in range(3)]
+    else:
+        reqs = [eng.submit([2 + i, 5, 7, 11, 13 + i] * 3,
+                           max_new_tokens=8) for i in range(4)]
+    return eng, reqs, eng.run(max_steps=800), sampled
+
+
 @pytest.mark.parametrize("variant", ["chunked_prefill", "prefix_cache",
                                      "disaggregated"])
 def test_engine_variants_match_jax(models, variant):
@@ -171,40 +203,9 @@ def test_engine_variants_match_jax(models, variant):
     (two requests adopting one published prefix at once), and the
     disaggregated prefill's streamed adopt over a two-host topology."""
     cfg, tcfg, jp, tp = models
-
-    def run(engine_cls, core, params, c, **kw):
-        if variant == "disaggregated":
-            topo = core.get_topology("h100-dcn-2host")
-            runtime = core.HarvestRuntime(topo.device_budgets(64 * MiB),
-                                          topology=topo)
-            kw["disaggregated"] = True
-        else:
-            runtime = core.HarvestRuntime({1: 64 * MiB})
-        if variant == "chunked_prefill":
-            kw["chunk_prefill_tokens"] = 8
-        if variant == "prefix_cache":
-            kw["prefix_cache"] = True
-        eng = engine_cls(c, params, max_batch=2, block_size=8,
-                         num_local_slots=10, max_seq_len=96,
-                         runtime=runtime, scheduler="fair", mode="async",
-                         **kw)
-        sampled = _record_sampled_logits(eng)
-        if variant == "prefix_cache":
-            # the first request publishes the prefix on retiring; the
-            # next three arrive together after it and share it
-            reqs = [eng.submit_request(prompt=SHARED_PREFIX + [50],
-                                       max_new_tokens=6)]
-            reqs += [eng.submit_request(prompt=SHARED_PREFIX + [60 + i],
-                                        max_new_tokens=6, arrival_t=2e-4)
-                     for i in range(3)]
-        else:
-            reqs = [eng.submit([2 + i, 5, 7, 11, 13 + i] * 3,
-                               max_new_tokens=8) for i in range(4)]
-        return eng, reqs, eng.run(max_steps=800), sampled
-
     import repro.core as jcore
-    j = run(JaxEngine, jcore, jp, cfg)
-    t = run(TorchEngine, tcore, tp, tcfg, device="cpu")
+    j = _run_variant(JaxEngine, jcore, jp, cfg, variant)
+    t = _run_variant(TorchEngine, tcore, tp, tcfg, variant, device="cpu")
     if variant == "prefix_cache":
         assert j[0].prefix_cache.stats["cow_splits"] > 0
         assert dict(t[0].prefix_cache.stats) == \

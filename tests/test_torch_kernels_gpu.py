@@ -600,6 +600,44 @@ def test_moe_ffn_skips_all_but_four_of_128_experts(cuda, dtype, d, f, c):
     assert torch.all(got[empty] == 0)
 
 
+# rows of each of DBRX's 16 experts that hold a token: 4 decode rows at
+# top-4 (16 assignments, capacity 4; 5 experts empty), and 40 prefill rows
+# (160 assignments, capacity 12: 10 experts full, their tokens past it
+# dropped, 4 partly filled, 2 empty)
+DBRX_FILLED = {4: (2, 1, 0, 1, 1, 0, 2, 1, 0, 3, 1, 0, 2, 0, 1, 1),
+               12: (12, 12, 7, 12, 12, 0, 12, 12, 3, 12, 12, 12, 0, 12, 9, 1)}
+
+
+@pytest.mark.parametrize("c", sorted(DBRX_FILLED), ids=["decode", "prefill"])
+def test_moe_ffn_at_dbrx_width(cuda, c):
+    """K7 at dbrx-132b's fine-grained shape, 16 experts of d 6144 and
+    f 10752 (21 tiles of 512; 6.3 GB of bf16 weights), with the experts'
+    rows filled as a decode step (C 4) or a 40-token prefill (C 12) fills
+    them: the filled rows match the plain version, each empty expert
+    skips its one 16-row tile (counted on the card) and gives zeros."""
+    e, d, f = 16, 6144, 10752
+    filled = DBRX_FILLED[c]
+    gen = torch.Generator(device=cuda).manual_seed(35)
+    xd = torch.randn((e, c, d), generator=gen, device=cuda,
+                     dtype=torch.bfloat16)
+    for ex, n in enumerate(filled):
+        xd[ex, n:] = 0
+    # scaled so that h, g and the outputs are O(1), as _expert_inputs
+    wi, wg = (torch.randn((e, d, f), generator=gen, device=cuda,
+                          dtype=torch.bfloat16).mul_(d ** -0.5)
+              for _ in range(2))
+    wo = torch.randn((e, f, d), generator=gen, device=cuda,
+                     dtype=torch.bfloat16).mul_(f ** -0.5)
+    skipped = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    got = mops.moe_ffn(xd, wi, wg, wo, skipped=skipped)
+    ref = mops.moe_ffn_plain(xd, wi, wg, wo)
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **MOE_TOL[torch.bfloat16])
+    assert int(skipped.item()) == filled.count(0)
+    for ex, n in enumerate(filled):
+        assert torch.all(got[ex, n:] == 0), ex
+
+
 def test_moe_ffn_raises_on_cuda(cuda):
     x, wi, wg, wo = _expert_inputs(17, 2, 3, 8, 5, torch.bfloat16)
     with pytest.raises(ValueError):
@@ -698,6 +736,19 @@ def test_prefill_attention_across_a_chunk_boundary(cuda, dtype, shape):
     got = fops.prefill_attention(q, k, v, qp, kp, attention_chunk=chunk)
     ref = fops.prefill_attention_plain(q, k, v, qp, kp,
                                        attention_chunk=chunk)
+    torch.testing.assert_close(got.float(), ref.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("prompt", [8, 40])
+def test_prefill_attention_behind_a_prefix(cuda, dtype, prompt):
+    """K4 as qwen2-vl-72b's prefill gives it: 1,024 prefix positions (the
+    patch embeddings) ahead of a padded prompt, one sequence, 64 / 8 heads
+    (gq 8) of 128, causal over both."""
+    n = 1024 + prompt
+    q, k, v, qp, kp = _flash_inputs(24, 1, n, n, 64, 8, 128, dtype)
+    got = fops.prefill_attention(q, k, v, qp, kp)
+    ref = fops.prefill_attention_plain(q, k, v, qp, kp)
     torch.testing.assert_close(got.float(), ref.float(), **FLASH_TOL[dtype])
 
 
