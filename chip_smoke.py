@@ -11,15 +11,16 @@ Phases (any failure raises and the script exits non-zero):
   3. hold each kernel against its plain PyTorch version on the card, at the
      shapes the full-width serving paths give it and at edge cases, and
      time kernel, plain version, library call and bound (paged decode also
-     at nemotron-4-15b's, command-r-35b's and llama4-maverick-400b-a17b's
-     and qwen2-vl-72b's full-width shapes, GQA groups of 6, 8, 5 and 8,
+     at nemotron-4-15b's, command-r-35b's, llama4-maverick-400b-a17b's,
+     qwen2-vl-72b's and zamba2-7b's full-width shapes, GQA groups of 6,
+     8, 5, 8 and 1 (zamba2's MHA at head dim 112),
      at a card-filling yi-6b
      pool of 65,536 slots holding 64 short contexts, and at Llama-4's heads
      with its 8,192-token attention chunk, rows on both sides of the
      boundary; prefill attention at 40-, 1,032- and 6,000-token prompts,
-     an 8,800-token Llama-4 prompt past its chunk, Command-R's, Nemotron's
-     and DBRX's smoke prompts and qwen2-vl-72b's 1,024 prefix positions
-     ahead of one, with a sliding window, an attention chunk and
+     an 8,800-token Llama-4 prompt past its chunk, Command-R's, Nemotron's,
+     DBRX's and zamba2-7b's smoke prompts and qwen2-vl-72b's 1,024 prefix
+     positions ahead of one, with a sliding window, an attention chunk and
      a logit softcap, in bf16 on the tensor cores and f32 on the CUDA
      cores, the kernel that ran read from the trace; quantize-on-demote and
      dequantize-on-reload on f32, bf16 and f16 pools, timed at each path's
@@ -35,8 +36,11 @@ Phases (any failure raises and the script exits non-zero):
      window), nemotron-4-15b at 12 / 2 heads (its GQA group of 6),
      Llama-4 at 4 layers with its dense/MoE interleaving (prompts past its
      64-token chunk), Command-R at 4 layers (parallel blocks), qwen2-vl-72b
-     (M-RoPE, qkv bias, 8 prefix embeddings) and DBRX served on the CPU
-     (plain versions) and on the card (kernels): identical tokens;
+     (M-RoPE, qkv bias, 8 prefix embeddings), DBRX, zamba2-7b at 5 layers
+     (two super-blocks of Mamba2 layers and the shared attention block,
+     and a tail) and xlstm-1.3b at 4 layers (no KV: no block, no kernel)
+     served on the CPU (plain versions) and on the card (kernels):
+     identical tokens;
   5. the first path: full-width yi-6b (random weights from a seed) served
      through ``HarvestRuntime(...).server(...)`` with evictions, reloads and
      quantized demotions; every kernel of the path must have launched; then
@@ -71,6 +75,12 @@ Phases (any failure raises and the script exits non-zero):
      (16 experts top-4 of width 10,752, every layer) at 10 of its 40
      (33.82 B) on yi-6b's workload, each profiled; the expert FFN held and
      timed at DBRX's decode shape on the model's own 16 experts;
+ 11. zamba2-7b (81 Mamba2 layers and one shared attention block after
+     every sixth: 13 KV layers, 6.75 B parameters) and xlstm-1.3b (48
+     mLSTM and sLSTM blocks, no KV, 2.05 B) whole on yi-6b's workload,
+     each decode step carrying the batch's recurrent states (their bytes
+     printed); a decode step from zero states and a 40-token prefill
+     profiled;
 then the card's name and power limit, one JSON line of per-kernel
 numbers, and the JSON result line.  The launch counts are set to 0 just
 before each path and read just after it.  It imports neither JAX nor the
@@ -113,6 +123,7 @@ LLAMA4 = "llama4-maverick-400b-a17b"
 #: Llama-4's depth on the card: two (dense, MoE) pairs of its 48 layers
 LLAMA4_LAYERS = 4
 QWEN2_VL, DBRX = "qwen2-vl-72b", "dbrx-132b"
+ZAMBA2, XLSTM = "zamba2-7b", "xlstm-1.3b"
 #: the depths that fit one card: 36 of qwen2-vl-72b's 80 layers (63.5 GiB
 #: of weights), 10 of dbrx-132b's 40 (63.0 GiB); every layer of each has
 #: the same shape
@@ -339,7 +350,7 @@ def time_paged_decode(cfg, bs, rng):
     yi-6b, more than the 50 MB L2, so each call finds its pool cold as in
     the step, where the weights stream between two layers' calls)."""
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    L = 4 * cfg.num_layers
+    L = 4 * M.num_kv_layers(cfg)
     q_pos = (23, 15, 31, 7)
     s = paged_scenario(rng, 4, 10, bs, nkv, nq, hd, q_pos, layers=L)
     layer = [0]
@@ -1174,11 +1185,15 @@ def check_reduced_tokens(arch, prompt=(5, 40), local_slots=10, **changes):
     (plain versions) and on the card (kernels).  The weights are f32 here:
     with bf16 logits a near tie can flip on a rounding step between two
     GEMM libraries; in f32 the rounding noise is far below any gap, so
-    identical tokens show the kernels right."""
+    identical tokens show the kernels right.  A model with KV blocks must
+    have evicted some; one without (xLSTM) allocates none and launches no
+    kernel."""
     cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
     params = _map(M.init_params(cfg, torch.Generator().manual_seed(SEED),
                                 "cpu"), lambda t: t.float())
     runs = {}
+    for fn in COUNTERS.values():
+        fn.launches = 0
     for device in ("cpu", "cuda"):
         p = _map(params, lambda t: t.to(device))
         # the main path's geometry at the reduced block size: evictions to
@@ -1192,8 +1207,19 @@ def check_reduced_tokens(arch, prompt=(5, 40), local_slots=10, **changes):
                         dict(server.engine.kv_mgr.stats), stats.clock_s)
     assert runs["cpu"] == runs["cuda"], runs
     kv = runs["cuda"][1]
-    assert kv["evict_to_peer"] + kv["evict_to_host"] > 0, kv
+    if M.num_kv_layers(cfg):
+        assert kv["evict_to_peer"] + kv["evict_to_host"] > 0, kv
+    else:
+        assert kv["allocated"] == 0, kv
+        assert not any(fn.launches for fn in COUNTERS.values())
     return runs["cuda"][0]
+
+
+def _tensors(tree):
+    """The tensors of nested tuples (the recurrent states)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for part in tree for t in _tensors(part)]
 
 
 def _map(tree, fn):
@@ -1222,15 +1248,17 @@ def profile_decode_step(cfg, params, bs, pos=(41, 24, 33, 17), n_slots=20,
     """Where one full-width decode step's time goes: one row per entry of
     ``pos`` (its position) over a pool of ``n_slots`` slots, each row
     owning the slots its positions need, the step run ``steps`` times
-    under the profiler.  Returns (wall ms per step, device-busy ms per
-    step, [(kernel name, device ms per step)] of the five largest, the
-    pools and the slot table as K1 sees them)."""
+    under the profiler, from zero recurrent states where the model has
+    them (a pool only where it has KV layers).  Returns (wall ms per step,
+    device-busy ms per step, [(kernel name, device ms per step)] of the
+    five largest, the pools and the slot table as K1 sees them)."""
     rng = np.random.default_rng(SEED + 2)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    L, nkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    L, nkv, hd = M.num_kv_layers(cfg), cfg.num_kv_heads, \
+        cfg.resolved_head_dim
     b = len(pos)
     pool = torch.randn((2, L, n_slots, bs, nkv, hd), generator=gen,
-                       device="cuda")
+                       device="cuda") if L else None
     slot_req = np.full((n_slots,), -1, np.int32)
     slot_base = np.zeros((n_slots,), np.int32)
     append_slot = np.zeros((b,), np.int32)
@@ -1250,7 +1278,8 @@ def profile_decode_step(cfg, params, bs, pos=(41, 24, 33, 17), n_slots=20,
     state = M.DecodeState(
         tokens=dev["tokens"], pos=dev["pos"], peer=None, kv=M.KVPools(
             pool[0], pool[1], dev["slot_req"], dev["slot_base"],
-            dev["append_slot"], dev["append_off"]))
+            dev["append_slot"], dev["append_off"]) if L else None,
+        states=M.init_states(cfg, b, "cuda"))
 
     def step():
         logits, _ = M.serve_step(params, state, cfg)
@@ -1394,16 +1423,17 @@ def profile_reload(eng):
 def main_path(arch, bs, kernels_of_path, *, num_requests=6, local_slots=10,
               peer_blocks=6, max_batch=4, prompt=(5, 40),
               profile_pos=(41, 24, 33, 17), profile_slots=20,
-              prefill_tokens=None, profile_evict=False, layers=None,
-              on_model=None):
+              prefill_tokens=None, pool_k1=True, profile_evict=False,
+              layers=None, on_model=None):
     """Serve the full-width model (its depth cut to ``layers`` if given)
     through the front door with the launch counts set to 0 just before and
-    read just after; every kernel of the path must have launched.  Then
-    ``on_model(cfg, params)`` if given, then profile one decode step (rows
-    at ``profile_pos`` over ``profile_slots`` slots) and, given
-    ``prefill_tokens``, one prefill of that length and K1 at the profiled
-    pool; given ``profile_evict``, one eviction and one reload of the
-    served engine.
+    read just after; every kernel of the path must have launched, and a
+    model without KV layers (xLSTM) must have allocated no block and
+    launched no kernel.  Then ``on_model(cfg, params)`` if given, then
+    profile one decode step (rows at ``profile_pos`` over
+    ``profile_slots`` slots) and, given ``prefill_tokens``, one prefill of
+    that length and, with ``pool_k1``, K1 at the profiled pool; given
+    ``profile_evict``, one eviction and one reload of the served engine.
     Returns (launch counts, K1's numbers at that pool or None,
     ``on_model``'s result or None); the weights are freed on return."""
     full = get_config(arch)
@@ -1440,8 +1470,12 @@ def main_path(arch, bs, kernels_of_path, *, num_requests=6, local_slots=10,
     print(f"{arch}: launches on the path: {launches}")
     assert len(served) == len(server.handles) == num_requests
     assert all(len(h.tokens) == 16 for h in served)
-    assert kv["evict_to_peer"] > 0 and kv["evict_to_host"] > 0, kv
-    assert kv["reload_peer"] + kv["reload_host"] > 0, kv
+    if eng.L_kv:
+        assert kv["evict_to_peer"] > 0 and kv["evict_to_host"] > 0, kv
+        assert kv["reload_peer"] + kv["reload_host"] > 0, kv
+    else:
+        assert kv["allocated"] == 0, kv
+        assert not any(launches.values()), launches
     assert all(launches[n] > 0 for n in kernels_of_path), launches
     stats.check_clock_identity()
     for h in served:
@@ -1454,6 +1488,11 @@ def main_path(arch, bs, kernels_of_path, *, num_requests=6, local_slots=10,
     print(f"{arch}: prefill wall ms per call: "
           f"{[round(1e3 * t, 2) for t in prefill_s]} (prompt lengths "
           f"{[len(h._req.prompt) for h in server.handles]})")
+    if eng.states is not None:
+        leaves = _tensors(eng.states)
+        mib = sum(t.numel() * t.element_size() for t in leaves) / 2 ** 20
+        print(f"{arch}: recurrent states of the {eng.B} rows: {mib:.1f} MiB "
+              f"({', '.join(str(t.dtype)[6:] for t in leaves)})")
     print(f"{arch}: simulated (H100/NVLink cost model, not the card): clock "
           f"{stats.clock_s * 1e3:.4f} ms, "
           f"{stats.tokens_out / stats.clock_s:.0f} tokens/s")
@@ -1473,8 +1512,9 @@ def main_path(arch, bs, kernels_of_path, *, num_requests=6, local_slots=10,
         print(f"  {ms:8.3f} ms/step  {name[:90]}")
     k1 = None
     if prefill_tokens:
-        line, k1 = long_pool_k1(full, pools, bs)
-        print(f"{arch}: {line}")
+        if pool_k1:
+            line, k1 = long_pool_k1(full, pools, bs)
+            print(f"{arch}: {line}")
         del pools
         wall_ms, busy_ms, k4_ms = profile_prefill(full, params,
                                                   prefill_tokens)
@@ -1525,17 +1565,18 @@ def main() -> int:
     qwen2_vl = dataclasses.replace(get_config(QWEN2_VL),
                                    num_layers=QWEN2_VL_LAYERS)
     dbrx = dataclasses.replace(get_config(DBRX), num_layers=DBRX_LAYERS)
+    zamba2 = get_config(ZAMBA2)
     npre = qwen2_vl.modality.num_prefix_embeddings
     bs = 8
     # K1's 10-slot decode shape at Llama-4's 48 and qwen2-vl-72b's 80
     # layers, so that its pools cycle past the L2 as the other models' do
     kernels = [check_paged_decode(yi, bs, more=[nemotron, command_r,
                                                 get_config(LLAMA4),
-                                                get_config(QWEN2_VL)],
+                                                get_config(QWEN2_VL), zamba2],
                                   chunked=[llama4])] \
         + check_quant([(yi, bs), (moe, bs), (danube, 16), (llama4, 16),
                        (command_r, bs), (nemotron, bs), (qwen2_vl, bs),
-                       (dbrx, bs)]) \
+                       (dbrx, bs), (zamba2, bs)]) \
         + [check_flash_prefill(yi, moe, danube, more=[
             (f"{LLAMA4} prompt past its chunk", llama4, 8800,
              dict(attention_chunk=llama4.attention_chunk)),
@@ -1543,10 +1584,11 @@ def main() -> int:
             ("nemotron-4-15b smoke prompt", nemotron, 40, {}),
             (f"{QWEN2_VL} {npre} prefix positions and a smoke prompt",
              qwen2_vl, npre + 40, {}),
-            ("dbrx-132b smoke prompt", dbrx, 40, {})])] \
+            ("dbrx-132b smoke prompt", dbrx, 40, {}),
+            ("zamba2-7b smoke prompt (MHA, hd 112)", zamba2, 40, {})])] \
         + check_movers([(yi, bs), (danube, 16), (llama4, 16),
                         (command_r, bs), (nemotron, bs), (qwen2_vl, bs),
-                        (dbrx, bs), (moe, bs)]) \
+                        (dbrx, bs), (zamba2, bs), (moe, bs)]) \
         + [check_moe_ffn(moe, get_config("phi-tiny-moe"))]
     tolerance = {"paged_decode_partials": "rtol 1e-4, atol 1e-4 (f32 sums "
                  "in another order)", "quantize_demote": "bit-identical",
@@ -1582,7 +1624,10 @@ def main() -> int:
                                                         layer_period=2))),
             ("command-r-35b", (5, 40), 8, dict(num_layers=4)),
             (QWEN2_VL, (5, 40), 10, {}),
-            (DBRX, (5, 40), 10, {})):
+            (DBRX, (5, 40), 10, {}),
+            # two super-blocks and a tail, 8 slots: its requests overlap
+            (ZAMBA2, (5, 40), 8, dict(num_layers=5)),
+            (XLSTM, (5, 40), 10, dict(num_layers=4))):
         tokens = check_reduced_tokens(arch, prompt, slots, **changes)
         label = {k: v for k, v in changes.items() if k != "moe"}
         if "moe" in changes:
@@ -1630,6 +1675,14 @@ def main() -> int:
         DBRX, bs, movers + ["moe_ffn"], layers=DBRX_LAYERS,
         on_model=lambda cfg, params: check_moe_ffn_experts(cfg, params,
                                                            rows=4))
+    # zamba2-7b (81 Mamba2 layers, the shared attention block at 13 of
+    # them: 13 KV layers, MHA at hd 112) and xlstm-1.3b (48 layers, no KV)
+    # whole, on yi-6b's workload, each decode step carrying the batch's
+    # recurrent states
+    paths[ZAMBA2], _, _ = main_path(ZAMBA2, bs, movers, prefill_tokens=40,
+                                    pool_k1=False)
+    paths[XLSTM], _, _ = main_path(XLSTM, bs, [], prefill_tokens=40,
+                                   pool_k1=False)
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

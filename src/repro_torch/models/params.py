@@ -1,9 +1,11 @@
 """Parameter schema of the decoder (dense, with serial or parallel blocks;
 vlm, the dense stack with qkv bias; MoE with every layer an MoE layer;
-and MoE interleaved with dense layers, ``layer_period == 2``): one
-declaration drives init and the bridge's shape checks.  Leaves are
-stacked over layers (leading dim) exactly as in the JAX package, so the
-two parameter trees line up key by key and shape by shape.
+MoE interleaved with dense layers, ``layer_period == 2``; the hybrid
+family, Mamba2 layers and one shared attention block; and the ssm family,
+xLSTM super-blocks of mLSTM blocks and one sLSTM block): one declaration
+drives init and the bridge's shape checks.  Leaves are stacked over
+layers (leading dims) exactly as in the JAX package, so the two parameter
+trees line up key by key and shape by shape.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.ssm import ssm_dims
+from repro_torch.models.xlstm import xlstm_dims
 
 TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -29,10 +33,13 @@ class ParamDef:
     stacked: int = 0
 
 
-def _stack(defs: dict, n: int) -> dict:
-    """Prefix every ParamDef with the stacked layer dim."""
-    return {k: _stack(v, n) if isinstance(v, dict)
-            else ParamDef((n,) + v.shape, v.init, v.dtype, v.stacked + 1)
+def _stack(defs: dict, n: int, extra: int = 0) -> dict:
+    """Prefix every ParamDef with the stacked layer dim(s): ``(n,)``, or
+    ``(n, extra)`` for blocks stacked inside super-blocks."""
+    lead = (n,) if not extra else (n, extra)
+    return {k: _stack(v, n, extra) if isinstance(v, dict)
+            else ParamDef(lead + v.shape, v.init, v.dtype,
+                          v.stacked + len(lead))
             for k, v in defs.items()}
 
 
@@ -80,6 +87,61 @@ def moe_schema(cfg: ModelConfig) -> dict:
     return s
 
 
+def mamba_schema(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    sc = cfg.ssm
+    d_inner, nh, conv_dim = ssm_dims(cfg)
+    in_dim = d_inner + conv_dim + nh               # z, xBC, dt
+    return {
+        "in_proj": ParamDef((d, in_dim)),
+        "conv_w": ParamDef((sc.conv_width, conv_dim)),
+        "conv_b": ParamDef((conv_dim,), "zeros"),
+        "dt_bias": ParamDef((nh,), "const:-2.0", "float32"),
+        "A_log": ParamDef((nh,), "const:0.5", "float32"),
+        "D": ParamDef((nh,), "ones", "float32"),
+        "norm": ParamDef((d_inner,), "ones"),
+        "out_proj": ParamDef((d_inner, d)),
+    }
+
+
+def mlstm_schema(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    d_inner, nh, hd = xlstm_dims(cfg)
+    W = cfg.xlstm.conv_width
+    return {
+        "ln": ParamDef((d,), "ones"),
+        "w_up": ParamDef((d, 2 * d_inner)),
+        "conv_w": ParamDef((W, d_inner)),
+        "conv_b": ParamDef((d_inner,), "zeros"),
+        "wq": ParamDef((nh, hd, hd)),
+        "wk": ParamDef((nh, hd, hd)),
+        "wv": ParamDef((nh, hd, hd)),
+        "w_gates": ParamDef((d_inner, 2 * nh)),
+        "b_gates": ParamDef((2 * nh,), "const:3.0"),
+        "out_norm": ParamDef((hd,), "ones"),
+        "w_down": ParamDef((d_inner, d)),
+    }
+
+
+def slstm_schema(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    nh = cfg.num_heads
+    hd = d // nh
+    f2 = int(d * cfg.xlstm.proj_factor_slstm)
+    return {
+        "ln": ParamDef((d,), "ones"),
+        "w_in": ParamDef((d, nh, 4, hd)),
+        "b_in": ParamDef((nh, 4, hd), "zeros"),
+        "w_rec": ParamDef((nh, hd, 4, hd)),
+        "gn": ParamDef((hd,), "ones"),
+        "w_out": ParamDef((nh, hd, d)),
+        "ln2": ParamDef((d,), "ones"),
+        "mlp_wi": ParamDef((d, f2)),
+        "mlp_wg": ParamDef((d, f2)),
+        "mlp_wo": ParamDef((f2, d)),
+    }
+
+
 def is_moe(cfg: ModelConfig) -> bool:
     """Every layer is an MoE layer (``layer_period == 1``)."""
     return cfg.family == "moe" and cfg.moe.layer_period == 1
@@ -93,17 +155,22 @@ def is_interleaved(cfg: ModelConfig) -> bool:
 
 def check_family(cfg: ModelConfig) -> None:
     """The families the port covers so far: dense, vlm (the dense stack
-    with M-RoPE, qkv bias and prefix embeddings), and MoE with every layer
-    an MoE layer or every other one."""
-    if not (cfg.family in ("dense", "vlm") or is_moe(cfg)
+    with M-RoPE, qkv bias and prefix embeddings), MoE with every layer an
+    MoE layer or every other one, hybrid (Mamba2 and a shared attention
+    block) and ssm (xLSTM); not yet audio."""
+    if not (cfg.family in ("dense", "vlm", "hybrid", "ssm") or is_moe(cfg)
             or is_interleaved(cfg)):
         raise NotImplementedError(
-            f"{cfg.name}: the port covers the dense and vlm families and "
-            f"MoE with every layer or every other layer an MoE layer so far "
-            f"(family {cfg.family!r})")
+            f"{cfg.name}: the port covers the dense, vlm, hybrid and ssm "
+            f"families and MoE with every layer or every other layer an "
+            f"MoE layer so far (family {cfg.family!r})")
     if is_interleaved(cfg) and cfg.num_layers % 2:
         raise ValueError(f"{cfg.name}: interleaved dense/MoE pairs need an "
                          f"even layer count, got {cfg.num_layers}")
+    if cfg.family == "ssm" and cfg.num_layers % cfg.xlstm.slstm_every:
+        raise ValueError(f"{cfg.name}: xLSTM super-blocks of "
+                         f"{cfg.xlstm.slstm_every} layers, got "
+                         f"{cfg.num_layers}")
 
 
 def _norms(cfg: ModelConfig, parallel: bool) -> dict:
@@ -129,6 +196,24 @@ def build_schema(cfg: ModelConfig) -> dict:
                    moe=moe_schema(cfg))
         schema["blocks"] = {"dense": _stack(dense, cfg.num_layers // 2),
                             "moe": _stack(moe, cfg.num_layers // 2)}
+        return schema
+    if cfg.family == "hybrid":
+        schema["mamba_layers"] = _stack(
+            {"ln1": ParamDef((d,), "ones"), "mamba": mamba_schema(cfg)},
+            cfg.num_layers)
+        # zamba2's signature: ONE shared attention + MLP block, reused
+        # every ``attn_period`` layers
+        schema["shared_attn"] = dict(_norms(cfg, False),
+                                     attn=attention_schema(cfg),
+                                     mlp=mlp_schema(cfg))
+        return schema
+    if cfg.family == "ssm":
+        # xLSTM super-blocks of (slstm_every - 1) mLSTM blocks and 1 sLSTM
+        per = cfg.xlstm.slstm_every
+        n_super = cfg.num_layers // per
+        schema["supers"] = {"mlstm": _stack(mlstm_schema(cfg), n_super,
+                                            per - 1),
+                            "slstm": _stack(slstm_schema(cfg), n_super)}
         return schema
     layer = dict(_norms(cfg, cfg.parallel_block))
     layer["attn"] = attention_schema(cfg)

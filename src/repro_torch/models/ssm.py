@@ -1,0 +1,164 @@
+"""Mamba2 (SSD) selective state-space layer: the unsharded path of
+``repro.models.ssm``.
+
+Prefill uses the chunked SSD algorithm (intra-chunk quadratic form plus the
+inter-chunk state recurrence, the JAX package's ``lax.scan`` over chunks a
+loop here); decode uses the O(1) single-token recurrence.  The recurrent
+state is the "reconstructible transient state" case of the Harvest
+durability model: a preempted request rebuilds it by re-running its
+prefill.  There is no Pallas kernel for these layers in the JAX package:
+they are plain PyTorch on every device.
+
+Shapes follow the Mamba2 paper with ngroups=1:
+  d_inner = expand * d_model,  nheads = d_inner // head_dim
+  state S: (b, nheads, head_dim, state_dim)
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import _silu, rms_norm
+
+
+class SSMState(NamedTuple):
+    s: torch.Tensor        # (b, nh, hd, N) f32: the SSM state
+    conv: torch.Tensor     # (b, W-1, conv_dim): the causal conv's tail
+
+
+def ssm_dims(cfg: ModelConfig):
+    sc = cfg.ssm
+    d_inner = sc.expand * cfg.d_model
+    nheads = d_inner // sc.head_dim
+    conv_dim = d_inner + 2 * sc.state_dim      # x, B, C go through the conv
+    return d_inner, nheads, conv_dim
+
+
+def softplus(x):
+    """``jax.nn.softplus``, which is ``logaddexp(x, 0)`` for every x
+    (``torch.nn.functional.softplus`` returns x itself past its threshold
+    of 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _causal_conv(u, w, b, tail=None):
+    """Depthwise causal conv1d.  u: (b, s, c);  w: (W, c);  tail: (b, W-1,
+    c).  ``torch.cat`` promotes a bf16 tail and f32 input to f32 as
+    ``jnp.concatenate`` does."""
+    W = w.shape[0]
+    if tail is None:
+        tail = u.new_zeros(u.shape[:1] + (W - 1,) + u.shape[2:])
+    up = torch.cat([tail, u], dim=1)
+    out = sum(up[:, i:i + u.shape[1]] * w[i] for i in range(W))
+    new_tail = up[:, up.shape[1] - (W - 1):]
+    return _silu(out + b), new_tail
+
+
+def _ssd_chunked(xh, dt, A, B, C, chunk: int, s0=None):
+    """Chunked SSD scan.
+
+    xh: (b, s, nh, hd)   dt: (b, s, nh)   A: (nh,)  B, C: (b, s, N)
+    Returns (y: (b, s, nh, hd) f32, final state (b, nh, hd, N) f32).
+    The intra-chunk product is formed as (b, i, j, nh) weights times x,
+    never as one (b, i, j, nh, hd) tensor.
+    """
+    b, s, nh, hd = xh.shape
+    N = B.shape[-1]
+    nchunks = -(-s // chunk)
+    pad = nchunks * chunk - s
+    f32 = torch.float32
+
+    def chunked(t):
+        t = F.pad(t.to(f32), (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape((b, nchunks, chunk) + t.shape[2:])
+
+    xc, dtc, Bc, Cc = chunked(xh), chunked(dt), chunked(B), chunked(C)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=xh.device))
+    S = s0 if s0 is not None else torch.zeros((b, nh, hd, N), dtype=f32,
+                                              device=xh.device)
+    ys = []
+    for c in range(nchunks):
+        xq, dtq, Bq, Cq = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c]
+        cum = torch.cumsum(dtq * A, dim=1)                 # (b,q,nh) log-decay
+        # intra-chunk: L[i,j] = exp(cum_i - cum_j), j <= i
+        diff = cum[:, :, None, :] - cum[:, None, :, :]     # (b,i,j,nh)
+        Lm = torch.where(mask[None, :, :, None], torch.exp(diff), 0.0)
+        CB = torch.einsum("bin,bjn->bij", Cq, Bq)
+        w = Lm * CB[..., None] * dtq[:, None]              # (b,i,j,nh)
+        y_intra = torch.einsum("bijh,bjhd->bihd", w, xq)
+        # inter-chunk contribution from the carried state
+        y_inter = torch.einsum("bin,bhdn->bihd", Cq, S) \
+            * torch.exp(cum)[..., None]
+        # state update
+        decay_to_end = torch.exp(cum[:, -1:, :] - cum)     # (b,q,nh)
+        S_local = torch.einsum("bjhd,bjn->bhdn",
+                               (decay_to_end * dtq)[..., None] * xq, Bq)
+        S = S * torch.exp(cum[:, -1, :])[..., None, None] + S_local
+        ys.append(y_intra + y_inter)
+    y = torch.cat(ys, dim=1)
+    return y[:, :s], S
+
+
+def mamba2_layer(x, p, cfg: ModelConfig,
+                 state: Optional[SSMState] = None, single_token: bool = False
+                 ) -> Tuple[torch.Tensor, SSMState]:
+    """Mamba2 sublayer.  x: (b, s, d).  Returns (y, new_state)."""
+    sc = cfg.ssm
+    d_inner, nheads, conv_dim = ssm_dims(cfg)
+    b, s, d = x.shape
+    f32 = torch.float32
+
+    zxbcdt = torch.einsum("bsd,dk->bsk", x, p["in_proj"])
+    z, xbc, dt = torch.split(zxbcdt, [d_inner, conv_dim, nheads], dim=-1)
+    dt = softplus(dt.float() + p["dt_bias"].float())
+
+    conv_tail = state.conv if state is not None else None
+    xbc, new_tail = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_tail)
+    xs, B, C = torch.split(xbc, [d_inner, sc.state_dim, sc.state_dim],
+                           dim=-1)
+    xh = xs.reshape(b, s, nheads, sc.head_dim)
+
+    A = -torch.exp(p["A_log"].float())                     # (nh,)
+    s_prev = state.s if state is not None else None
+
+    if single_token:
+        # O(1) recurrence: S = S * exp(dt A) + dt B x ; y = C S
+        dt1 = dt[:, 0]                                     # (b, nh)
+        dA = torch.exp(dt1 * A[None, :])
+        if s_prev is None:
+            s_prev = torch.zeros((b, nheads, sc.head_dim, sc.state_dim),
+                                 dtype=f32, device=x.device)
+        Bx = (dt1[:, :, None, None] * B[:, 0].float()[:, None, None, :]) \
+            * xh[:, 0].float()[..., None]
+        S = s_prev * dA[..., None, None] + Bx
+        y = torch.einsum("bn,bhdn->bhd", C[:, 0].float(), S)[:, None]
+    else:
+        y, S = _ssd_chunked(xh, dt, A, B.float(), C.float(), sc.chunk_size,
+                            s_prev)
+
+    y = y + xh.float() * p["D"].float()[None, None, :, None]
+    y = y.reshape(b, s, d_inner).to(x.dtype)
+    # gated RMSNorm (mamba2): norm(y * silu(z)), the product read before
+    # its rounding to x's dtype, as the jitted JAX layer computes it (XLA
+    # folds the round trip between the multiply and the norm's upcast)
+    y = rms_norm(y.float() * _silu(z).float(), p["norm"],
+                 cfg.norm_eps).to(x.dtype)
+    out = torch.einsum("bsk,kd->bsd", y, p["out_proj"])
+    return out, SSMState(s=S, conv=new_tail)
+
+
+def init_ssm_state(cfg: ModelConfig, batch: int, device) -> SSMState:
+    """Zero state: ``s`` in f32, the conv tail in bf16 whatever the
+    weights' dtype, as the JAX package starts it."""
+    sc = cfg.ssm
+    d_inner, nheads, conv_dim = ssm_dims(cfg)
+    return SSMState(
+        s=torch.zeros((batch, nheads, sc.head_dim, sc.state_dim),
+                      dtype=torch.float32, device=device),
+        conv=torch.zeros((batch, sc.conv_width - 1, conv_dim),
+                         dtype=torch.bfloat16, device=device),
+    )

@@ -1,0 +1,272 @@
+"""xLSTM blocks [arXiv:2405.04517]: mLSTM (matrix memory, chunkwise-parallel)
+and sLSTM (scalar memory, sequential scan with exponential gating); the
+unsharded path of ``repro.models.xlstm``.
+
+mLSTM uses the stabilized chunkwise form (log-space gate accumulation with a
+running max ``m``), carrying only chunk-boundary states.  The single-step
+recurrence (``mlstm_step``) is the decode path and the oracle the chunkwise
+form is tested against.  The JAX package's scans are loops here, and its
+sLSTM ``shard_map`` branch (the multi-device path) is not ported.  There is
+no Pallas kernel for these blocks in the JAX package: they are plain
+PyTorch on every device.
+
+Recurrent state is Harvest's "lossy + reconstructible" durability class.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import _gelu, _silu, residual_norm, rms_norm
+from repro_torch.models.ssm import softplus
+
+LOG_EPS = -1e30
+
+
+class MLSTMState(NamedTuple):
+    c: torch.Tensor   # (b, nh, hd, hd) f32 stabilized matrix memory
+    n: torch.Tensor   # (b, nh, hd) f32 normalizer
+    m: torch.Tensor   # (b, nh) f32 running log-max
+    conv: torch.Tensor  # (b, W-1, d_inner) conv tail
+
+
+class SLSTMState(NamedTuple):
+    c: torch.Tensor   # (b, nh, hd)
+    n: torch.Tensor   # (b, nh, hd)
+    m: torch.Tensor   # (b, nh, hd)
+    h: torch.Tensor   # (b, nh, hd)
+
+
+def xlstm_dims(cfg: ModelConfig):
+    xc = cfg.xlstm
+    d_inner = int(cfg.d_model * xc.proj_factor_mlstm)
+    nh = cfg.num_heads
+    hd = d_inner // nh
+    return d_inner, nh, hd
+
+
+def log_sigmoid(x):
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -softplus(-x)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM cell
+# ---------------------------------------------------------------------------
+
+
+def mlstm_step(q, k, v, i_raw, f_raw, state: MLSTMState):
+    """Single-token stabilized mLSTM recurrence (decode path + oracle).
+
+    q,k,v: (b, nh, hd);  i_raw,f_raw: (b, nh).
+    """
+    q, k, v = q.float(), k.float(), v.float()
+    hd = q.shape[-1]
+    i_raw = i_raw.float()
+    logf = log_sigmoid(f_raw.float())
+    m_new = torch.maximum(logf + state.m, i_raw)
+    f_s = torch.exp(logf + state.m - m_new)
+    i_s = torch.exp(i_raw - m_new)
+    k_sc = k / (hd ** 0.5)
+    c_new = state.c * f_s[..., None, None] + i_s[..., None, None] * (
+        k_sc[..., :, None] * v[..., None, :])
+    n_new = state.n * f_s[..., None] + i_s[..., None] * k_sc
+    num = torch.einsum("bnh,bnhd->bnd", q, c_new)
+    denom = torch.maximum(torch.einsum("bnh,bnh->bn", q, n_new).abs(),
+                          torch.exp(-m_new))
+    h = num / denom[..., None]
+    return h, MLSTMState(c_new, n_new, m_new, state.conv)
+
+
+def mlstm_chunkwise(q, k, v, i_raw, f_raw, state: Optional[MLSTMState],
+                    chunk: int = 256):
+    """Chunkwise-parallel stabilized mLSTM.
+
+    q,k,v: (b, s, nh, hd);  i_raw,f_raw: (b, s, nh).
+    Returns (h: (b, s, nh, hd) f32, final (c, n, m)).
+    """
+    f32 = torch.float32
+    b, s, nh, hd = q.shape
+    chunk = min(chunk, s)
+    nchunks = -(-s // chunk)
+    pad = nchunks * chunk - s
+
+    def chunked(x, value=0.0):
+        x = x.to(f32)
+        if pad:
+            x = F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad), value=value)
+        return x.reshape((b, nchunks, chunk) + x.shape[2:])
+
+    qc, kc, vc = chunked(q), chunked(k), chunked(v)
+    ic, fc = chunked(i_raw, LOG_EPS), chunked(f_raw, 30.0)
+    kc = kc / (hd ** 0.5)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=q.device))
+
+    if state is None:
+        C_prev = torch.zeros((b, nh, hd, hd), dtype=f32, device=q.device)
+        n_prev = torch.zeros((b, nh, hd), dtype=f32, device=q.device)
+        m_prev = torch.full((b, nh), LOG_EPS, dtype=f32, device=q.device)
+    else:
+        C_prev, n_prev, m_prev = state.c, state.n, state.m
+    hs = []
+    for c in range(nchunks):
+        qq, kk, vv, ii, ff = qc[:, c], kc[:, c], vc[:, c], ic[:, c], fc[:, c]
+        logf = log_sigmoid(ff)
+        bcum = torch.cumsum(logf, dim=1)           # (b,q,nh)
+        btot = bcum[:, -1]                         # (b,nh)
+        # intra log weights D[i,j] = bcum_i - bcum_j + ilog_j  (j <= i)
+        D = bcum[:, :, None, :] - bcum[:, None, :, :] + ii[:, None, :, :]
+        D = torch.where(causal[None, :, :, None], D, LOG_EPS)
+        # inter log weight g_i = bcum_i + m_prev
+        g = bcum + m_prev[:, None, :]
+        m_i = torch.maximum(D.amax(dim=2), g)      # (b,q,nh)
+        S = torch.einsum("binh,bjnh->bijn", qq, kk) \
+            * torch.exp(D - m_i[:, :, None, :])
+        num = torch.einsum("bijn,bjnh->binh", S, vv)
+        num = num + torch.einsum("binh,bnhd->bind", qq, C_prev) \
+            * torch.exp(g - m_i)[..., None]
+        nrm = S.sum(dim=2) + torch.einsum("binh,bnh->bin", qq, n_prev) \
+            * torch.exp(g - m_i)
+        hs.append(num / torch.maximum(nrm.abs(), torch.exp(-m_i))[..., None])
+        # state update
+        w = btot[:, None, :] - bcum + ii           # (b,q,nh) log weight per j
+        m_new = torch.maximum(btot + m_prev, w.amax(dim=1))
+        scale_prev = torch.exp(btot + m_prev - m_new)
+        wts = torch.exp(w - m_new[:, None, :])
+        C_prev = C_prev * scale_prev[..., None, None] + torch.einsum(
+            "bjnh,bjnd->bnhd", wts[..., None] * kk, vv)
+        n_prev = n_prev * scale_prev[..., None] \
+            + torch.einsum("bjn,bjnh->bnh", wts, kk)
+        m_prev = m_new
+    h = torch.cat(hs, dim=1)[:, :s]
+    return h, (C_prev, n_prev, m_prev)
+
+
+def mlstm_block(x, p, cfg: ModelConfig, state: Optional[MLSTMState] = None,
+                single_token: bool = False
+                ) -> Tuple[torch.Tensor, MLSTMState]:
+    """Full mLSTM block: LN -> up-proj -> conv -> qkv -> cell -> gate ->
+    down."""
+    d_inner, nh, hd = xlstm_dims(cfg)
+    b, s, _ = x.shape
+    u = rms_norm(x, p["ln"], cfg.norm_eps)
+    up = torch.einsum("bsd,dk->bsk", u, p["w_up"])   # (b, s, 2*d_inner)
+    xm, z = torch.chunk(up, 2, dim=-1)
+
+    # causal depthwise conv feeding q/k
+    W = p["conv_w"].shape[0]
+    tail = state.conv if state is not None \
+        else x.new_zeros((b, W - 1, d_inner))
+    xp = torch.cat([tail, xm], dim=1)
+    conv = sum(xp[:, i:i + s] * p["conv_w"][i] for i in range(W))
+    conv = _silu(conv + p["conv_b"])
+    new_tail = xp[:, xp.shape[1] - (W - 1):]
+
+    def heads(t, w):  # per-head block-diagonal projection
+        return torch.einsum("bsnh,nhk->bsnk", t.reshape(b, s, nh, hd), w)
+
+    q = heads(conv, p["wq"])
+    k = heads(conv, p["wk"])
+    v = heads(xm, p["wv"])
+    gates = torch.einsum("bsk,kg->bsg", xm, p["w_gates"]) + p["b_gates"]
+    i_raw, f_raw = gates.reshape(b, s, nh, 2).unbind(-1)
+
+    if single_token:
+        st = state if state is not None else init_mlstm_state(cfg, b,
+                                                              x.device)
+        h, new_state = mlstm_step(q[:, 0], k[:, 0], v[:, 0],
+                                  i_raw[:, 0], f_raw[:, 0], st)
+        h = h[:, None]
+        new_state = MLSTMState(new_state.c, new_state.n, new_state.m,
+                               new_tail)
+    else:
+        h, (cf, nf, mf) = mlstm_chunkwise(q, k, v, i_raw, f_raw, state)
+        new_state = MLSTMState(cf, nf, mf, new_tail)
+
+    h = rms_norm(h.to(x.dtype), p["out_norm"], cfg.norm_eps)
+    h = h.reshape(b, s, d_inner) * _silu(z)
+    y = torch.einsum("bsk,kd->bsd", h, p["w_down"])
+    return x + y, new_state
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+
+def _slstm_cell(carry, g_t, w_rec):
+    """One token of the exp-gated scalar cell.  g_t: (b, nh, 4, hd) input
+    contributions of the (z, i, f, o) gates; w_rec in f32."""
+    c, n, m, h_prev = carry
+    # recurrent contribution (block-diagonal per head)
+    gr = torch.einsum("bnh,nhgk->bngk", h_prev, w_rec)
+    g = g_t.float() + gr
+    z_t = torch.tanh(g[:, :, 0])
+    i_t = g[:, :, 1]
+    f_t = g[:, :, 2]
+    o_t = torch.sigmoid(g[:, :, 3])
+    logf = log_sigmoid(f_t)
+    m_new = torch.maximum(logf + m, i_t)
+    i_s = torch.exp(i_t - m_new)
+    f_s = torch.exp(logf + m - m_new)
+    c_new = f_s * c + i_s * z_t
+    n_new = f_s * n + i_s
+    h_new = o_t * c_new / torch.clamp(n_new, min=1e-6)
+    return c_new, n_new, m_new, h_new
+
+
+def slstm_block(x, p, cfg: ModelConfig, state: Optional[SLSTMState] = None,
+                single_token: bool = False
+                ) -> Tuple[torch.Tensor, SLSTMState]:
+    """sLSTM block: LN -> sequential exp-gated scalar cell -> GN -> GEGLU
+    MLP."""
+    b, s, _ = x.shape
+    u = rms_norm(x, p["ln"], cfg.norm_eps)
+    # input contributions for 4 gates (z, i, f, o): (b, s, nh, 4, hd)
+    gx = torch.einsum("bsd,dngk->bsngk", u, p["w_in"]) + p["b_in"]
+
+    if state is None:
+        state = init_slstm_state(cfg, b, x.device)
+    carry = tuple(state)
+    w_rec = p["w_rec"].float()
+    hs = []
+    for t in range(1 if single_token else s):
+        carry = _slstm_cell(carry, gx[:, t], w_rec)
+        hs.append(carry[3])
+    hs = torch.stack(hs, dim=1)
+    new_state = SLSTMState(*carry)
+
+    hs = rms_norm(hs.to(x.dtype), p["gn"], cfg.norm_eps)
+    y, u2 = residual_norm(x, torch.einsum("bsnh,nhd->bsd", hs, p["w_out"]),
+                          p["ln2"], cfg.norm_eps)
+
+    # post GEGLU MLP (proj factor 4/3)
+    hh = torch.einsum("bsd,df->bsf", u2, p["mlp_wi"])
+    gg = torch.einsum("bsd,df->bsf", u2, p["mlp_wg"])
+    y = y + torch.einsum("bsf,fd->bsd", _gelu(gg) * hh, p["mlp_wo"])
+    return y, new_state
+
+
+def init_mlstm_state(cfg: ModelConfig, batch: int, device) -> MLSTMState:
+    """Zero state, ``m`` at LOG_EPS; the conv tail in bf16 whatever the
+    weights' dtype, as the JAX package starts it."""
+    d_inner, nh, hd = xlstm_dims(cfg)
+    f32 = torch.float32
+    return MLSTMState(
+        c=torch.zeros((batch, nh, hd, hd), dtype=f32, device=device),
+        n=torch.zeros((batch, nh, hd), dtype=f32, device=device),
+        m=torch.full((batch, nh), LOG_EPS, dtype=f32, device=device),
+        conv=torch.zeros((batch, cfg.xlstm.conv_width - 1, d_inner),
+                         dtype=torch.bfloat16, device=device),
+    )
+
+
+def init_slstm_state(cfg: ModelConfig, batch: int, device) -> SLSTMState:
+    nh = cfg.num_heads
+    hd = cfg.d_model // nh
+    z = torch.zeros((batch, nh, hd), dtype=torch.float32, device=device)
+    return SLSTMState(c=z, n=z, m=torch.full_like(z, LOG_EPS), h=z)

@@ -493,16 +493,17 @@ class _PrefillJob:
     """One request's in-flight disaggregated prefill: the pool-worker
     occupancy (``job``), the DCN KV stream (``stream``), and the computed
     payload the decode pool adopts once the stream lands."""
-    __slots__ = ("r", "job", "stream", "n", "k", "v", "collected")
+    __slots__ = ("r", "job", "stream", "n", "k", "v", "states", "collected")
 
     def __init__(self, r: Request, job: Transfer, stream: List[Transfer],
-                 n: int, k, v):
+                 n: int, k, v, states):
         self.r = r
         self.job = job
         self.stream = stream
         self.n = n                      # prefix tokens the payload covers
         self.k = k                      # (L, n_pad, nkv, hd) numpy, or None
         self.v = v
+        self.states = states            # the prefill's recurrent states
         self.collected = False          # moved back to the waiting queue
 
 
@@ -648,6 +649,7 @@ class HarvestServingEngine:
             self._row0_host = np.zeros((1,), np.int32)
         else:
             self.pool_k = self.pool_v = None
+        self.states = M.init_states(cfg, self.B, self.device)
         self.slot_req = np.full((self.n_slots,), -1, np.int32)
         self.slot_base = np.zeros((self.n_slots,), np.int32)
 
@@ -856,6 +858,20 @@ class HarvestServingEngine:
         self.slot_req[slot] = self.row_of.get(bid[0], -1)
         self.slot_base[slot] = self.kv_mgr.table[bid].base_pos
 
+    # ------------------------------------------------------------ states
+    def _set_state_row(self, row, new_states):
+        """Write one request's prefill states into its batch row, in the
+        batch states' dtypes (``.at[].set`` casts as this does)."""
+        if self.cfg.family == "hybrid":
+            pairs = [(self.states, new_states, 1)]
+        else:
+            pairs = [(self.states[0], new_states[0], 2),
+                     (self.states[1], new_states[1], 1)]
+        for full, one, lead in pairs:
+            for f, o in zip(full, one):
+                f[(slice(None),) * lead + (row,)] = o[(slice(None),) * lead
+                                                      + (0,)]
+
     # ------------------------------------------------------------ submit
     def _now(self) -> float:
         """The engine clock (same basis as ``stats.clock_s``): the step
@@ -1044,6 +1060,8 @@ class HarvestServingEngine:
                 self.slot_base[slot] = j * self.bs
                 ent = self.kv_mgr.table[(r.req_id, j)]
                 ent.filled = min(self.bs, n - lo) if lo < n else 0
+        if out.states is not None:
+            self._set_state_row(row, out.states)
 
         nxt = self._sample(_host(logits[0, npre + n - 1]))
         if not r.output:
@@ -1141,6 +1159,8 @@ class HarvestServingEngine:
                 self.slot_req[slot] = row
                 self.slot_base[slot] = j * self.bs
                 ent.filled = min(self.bs, n - lo) if lo < n else 0
+        if out.states is not None:
+            self._set_state_row(row, out.states)
         nxt = self._sample(_host(logits[0, npre + n - 1]))
         if not r.output:
             # a rollback re-prefill replays the prefix without re-emitting
@@ -1270,7 +1290,7 @@ class HarvestServingEngine:
         r.needs_prefill = False
         self._prefilling.append(r)
         self._pf_jobs[r.req_id] = _PrefillJob(
-            r, job, stream, n, k, v)
+            r, job, stream, n, k, v, out.states)
 
     def _collect_streams(self) -> None:
         """Move requests whose pool prefill has finished back into the
@@ -1312,6 +1332,8 @@ class HarvestServingEngine:
                 self.slot_base[slot] = j * self.bs
                 ent = self.kv_mgr.table[(r.req_id, j)]
                 ent.filled = min(self.bs, n - lo) if lo < n else 0
+        if job.states is not None:
+            self._set_state_row(row, job.states)
         self.row_tokens[row] = r.output[-1]
         self.row_pos[row] = len(r.prompt) + len(r.output) - 1
         # stream tail not yet landed: this step waits on it (stall
@@ -1702,11 +1724,14 @@ class HarvestServingEngine:
                 slot_base=dev(self.slot_base),
                 append_slot=dev(self._append_slot),
                 append_off=dev(self._append_off)),
-            peer=None,
+            peer=None, states=self.states,
             # M-RoPE of text: the (t, h, w) ids all equal the position
             positions_3d=(pos[:, None].expand(-1, 3)
                           if self.cfg.rope_style == "mrope" else None))
-        logits, _ = self._decode_fn(self.params, state)
+        logits, new_state = self._decode_fn(self.params, state)
+        # rows without a request step their states too; a later prefill
+        # overwrites the row
+        self.states = new_state.states
         return logits
 
     def _account_step(self, compute_t: float, reload_t: float,

@@ -384,11 +384,13 @@ def test_engine_matches_jax(arch, dtype):
 
 
 @pytest.mark.parametrize("arch_id", [LLAMA4, COMMAND_R, "nemotron-4-15b",
-                                     "qwen2-vl-72b", DBRX])
+                                     "qwen2-vl-72b", DBRX, "zamba2-7b",
+                                     "xlstm-1.3b"])
 def test_cli_serves_the_arch_on_the_cpu(capsys, monkeypatch, arch_id):
     """``--arch`` serves ``cfg.reduced()`` as the JAX CLI does (Llama-4's
     reduced config has ``layer_period`` 1; qwen2-vl-72b's prefills run
-    behind its 8 prefix embeddings)."""
+    behind its 8 prefix embeddings; zamba2-7b and xlstm-1.3b carry
+    recurrent states)."""
     from repro_torch.launch import serve
     monkeypatch.setattr(sys, "argv", [
         "serve", "--arch", arch_id, "--device", "cpu", "--scheduler",

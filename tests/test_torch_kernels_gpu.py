@@ -650,6 +650,23 @@ def test_moe_ffn_raises_on_cuda(cuda):
         mops.moe_ffn(x, wi.cpu(), wg, wo)
 
 
+@pytest.mark.parametrize("q_pos", [(41, 24, 33, 17), (7, 0, 15, 3)])
+def test_paged_partials_at_zamba2_heads(cuda, q_pos):
+    """K1 as zamba2-7b's shared attention block gives it at full width:
+    MHA, 32 q over 32 kv heads (gq 1) of 112, 8-token blocks, 4 rows over
+    a 24-slot pool dealt in shuffled order."""
+    cfg = get_config("zamba2-7b")
+    assert (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim) == \
+        (32, 32, 112)
+    s = _scenario(31, 24, 8, 32, 32, 112, q_pos, empty_row=None)
+    got = _partials(s, cfg, cuda)
+    ref = _partials(s, cfg, "cpu")
+    assert got.acc.shape == (4, 32, 1, 112)
+    for name in ("m", "l", "acc"):
+        torch.testing.assert_close(getattr(got, name).cpu(),
+                                   getattr(ref, name), rtol=1e-4, atol=1e-4)
+
+
 # K4 against its plain version.  bf16: the plain version rounds each
 # probability to bf16 against the running max of its 1024-key chunk, the
 # kernel against that of its 64-key tile, so the two differ by about one
@@ -747,6 +764,18 @@ def test_prefill_attention_behind_a_prefix(cuda, dtype, prompt):
     (gq 8) of 128, causal over both."""
     n = 1024 + prompt
     q, k, v, qp, kp = _flash_inputs(24, 1, n, n, 64, 8, 128, dtype)
+    got = fops.prefill_attention(q, k, v, qp, kp)
+    ref = fops.prefill_attention_plain(q, k, v, qp, kp)
+    torch.testing.assert_close(got.float(), ref.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [8, 40, 1032])
+def test_prefill_attention_at_zamba2_heads(cuda, dtype, n):
+    """K4 as zamba2-7b's shared attention block gives it at full width:
+    one padded prompt, 32 q over 32 kv heads (gq 1) of 112, causal; bf16
+    on the tensor cores (hd 112 is 7 k-steps of 16) and f32."""
+    q, k, v, qp, kp = _flash_inputs(25, 1, n, n, 32, 32, 112, dtype)
     got = fops.prefill_attention(q, k, v, qp, kp)
     ref = fops.prefill_attention_plain(q, k, v, qp, kp)
     torch.testing.assert_close(got.float(), ref.float(), **FLASH_TOL[dtype])

@@ -275,7 +275,17 @@ def test_serve_step_matches_jax_and_forward(setup):
 
 
 def test_unsupported_families_raise():
-    for arch in ("zamba2-7b", "xlstm-1.3b", "musicgen-medium"):
-        cfg = t_get_config(arch).reduced()
-        with pytest.raises(NotImplementedError):
-            TM.init_params(cfg, torch.Generator(), "cpu")
+    """The audio family (musicgen-medium) is the one the port still
+    refuses: in the params, the model and the engine."""
+    from repro_torch.serving.engine import HarvestServingEngine
+    cfg = t_get_config("musicgen-medium").reduced()
+    assert cfg.family == "audio"
+    with pytest.raises(NotImplementedError):
+        TM.init_params(cfg, torch.Generator(), "cpu")
+    tokens = torch.zeros((1, 8, cfg.modality.num_codebooks),
+                         dtype=torch.int32)
+    with pytest.raises(NotImplementedError):
+        TM.forward({}, {"tokens": tokens,
+                        "positions": torch.arange(8)[None]}, cfg)
+    with pytest.raises(NotImplementedError):
+        HarvestServingEngine(cfg, {}, device="cpu")
