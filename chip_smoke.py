@@ -32,6 +32,13 @@ Phases (any failure raises and the script exits non-zero):
      with host ids; the expert FFN at a decode and a prefill shape, with
      the experts it skipped for want of a token counted on the card; at
      Llama-4's and DBRX's decode shapes inside their paths, below);
+     prefill attention's backward (bf16 on the tensor cores, f32 on the
+     CUDA cores) against its plain version at danube's 8,192-token
+     training sequence, yi-6b's heads at 2,048 tokens, Llama-4's heads
+     across its chunk, zamba2-7b's MHA at hd 112 and a small f32 case,
+     the forward's LSE against the plain LSE, and the forward with its
+     LSE and the backward timed at the training shape beside
+     ``scaled_dot_product_attention`` forward and forward plus backward;
   4. reduced yi-6b, qwen2-moe, h2o-danube-3-4b (prompts past its 64-token
      window), nemotron-4-15b at 12 / 2 heads (its GQA group of 6),
      Llama-4 at 4 layers with its dense/MoE interleaving (prompts past its
@@ -40,7 +47,9 @@ Phases (any failure raises and the script exits non-zero):
      (two super-blocks of Mamba2 layers and the shared attention block,
      and a tail) and xlstm-1.3b at 4 layers (no KV: no block, no kernel)
      served on the CPU (plain versions) and on the card (kernels):
-     identical tokens;
+     identical tokens; then reduced h2o-danube-3-4b trained two AdamW
+     steps on the CPU and on the card from the same weights and batches
+     (loss, grad_norm, moments and parameters at stated tolerances);
   5. the first path: full-width yi-6b (random weights from a seed) served
      through ``HarvestRuntime(...).server(...)`` with evictions, reloads and
      quantized demotions; every kernel of the path must have launched; then
@@ -81,6 +90,16 @@ Phases (any failure raises and the script exits non-zero):
      each decode step carrying the batch's recurrent states (their bytes
      printed); a decode step from zero states and a 40-token prefill
      profiled;
+ 12. the training path: full-width h2o-danube-3-4b (all 24 layers, 3.962
+     B parameters) trained 5 AdamW steps of 1 x 8,192 tokens from the
+     synthetic corpus, its footprint reckoned from ``abstract_params``
+     before it is allocated, every block recomputed in the backward pass,
+     attention's forward and backward through K4's kernels (48 forward
+     and 24 backward launches a step, nothing else); each step's wall,
+     tokens/s, loss and grad_norm, peak memory and the model-flops share
+     of the bf16 peak printed, one step profiled; then every kernel
+     without a backward must raise when handed a tensor that requires
+     grad;
 then the card's name and power limit, one JSON line of per-kernel
 numbers, and the JSON result line.  The launch counts are set to 0 just
 before each path and read just after it.  It imports neither JAX nor the
@@ -106,6 +125,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import HarvestRuntime, paged_attention as tpa  # noqa: E402
 from repro_torch.core.tiers import Fidelity, kv_block_bytes  # noqa: E402
+from repro_torch.data.pipeline import SyntheticCorpus, make_batches  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.harvest_copy import ops as hops  # noqa: E402
@@ -114,6 +134,9 @@ from repro_torch.kernels.paged_attention import ops as pops  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.serving import TenantSpec, Workload  # noqa: E402
+from repro_torch.train.loop import cosine_lr  # noqa: E402
+from repro_torch.train.optim import (  # noqa: E402
+    adamw_init, train_step, tree_leaves)
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
@@ -223,12 +246,12 @@ def trace_rows(fn, iters):
     return device_rows(profiled(fn, iters), iters)
 
 
-def time_ms(fn, iters=50):
+def time_ms(fn, iters=50, warmup=5):
     """(device ms, events ms) per call of ``fn``.  Device ms is the sum of
     the durations of every kernel, memset and copy the call puts on the
     card, from the profiler's trace; where the trace shows no device time
     it falls back to the events time."""
-    for _ in range(5):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     wall = events_ms(fn, iters)
@@ -1123,6 +1146,144 @@ def check_flash_prefill(yi, moe, danube, more=()):
                 by_shape=rows)
 
 
+def attention_flops(pairs, nq, hd):
+    """(forward, backward) flops of attention over ``pairs`` (q, k) pairs
+    per head: QK^T and PV in the forward (4 hd a pair), those two again
+    with dP = dO V^T, dV = P^T dO, dK = dS^T Q and dQ = dS K in the
+    backward (10 hd a pair: five products)."""
+    return 4 * hd * nq * pairs, 10 * hd * nq * pairs
+
+
+def check_flash_bwd(danube, yi, llama4, zamba2):
+    """K4's backward against its plain version on the card, on the same o,
+    LSE and dO: at danube's training sequence (8,192 tokens, twice its
+    window), yi-6b's heads at 2,048 tokens, Llama-4's heads across its
+    8,192-token chunk, zamba2-7b's MHA at hd 112, and a small f32 case.
+    The forward's LSE is held to the plain LSE, and a second forward's
+    output and LSE to the first's bit for bit (the recompute in the
+    backward pass must read what the pass saw).  At the training shape:
+    the forward with its LSE and the backward timed, beside their plain
+    versions, their bounds (operations: 4 hd and 10 hd flops a kept pair
+    over the bf16 tensor-core rate) and the library yardstick,
+    ``scaled_dot_product_attention`` forward and forward plus backward
+    (K and V repeated to the q heads, the window as a boolean mask).
+    Returns (the backward's kernel entry, the forward-with-LSE row)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    window = dict(sliding_window=danube.sliding_window)
+    shapes = [("h2o-danube-3-4b training sequence", danube, 8192,
+               torch.bfloat16, window),
+              ("yi-6b heads", yi, 2048, torch.bfloat16, {}),
+              (f"{LLAMA4} heads across its chunk", llama4, 8800,
+               torch.bfloat16, dict(attention_chunk=llama4.attention_chunk)),
+              ("zamba2-7b MHA at hd 112", zamba2, 1032, torch.bfloat16, {}),
+              ("yi-6b heads in f32, window 100", yi, 300, torch.float32,
+               dict(sliding_window=100))]
+    rows, err, fwd_row = [], 0.0, None
+    for label, cfg, n, dtype, masks in shapes:
+        nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        pos = torch.arange(n, dtype=torch.int32, device="cuda")[None]
+        q, k, v, do = (torch.randn((1, n, h, hd), generator=gen,
+                                   device="cuda").to(dtype)
+                       for h in (nq, nkv, nkv, nq))
+        o, lse = fops._launch_forward(q, k, v, pos, pos, want_lse=True,
+                                      **masks)
+        o2, lse2 = fops._launch_forward(q, k, v, pos, pos, want_lse=True,
+                                        **masks)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2), label
+        _, lse_p = fops.prefill_attention_plain(q, k, v, pos, pos,
+                                                return_lse=True, **masks)
+        torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-4)
+        lse_err = _max_err(lse, lse_p)
+        del o2, lse2, lse_p
+        got = fops.prefill_attention_bwd(q, k, v, o, lse, do, pos, pos,
+                                         **masks)
+        ref = fops.prefill_attention_bwd_plain(q, k, v, o, lse, do, pos, pos,
+                                               **masks)
+        torch.cuda.synchronize()
+        errs = []
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g.float(), r.float(),
+                                       **FLASH_TOL[dtype])
+            errs.append(_max_err(g, r))
+        del got, ref
+        err = max(err, *errs)
+        pairs = int(fops.band_mask(pos, pos, masks.get("sliding_window"),
+                                   masks.get("attention_chunk")).sum())
+        print(f"  prefill_attention_bwd {label} ({n} tokens, {nq}/{nkv} "
+              f"heads, hd {hd}, {str(dtype)[6:]}, {pairs} pairs per head): "
+              f"max_abs_err dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv "
+              f"{errs[2]:.3g} (tolerance {FLASH_TOL[dtype]}); forward LSE "
+              f"{lse_err:.3g} from the plain LSE (rtol 1e-5, atol 1e-4), "
+              f"a second forward bit-identical")
+        row = dict(shape=label, tokens=n, dtype=str(dtype)[6:],
+                   pairs_per_head=pairs, max_abs_err=max(errs))
+        if not rows:
+            elem = q.element_size()
+            fwd_flops, bwd_flops = attention_flops(pairs, nq, hd)
+            fwd_bytes = elem * n * hd * (2 * nq + 2 * nkv) + 4 * n * nq
+            bwd_bytes = elem * n * hd * (4 * nq + 4 * nkv) + 4 * n * nq
+            f_ms, _ = time_ms(lambda: fops._launch_forward(
+                q, k, v, pos, pos, want_lse=True, **masks), 5)
+            f_plain, _ = time_ms(lambda: fops.prefill_attention_plain(
+                q, k, v, pos, pos, return_lse=True, **masks), 2, warmup=1)
+            b_ms, _ = time_ms(lambda: fops.prefill_attention_bwd(
+                q, k, v, o, lse, do, pos, pos, **masks), 3, warmup=1)
+            b_plain, _ = time_ms(lambda: fops.prefill_attention_bwd_plain(
+                q, k, v, o, lse, do, pos, pos, **masks), 2, warmup=1)
+            gq = nq // nkv
+            qt = q.transpose(1, 2).contiguous().requires_grad_()
+            kt, vt = (t.repeat_interleave(gq, dim=2).transpose(1, 2)
+                      .contiguous().requires_grad_() for t in (k, v))
+            dot = do.transpose(1, 2).contiguous()
+            band = fops.band_mask(pos[0], pos[0], **masks)
+
+            def lib_fwd():
+                with torch.no_grad():
+                    return sdpa(qt, kt, vt, attn_mask=band)
+
+            def lib_fwd_bwd():
+                out = sdpa(qt, kt, vt, attn_mask=band)
+                return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+            lf_ms, _ = time_ms(lib_fwd, 3, warmup=1)
+            lb_ms, _ = time_ms(lib_fwd_bwd, 3, warmup=1)
+            backend = top_kernel(lib_fwd_bwd)
+            del qt, kt, vt, dot, band
+            fb, fb_by = bound(fwd_bytes, fwd_flops, BF16_FLOPS)
+            bb, bb_by = bound(bwd_bytes, bwd_flops, BF16_FLOPS)
+            print(f"  prefill_attention forward with LSE, {label}: {f_ms:.4f} "
+                  f"ms device; plain {f_plain:.4f}; library (forward) "
+                  f"{lf_ms:.4f}; bound {fb:.4f} ({fb_by}, "
+                  f"{fwd_flops / 1e9:.1f} GFLOP)")
+            print(f"  prefill_attention_bwd, {label}: {b_ms:.4f} ms device "
+                  f"(three kernels); plain {b_plain:.4f}; library forward "
+                  f"plus backward {lb_ms:.4f} [{backend[:60]}]; bound "
+                  f"{bb:.4f} ({bb_by}, {bwd_flops / 1e9:.1f} GFLOP); "
+                  f"{bwd_flops / b_ms / 1e9:.1f} TFLOP/s")
+            fwd_row = dict(shape=label, tokens=n, dtype="bfloat16",
+                           ms=f_ms, plain_ms=f_plain, library_ms=lf_ms,
+                           library_backend="scaled_dot_product_attention "
+                           "forward, boolean band mask", bound_ms=fb,
+                           bound_by=fb_by, max_abs_err=lse_err)
+            row.update(ms=b_ms, plain_ms=b_plain, library_ms=lb_ms,
+                       library_backend=backend, bound_ms=bb, bound_by=bb_by)
+        rows.append(row)
+        del q, k, v, do, o, lse
+    main = rows[0]
+    return dict(name="prefill_attention_bwd", route="cuda",
+                source="src/repro_torch/csrc/flash_prefill.cu",
+                replaces="src/repro/models/layers.py:151",
+                note="no Pallas counterpart: the JAX package differentiates "
+                "layers.chunked_attention with XLA; this is that gradient",
+                max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"],
+                library_backend="scaled_dot_product_attention forward plus "
+                "backward: " + main["library_backend"], shape=main["shape"],
+                by_shape=rows), fwd_row
+
+
 # ---------------------------------------------------------------------------
 # phases 4 to 6: the serving paths
 # ---------------------------------------------------------------------------
@@ -1213,6 +1374,303 @@ def check_reduced_tokens(arch, prompt=(5, 40), local_slots=10, **changes):
         assert kv["allocated"] == 0, kv
         assert not any(fn.launches for fn in COUNTERS.values())
     return runs["cuda"][0]
+
+
+#: reduced training in bf16, card against CPU (check_reduced_training).
+#: Both run the same bf16 graph; they differ where a product sums its
+#: bf16 terms in another order, so by a bf16 rounding here and there:
+#: the f32 loss over 320 tokens to rtol 1e-3, grad_norm to one bf16 epsilon
+#: (2^-7), each leaf's first moment (AdamW's mu, 0.1 g at step 1) within
+#: 2^-5 of the leaf's largest entry (twice the port-vs-JAX bf16 gradient
+#: tolerance: step 2 starts from parameters that AdamW's sign noise
+#: moved), the second (0.001 g^2) within 2^-4.  A dropped gradient leaves a
+#: leaf's moments at 0, off by its whole size.  A card run in f32 would
+#: move these numbers no more than the rounding does (measured on the CPU:
+#: loss 6e-6 and 6e-5, grad_norm 1e-3, mu 1.6e-2 of the leaf's largest),
+#: so the card's dtypes and the backward kernels that ran are asserted
+#: instead.
+BF16_TRAIN_TOL = dict(loss=1e-3, nll=1e-3, grad_norm=2.0 ** -7,
+                      mu=2.0 ** -5, nu=2.0 ** -4)
+
+
+def _train_steps(params, batches, cfg, lr, device):
+    """``train_step`` over ``batches`` on ``device`` from a copy of
+    ``params``: ([metrics per step], the parameters' leaves after the last
+    step, [(mu's leaves, nu's leaves) after each step]), all on the
+    CPU."""
+    p = _map(params, lambda t: t.clone().to(device))
+    opt = adamw_init(p)
+    hist, moments = [], []
+    for b in batches:
+        p, opt, m = train_step(p, opt, {k: torch.from_numpy(v).to(device)
+                                        for k, v in b.items()}, cfg, lr=lr)
+        hist.append({k: float(v) for k, v in m.items()})
+        # copies: the update works in place, and .cpu() of a CPU tensor is
+        # the tensor itself
+        moments.append(([t.to("cpu", copy=True) for t in tree_leaves(opt.mu)],
+                        [t.to("cpu", copy=True) for t in tree_leaves(opt.nu)]))
+    return hist, [t.to("cpu", copy=True) for t in tree_leaves(p)], moments
+
+
+def _leaf_rel(ref, run):
+    """The largest |run - ref| of each leaf over its largest |ref|."""
+    return [float((b.float() - a.float()).abs().max()
+                  / a.float().abs().max().clamp_min(1e-30))
+            for a, b in zip(ref, run)]
+
+
+def hold_training(ref, run, dtype, lr):
+    """Holds ``run`` (``_train_steps``'s result) to ``ref``.  f32: loss,
+    nll and grad_norm to rtol 1e-5; the moments after each step within
+    1e-4 of each leaf's largest entry; the parameters all within 2 lr a
+    step and all but 1e-3 of them within 2e-6: AdamW moves a parameter by
+    about +-lr whatever |g| while |g| >> eps, so an entry whose gradient
+    sits near eps or within the two runs' f32 noise of 0 is moved by that
+    noise.  bf16: ``BF16_TRAIN_TOL``, and the parameters each within 2 lr
+    a step plus a bf16 epsilon of their size.  Returns what it measured
+    for the print."""
+    (h_ref, p_ref, m_ref), (h_run, p_run, m_run) = ref, run
+    bf16 = dtype == torch.bfloat16
+    tol = BF16_TRAIN_TOL if bf16 else dict(loss=1e-5, nll=1e-5,
+                                           grad_norm=1e-5, mu=1e-4, nu=1e-4)
+    for a, b in zip(h_ref, h_run):
+        assert all(np.isfinite(list(b.values()))), b
+        for key in ("loss", "nll", "grad_norm"):
+            np.testing.assert_allclose(b[key], a[key], rtol=tol[key],
+                                       err_msg=key)
+    worst_mom = {"mu": 0.0, "nu": 0.0}
+    for (mu_a, nu_a), (mu_b, nu_b) in zip(m_ref, m_run):
+        for key, a, b in (("mu", mu_a, mu_b), ("nu", nu_a, nu_b)):
+            rel = _leaf_rel(a, b)
+            worst_mom[key] = max(worst_mom[key], max(rel))
+            assert max(rel) <= tol[key], (key, rel)
+    step = 2 * lr * len(h_ref)
+    off = total = 0
+    worst = 0.0
+    for a, b in zip(p_ref, p_run):
+        a, b = a.float(), b.float()
+        d = (a - b).abs()
+        worst = max(worst, d.max().item())
+        off += int((d > 2e-6).sum())
+        total += d.numel()
+        if bf16:
+            assert bool((d <= step + 2.0 ** -7
+                         * torch.maximum(a.abs(), b.abs())).all())
+    assert bf16 or (worst <= step and off <= 1e-3 * total), \
+        (worst, off, total)
+    return dict(moments=worst_mom, worst=worst, off=off, total=total)
+
+
+def check_reduced_training(arch="h2o-danube-3-4b", dtype=torch.float32,
+                           steps=2, batch=2, seq_len=160, lr=1e-3):
+    """A reduced model (danube's: window 64, so the 160-token sequences
+    cross it) trained ``steps`` AdamW steps on the CPU (plain versions)
+    and on the card (K4's forward and backward kernels: f32 on the CUDA
+    cores, bf16 on the tensor cores) from the same weights (f32, or the
+    seed's bf16) and batches, held by ``hold_training``.  On the card K4
+    must launch twice a layer a step (the pass and the recompute in the
+    backward) and its backward once, and the profile must show the
+    backward's kernels for ``dtype`` and not the other dtype's."""
+    cfg = get_config(arch).reduced()
+    params = _map(M.init_params(cfg, torch.Generator().manual_seed(SEED),
+                                "cpu"), lambda t: t.to(dtype))
+    batches = list(make_batches(SyntheticCorpus(vocab_size=cfg.vocab_size,
+                                                seed=SEED), batch, seq_len,
+                                num_batches=steps))
+    ref = _train_steps(params, batches, cfg, lr, "cpu")
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run = _train_steps(params, batches, cfg, lr, "cuda")
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    L = cfg.num_layers
+    assert launches == dict({n: 0 for n in COUNTERS}, prefill_attention=2 * L
+                            * steps, prefill_attention_bwd=L * steps), \
+        launches
+    assert all(t.dtype == dtype for t in run[1]), {t.dtype for t in run[1]}
+    # the backward's kernels for the dtype ran, the other dtype's did not
+    rows = [key for key, _ in device_rows(prof, 1)]
+    bwd = {f"flash_bwd_{part}_{mma}kernel": mma == "mma_"
+           for part in ("dkdv", "dq") for mma in ("", "mma_")}
+    ran = {n for n in bwd if any(n in key for key in rows)}
+    assert ran == {n for n, on_mma in bwd.items()
+                   if on_mma == (dtype == torch.bfloat16)}, (ran, rows)
+    got = hold_training(ref, run, dtype, lr)
+    name = str(dtype).removeprefix("torch.")
+    kernels = ", ".join(sorted(ran))
+    print(f"reduced {arch} trained {steps} steps in {name} on cpu and cuda: "
+          f"losses {[round(h['loss'], 6) for h in ref[0]]} / "
+          f"{[round(h['loss'], 6) for h in run[0]]}, grad_norm "
+          f"{[round(h['grad_norm'], 6) for h in ref[0]]} / "
+          f"{[round(h['grad_norm'], 6) for h in run[0]]}; moments per leaf "
+          f"within {got['moments']['mu']:.3g} (mu) and "
+          f"{got['moments']['nu']:.3g} (nu) of the leaf's largest; "
+          f"parameters: {got['off']} of {got['total']} past 2e-6, largest "
+          f"difference {got['worst']:.3g}; K4 launches "
+          f"{launches['prefill_attention']} forward, "
+          f"{launches['prefill_attention_bwd']} backward ({kernels})")
+
+
+def check_no_backward():
+    """Every kernel without a backward (K1, K2, K3, K5, K6, K7) raises on
+    a CUDA tensor that requires grad in grad mode, naming itself, and runs
+    under ``torch.no_grad``; none returns a tensor that drops the
+    gradient."""
+    dev = "cuda"
+    q = torch.randn((2, 8, 64), device=dev, requires_grad=True)
+    pool = torch.randn((4, 8, 2, 64), device=dev, requires_grad=True)
+    req = torch.tensor([0, 0, 1, -1], dtype=torch.int32, device=dev)
+    base = torch.tensor([0, 8, 0, 0], dtype=torch.int32, device=dev)
+    pos = torch.tensor([12, 5], dtype=torch.int32, device=dev)
+    flat = torch.randn((4, 64), device=dev, requires_grad=True)
+    ids = torch.tensor([0, 2], dtype=torch.int32, device=dev)
+    values, scales = hops.quantize_blocks(flat.detach(), ids)
+    xd, wi, wg, wo = (torch.randn(s, device=dev, requires_grad=True)
+                      for s in ((2, 16, 32), (2, 32, 48), (2, 32, 48),
+                                (2, 48, 32)))
+    calls = {
+        "paged_decode_partials": lambda: pops.paged_decode_partials(
+            q, pool, pool, req, base, pos, scale=0.125),
+        "quantize_blocks": lambda: hops.quantize_blocks(flat, ids),
+        "dequantize_blocks": lambda: hops.dequantize_blocks(
+            flat, values, scales, ids),
+        "gather_blocks": lambda: hops.gather_blocks(flat, ids),
+        "copy_blocks": lambda: hops.copy_blocks(flat, flat.detach().clone(),
+                                                ids, ids),
+        "moe_ffn": lambda: mops.moe_ffn(xd, wi, wg, wo)}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            assert f"{name}: the kernel has no backward" in str(e), e
+        else:
+            raise AssertionError(f"{name} cut a gradient without raising")
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+    print(f"kernels without a backward raise under grad on the card: "
+          f"{', '.join(calls)}")
+
+
+def _model_flops(cfg, n_params, tokens, pairs):
+    """A training step's flops: 6 per parameter per token for the pass and
+    the backward, 2 more for the recomputed pass, the embedding's gather
+    left out; attention's products over the kept pairs, forward twice."""
+    gemm = 8 * (n_params - cfg.vocab_size * cfg.d_model) * tokens
+    fwd, bwd = attention_flops(pairs, cfg.num_heads, cfg.resolved_head_dim)
+    return gemm + cfg.num_layers * (2 * fwd + bwd)
+
+
+def train_path(arch="h2o-danube-3-4b", steps=5, batch=1, seq_len=8192,
+               lr=3e-4, warmup=100, total=1000):
+    """Full-width training on the card: ``abstract_params`` reckons the
+    footprint (parameters and their gradients in bf16, AdamW's two f32
+    moments) before anything is allocated; then weights from the seed and
+    ``steps`` fused steps (``train_step``: loss, gradients through K4's
+    forward and backward, AdamW) on ``make_batches``'s sequences, each
+    step timed on the host clock around a synchronised step, the learning
+    rate ``train``'s schedule (``cosine_lr``) at the first steps of a
+    ``warmup``-step warmup to ``lr``.  The launch
+    counts are set to 0 just before the steps and read just after: K4's
+    forward twice a layer a step (the pass and the recompute), its
+    backward once, and no other kernel.  Then one step profiled for where
+    the time goes.  Returns (launch counts, the numbers kept)."""
+    cfg = get_config(arch)
+    ap = M.abstract_params(cfg)
+    n_params = M.param_count(ap)
+    p_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(ap))
+    state = 2 * p_bytes + 8 * n_params
+    layer_in = batch * seq_len * cfg.d_model * 2
+    print(f"{arch} training: {n_params / 1e9:.3f} B parameters; reckoned "
+          f"before allocating: parameters {p_bytes / 1e9:.2f} GB, gradients "
+          f"{p_bytes / 1e9:.2f} GB (the parameters' dtype), AdamW moments "
+          f"{8 * n_params / 1e9:.2f} GB (f32): {state / 1e9:.2f} GB "
+          f"({state / 2 ** 30:.2f} GiB), plus the layer inputs kept for the "
+          f"recompute ({cfg.num_layers} x {layer_in / 1e6:.0f} MB), one "
+          f"layer's recompute and the loss's (b, s, V) f32 temporaries "
+          f"({batch * seq_len * cfg.vocab_size * 4 / 1e9:.2f} GB each)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(SEED), "cuda")
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    print(f"{arch} training: weights and moments on the card in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    batches = make_batches(SyntheticCorpus(vocab_size=cfg.vocab_size,
+                                           seed=SEED), batch, seq_len)
+
+    def next_batch():
+        return {k: torch.from_numpy(v).cuda() for k, v in next(batches).items()}
+
+    pos = torch.arange(seq_len, dtype=torch.int32, device="cuda")[None]
+    pairs = int(fops.band_mask(pos, pos, cfg.sliding_window,
+                               cfg.attention_chunk).sum())
+    flops = _model_flops(cfg, n_params, batch * seq_len, pairs)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    walls, hist = [], []
+    for step in range(steps):
+        b = next_batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cur_lr = cosine_lr(step, base=lr, warmup=warmup, total=total)
+        params, opt, m = train_step(params, opt, b, cfg, lr=cur_lr)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        vals = {k: float(v) for k, v in m.items()}
+        assert all(np.isfinite(list(vals.values()))), vals
+        hist.append(vals)
+        print(f"  step {step}: {walls[-1] * 1e3:.1f} ms wall, "
+              f"{batch * seq_len / walls[-1]:.0f} tokens/s, loss "
+              f"{vals['loss']:.5f}, nll {vals['nll']:.5f}, grad_norm "
+              f"{vals['grad_norm']:.5f}, lr {cur_lr:.2e}")
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    L = cfg.num_layers
+    expect = dict({n: 0 for n in COUNTERS},
+                  prefill_attention=2 * L * steps,
+                  prefill_attention_bwd=L * steps)
+    print(f"{arch} training: launches {launches} (predicted: K4 forward "
+          f"{2 * L} and backward {L} a step, nothing else)")
+    assert launches == expect, (launches, expect)
+    assert int(opt.step) == steps
+    peak = torch.cuda.max_memory_allocated()
+    steady = float(np.mean(walls[1:]))
+    mfu = flops / steady / BF16_FLOPS
+    print(f"{arch} training: step wall {steady * 1e3:.1f} ms (mean of steps "
+          f"1-{steps - 1}; step 0 {walls[0] * 1e3:.1f} ms), "
+          f"{batch * seq_len / steady:.0f} tokens/s, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB ({peak / 1e9:.2f} GB), model flops "
+          f"{flops / 1e12:.1f} TFLOP a step (8 x {n_params / 1e9:.3f} B "
+          f"less the embedding x {batch * seq_len} tokens, attention over "
+          f"{pairs} pairs a head), {100 * mfu:.1f}% of the bf16 peak")
+    b = next_batch()
+    rows = trace_rows(lambda: train_step(params, opt, b, cfg, lr=cur_lr), 1)
+    busy = sum(ms for _, ms in rows)
+    k4f = sum(ms for n, ms in rows if "flash_prefill" in n)
+    k4b = sum(ms for n, ms in rows if "flash_bwd" in n)
+    print(f"{arch} training: one step profiled: {busy:.1f} ms device-busy "
+          f"({100 * busy / (steady * 1e3):.1f}% of the mean step wall), K4 "
+          f"forward {k4f:.1f} ms, K4 backward {k4b:.1f} ms")
+    for name, ms in rows[:8]:
+        print(f"  {ms:9.3f} ms/step  {name[:90]}")
+    del params, opt, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_no_backward()
+    return launches, dict(steps=steps, tokens_per_step=batch * seq_len,
+                          step_ms=[w * 1e3 for w in walls],
+                          steady_step_ms=steady * 1e3,
+                          tokens_per_s=batch * seq_len / steady,
+                          peak_gib=peak / 2 ** 30, mfu=mfu,
+                          device_busy_ms=busy, k4_forward_ms=k4f,
+                          k4_backward_ms=k4b,
+                          losses=[h["loss"] for h in hist],
+                          grad_norms=[h["grad_norm"] for h in hist])
 
 
 def _tensors(tree):
@@ -1374,7 +1832,8 @@ COUNTERS = {"paged_decode_partials": pops.paged_decode_partials,
             "prefill_attention": fops.prefill_attention,
             "gather_blocks": hops.gather_blocks,
             "copy_blocks": hops.copy_blocks,
-            "moe_ffn": mops.moe_ffn}
+            "moe_ffn": mops.moe_ffn,
+            "prefill_attention_bwd": fops.prefill_attention_bwd}
 
 
 #: what one eviction may put on the card: K6 (twice), K2 and K3 (a
@@ -1590,6 +2049,10 @@ def main() -> int:
                         (command_r, bs), (nemotron, bs), (qwen2_vl, bs),
                         (dbrx, bs), (zamba2, bs), (moe, bs)]) \
         + [check_moe_ffn(moe, get_config("phi-tiny-moe"))]
+    k4_bwd, k4_train_fwd = check_flash_bwd(danube, yi, llama4, zamba2)
+    kernels.append(k4_bwd)
+    next(k for k in kernels if k["name"] == "prefill_attention")[
+        "training_forward_with_lse"] = k4_train_fwd
     tolerance = {"paged_decode_partials": "rtol 1e-4, atol 1e-4 (f32 sums "
                  "in another order)", "quantize_demote": "bit-identical",
                  "dequantize_reload": "bit-identical",
@@ -1599,7 +2062,10 @@ def main() -> int:
                  "gather_blocks": "bit-identical",
                  "copy_blocks": "bit-identical",
                  "moe_ffn": "bf16 rtol 1.6e-2, atol 2^-7; f32 rtol 1e-4, "
-                 "atol 1e-4 (sums in another order than cuBLAS)"}
+                 "atol 1e-4 (sums in another order than cuBLAS)",
+                 "prefill_attention_bwd": "bf16 rtol 1.6e-2, atol 2^-7; f32 "
+                 "rtol 1e-4, atol 1e-4 (each gradient rounded once from f32 "
+                 "sums taken in another order)"}
     for k in kernels:
         print(f"kernel {k['name']}: ms {k['ms']:.5f}  plain_ms "
               f"{k['plain_ms']:.5f}  library_ms {k['library_ms']}  bound_ms "
@@ -1634,6 +2100,8 @@ def main() -> int:
             label["layer_period"] = changes["moe"].layer_period
         print(f"reduced {arch} {label or ''}: cpu and cuda tokens "
               f"identical ({tokens[:2]} ...)")
+    check_reduced_training(dtype=torch.float32)
+    check_reduced_training(dtype=torch.bfloat16)
 
     # ---- phases 5 to 10: the paths at full width ----
     movers = ["paged_decode_partials", "quantize_demote",
@@ -1683,12 +2151,17 @@ def main() -> int:
                                     pool_k1=False)
     paths[XLSTM], _, _ = main_path(XLSTM, bs, [], prefill_tokens=40,
                                    pool_k1=False)
+    # the training path: full-width h2o-danube-3-4b, 1 x 8,192 tokens
+    # (twice its window) a step, through K4's forward and backward
+    paths["h2o-danube-3-4b training"], training = train_path()
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
         if k["name"] == "paged_decode_partials":
             k["long_pool"] = k1_long
             k["llama4_pool"] = k1_llama4
+        if k["name"] == "prefill_attention_bwd":
+            k["training"] = training
         if k["name"] == "moe_ffn":
             k["by_shape"] += [k7_llama4, k7_dbrx]
             k["max_abs_err"] = max(k["max_abs_err"],

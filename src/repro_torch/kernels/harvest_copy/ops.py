@@ -25,7 +25,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.paged_attention.ops import sm_count
 
 #: symmetric quantization range per wire fidelity (e4m3's largest finite
@@ -206,6 +206,7 @@ def quantize_blocks(src_pool, slot_ids, *, fidelity: str = "int8",
                         "quantize_blocks")
     if src_pool.device.type == "cpu":
         return quantize_blocks_plain(src_pool, slot_ids, fidelity)
+    refuse_grad("quantize_blocks", src_pool)
     m, elems = host.size, src_pool.shape[1]
     # the ids ride in the launch: no id copy to the card, and no load
     # between the launch and the rows
@@ -285,6 +286,7 @@ def dequantize_blocks(dst_pool, values, scales, slot_ids, *,
     if dst_pool.device.type == "cpu":
         return dequantize_blocks_plain(dst_pool, values, scales, slot_ids,
                                        fidelity)
+    refuse_grad("dequantize_blocks", dst_pool, values, scales)
     dev = dst_pool.device
     # the ids ride in the launch: no id copy to the card, and no load
     # between the launch and the rows
@@ -377,6 +379,7 @@ def gather_blocks(src_pool, slot_ids, out=None, *, host_ids=None):
                              "and must not overlap")
     if src_pool.device.type == "cpu":
         return gather_blocks_plain(src_pool, slot_ids, out)
+    refuse_grad("gather_blocks", src_pool, out)
     dev = src_pool.device
     # the ids ride in the launch: no id copy to the card, and no load
     # between the launch and the rows
@@ -443,6 +446,7 @@ def copy_blocks(src_pool, dst_pool, src_ids, dst_ids):
                          "one pool; the copy would race")
     if dst_pool.device.type == "cpu":
         return copy_blocks_plain(src_pool, dst_pool, src_ids, dst_ids)
+    refuse_grad("copy_blocks", src_pool, dst_pool)
     if dh.size == 0 or dst_pool.shape[1] == 0:
         return dst_pool
     dev = dst_pool.device

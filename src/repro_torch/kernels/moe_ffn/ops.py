@@ -15,7 +15,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.models.layers import _activation
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -80,6 +80,7 @@ def moe_ffn(xd, wi, wg, wo, *, activation: str = "silu", skipped=None):
                          f"{xd.device}")
     if xd.device.type == "cpu":
         return moe_ffn_plain(xd, wi, wg, wo, activation)
+    refuse_grad("moe_ffn", xd, wi, wg, wo)
     if not all(t.is_contiguous() for t in (xd, wi, wg, wo)):
         raise ValueError("moe_ffn: operands must be contiguous")
     e, c, d = xd.shape

@@ -17,7 +17,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 
 NEG_INF = -1e30
 MAX_GQ = 16
@@ -160,6 +160,7 @@ def paged_decode_partials(q, pool_k, pool_v, slot_req, slot_base, q_pos, *,
             q, pool_k, pool_v, slot_req, slot_base, q_pos, scale=scale,
             sliding_window=sliding_window, attention_chunk=attention_chunk,
             logit_softcap=logit_softcap)
+    refuse_grad("paged_decode_partials", q, pool_k, pool_v)
     b, nq, hd = q.shape
     n_slots, bs, nkv, _ = pool_k.shape
     tensors = (q, pool_k, pool_v, slot_req, slot_base, q_pos)

@@ -9,14 +9,20 @@ blocks and one sLSTM block, no attention).
 
 Entry points:
   forward(params, batch, cfg, want_kv)      -> (logits, ForwardOut)
+  loss_fn(params, batch, cfg)               -> (loss, metrics)
   prefill(params, batch, cfg)               -> (logits_last, ForwardOut)
   serve_step(params, state, cfg)            -> (logits, new_state)  1 token
 
 Parameters are the nested dict of ``repro_torch.models.params`` (leaves
 stacked over layers); the JAX package's layer ``scan`` is a Python loop,
 and its scan over (dense, moe) pairs a loop over layers 0, 1, 2, ... that
-takes layer i from the pair stack of its kind (``_layer``), so stacked KV
-comes out in the JAX package's layer order.  The recurrent states of the
+takes layer i from the pair stack of its kind (``_layers``), so stacked KV
+comes out in the JAX package's layer order.  Each pass takes every
+stacked leaf apart once (``torch.unbind``).  When a parameter requires
+grad and grad mode is on, every block runs under
+``torch.utils.checkpoint``, as the JAX package wraps its scan bodies in
+``jax.checkpoint``: the backward pass computes each block's activations
+again from its input.  The recurrent states of the
 hybrid and ssm families come out stacked in the JAX package's layout too:
 ``ssm.SSMState`` over all layers, or (``MLSTMState`` over (super-block,
 block), ``SLSTMState`` over super-blocks).
@@ -31,6 +37,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import paged_attention as pa
@@ -39,23 +46,58 @@ from repro_torch.models import ssm as S
 from repro_torch.models import xlstm as X
 from repro_torch.models.moe import load_balance_loss, moe_layer
 from repro_torch.models.params import (  # noqa: F401  (re-exported)
-    build_schema, check_family, init_params, is_interleaved, param_count)
+    abstract_params, build_schema, check_family, init_params, is_interleaved,
+    param_count)
 
 
-def _pick(node, j):
-    """Slice ``j`` (an index or a tuple of them) of every leaf."""
-    return {k: _pick(v, j) for k, v in node.items()} \
-        if isinstance(node, dict) else node[j]
+def _unbind(node):
+    """The per-slice dicts of a dict of leaves stacked along their first
+    dim: each leaf taken apart once with ``torch.unbind`` into views.  Its
+    backward is one ``torch.stack`` of the slices' gradients, where
+    indexing the leaf slice by slice would write a zero-filled gradient of
+    the whole stacked leaf for every slice (24 x 1.89 GB for danube's
+    ``wi``)."""
+    if not isinstance(node, dict):
+        return torch.unbind(node)
+    parts = {k: _unbind(v) for k, v in node.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
 
 
-def _layer(params, i: int):
-    """Layer ``i``'s slice of the stacked layer parameters: of
-    ``params["layers"]``, or for interleaved dense/MoE pairs of
+def _layers(params):
+    """Every layer's slice of the stacked layer parameters, in layer order:
+    of ``params["layers"]``, or for interleaved dense/MoE pairs layer i of
     ``blocks["dense"][i // 2]`` (even i) or ``blocks["moe"][i // 2]`` (odd
     i), as ``ModelConfig.is_moe_layer`` places the MoE layers."""
     if "blocks" in params:
-        return _pick(params["blocks"]["moe" if i % 2 else "dense"], i // 2)
-    return _pick(params["layers"], i)
+        dense, moe = (_unbind(params["blocks"][k]) for k in ("dense", "moe"))
+        return [lp for pair in zip(dense, moe) for lp in pair]
+    return _unbind(params["layers"])
+
+
+def _wants_grad(params) -> bool:
+    """Grad mode is on and some parameter requires grad: a training pass."""
+    if not torch.is_grad_enabled():
+        return False
+    stack = [params]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif node.requires_grad:
+            return True
+    return False
+
+
+def _run(remat: bool, fn, *args):
+    """``fn(*args)``; with ``remat`` under ``torch.utils.checkpoint``
+    (non-reentrant), which keeps only ``fn``'s inputs and computes its
+    activations again in the backward pass.  The blocks draw no random
+    numbers, so no RNG state is carried."""
+    if not remat:
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
 
 
 # ---------------------------------------------------------------------------
@@ -120,53 +162,64 @@ class ForwardOut(NamedTuple):
 
 
 def _hybrid_layers(params, x, cfg: ModelConfig, states, single_token,
-                   attend):
+                   attend, remat: bool = False):
     """Zamba2: the Mamba2 stack with ONE shared attention block after every
     ``attn_period`` Mamba2 layers (none after the tail's).  ``states``: the
     stacked ``SSMState`` of every layer, or None (zero states);
     ``attend(j, u)`` -> (a, kv) for the shared block at super-block j.
-    Returns (x, the super-blocks' kv, the new stacked states)."""
+    ``remat``: each Mamba2 layer and each shared block under
+    ``torch.utils.checkpoint``.  Returns (x, the super-blocks' kv, the new
+    stacked states)."""
     per = cfg.hybrid.attn_period
     shared = params["shared_attn"]
     if states is None:
         st0 = S.init_ssm_state(cfg, x.shape[0], x.device)
-    new, kvs = [], []
-    for i in range(cfg.num_layers):
-        lp = _pick(params["mamba_layers"], i)
-        st = st0 if states is None else S.SSMState(*(t[i] for t in states))
+
+    def mamba(x, lp, st):
         u = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         y, st = S.mamba2_layer(u, lp["mamba"], cfg, st, single_token)
-        x = x + y
+        return x + y, st
+
+    def shared_block(x, j):
+        return _block(x, None, shared, cfg, lambda u: attend(j, u))
+
+    new, kvs = [], []
+    for i, lp in enumerate(_unbind(params["mamba_layers"])):
+        st = st0 if states is None else S.SSMState(*(t[i] for t in states))
+        x, st = _run(remat, mamba, x, lp, st)
         new.append(st)
         if (i + 1) % per == 0:
-            x, _, kv, _ = _block(x, None, shared, cfg,
-                                 lambda u: attend(i // per, u))
+            x, _, kv, _ = _run(remat, shared_block, x, i // per)
             kvs.append(kv)
     return x, kvs, S.SSMState(*(torch.stack(t) for t in zip(*new)))
 
 
-def _xlstm_layers(params, x, cfg: ModelConfig, states, single_token):
+def _xlstm_layers(params, x, cfg: ModelConfig, states, single_token,
+                  remat: bool = False):
     """xLSTM: super-blocks of (slstm_every - 1) mLSTM blocks and one sLSTM
     block.  ``states``: (stacked ``MLSTMState`` over (super-block, block),
     stacked ``SLSTMState`` over super-blocks), or None (zero states).
-    Returns (x, the new states in that layout)."""
+    ``remat``: each block under ``torch.utils.checkpoint``.  Returns (x,
+    the new states in that layout)."""
     per = cfg.xlstm.slstm_every
     supers = params["supers"]
     b = x.shape[0]
+    mlstm = [_unbind(row) for row in _unbind(supers["mlstm"])]
+    slstm = _unbind(supers["slstm"])
     m_new, s_new = [], []
     for j in range(cfg.num_layers // per):
         row = []
         for i in range(per - 1):
             st = X.init_mlstm_state(cfg, b, x.device) if states is None \
                 else X.MLSTMState(*(t[j, i] for t in states[0]))
-            x, st = X.mlstm_block(x, _pick(supers["mlstm"], (j, i)), cfg, st,
-                                  single_token)
+            x, st = _run(remat, X.mlstm_block, x, mlstm[j][i], cfg, st,
+                         single_token)
             row.append(st)
         m_new.append(X.MLSTMState(*(torch.stack(t) for t in zip(*row))))
         st = X.init_slstm_state(cfg, b, x.device) if states is None \
             else X.SLSTMState(*(t[j] for t in states[1]))
-        x, st = X.slstm_block(x, _pick(supers["slstm"], j), cfg, st,
-                              single_token)
+        x, st = _run(remat, X.slstm_block, x, slstm[j], cfg, st,
+                     single_token)
         s_new.append(st)
     return x, (X.MLSTMState(*(torch.stack(t) for t in zip(*m_new))),
                X.SLSTMState(*(torch.stack(t) for t in zip(*s_new))))
@@ -194,25 +247,28 @@ def init_states(cfg: ModelConfig, batch: int, device):
 def backbone(params, x, positions, cfg: ModelConfig, positions_3d=None,
              want_kv: bool = True) -> ForwardOut:
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = _wants_grad(params)
     if cfg.family == "hybrid":
         x, kvs, states = _hybrid_layers(
             params, x, cfg, None, False,
             lambda j, u: L.attention_layer(u, params["shared_attn"]["attn"],
-                                           cfg, positions))
+                                           cfg, positions), remat)
         kv = tuple(torch.stack(t) for t in zip(*kvs)) if want_kv else None
         return ForwardOut(x, kv, states, aux)
     if cfg.family == "ssm":
-        x, states = _xlstm_layers(params, x, cfg, None, False)
+        x, states = _xlstm_layers(params, x, cfg, None, False, remat)
         return ForwardOut(x, None, states, aux)
+
+    def block(x, s, lp, i):
+        return _block(x, s, lp, cfg,
+                      lambda u: L.attention_layer(u, lp["attn"], cfg,
+                                                  positions, positions_3d),
+                      _keeps_sum(cfg, i))
+
     ks, vs = [], []
     s = None
-    for i in range(cfg.num_layers):
-        lp = _layer(params, i)
-        x, s, (k, v), routing = _block(
-            x, s, lp, cfg,
-            lambda u: L.attention_layer(u, lp["attn"], cfg, positions,
-                                        positions_3d),
-            _keeps_sum(cfg, i))
+    for i, lp in enumerate(_layers(params)):
+        x, s, (k, v), routing = _run(remat, block, x, s, lp, i)
         if routing is not None:
             aux = aux + load_balance_loss(*routing, cfg.moe.num_experts)
         if want_kv:
@@ -234,6 +290,31 @@ def forward(params, batch, cfg: ModelConfig, want_kv: bool = False):
     out = backbone(params, x, batch["positions"], cfg,
                    batch.get("positions_3d"), want_kv=want_kv)
     return unembed(params, out.hidden, cfg), out
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Mean next-token NLL over the labelled positions (``labels >= 0``;
+    the prefix positions of a vlm model cut off) plus the MoE load-balance
+    loss times ``lb_loss_weight``, as ``repro.models.model.loss_fn``:
+    the log-sum-exp in f32, the target logit gathered (for finite logits
+    equal bit for bit to the JAX package's one-hot contraction, without a
+    (b, s, V) one-hot).  batch: ``forward``'s and labels (b, s).  Returns
+    (loss, {"nll", "aux"}), aux unweighted."""
+    logits, out = forward(params, batch, cfg)
+    labels = batch["labels"]
+    npre = cfg.modality.num_prefix_embeddings if cfg.modality else 0
+    if npre:
+        logits = logits[:, npre:]
+    if labels.dim() != logits.dim() - 1:
+        raise ValueError("labels must be one rank below logits")
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1,
+                       labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    nll = torch.sum((lse - tgt) * mask) / torch.clamp(mask.sum(), min=1.0)
+    aux = out.aux * (cfg.moe.lb_loss_weight if cfg.moe else 0.0)
+    return nll + aux, {"nll": nll, "aux": out.aux}
 
 
 def prefill(params, batch, cfg: ModelConfig):
@@ -310,8 +391,7 @@ def serve_step(params, state: DecodeState, cfg: ModelConfig,
         x, states = _xlstm_layers(params, x, cfg, state.states, True)
     else:
         s = None
-        for i in range(cfg.num_layers):
-            lp = _layer(params, i)
+        for i, lp in enumerate(_layers(params)):
             x, s, _, _ = _block(
                 x, s, lp, cfg, lambda u: (_decode_attn_sublayer(
                     u, lp, cfg, state, i, use_peer), None),

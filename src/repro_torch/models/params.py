@@ -266,6 +266,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return _walk(build_schema(cfg), make)
 
 
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree as tensors on the ``meta`` device, the schema's
+    shapes and dtypes without storage: what a run will hold, reckoned
+    before it allocates (the JAX package's ``ShapeDtypeStruct`` tree)."""
+    return _walk(build_schema(cfg), lambda path, pd: torch.empty(
+        pd.shape, dtype=TORCH_DTYPES[pd.dtype], device="meta"))
+
+
 def param_count(params) -> int:
     if isinstance(params, torch.Tensor):
         return params.numel()

@@ -306,7 +306,11 @@ def test_port_imports_neither_jax_nor_repro():
         "             or m == 'repro')\n"
         "print(len(names), bad)\n"
         "assert not bad, bad\n"
-        "assert len(names) > 30, names\n")
+        "assert len(names) > 30, names\n"
+        "new = {'repro_torch.data.pipeline', 'repro_torch.train.optim',\n"
+        "       'repro_torch.train.loop', 'repro_torch.train.checkpoint',\n"
+        "       'repro_torch.launch.train'}\n"
+        "assert new <= set(names), new - set(names)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=src,
                          capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=str(src)))

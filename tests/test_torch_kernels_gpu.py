@@ -834,3 +834,107 @@ def test_prefill_attention_raises_on_cuda(cuda):
                           device=cuda)[1:].view(q.shape)   # 2-byte aligned
     with pytest.raises(ValueError):
         fops.prefill_attention(shifted, k, v, qp, kp)
+
+
+# K4's backward: (b, sq, sk, nq, nkv, hd) at ragged tiles, every gq the
+# models give it (1, 4, 5, 8) and hd 64, 112, 120 and 128
+BWD_SHAPES = [(2, 77, 77, 8, 2, 120), (1, 45, 130, 8, 1, 128),
+              (2, 131, 131, 3, 3, 64), (2, 60, 90, 16, 4, 112),
+              (1, 70, 70, 40, 8, 128)]
+
+
+def _bwd_operands(seed, shape, dtype, masks):
+    b, sq, sk, nq, nkv, hd = shape
+    q, k, v, qp, kp = _flash_inputs(seed, b, sq, sk, nq, nkv, hd, dtype,
+                                    q0=sk // 3 if b > 1 else None)
+    o, lse = fops.prefill_attention_plain(q, k, v, qp, kp, return_lse=True,
+                                          **masks)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    return q, k, v, qp, kp, o, lse, do
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("masks", FLASH_MASKS,
+                         ids=["causal", "window", "chunk", "softcap", "all"])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_prefill_attention_bwd_kernel_matches_plain(cuda, dtype, masks,
+                                                    shape):
+    """K4's backward kernels against ``prefill_attention_bwd_plain`` on the
+    same o, LSE and do: every mask alone and together, queries after a
+    prefix of keys, batch row 1's queries at other positions; and the
+    forward's LSE against the plain LSE."""
+    q, k, v, qp, kp, o, lse, do = _bwd_operands(31, shape, dtype, masks)
+    before = fops.prefill_attention_bwd.launches
+    got = fops.prefill_attention_bwd(q, k, v, o, lse, do, qp, kp, **masks)
+    torch.cuda.synchronize()
+    assert fops.prefill_attention_bwd.launches == before + 1
+    ref = fops.prefill_attention_bwd_plain(q, k, v, o, lse, do, qp, kp,
+                                           **masks)
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), r.float(), **FLASH_TOL[dtype])
+    _, lse_k = fops._launch_forward(q, k, v, qp, kp, want_lse=True, **masks)
+    torch.testing.assert_close(lse_k, lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prefill_attention_bwd_at_danube_window(cuda, dtype):
+    """1,100 tokens at danube's heads (32 / 8 of 120) with a window of 300:
+    many q tiles per key tile, tiles skipped behind the window and past the
+    diagonal, through ``torch.autograd`` (one forward and one backward
+    launch)."""
+    q, k, v, qp, kp = _flash_inputs(33, 1, 1100, 1100, 32, 8, 120, dtype)
+    masks = dict(sliding_window=300)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    f0, b0 = fops.prefill_attention.launches, \
+        fops.prefill_attention_bwd.launches
+    out = fops.prefill_attention(q, k, v, qp, kp, **masks)
+    do = torch.randn_like(out)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert fops.prefill_attention.launches == f0 + 1
+    assert fops.prefill_attention_bwd.launches == b0 + 1
+    with torch.no_grad():
+        o, lse = fops.prefill_attention_plain(q, k, v, qp, kp,
+                                              return_lse=True, **masks)
+        ref = fops.prefill_attention_bwd_plain(q, k, v, o, lse, do, qp, kp,
+                                               **masks)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.float(), r.float(), **FLASH_TOL[dtype])
+
+
+def test_kernels_without_backward_raise_under_grad(cuda):
+    """K1, K2, K3, K5, K6 and K7 have no backward: on a CUDA tensor that
+    requires grad, in grad mode, each raises and names itself instead of
+    returning a tensor that drops the gradient; under ``torch.no_grad`` each
+    runs."""
+    q = torch.randn((2, 8, 64), device=cuda, requires_grad=True)
+    pool = torch.randn((4, 8, 2, 64), device=cuda, requires_grad=True)
+    req = torch.tensor([0, 0, 1, -1], dtype=torch.int32, device=cuda)
+    base = torch.tensor([0, 8, 0, 0], dtype=torch.int32, device=cuda)
+    pos = torch.tensor([12, 5], dtype=torch.int32, device=cuda)
+    flat = torch.randn((4, 64), device=cuda, requires_grad=True)
+    ids = torch.tensor([0, 2], dtype=torch.int32, device=cuda)
+    values, scales = hops.quantize_blocks(flat.detach(), ids)
+    xd, wi, wg, wo = (torch.randn(s, device=cuda, requires_grad=True)
+                      for s in ((2, 16, 32), (2, 32, 48), (2, 32, 48),
+                                (2, 48, 32)))
+    calls = {
+        "paged_decode_partials": lambda: pops.paged_decode_partials(
+            q, pool, pool, req, base, pos, scale=0.125),
+        "quantize_blocks": lambda: hops.quantize_blocks(flat, ids),
+        "dequantize_blocks": lambda: hops.dequantize_blocks(
+            flat, values, scales, ids),
+        "gather_blocks": lambda: hops.gather_blocks(flat, ids),
+        "copy_blocks": lambda: hops.copy_blocks(flat, flat.detach().clone(),
+                                                ids, ids),
+        "moe_ffn": lambda: mops.moe_ffn(xd, wi, wg, wo),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name}: the kernel has no "
+                           f"backward"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()

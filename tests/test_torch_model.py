@@ -178,7 +178,7 @@ def test_mlp_matches_jax(setup, activation):
     lp = jax.tree.map(lambda t: t[0], jp["layers"]["mlp"])
     ref = jax.jit(lambda a, p: JL.mlp(a, p, cfg))(xj, lp)
     got = TL.mlp(torch.from_numpy(np.asarray(xj, np.float32)).to(
-        torch.bfloat16), TM._layer(tp, 0)["mlp"], tcfg)
+        torch.bfloat16), TM._layers(tp)[0]["mlp"], tcfg)
     err = np.abs(got.float().numpy() - np.asarray(ref, np.float32)).max()
     assert err < LOGIT_TOL, err
 

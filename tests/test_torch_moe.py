@@ -62,7 +62,7 @@ def _f32(t: torch.Tensor) -> np.ndarray:
 
 def _layer0(jp, tp):
     return (jax.tree.map(lambda a: a[0], jp["layers"]["moe"]),
-            TM._layer(tp, 0)["moe"])
+            TM._layers(tp)[0]["moe"])
 
 
 # ---------------------------------------------------------------------------
