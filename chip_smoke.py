@@ -32,13 +32,15 @@ Phases (any failure raises and the script exits non-zero):
      with host ids; the expert FFN at a decode and a prefill shape, with
      the experts it skipped for want of a token counted on the card; at
      Llama-4's and DBRX's decode shapes inside their paths, below);
-     prefill attention's backward (bf16 on the tensor cores, f32 on the
+     prefill attention's backward (bf16 on wgmma fed by TMA, f32 on the
      CUDA cores) against its plain version at danube's 8,192-token
      training sequence, yi-6b's heads at 2,048 tokens, Llama-4's heads
      across its chunk, zamba2-7b's MHA at hd 112 and a small f32 case,
-     the forward's LSE against the plain LSE, and the forward with its
-     LSE and the backward timed at the training shape beside
-     ``scaled_dot_product_attention`` forward and forward plus backward;
+     each bf16 shape's backward twice and bit-identical, the kernels that
+     ran read from a trace, the forward's LSE against the plain LSE, and
+     the forward with its LSE and the backward timed at the training
+     shape beside ``scaled_dot_product_attention`` forward, forward plus
+     backward, and backward alone;
   4. reduced yi-6b, qwen2-moe, h2o-danube-3-4b (prompts past its 64-token
      window), nemotron-4-15b at 12 / 2 heads (its GQA group of 6),
      Llama-4 at 4 layers with its dense/MoE interleaving (prompts past its
@@ -97,9 +99,10 @@ Phases (any failure raises and the script exits non-zero):
      attention's forward and backward through K4's kernels (48 forward
      and 24 backward launches a step, nothing else); each step's wall,
      tokens/s, loss and grad_norm, peak memory and the model-flops share
-     of the bf16 peak printed, one step profiled; then every kernel
-     without a backward must raise when handed a tensor that requires
-     grad;
+     of the bf16 peak printed, one step profiled (its trace must show the
+     backward's wgmma kernels and no other backward kernel); then every
+     kernel without a backward must raise when handed a tensor that
+     requires grad;
 then the card's name and power limit, one JSON line of per-kernel
 numbers, and the JSON result line.  The launch counts are set to 0 just
 before each path and read just after it.  It imports neither JAX nor the
@@ -244,6 +247,29 @@ def trace_rows(fn, iters):
     ``iters`` calls of ``fn`` put on the card, from the profiler's trace,
     largest first."""
     return device_rows(profiled(fn, iters), iters)
+
+
+def whole_trace(fn, iters, want=None, warmup=1):
+    """[(name, launches per call, device ms per call)] of ``iters`` calls of
+    ``fn`` (after ``warmup`` calls) from a trace in which every row ran a
+    whole number of times a call and ``want(rows)`` holds where given;
+    taken again, up to three times, where a trace lost rows."""
+    from torch.autograd import DeviceType
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        prof = profiled(fn, iters)
+        rows = [(r.key, r.count / iters,
+                 getattr(r, "self_device_time_total",
+                         getattr(r, "self_cuda_time_total", 0.0))
+                 / 1e3 / iters)
+                for r in prof.key_averages()
+                if r.device_type != DeviceType.CPU and r.count]
+        if rows and all(c == int(c) for _, c, _ in rows) \
+                and (want is None or want(rows)):
+            return rows
+    raise RuntimeError(f"three traces lost rows: {rows}")
 
 
 def time_ms(fn, iters=50, warmup=5):
@@ -1154,6 +1180,24 @@ def attention_flops(pairs, nq, hd):
     return 4 * hd * nq * pairs, 10 * hd * nq * pairs
 
 
+#: K4's backward kernels for each dtype, as the trace names them
+BWD_KERNELS = {torch.bfloat16: ("flash_bwd_dkdv_wgmma_kernel",
+                                "flash_bwd_dq_wgmma_kernel"),
+               torch.float32: ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")}
+
+
+def assert_bwd_kernels(rows, dtype):
+    """The backward kernels in a trace's rows are ``dtype``'s and only
+    those (a name is matched up to its template arguments); returns their
+    rows."""
+    names = [n for n, _ in rows if "flash_bwd_" in n and "prep" not in n]
+    want = BWD_KERNELS[dtype]
+    ran = {w for w in want for n in names if f"{w}<" in n}
+    stray = [n for n in names if not any(f"{w}<" in n for w in want)]
+    assert ran == set(want) and not stray, (dtype, names)
+    return [(n, ms) for n, ms in rows if "flash_bwd_" in n]
+
+
 def check_flash_bwd(danube, yi, llama4, zamba2):
     """K4's backward against its plain version on the card, on the same o,
     LSE and dO: at danube's training sequence (8,192 tokens, twice its
@@ -1161,12 +1205,15 @@ def check_flash_bwd(danube, yi, llama4, zamba2):
     8,192-token chunk, zamba2-7b's MHA at hd 112, and a small f32 case.
     The forward's LSE is held to the plain LSE, and a second forward's
     output and LSE to the first's bit for bit (the recompute in the
-    backward pass must read what the pass saw).  At the training shape:
-    the forward with its LSE and the backward timed, beside their plain
-    versions, their bounds (operations: 4 hd and 10 hd flops a kept pair
-    over the bf16 tensor-core rate) and the library yardstick,
-    ``scaled_dot_product_attention`` forward and forward plus backward
-    (K and V repeated to the q heads, the window as a boolean mask).
+    backward pass must read what the pass saw); in bf16 a second backward
+    to the first bit for bit (no atomics), and a traced backward must run
+    the wgmma kernels and no other backward kernel.  At the training
+    shape: the forward with its LSE and the backward timed, beside their
+    plain versions, their bounds (operations: 4 hd and 10 hd flops a kept
+    pair over the bf16 tensor-core rate) and the library yardstick,
+    ``scaled_dot_product_attention`` forward, forward plus backward, and
+    its backward alone (``torch.autograd.grad`` of one forward, the graph
+    kept; K and V repeated to the q heads, the window as a boolean mask).
     Returns (the backward's kernel entry, the forward-with-LSE row)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1198,6 +1245,14 @@ def check_flash_bwd(danube, yi, llama4, zamba2):
         del o2, lse2, lse_p
         got = fops.prefill_attention_bwd(q, k, v, o, lse, do, pos, pos,
                                          **masks)
+        if dtype == torch.bfloat16:
+            again = fops.prefill_attention_bwd(q, k, v, o, lse, do, pos, pos,
+                                               **masks)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), label
+            del again
+        traced = assert_bwd_kernels(trace_rows(
+            lambda: fops.prefill_attention_bwd(q, k, v, o, lse, do, pos, pos,
+                                               **masks), 1), dtype)
         ref = fops.prefill_attention_bwd_plain(q, k, v, o, lse, do, pos, pos,
                                                **masks)
         torch.cuda.synchronize()
@@ -1215,7 +1270,11 @@ def check_flash_bwd(danube, yi, llama4, zamba2):
               f"max_abs_err dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv "
               f"{errs[2]:.3g} (tolerance {FLASH_TOL[dtype]}); forward LSE "
               f"{lse_err:.3g} from the plain LSE (rtol 1e-5, atol 1e-4), "
-              f"a second forward bit-identical")
+              f"a second forward bit-identical"
+              + (", a second backward bit-identical"
+                 if dtype == torch.bfloat16 else "")
+              + "; kernels " + ", ".join(f"{n[:50]} {ms:.4f} ms"
+                                         for n, ms in traced))
         row = dict(shape=label, tokens=n, dtype=str(dtype)[6:],
                    pairs_per_head=pairs, max_abs_err=max(errs))
         if not rows:
@@ -1246,10 +1305,17 @@ def check_flash_bwd(danube, yi, llama4, zamba2):
                 out = sdpa(qt, kt, vt, attn_mask=band)
                 return torch.autograd.grad(out, (qt, kt, vt), dot)
 
+            lib_out = sdpa(qt, kt, vt, attn_mask=band)
+
+            def lib_bwd():
+                return torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                           retain_graph=True)
+
             lf_ms, _ = time_ms(lib_fwd, 3, warmup=1)
             lb_ms, _ = time_ms(lib_fwd_bwd, 3, warmup=1)
+            lbo_ms, _ = time_ms(lib_bwd, 3, warmup=1)
             backend = top_kernel(lib_fwd_bwd)
-            del qt, kt, vt, dot, band
+            del qt, kt, vt, dot, band, lib_out
             fb, fb_by = bound(fwd_bytes, fwd_flops, BF16_FLOPS)
             bb, bb_by = bound(bwd_bytes, bwd_flops, BF16_FLOPS)
             print(f"  prefill_attention forward with LSE, {label}: {f_ms:.4f} "
@@ -1257,17 +1323,20 @@ def check_flash_bwd(danube, yi, llama4, zamba2):
                   f"{lf_ms:.4f}; bound {fb:.4f} ({fb_by}, "
                   f"{fwd_flops / 1e9:.1f} GFLOP)")
             print(f"  prefill_attention_bwd, {label}: {b_ms:.4f} ms device "
-                  f"(three kernels); plain {b_plain:.4f}; library forward "
-                  f"plus backward {lb_ms:.4f} [{backend[:60]}]; bound "
-                  f"{bb:.4f} ({bb_by}, {bwd_flops / 1e9:.1f} GFLOP); "
+                  f"(three kernels); plain {b_plain:.4f}; library backward "
+                  f"alone {lbo_ms:.4f}, forward plus backward {lb_ms:.4f} "
+                  f"[{backend[:60]}]; bound {bb:.4f} ({bb_by}, "
+                  f"{bwd_flops / 1e9:.1f} GFLOP); "
                   f"{bwd_flops / b_ms / 1e9:.1f} TFLOP/s")
             fwd_row = dict(shape=label, tokens=n, dtype="bfloat16",
                            ms=f_ms, plain_ms=f_plain, library_ms=lf_ms,
                            library_backend="scaled_dot_product_attention "
                            "forward, boolean band mask", bound_ms=fb,
                            bound_by=fb_by, max_abs_err=lse_err)
-            row.update(ms=b_ms, plain_ms=b_plain, library_ms=lb_ms,
-                       library_backend=backend, bound_ms=bb, bound_by=bb_by)
+            row.update(ms=b_ms, plain_ms=b_plain, library_ms=lbo_ms,
+                       library_fwd_bwd_ms=lb_ms, library_backend=backend,
+                       bound_ms=bb, bound_by=bb_by,
+                       kernels_ms={n[:50]: ms for n, ms in traced})
         rows.append(row)
         del q, k, v, do, o, lse
     main = rows[0]
@@ -1279,9 +1348,11 @@ def check_flash_bwd(danube, yi, llama4, zamba2):
                 max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=main["library_ms"],
-                library_backend="scaled_dot_product_attention forward plus "
-                "backward: " + main["library_backend"], shape=main["shape"],
-                by_shape=rows), fwd_row
+                library_fwd_bwd_ms=main["library_fwd_bwd_ms"],
+                library_backend="scaled_dot_product_attention's backward "
+                "(torch.autograd.grad of one forward; the forward plus "
+                "backward in library_fwd_bwd_ms): " + main["library_backend"],
+                shape=main["shape"], by_shape=rows), fwd_row
 
 
 # ---------------------------------------------------------------------------
@@ -1470,7 +1541,7 @@ def check_reduced_training(arch="h2o-danube-3-4b", dtype=torch.float32,
     seed's bf16) and batches, held by ``hold_training``.  On the card K4
     must launch twice a layer a step (the pass and the recompute in the
     backward) and its backward once, and the profile must show the
-    backward's kernels for ``dtype`` and not the other dtype's."""
+    backward's kernels for ``dtype`` and no other backward kernel."""
     cfg = get_config(arch).reduced()
     params = _map(M.init_params(cfg, torch.Generator().manual_seed(SEED),
                                 "cpu"), lambda t: t.to(dtype))
@@ -1490,15 +1561,10 @@ def check_reduced_training(arch="h2o-danube-3-4b", dtype=torch.float32,
         launches
     assert all(t.dtype == dtype for t in run[1]), {t.dtype for t in run[1]}
     # the backward's kernels for the dtype ran, the other dtype's did not
-    rows = [key for key, _ in device_rows(prof, 1)]
-    bwd = {f"flash_bwd_{part}_{mma}kernel": mma == "mma_"
-           for part in ("dkdv", "dq") for mma in ("", "mma_")}
-    ran = {n for n in bwd if any(n in key for key in rows)}
-    assert ran == {n for n, on_mma in bwd.items()
-                   if on_mma == (dtype == torch.bfloat16)}, (ran, rows)
+    ran = assert_bwd_kernels(device_rows(prof, 1), dtype)
     got = hold_training(ref, run, dtype, lr)
     name = str(dtype).removeprefix("torch.")
-    kernels = ", ".join(sorted(ran))
+    kernels = ", ".join(sorted(n[:40] for n, _ in ran))
     print(f"reduced {arch} trained {steps} steps in {name} on cpu and cuda: "
           f"losses {[round(h['loss'], 6) for h in ref[0]]} / "
           f"{[round(h['loss'], 6) for h in run[0]]}, grad_norm "
@@ -1650,6 +1716,7 @@ def train_path(arch="h2o-danube-3-4b", steps=5, batch=1, seq_len=8192,
           f"{pairs} pairs a head), {100 * mfu:.1f}% of the bf16 peak")
     b = next_batch()
     rows = trace_rows(lambda: train_step(params, opt, b, cfg, lr=cur_lr), 1)
+    assert_bwd_kernels(rows, torch.bfloat16)
     busy = sum(ms for _, ms in rows)
     k4f = sum(ms for n, ms in rows if "flash_prefill" in n)
     k4b = sum(ms for n, ms in rows if "flash_bwd" in n)
@@ -2009,6 +2076,9 @@ def main() -> int:
             if "mma" in fn:
                 assert spills.startswith("0 bytes stack frame, 0 bytes spill "
                                          "stores, 0 bytes spill loads"), fn
+        for line in build.ptxas_report(name).splitlines():
+            if "serialized" in line:      # wgmma run one at a time
+                print(f"  ptxas {name}: {line.strip()[:200]}")
     hmma = hmma_by_kernel(build.sass("flash_prefill"))
     print(f"  sass flash_prefill: HMMA instructions per kernel {hmma}")
     assert all(n > 0 for fn, n in hmma.items() if "mma" in fn), hmma

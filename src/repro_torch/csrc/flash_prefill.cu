@@ -74,6 +74,7 @@
 //   row max and row sum are warp shuffles.  Ragged sq, sk and hd are
 //   masked at the edges.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -772,8 +773,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 // log-sum-exp LSE (flash attention 2's backward), in three launches:
 // - flash_bwd_prep_kernel: D = rowsum(dO * O) in f32, one warp a row; in
 //   bf16 also q * scale rounded to bf16 (the forward's rounding) into a
-//   scratch tensor, so that the tiles below arrive by cp.async as they are;
-// - a dK/dV kernel: one block per (64-key tile, kv head, batch row) loops
+//   scratch tensor, so that the tiles below arrive as they are;
+// - a dK/dV kernel: one block per (key tile, kv head, batch row) loops
 //   over the q tiles of every q head of its GQA group, so the group's dK
 //   and dV sum in registers: no atomics, and the result is the same from
 //   run to run;
@@ -796,23 +797,62 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 // allowed one skips the per-pair mask, as in the forward; at 8,192 tokens
 // and a 4,096 window that skips 62% of the 64 x 64 tiles.
 //
-// bf16 (flash_bwd_dkdv_mma_kernel, flash_bwd_dq_mma_kernel, hd % 8 == 0):
-// the five products on mma.sync m16n8k16 with f32 accumulators, the
-// forward's fragments turned around:
-// - dK/dV: each of 4 warps owns 16 key rows and computes S^T = K Q^T and
-//   dP^T = V dO^T for a 64-query tile (K and V read with ldmatrix as A,
-//   q and dO as B, as the forward reads Q and K), then dV += P^T dO and
-//   dK += dS^T Q with P^T and dS^T taken from the accumulators into A
-//   fragments in registers (as the forward's P) and dO and q read with
-//   ldmatrix.trans (as the forward's V).  The q and dO tiles, with their
-//   LSE and D, arrive by cp.async into a two-stage ring.
-// - dQ: each warp owns 16 folded q rows, computes S = Q K^T and dP = dO V^T
-//   over a 64-key tile and dQ += dS K, K read with ldmatrix.trans; the K
-//   and V tiles arrive by cp.async into a two-stage ring.
-// - 128 threads, at most 256 registers, 102 KiB of shared memory at hd
-//   120/128: two blocks to an SM.
-// - What still bounds it: mma.sync, not wgmma, and the exponentials
-//   recomputed in both kernels; wgmma fed by TMA is the next step.
+// bf16 (flash_bwd_dkdv_wgmma_kernel, flash_bwd_dq_wgmma_kernel, hd % 8
+// == 0): the five products on wgmma m64n64k16 with f32 accumulators, the
+// operands brought by TMA.  Shared by both kernels:
+// - 384 threads, one block to an SM: warpgroup 0 is the producer (one
+//   warp; its registers dropped to 40 by setmaxnreg), warpgroups 1 and 2
+//   the consumers (232 registers), each owning 64 rows of the block's
+//   stationary tile.
+// - The producer classifies the moving tiles 32 at a time, one a lane
+//   (tile_class's test from each side's position range), and passes each
+//   kept tile's position, head and class through a ring of kBwdStages
+//   stages with a full and an empty mbarrier each; a class of -1 ends the
+//   stream.  Consumers never see a skipped tile, and only partly masked
+//   tiles evaluate the per-pair mask.
+// - TMA reads q * scale, dO, k and v through 4-D maps (hd, heads,
+//   positions, batch) with the 128-byte swizzle, so a tile never crosses a
+//   batch row and positions past sq or sk, and columns past hd, land as
+//   zeros.  A box is 64 columns (128 bytes, the swizzle's span): a head
+//   row of hd 65..128 is two boxes (at hd 120 the second holds 56 columns
+//   and 8 zeros), and every product runs in 64-column pieces.  The maps
+//   are made on the host for each call, the encoder looked up through
+//   the runtime (cudaGetDriverEntryPoint), so nothing links libcuda.
+// - A K-major operand (S's and dP's both sides) is stepped along the head
+//   dim inside its 128-byte rows; the products dV += P^T dO, dK += dS^T qs
+//   and dQ += dS K take their A from registers (the accumulators rounded
+//   to bf16, as the forward turns S into P) and their B MN-major from the
+//   same tiles (wgmma's transpose bit), so no operand is copied or read
+//   twice from device memory in a block.
+// - Exponentials are exp2 with log2 e folded into the score and the LSE;
+//   the producer stores each tile's LSE so multiplied.  P and dS are formed
+//   by one of four straight-line loops picked once a tile (partly masked
+//   or not, softcap or not): per element an FMA, an exp2 and two products,
+//   the mask two compares against the key bound key_lo (window and chunk
+//   in one number a query, made by the producer): per element, with the
+//   softcap and the chunk division inline, this part would cost more
+//   than the products.
+// - The two consumers take turns at the tensor cores (two named
+//   barriers), so one's exponentials run under the other's products.
+// dK/dV: a block holds 128 keys (K and V stay in shared memory, 64 KiB at
+// hd > 64) and loops over every (q head of the group, 64-position q tile)
+// pair that is kept; a stage holds qs and dO (32 KiB) with the tile's LSE,
+// D, positions and key bounds.  Per tile a consumer computes S^T = K qs^T
+// and dP^T = V dO^T (64 x 64), P^T and dS^T in registers, then dV += P^T
+// dO and dK += dS^T qs; dK and dV (64 x 128 f32 each) stay in registers,
+// which with S^T and dP^T fill the 232 a consumer has.
+// dQ: a block holds 128 folded q rows, the forward's folding (row r of a
+// consumer's 64 is q head kh * gq + r % gq at position t0 + r / gq), each
+// consumer's 64 one TMA box of gq heads x 64 / gq positions, which lands
+// in exactly that order; where gq does not divide 64 the rows past the box
+// are zeroed once and read LSE +inf.  It loops over the kept 64-key tiles:
+// S = qs K^T and dP = dO V^T, then dQ += dS K, the scale at the store.
+// dK/dV and dQ stay separate kernels with no atomics, so the result is the
+// same from run to run, at 14 hd flops a pair against the bound's 10.  What
+// still bounds it: S and dP read both operands from shared memory at n64,
+// which needs as many bytes a clock as shared memory gives; each consumer
+// waits on its own products; and dQ recomputes S and dP.  An f32 atomic dQ
+// folded into the dK/dV kernel (flash attention 3's) is the next step.
 //
 // f32 (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel): FMA on the CUDA cores,
 // any hd <= 128, its floor the f32 rate.
@@ -1252,416 +1292,828 @@ flash_bwd_dq_kernel(const float* __restrict__ q,
 
 
 // ---------------------------------------------------------------------------
-// the backward in bf16 on the tensor cores
+// the backward in bf16 on the tensor cores: wgmma fed by TMA
 // ---------------------------------------------------------------------------
 
-// A fragments (16 x 16, k = columns 16 kk .. 16 kk + 15) of an accumulator
-// tile c[8][4] (16 rows x 64 columns), rounded to bf16: the forward's P
-__device__ __forceinline__ void acc_to_a(const float (&c)[8][4], int kk,
-                                         uint32_t (&a)[4]) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+constexpr int kWsThreads = 384;        // a producer and two consumer warpgroups
+constexpr int kBoxBytes = 64 * 128;    // a TMA box of 64 rows x 64 columns
+constexpr int kBwdStages = 4;          // depth of the ring
+constexpr float kLog2e = 1.4426950408889634f;
+
+// what a ring stage carries besides its tiles: the tile's first position
+// (dK/dV: of the q tile; dQ: of the key tile) and its class (1 some pairs
+// masked, 2 none; -1 ends the stream)
+struct StageMeta {
+  int t0, cls;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
 }
 
-// c[8][4] (16 rows x 64 columns) += A (16 rows x HDP, rows at a_row, read
-// with ldmatrix) times B^T (64 rows x HDP at b_row, read with ldmatrix):
-// the forward's S = Q K^T
-template <int KS>
-__device__ __forceinline__ void rows_times_rows(float (&c)[8][4],
-                                                uint32_t a_row,
-                                                uint32_t b_row, int str) {
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// one box of a 4-D map (columns, heads, positions, batch) into shared
+// memory at dst, its bytes completing on bar; zeros outside the tensor
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3), "r"(bar) : "memory");
+}
+
+// the consumers take turns to start their products (named barriers 1 and
+// 2, each passed by its own warpgroup's bar.sync and the other's
+// bar.arrive), so one's exponentials overlap the other's products
+__device__ __forceinline__ void turn_wait(int w) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + w) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int w) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - w) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// registers that an asynchronous wgmma reads or writes: pinned here, after
+// its wait, so that the compiler neither reads them earlier nor reuses
+// them while it runs
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    uint32_t a[4];
-    ldmatrix_x4(a, a_row + kk * 32);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&r)[4][4]) {
 #pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
-      uint32_t b[4];
-      ldmatrix_x4(b, b_row + 2 * (jp * 16 * str + kk * 16));
-      mma_bf16(c[2 * jp], a, b[0], b[1]);
-      mma_bf16(c[2 * jp + 1], a, b[2], b[3]);
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// the wgmma descriptor of a tile in shared memory as TMA wrote it with the
+// 128-byte swizzle: rows of 128 bytes in 1,024-byte atoms of 8 rows, the
+// atom 1,024-aligned.  Stride byte offset 1,024 (the next 8 rows: of M or
+// N for a K-major operand, of K for an MN-major one), leading byte offset
+// unused (no operand here is wider than one 128-byte row along its
+// contiguous dimension), layout 1 (128-byte swizzle).  A K-major operand
+// steps along K by adding 32 bytes a k16 step inside the 128-byte row.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+         | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+#define WG_D32                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define WG_ACC(d)                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),     \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),     \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),     \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
+      "+f"(d[31])
+
+// d (64 x 64 f32; its old value kept if acc, else dropped) += A (64 x 16)
+// B (16 x 64), both bf16 K-major in shared memory.  d's element i of this
+// thread is the mma.sync accumulator's: row 16 warp + g + 8 (i % 4 / 2),
+// column 8 (i / 4) + 2 tig + i % 2
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+               ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+               : WG_ACC(d)
+               : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (64 x 64 f32) += A (64 x 16 bf16 in registers, mma.sync's A fragment
+// of each warp's 16 rows) B (16 x 64 bf16, MN-major in shared memory)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+               ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+               : WG_ACC(d)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef WG_D32
+#undef WG_ACC
+
+// A fragments of the four k16 steps of a 64 x 64 accumulator, rounded to
+// bf16: the forward's P
+__device__ __forceinline__ void acc_to_a(const float (&c)[32],
+                                         uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1]);
+}
+
+// 2^x; volatile, like lds2f and lds2i below, so that the softmax's loads
+// stay in step with its exponentials instead of all being hoisted into
+// registers
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm volatile("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two 32-bit words from shared memory at addr
+__device__ __forceinline__ float2 lds2f(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ int2 lds2i(uint32_t addr) {
+  int2 v;
+  asm volatile("ld.shared.v2.s32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y) : "r"(addr));
+  return v;
+}
+
+// P and dS of one score in place (s becomes P, dp becomes dS), the LSE
+// given times log2 e: P = 2^(s log2 e - lse2), masked unless ok
+template <bool CAP>
+__device__ __forceinline__ void p_ds2(float& s, float& dp, float lse2, float d,
+                                      bool ok, float softcap) {
+  float x = s, dcap = 1.f;
+  if constexpr (CAP) {
+    const float th = tanhf(x / softcap);
+    x = softcap * th;
+    dcap = 1.f - th * th;
+  }
+  const float p = ok ? ex2(fmaf(x, kLog2e, -lse2)) : 0.f;
+  s = p;
+  dp = CAP ? p * (dp - d) * dcap : p * (dp - d);
+}
+
+// the lowest key position that query position qp may see: the pair
+// (kp, qp) is unmasked iff key_lo(qp) <= kp <= qp, which is allowed()
+// with the window and the chunk folded into one bound (one division a
+// query instead of two a pair)
+__device__ __forceinline__ int key_lo(int qp, int window, int chunk) {
+  int lo = INT32_MIN;
+  if (window > 0) lo = qp - window + 1;
+  if (chunk > 0)
+    lo = max(lo, (int)max((long long)floor_div(qp, chunk) * chunk,
+                          (long long)INT32_MIN));
+  return lo;
+}
+
+// P^T and dS^T of a dK/dV tile in place: element i of this thread is key
+// row g + 8 (i % 4 / 2) (position kp), query column 8 (i / 4) + 2 tig +
+// i % 2; the queries' LSE (times log2 e), D, positions and key_lo come
+// from the stage's four arrays of 64 at shared address meta (256 bytes
+// apart).  A key past sk is not masked: its row of dK and dV is never
+// stored, and no other row reads it.
+template <bool MASK, bool CAP>
+__device__ __forceinline__ void dkdv_p_ds(float (&s)[32], float (&dp)[32],
+                                          uint32_t meta, const int (&kp)[2],
+                                          int tig, float softcap) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t col = meta + 4 * (8 * j + 2 * tig);
+    const float2 l2 = lds2f(col);
+    const float2 d2 = lds2f(col + 256);
+    int2 q2 = make_int2(0, 0), lo2 = make_int2(0, 0);
+    if constexpr (MASK) {
+      q2 = lds2i(col + 512);
+      lo2 = lds2i(col + 768);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const bool ok = !MASK || (kp[h] <= ((e & 1) ? q2.y : q2.x)
+                                && kp[h] >= ((e & 1) ? lo2.y : lo2.x));
+      p_ds2<CAP>(s[4 * j + e], dp[4 * j + e], (e & 1) ? l2.y : l2.x,
+                 (e & 1) ? d2.y : d2.x, ok, softcap);
     }
   }
 }
 
-// acc[2 KS][4] (16 rows x HDP) += c (16 rows x 64, as A fragments) times
-// B (64 rows x HDP at b_row, read with ldmatrix.trans): the forward's PV
-template <int KS>
-__device__ __forceinline__ void acc_times_rows(float (&acc)[2 * KS][4],
-                                               const float (&c)[8][4],
-                                               uint32_t b_row, int str,
-                                               int hd) {
+// P and dS of a dQ tile in place: element i is folded row g + 8 (i % 4 /
+// 2) (LSE times log2 e, D, position and key_lo in registers), key column
+// 8 (i / 4) + 2 tig + i % 2 (positions from the stage at shared address
+// pv; keys from k0 on exist up to sk)
+template <bool MASK, bool CAP>
+__device__ __forceinline__ void dq_p_ds(float (&s)[32], float (&dp)[32],
+                                        const float (&rl)[2],
+                                        const float (&rd)[2],
+                                        const int (&rp)[2],
+                                        const int (&rlo)[2], uint32_t pv,
+                                        int k0, int sk, int tig,
+                                        float softcap) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    acc_to_a(c, kk, a);
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * tig;
+    int2 k2 = make_int2(0, 0);
+    if constexpr (MASK) k2 = lds2i(pv + 4 * col);
 #pragma unroll
-    for (int jp = 0; jp < KS; ++jp) {
-      if (16 * jp >= hd) break;
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, b_row + 2 * (kk * 16 * str + jp * 16));
-      mma_bf16(acc[2 * jp], a, b[0], b[1]);
-      if (16 * jp + 8 < hd) mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const int kp = (e & 1) ? k2.y : k2.x;
+      const bool ok = !MASK || (k0 + col + (e & 1) < sk && kp <= rp[h]
+                                && kp >= rlo[h]);
+      p_ds2<CAP>(s[4 * j + e], dp[4 * j + e], rl[h], rd[h], ok, softcap);
     }
   }
 }
 
-// ldmatrix row addresses of a 16-row A block at row0, a B block read as
-// rows (non-trans) and one read transposed, in a tile of stride str
-__device__ __forceinline__ uint32_t a_addr(const __nv_bfloat16* t, int row0,
-                                           int str, int lane) {
-  return smem_u32(t + (row0 + (lane & 15)) * str + (lane >> 4) * 8);
-}
-__device__ __forceinline__ uint32_t b_addr(const __nv_bfloat16* t, int str,
-                                           int lane) {
-  return smem_u32(t + ((lane & 7) + ((lane >> 4) << 3)) * str
-                  + ((lane >> 3) & 1) * 8);
-}
-__device__ __forceinline__ uint32_t bt_addr(const __nv_bfloat16* t, int str,
-                                            int lane) {
-  return smem_u32(t + ((lane & 7) + (((lane >> 3) & 1) << 3)) * str
-                  + (lane >> 4) * 8);
-}
-
-// columns hd..16 KS of n tiles of 64 rows: never written by cp.async, read
-// by products over the head dim (zeroing one side would let garbage times
-// 0 poison the sum)
-template <int KS>
-__device__ __forceinline__ void zero_pad(__nv_bfloat16* t, int n, int hd,
-                                         int tid) {
-  constexpr int STR = 16 * KS + 8, TILE = kKeys * STR, CH = 2 * KS;
-  const int pad = CH - hd / 8;
-  for (int i = tid; i < n * kKeys * pad; i += kThreads) {
-    const int r = i / pad;
-    *reinterpret_cast<uint4*>(t + (r / kKeys) * TILE + (r % kKeys) * STR + hd
-                              + 8 * (i % pad)) = make_uint4(0, 0, 0, 0);
+// one lane's (min, max) of positions [t0, t0 + n) below len
+__device__ __forceinline__ void lane_range(const int* __restrict__ pos, int t0,
+                                           int n, int len, int& lo, int& hi) {
+  lo = INT32_MAX;
+  hi = INT32_MIN;
+  const int end = min(t0 + n, len);
+#pragma unroll 4
+  for (int t = t0; t < end; ++t) {
+    const int p = __ldg(pos + t);
+    lo = min(lo, p);
+    hi = max(hi, p);
   }
 }
 
-// 64 rows of hd bf16 from rows row0.. of a (rows, heads, hd) tensor at
-// head h (rows past n zero-filled) into a tile, by cp.async
-template <int KS>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          size_t base_row, int row0, int n,
-                                          int heads, int h, int hd, int tid) {
-  constexpr int STR = 16 * KS + 8, CH = 2 * KS;
-  for (int i = tid; i < kKeys * CH; i += kThreads) {
-    const int r = i / CH, d = (i % CH) * 8;
-    if (d < hd) {
-      const bool ok = row0 + r < n;
-      const size_t off =
-          ok ? ((base_row + row0 + r) * heads + h) * (size_t)hd + d : 0;
-      cp_async16(dst + r * STR + d, src + off, ok);
+// (min, max) of positions and of their attention chunks (floor(pos /
+// chunk); 0 and 0 without chunks): one side of a tile
+struct PosRange {
+  int lo, hi, clo, chi;
+};
+
+__device__ __forceinline__ PosRange pos_range(int lo, int hi, int chunk) {
+  PosRange r{lo, hi, 0, 0};
+  if (chunk > 0 && lo <= hi) {
+    r.clo = floor_div(lo, chunk);
+    r.chi = floor_div(hi, chunk);
+  }
+  return r;
+}
+
+// tile_class from the two sides' ranges: 0 every pair masked, 1 some, 2
+// none; kfull: every key of the tile exists
+__device__ __forceinline__ int range_class(const PosRange& k, bool kfull,
+                                           const PosRange& q, int window,
+                                           int chunk) {
+  bool skip = q.lo > q.hi || k.lo > q.hi;
+  if (window > 0) skip = skip || (long long)k.hi <= (long long)q.lo - window;
+  if (chunk > 0) skip = skip || k.chi < q.clo || k.clo > q.chi;
+  if (skip) return 0;
+  bool all = kfull && k.hi <= q.lo;
+  if (window > 0) all = all && (long long)k.lo > (long long)q.hi - window;
+  if (chunk > 0) all = all && k.clo == q.chi && k.chi == q.clo;
+  return all ? 2 : 1;
+}
+
+__device__ __forceinline__ void warp_range(int& lo, int& hi) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// dK/dV shared memory in bytes: K and V (NB boxes of 128 keys each), the
+// ring's qs and dO (NB boxes of 64 positions each), its LSE, D, positions
+// and key_lo, its meta, the barriers, and the slack to align to 1,024
+__host__ __device__ constexpr int dkdv_smem(int nb) {
+  return 2 * nb * 2 * kBoxBytes + kBwdStages * 2 * nb * kBoxBytes
+         + kBwdStages * (4 * 64 * 4 + 8) + (2 * kBwdStages + 1) * 8 + 1024;
+}
+
+// dQ shared memory: qs and dO of both consumers' 64 folded rows (NB boxes
+// each), the ring's K and V (NB boxes of 64 keys each), its key positions
+// and meta, the barriers, the slack
+__host__ __device__ constexpr int dq_smem(int nb) {
+  return 2 * 2 * nb * kBoxBytes + kBwdStages * 2 * nb * kBoxBytes
+         + kBwdStages * (64 * 4 + 8) + (2 * kBwdStages + 1) * 8 + 1024;
+}
+
+// dK and dV of 128 keys of one kv head (rows 64 w.. belong to consumer w),
+// over every (q head of the group, 64-position q tile) the producer finds
+// not wholly masked.  NB: 64-column boxes of the head dim (1 or 2).
+template <int NB>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap m_k,
+                            const __grid_constant__ CUtensorMap m_v,
+                            const __grid_constant__ CUtensorMap m_qs,
+                            const __grid_constant__ CUtensorMap m_do,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            const int* __restrict__ q_pos,
+                            const int* __restrict__ k_pos,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int sq, int sk,
+                            int nq, int nkv, int hd, int window, int chunk,
+                            float softcap) {
+  constexpr int S = kBwdStages;
+  constexpr int KV = 2 * NB * kBoxBytes;   // K or V: NB boxes of 128 rows
+  constexpr int ST = 2 * NB * kBoxBytes;   // a stage: qs, then dO
+  const int gq = nq / nkv;
+  const int c0 = blockIdx.x * 128;
+  const int kh = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int* qpos = q_pos + (size_t)bi * sq;
+  const int* kpos = k_pos + (size_t)bi * sk;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  const uint32_t base = smem_u32(sm);
+  // per stage: the q tile's LSE (times log2 e), D, positions and key_lo
+  float* lse_s = reinterpret_cast<float*>(sm + 2 * KV + S * ST);
+  StageMeta* meta = reinterpret_cast<StageMeta*>(lse_s + S * 4 * 64);
+  const uint32_t full = smem_u32(meta + S);  // S full, S empty, K/V landed
+  const uint32_t empty = full + 8 * S;
+  const uint32_t kvbar = full + 16 * S;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 32);            // the producer warp's lanes
+      mbar_init(empty + 8 * s, 256);          // every consumer thread
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // producer: one warp classifies the q tiles and feeds the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid >= 32) return;
+    int kmin = INT32_MAX, kmax = INT32_MIN;
+    for (int c = c0 + lane; c < min(c0 + 128, sk); c += 32) {
+      const int p = __ldg(kpos + c);
+      kmin = min(kmin, p);
+      kmax = max(kmax, p);
+    }
+    warp_range(kmin, kmax);
+    const PosRange kr = pos_range(kmin, kmax, chunk);
+    const bool kfull = c0 + 128 <= sk;
+    if (lane == 0) {
+      mbar_arrive_tx(kvbar, 2 * KV);
+#pragma unroll
+      for (int c = 0; c < NB; ++c) {
+        tma_load(base + c * 2 * kBoxBytes, &m_k, kvbar, 64 * c, kh, c0, bi);
+        tma_load(base + KV + c * 2 * kBoxBytes, &m_v, kvbar, 64 * c, kh, c0,
+                 bi);
+      }
+    }
+    const int n_qt = (sq + 63) / 64;
+    int stage = 0, phase = 0;
+    for (int b0 = 0; b0 < n_qt; b0 += 32) {
+      // lane l classifies q tile b0 + l; the kept ones go in order
+      int cls = 0;
+      if (b0 + lane < n_qt) {
+        int qmin, qmax;
+        lane_range(qpos, (b0 + lane) * 64, 64, sq, qmin, qmax);
+        cls = range_class(kr, kfull, pos_range(qmin, qmax, chunk), window,
+                          chunk);
+      }
+      unsigned todo = __ballot_sync(0xffffffffu, cls != 0);
+      while (todo) {
+        const int i = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int tc = __shfl_sync(0xffffffffu, cls, i);
+        const int t0 = (b0 + i) * 64;
+        for (int hh = 0; hh < gq; ++hh) {
+          const int h = kh * gq + hh;
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          // a query past sq gets LSE +inf: p = 0 without a mask
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int t = t0 + lane + 32 * r;
+            const bool ok = t < sq;
+            const size_t ri = ((size_t)bi * nq + h) * sq + t;
+            float* st = lse_s + stage * 4 * 64 + lane + 32 * r;
+            const int p = ok ? __ldg(qpos + t) : 0;
+            st[0] = ok ? __ldg(lse + ri) * kLog2e : INFINITY;
+            st[64] = ok ? __ldg(delta + ri) : 0.f;
+            reinterpret_cast<int*>(st)[128] = p;
+            reinterpret_cast<int*>(st)[192] = key_lo(p, window, chunk);
+          }
+          const uint32_t fb = full + 8 * stage;
+          if (lane == 0) {
+            meta[stage] = StageMeta{t0, tc};
+            const uint32_t dst = base + 2 * KV + stage * ST;
+            mbar_arrive_tx(fb, ST);
+#pragma unroll
+            for (int c = 0; c < NB; ++c) {
+              tma_load(dst + c * kBoxBytes, &m_qs, fb, 64 * c, h, t0, bi);
+              tma_load(dst + (NB + c) * kBoxBytes, &m_do, fb, 64 * c, h, t0,
+                       bi);
+            }
+          } else {
+            mbar_arrive(fb);
+          }
+          if (++stage == S) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    mbar_wait(empty + 8 * stage, phase ^ 1);
+    if (lane == 0) meta[stage].cls = -1;
+    mbar_arrive(full + 8 * stage);
+  } else {
+    // consumers: warpgroup w owns keys c0 + 64 w .. c0 + 64 w + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int w = (tid >> 7) - 1;
+    const int cw = (tid >> 5) & 3;            // warp in the warpgroup
+    const int g = lane >> 2;
+    const int tig = lane & 3;
+    int kp[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + 64 * w + 16 * cw + g + 8 * h;
+      kp[h] = c < sk ? __ldg(kpos + c) : 0;
+    }
+    float gk[NB][32], gv[NB][32];
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) gk[c][i] = gv[c][i] = 0.f;
+    const uint32_t ka = base + w * kBoxBytes;       // this warpgroup's rows
+    const uint32_t va = ka + KV;
+    mbar_wait(kvbar, 0);
+    if (w == 1) turn_pass(w);               // consumer 0 goes first
+
+    int stage = 0, phase = 0;
+    for (;;) {
+      mbar_wait(full + 8 * stage, phase);
+      const StageMeta m = meta[stage];
+      if (m.cls < 0) break;
+      const uint32_t qa = base + 2 * KV + stage * ST;
+      const uint32_t oa = qa + NB * kBoxBytes;
+
+      // S^T = K qs^T and dP^T = V dO^T: 64 keys x 64 queries
+      float s[32], dp[32];
+      turn_wait(w);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * NB; ++kk)
+        wgmma_ss(s, sw128_desc(ka + (kk >> 2) * 2 * kBoxBytes + (kk & 3) * 32),
+                 sw128_desc(qa + (kk >> 2) * kBoxBytes + (kk & 3) * 32),
+                 kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4 * NB; ++kk)
+        wgmma_ss(dp, sw128_desc(va + (kk >> 2) * 2 * kBoxBytes + (kk & 3) * 32),
+                 sw128_desc(oa + (kk >> 2) * kBoxBytes + (kk & 3) * 32),
+                 kk > 0);
+      wgmma_commit();
+      turn_pass(w);
+      wgmma_wait();
+      pin(s);
+      pin(dp);
+
+      // P^T into s, dS^T into dp
+      const uint32_t mv = smem_u32(lse_s) + stage * 4 * 256;
+      if (softcap > 0.f) {
+        if (m.cls == 1)
+          dkdv_p_ds<true, true>(s, dp, mv, kp, tig, softcap);
+        else
+          dkdv_p_ds<false, true>(s, dp, mv, kp, tig, softcap);
+      } else if (m.cls == 1) {
+        dkdv_p_ds<true, false>(s, dp, mv, kp, tig, softcap);
+      } else {
+        dkdv_p_ds<false, false>(s, dp, mv, kp, tig, softcap);
+      }
+      uint32_t pa[4][4], da[4][4];
+      acc_to_a(s, pa);
+      acc_to_a(dp, da);
+
+      // dV += P^T dO and dK += dS^T qs: dO and qs MN-major, one 64-column
+      // box of the head dim a product
+      turn_wait(w);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_rs(gv[c], pa[kk], sw128_desc(oa + c * kBoxBytes + kk * 2048));
+          wgmma_rs(gk[c], da[kk], sw128_desc(qa + c * kBoxBytes + kk * 2048));
+        }
+      wgmma_commit();
+      turn_pass(w);
+      wgmma_wait();
+#pragma unroll
+      for (int c = 0; c < NB; ++c) {
+        pin(gv[c]);
+        pin(gk[c]);
+      }
+      pin(pa);
+      pin(da);
+      mbar_arrive(empty + 8 * stage);
+      if (++stage == S) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    if (w == 0) turn_wait(w);               // consumer 1's last pass
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + 64 * w + 16 * cw + g + 8 * h;
+      if (c >= sk) continue;
+      const size_t off = (((size_t)bi * sk + c) * nkv + kh) * hd;
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int d = 64 * b + 8 * j + 2 * tig;
+          if (d < hd) {
+            *reinterpret_cast<__nv_bfloat162*>(dk + off + d) =
+                __floats2bfloat162_rn(gk[b][4 * j + 2 * h],
+                                      gk[b][4 * j + 2 * h + 1]);
+            *reinterpret_cast<__nv_bfloat162*>(dv + off + d) =
+                __floats2bfloat162_rn(gv[b][4 * j + 2 * h],
+                                      gv[b][4 * j + 2 * h + 1]);
+          }
+        }
     }
   }
 }
 
-template <int KS>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ qs,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          const __nv_bfloat16* __restrict__ dout,
+// dQ of 128 folded q rows of one kv head (the forward's folding; rows
+// 64 w.. belong to consumer w, at positions t0 + w bq ..), over every
+// 64-key tile the producer finds not wholly masked
+template <int NB>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap m_qs,
+                          const __grid_constant__ CUtensorMap m_do,
+                          const __grid_constant__ CUtensorMap m_k,
+                          const __grid_constant__ CUtensorMap m_v,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           const int* __restrict__ q_pos,
                           const int* __restrict__ k_pos,
-                          __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, int sq, int sk,
-                          int nq, int nkv, int hd, int window, int chunk,
-                          float softcap) {
-  constexpr int STR = 16 * KS + 8;   // row stride (elements) in shared
-  constexpr int TILE = kKeys * STR;
+                          __nv_bfloat16* __restrict__ dq, int sq, int sk,
+                          int nq, int nkv, int hd, float scale, int window,
+                          int chunk, float softcap) {
+  constexpr int S = kBwdStages;
+  constexpr int QR = NB * kBoxBytes;      // one consumer's qs (or dO) rows
+  constexpr int ST = 2 * NB * kBoxBytes;  // a stage: K, then V
   const int gq = nq / nkv;
-  const int c0 = blockIdx.x * kKeys;
+  const int bq = 64 / gq;                 // positions per consumer
+  const int rows = bq * gq;               // folded rows in use (<= 64)
+  const int t0 = (gridDim.x - 1 - blockIdx.x) * 2 * bq;
   const int kh = blockIdx.y;
   const int bi = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;                   // row in the mma fragment
-  const int tig = lane & 3;                  // column pair in the fragment
-  const int* kpos = k_pos + (size_t)bi * sk;
   const int* qpos = q_pos + (size_t)bi * sq;
-
-  // K, V, then two stages of (q * scale) and of dO, then their LSE and D
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + TILE;
-  __nv_bfloat16* qst = vs + TILE;
-  __nv_bfloat16* ost = qst + 2 * TILE;
-  float* lst = reinterpret_cast<float*>(ost + 2 * TILE);
-  float* dst_ = lst + 2 * kKeys;
-
-  zero_pad<KS>(ks, 6, hd, tid);
-  load_rows<KS>(ks, k, (size_t)bi * sk, c0, sk, nkv, kh, hd, tid);
-  load_rows<KS>(vs, v, (size_t)bi * sk, c0, sk, nkv, kh, hd, tid);
-  cp_async_commit();
-
-  const int n_qt = (sq + kKeys - 1) / kKeys;
-  const int n_it = gq * n_qt;
-  auto classify = [&](int it) {
-    int qmin, qmax;
-    tile_range(qpos, (it % n_qt) * kKeys, kKeys, sq, lane, qmin, qmax);
-    return tile_class(kpos, c0, sk, qmin, qmax, window, chunk, lane);
-  };
-  auto load_q = [&](int it, int stage) {
-    const int h = kh * gq + it / n_qt;
-    const int t0 = (it % n_qt) * kKeys;
-    load_rows<KS>(qst + stage * TILE, qs, (size_t)bi * sq, t0, sq, nq, h, hd,
-                  tid);
-    load_rows<KS>(ost + stage * TILE, dout, (size_t)bi * sq, t0, sq, nq, h,
-                  hd, tid);
-    // a query past sq gets LSE +inf: p = 0 without a mask
-    for (int r = tid; r < kKeys; r += kThreads) {
-      const int t = t0 + r;
-      const size_t ri = ((size_t)bi * nq + h) * sq + t;
-      lst[stage * kKeys + r] = t < sq ? lse[ri] : INFINITY;
-      dst_[stage * kKeys + r] = t < sq ? delta[ri] : 0.f;
-    }
-  };
-
-  int cur = 0, cls = 0;
-  while (cur < n_it && (cls = classify(cur)) == 0) ++cur;
-  if (cur < n_it) load_q(cur, 0);
-  cp_async_commit();
-
-  int kp[2];
-  bool kok[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int c = c0 + warp * 16 + g + 8 * h;
-    kok[h] = c < sk;
-    kp[h] = kok[h] ? kpos[c] : 0;
-  }
-  float gk[2 * KS][4], gv[2 * KS][4];
-#pragma unroll
-  for (int j = 0; j < 2 * KS; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) gk[j][e] = gv[j][e] = 0.f;
-
-  int stage = 0;
-  while (cur < n_it) {
-    int nxt = cur + 1, ncls = 0;
-    while (nxt < n_it && (ncls = classify(nxt)) == 0) ++nxt;
-    cp_async_wait_all();
-    // tile cur has landed for every thread, and every warp is done with
-    // the stage that tile nxt overwrites
-    __syncthreads();
-    if (nxt < n_it) load_q(nxt, stage ^ 1);
-    cp_async_commit();
-
-    const __nv_bfloat16* qt = qst + stage * TILE;
-    const __nv_bfloat16* ot = ost + stage * TILE;
-    const float* lv = lst + stage * kKeys;
-    const float* dv_ = dst_ + stage * kKeys;
-    const int t0 = (cur % n_qt) * kKeys;
-
-    // S^T = K q^T and dP^T = V dO^T: 16 key rows x 64 queries a warp
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    rows_times_rows<KS>(s, a_addr(ks, warp * 16, STR, lane),
-                        b_addr(qt, STR, lane), STR);
-    rows_times_rows<KS>(dp, a_addr(vs, warp * 16, STR, lane),
-                        b_addr(ot, STR, lane), STR);
-
-    // P^T into s, dS^T into dp: element (j, e) is key row g + 8 (e / 2),
-    // query column 8 j + 2 tig + e % 2
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * tig + (e & 1);
-        bool ok = true;
-        if (cls == 1) {
-          const int t = t0 + col;
-          ok = kok[e >> 1] && t < sq
-               && allowed(kp[e >> 1], __ldg(qpos + t), window, chunk);
-        }
-        p_ds(s[j][e], dp[j][e], lv[col], dv_[col], ok, softcap);
-      }
-
-    // dV += P^T dO, dK += dS^T q: dO and q read transposed
-    acc_times_rows<KS>(gv, s, bt_addr(ot, STR, lane), STR, hd);
-    acc_times_rows<KS>(gk, dp, bt_addr(qt, STR, lane), STR, hd);
-    cur = nxt;
-    cls = ncls;
-    stage ^= 1;
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int c = c0 + warp * 16 + g + 8 * h;
-    if (c >= sk) continue;
-    const size_t off = (((size_t)bi * sk + c) * nkv + kh) * hd + 2 * tig;
-#pragma unroll
-    for (int j = 0; j < 2 * KS; ++j) {
-      if (8 * j < hd) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
-            __floats2bfloat162_rn(gk[j][2 * h], gk[j][2 * h + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
-            __floats2bfloat162_rn(gv[j][2 * h], gv[j][2 * h + 1]);
-      }
-    }
-  }
-}
-
-template <int KS>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ qs,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        const int* __restrict__ q_pos,
-                        const int* __restrict__ k_pos,
-                        __nv_bfloat16* __restrict__ dq, int sq, int sk,
-                        int nq, int nkv, int hd, float scale, int window,
-                        int chunk, float softcap) {
-  constexpr int STR = 16 * KS + 8;
-  constexpr int TILE = kKeys * STR;
-  constexpr int CH = 2 * KS;
-  const int gq = nq / nkv;
-  const int bq = kRows / gq;                 // positions per q tile
-  const int rows = bq * gq;                  // rows in use (<= kRows)
-  const int t0 = (gridDim.x - 1 - blockIdx.x) * bq;
-  const int kh = blockIdx.y;
-  const int bi = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
   const int* kpos = k_pos + (size_t)bi * sk;
-  const int* qpos = q_pos + (size_t)bi * sq;
 
-  // (q * scale) and dO, folded; then two stages of K and of V
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qt = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ot = qt + TILE;
-  __nv_bfloat16* kst = ot + TILE;
-  __nv_bfloat16* vst = kst + 2 * TILE;
-
-  zero_pad<KS>(qt, 6, hd, tid);
-  for (int i = tid; i < kRows * CH; i += kThreads) {
-    const int r = i / CH, d = (i % CH) * 8;
-    const int t = r / gq, hh = r - t * gq;
-    if (d < hd) {
-      const bool ok = r < rows && t0 + t < sq;
-      const size_t off =
-          ok ? (((size_t)bi * sq + t0 + t) * nq + kh * gq + hh) * hd + d : 0;
-      cp_async16(qt + r * STR + d, qs + off, ok);
-      cp_async16(ot + r * STR + d, dout + off, ok);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  const uint32_t base = smem_u32(sm);       // qs of both, dO of both, ring
+  int* kpos_s = reinterpret_cast<int*>(sm + 4 * QR + S * ST);
+  StageMeta* meta = reinterpret_cast<StageMeta*>(kpos_s + S * 64);
+  const uint32_t full = smem_u32(meta + S);  // S full, S empty, q landed
+  const uint32_t empty = full + 8 * S;
+  const uint32_t qbar = full + 16 * S;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 32);
+      mbar_init(empty + 8 * s, 256);
     }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_commit();
-
-  // this lane's rows g and g + 8: a row past the tile gets LSE +inf, so
-  // p = 0 without a mask
-  int rp[2];
-  bool rok[2];
-  float rl[2], rd[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = warp * 16 + g + 8 * h;
-    const int t = r / gq, hh = r - t * gq;
-    rok[h] = r < rows && t0 + t < sq;
-    const size_t ri = ((size_t)bi * nq + kh * gq + hh) * sq + t0 + t;
-    rp[h] = rok[h] ? qpos[t0 + t] : 0;
-    rl[h] = rok[h] ? lse[ri] : INFINITY;
-    rd[h] = rok[h] ? delta[ri] : 0.f;
+  // rows rows..63 of the q boxes, which TMA never writes, read as zeros
+  // (gq that does not divide 64)
+  const int pad = 64 - rows;
+  for (int i = tid; i < 4 * NB * pad * 8; i += kWsThreads) {
+    const int bx = i / (pad * 8), r = rows + (i % (pad * 8)) / 8;
+    *reinterpret_cast<uint4*>(sm + bx * kBoxBytes + r * 128 + (i % 8) * 16) =
+        make_uint4(0, 0, 0, 0);
   }
-  int qmin, qmax;
-  tile_range(qpos, t0, bq, sq, lane, qmin, qmax);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
 
-  const int n_tiles = (sk + kKeys - 1) / kKeys;
-  auto load_kv = [&](int kt, int stage) {
-    load_rows<KS>(kst + stage * TILE, k, (size_t)bi * sk, kt * kKeys, sk,
-                  nkv, kh, hd, tid);
-    load_rows<KS>(vst + stage * TILE, v, (size_t)bi * sk, kt * kKeys, sk,
-                  nkv, kh, hd, tid);
-  };
-  int cur = 0, cls = 0;
-  while (cur < n_tiles
-         && (cls = tile_class(kpos, cur * kKeys, sk, qmin, qmax, window,
-                              chunk, lane)) == 0)
-    ++cur;
-  if (cur < n_tiles) load_kv(cur, 0);
-  cp_async_commit();
-
-  float acc[2 * KS][4];
+  if (tid < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid >= 32) return;
+    int qmin = INT32_MAX, qmax = INT32_MIN;
+    for (int t = t0 + lane; t < min(t0 + 2 * bq, sq); t += 32) {
+      const int p = __ldg(qpos + t);
+      qmin = min(qmin, p);
+      qmax = max(qmax, p);
+    }
+    warp_range(qmin, qmax);
+    const PosRange qr = pos_range(qmin, qmax, chunk);
+    if (lane == 0) {
+      mbar_arrive_tx(qbar, 4 * NB * rows * 128);
 #pragma unroll
-  for (int j = 0; j < 2 * KS; ++j)
+      for (int w = 0; w < 2; ++w)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  int stage = 0;
-  while (cur < n_tiles) {
-    int nxt = cur + 1, ncls = 0;
-    while (nxt < n_tiles
-           && (ncls = tile_class(kpos, nxt * kKeys, sk, qmin, qmax, window,
-                                 chunk, lane)) == 0)
-      ++nxt;
-    cp_async_wait_all();
-    __syncthreads();
-    if (nxt < n_tiles) load_kv(nxt, stage ^ 1);
-    cp_async_commit();
-
-    const __nv_bfloat16* kt = kst + stage * TILE;
-    const __nv_bfloat16* vt = vst + stage * TILE;
-    const int c0 = cur * kKeys;
-
-    // S = q K^T and dP = dO V^T: 16 rows x 64 keys a warp
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    rows_times_rows<KS>(s, a_addr(qt, warp * 16, STR, lane),
-                        b_addr(kt, STR, lane), STR);
-    rows_times_rows<KS>(dp, a_addr(ot, warp * 16, STR, lane),
-                        b_addr(vt, STR, lane), STR);
-
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        bool ok = true;
-        if (cls == 1) {
-          const int c = c0 + 8 * j + 2 * tig + (e & 1);
-          ok = rok[e >> 1] && c < sk
-               && allowed(__ldg(kpos + c), rp[e >> 1], window, chunk);
+        for (int c = 0; c < NB; ++c) {
+          tma_load(base + w * QR + c * kBoxBytes, &m_qs, qbar, 64 * c,
+                   kh * gq, t0 + w * bq, bi);
+          tma_load(base + 2 * QR + w * QR + c * kBoxBytes, &m_do, qbar,
+                   64 * c, kh * gq, t0 + w * bq, bi);
         }
-        p_ds(s[j][e], dp[j][e], rl[e >> 1], rd[e >> 1], ok, softcap);
+    }
+    const int n_kt = (sk + 63) / 64;
+    int stage = 0, phase = 0;
+    for (int b0 = 0; b0 < n_kt; b0 += 32) {
+      int cls = 0;
+      if (b0 + lane < n_kt) {
+        int kmin, kmax;
+        lane_range(kpos, (b0 + lane) * 64, 64, sk, kmin, kmax);
+        cls = range_class(pos_range(kmin, kmax, chunk),
+                          (b0 + lane) * 64 + 64 <= sk, qr, window, chunk);
       }
+      unsigned todo = __ballot_sync(0xffffffffu, cls != 0);
+      while (todo) {
+        const int i = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int tc = __shfl_sync(0xffffffffu, cls, i);
+        const int kc = (b0 + i) * 64;
+        int pp[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int c = kc + lane + 32 * r;
+          pp[r] = c < sk ? __ldg(kpos + c) : 0;
+        }
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        kpos_s[stage * 64 + lane] = pp[0];
+        kpos_s[stage * 64 + lane + 32] = pp[1];
+        const uint32_t fb = full + 8 * stage;
+        if (lane == 0) {
+          meta[stage] = StageMeta{kc, tc};
+          const uint32_t dst = base + 4 * QR + stage * ST;
+          mbar_arrive_tx(fb, ST);
+#pragma unroll
+          for (int c = 0; c < NB; ++c) {
+            tma_load(dst + c * kBoxBytes, &m_k, fb, 64 * c, kh, kc, bi);
+            tma_load(dst + (NB + c) * kBoxBytes, &m_v, fb, 64 * c, kh, kc,
+                     bi);
+          }
+        } else {
+          mbar_arrive(fb);
+        }
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    mbar_wait(empty + 8 * stage, phase ^ 1);
+    if (lane == 0) meta[stage].cls = -1;
+    mbar_arrive(full + 8 * stage);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int w = (tid >> 7) - 1;
+    const int cw = (tid >> 5) & 3;
+    const int g = lane >> 2;
+    const int tig = lane & 3;
+    // this lane's rows g and g + 8 of the warp's 16: a row past the tile
+    // or past sq gets LSE +inf, so p = 0 without a mask
+    int rp[2], rlo[2], rt[2], rh[2];
+    bool rok[2];
+    float rl[2], rd[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * cw + g + 8 * h;
+      const int t = r / gq;
+      rh[h] = kh * gq + r - t * gq;
+      rt[h] = t0 + w * bq + t;
+      rok[h] = r < rows && rt[h] < sq;
+      const size_t ri = ((size_t)bi * nq + rh[h]) * sq + rt[h];
+      rp[h] = rok[h] ? __ldg(qpos + rt[h]) : 0;
+      rlo[h] = key_lo(rp[h], window, chunk);
+      rl[h] = rok[h] ? __ldg(lse + ri) * kLog2e : INFINITY;
+      rd[h] = rok[h] ? __ldg(delta + ri) : 0.f;
+    }
+    float acc[NB][32];
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+    const uint32_t qa = base + w * QR;
+    const uint32_t oa = qa + 2 * QR;
+    mbar_wait(qbar, 0);
+    if (w == 1) turn_pass(w);
 
-    // dQ += dS K: K read transposed
-    acc_times_rows<KS>(acc, dp, bt_addr(kt, STR, lane), STR, hd);
-    cur = nxt;
-    cls = ncls;
-    stage ^= 1;
-  }
+    int stage = 0, phase = 0;
+    for (;;) {
+      mbar_wait(full + 8 * stage, phase);
+      const StageMeta m = meta[stage];
+      if (m.cls < 0) break;
+      const uint32_t ka = base + 4 * QR + stage * ST;
+      const uint32_t va = ka + NB * kBoxBytes;
+
+      // S = qs K^T and dP = dO V^T: 64 folded rows x 64 keys
+      float s[32], dp[32];
+      turn_wait(w);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * NB; ++kk)
+        wgmma_ss(s, sw128_desc(qa + (kk >> 2) * kBoxBytes + (kk & 3) * 32),
+                 sw128_desc(ka + (kk >> 2) * kBoxBytes + (kk & 3) * 32),
+                 kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4 * NB; ++kk)
+        wgmma_ss(dp, sw128_desc(oa + (kk >> 2) * kBoxBytes + (kk & 3) * 32),
+                 sw128_desc(va + (kk >> 2) * kBoxBytes + (kk & 3) * 32),
+                 kk > 0);
+      wgmma_commit();
+      turn_pass(w);
+      wgmma_wait();
+      pin(s);
+      pin(dp);
+
+      const uint32_t pv = smem_u32(kpos_s) + stage * 256;
+      if (softcap > 0.f) {
+        if (m.cls == 1)
+          dq_p_ds<true, true>(s, dp, rl, rd, rp, rlo, pv, m.t0, sk, tig,
+                              softcap);
+        else
+          dq_p_ds<false, true>(s, dp, rl, rd, rp, rlo, pv, m.t0, sk, tig,
+                               softcap);
+      } else if (m.cls == 1) {
+        dq_p_ds<true, false>(s, dp, rl, rd, rp, rlo, pv, m.t0, sk, tig,
+                             softcap);
+      } else {
+        dq_p_ds<false, false>(s, dp, rl, rd, rp, rlo, pv, m.t0, sk, tig,
+                              softcap);
+      }
+      uint32_t da[4][4];
+      acc_to_a(dp, da);
+
+      // dQ += dS K: K MN-major, one 64-column box a product
+      turn_wait(w);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs(acc[c], da[kk], sw128_desc(ka + c * kBoxBytes + kk * 2048));
+      wgmma_commit();
+      turn_pass(w);
+      wgmma_wait();
+#pragma unroll
+      for (int c = 0; c < NB; ++c) pin(acc[c]);
+      pin(da);
+      mbar_arrive(empty + 8 * stage);
+      if (++stage == S) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    if (w == 0) turn_wait(w);
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (!rok[h]) continue;
-    const int r = warp * 16 + g + 8 * h;
-    const int t = r / gq, hh = r - t * gq;
-    __nv_bfloat16* dst =
-        dq + (((size_t)bi * sq + t0 + t) * nq + kh * gq + hh) * hd + 2 * tig;
+    for (int h = 0; h < 2; ++h) {
+      if (!rok[h]) continue;
+      __nv_bfloat16* dst = dq + (((size_t)bi * sq + rt[h]) * nq + rh[h]) * hd;
 #pragma unroll
-    for (int j = 0; j < 2 * KS; ++j) {
-      if (8 * j < hd)
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-            __floats2bfloat162_rn(acc[j][2 * h] * scale,
-                                  acc[j][2 * h + 1] * scale);
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int d = 64 * b + 8 * j + 2 * tig;
+          if (d < hd)
+            *reinterpret_cast<__nv_bfloat162*>(dst + d) =
+                __floats2bfloat162_rn(acc[b][4 * j + 2 * h] * scale,
+                                      acc[b][4 * j + 2 * h + 1] * scale);
+        }
     }
   }
 }
@@ -1686,41 +2138,98 @@ cudaError_t launch_prep(const void* q, const void* o, const void* dout,
   return cudaGetLastError();
 }
 
-template <int KS>
-cudaError_t launch_bwd_mma(const void* qs, const void* k, const void* v,
-                           const float* lse, const void* dout,
-                           const float* delta, const int* q_pos,
-                           const int* k_pos, void* dq, void* dk, void* dv,
-                           int b, int sq, int sk, int nq, int nkv, int hd,
-                           float scale, int window, int chunk, float softcap,
-                           cudaStream_t stream) {
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a map of a contiguous bf16 (b, len, heads, hd) tensor as the 4-D
+// (hd, heads, len, b), in boxes of 64 columns x box_heads x box_rows x 1
+// with the 128-byte swizzle; whatever a box covers outside the tensor
+// (columns past hd, positions past len) lands as zeros
+bool bf16_map(CUtensorMap* m, const void* p, int b, int len, int heads,
+              int hd, int box_heads, int box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)len, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {2ull * hd, 2ull * hd * heads,
+                                 2ull * hd * heads * len};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_heads, (cuuint32_t)box_rows,
+                             1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
+                dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NB>
+cudaError_t launch_bwd_wgmma(const void* qs, const void* k, const void* v,
+                             const float* lse, const void* dout,
+                             const float* delta, const int* q_pos,
+                             const int* k_pos, void* dq, void* dk, void* dv,
+                             int b, int sq, int sk, int nq, int nkv, int hd,
+                             float scale, int window, int chunk,
+                             float softcap, cudaStream_t stream) {
   using bf = __nv_bfloat16;
-  const size_t tiles = (size_t)6 * kKeys * (16 * KS + 8) * sizeof(bf);
-  const size_t smem_kv = tiles + 4 * kKeys * sizeof(float);
+  const int gq = nq / nkv, bq = 64 / gq;
+  CUtensorMap mk, mv, mq, mo;
+  if (!bf16_map(&mk, k, b, sk, nkv, hd, 1, 128)
+      || !bf16_map(&mv, v, b, sk, nkv, hd, 1, 128)
+      || !bf16_map(&mq, qs, b, sq, nq, hd, 1, 64)
+      || !bf16_map(&mo, dout, b, sq, nq, hd, 1, 64))
+    return cudaErrorInvalidValue;
+  constexpr int smem_kv = dkdv_smem(NB);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkdv_mma_kernel<KS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+      flash_bwd_dkdv_wgmma_kernel<NB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
   if (e != cudaSuccess) return e;
-  flash_bwd_dkdv_mma_kernel<KS>
-      <<<dim3((sk + kKeys - 1) / kKeys, nkv, b), kThreads, smem_kv,
-          stream>>>(static_cast<const bf*>(qs), static_cast<const bf*>(k),
-                    static_cast<const bf*>(v), static_cast<const bf*>(dout),
-                    lse, delta, q_pos, k_pos, static_cast<bf*>(dk),
-                    static_cast<bf*>(dv), sq, sk, nq, nkv, hd, window, chunk,
-                    softcap);
+  flash_bwd_dkdv_wgmma_kernel<NB>
+      <<<dim3((sk + 127) / 128, nkv, b), kWsThreads, smem_kv, stream>>>(
+          mk, mv, mq, mo, lse, delta, q_pos, k_pos, static_cast<bf*>(dk),
+          static_cast<bf*>(dv), sq, sk, nq, nkv, hd, window, chunk, softcap);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<KS>,
+
+  // dQ: q and dO in the folded box (gq heads x bq positions), K and V in
+  // 64-key tiles
+  if (!bf16_map(&mq, qs, b, sq, nq, hd, gq, bq)
+      || !bf16_map(&mo, dout, b, sq, nq, hd, gq, bq)
+      || !bf16_map(&mk, k, b, sk, nkv, hd, 1, 64)
+      || !bf16_map(&mv, v, b, sk, nkv, hd, 1, 64))
+    return cudaErrorInvalidValue;
+  constexpr int smem_q = dq_smem(NB);
+  e = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<NB>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)tiles);
+                           smem_q);
   if (e != cudaSuccess) return e;
-  const int bq = kRows / (nq / nkv);
-  flash_bwd_dq_mma_kernel<KS>
-      <<<dim3((sq + bq - 1) / bq, nkv, b), kThreads, tiles, stream>>>(
-          static_cast<const bf*>(qs), static_cast<const bf*>(k),
-          static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, delta,
-          q_pos, k_pos, static_cast<bf*>(dq), sq, sk, nq, nkv, hd, scale,
-          window, chunk, softcap);
+  flash_bwd_dq_wgmma_kernel<NB>
+      <<<dim3((sq + 2 * bq - 1) / (2 * bq), nkv, b), kWsThreads, smem_q,
+          stream>>>(mq, mo, mk, mv, lse, delta, q_pos, k_pos,
+                    static_cast<bf*>(dq), sq, sk, nq, nkv, hd, scale, window,
+                    chunk, softcap);
   return cudaGetLastError();
 }
 
@@ -1840,16 +2349,9 @@ int flash_prefill_bwd(const void* q, const void* k, const void* v,
         in(q), in(k), in(v), ls, in(dout), dl, qp, kp, out(dq), out(dk),
         out(dv), b, sq, sk, nq, nkv, hd, scale, window, chunk, softcap, st);
   }
-#define GO(KS)                                                               \
-  case KS:                                                                   \
-    return (int)launch_bwd_mma<KS>(qs, k, v, ls, dout, dl, qp, kp, dq, dk,   \
-                                   dv, b, sq, sk, nq, nkv, hd, scale, window,\
-                                   chunk, softcap, st)
-  switch (max(2, (hd + 15) / 16)) {
-    GO(2); GO(3); GO(4); GO(5); GO(6); GO(7); GO(8);
-  }
-#undef GO
-  return (int)cudaErrorInvalidValue;
+  return (int)(hd <= 64 ? launch_bwd_wgmma<1> : launch_bwd_wgmma<2>)(
+      qs, k, v, ls, dout, dl, qp, kp, dq, dk, dv, b, sq, sk, nq, nkv, hd,
+      scale, window, chunk, softcap, st);
 }
 
 const char* flash_prefill_error_string(int e) {

@@ -837,10 +837,14 @@ def test_prefill_attention_raises_on_cuda(cuda):
 
 
 # K4's backward: (b, sq, sk, nq, nkv, hd) at ragged tiles, every gq the
-# models give it (1, 4, 5, 8) and hd 64, 112, 120 and 128
+# models give it (1, 4, 5, 6, 8) and hd 64, 112, 120 and 128; gq 6
+# (nemotron-4-15b's 48 / 8 heads) folds 60 rows into the dQ kernel's 64,
+# and 333 tokens at danube's heads cross more q tiles than the ring has
+# stages, with sq and sk no multiple of 128
 BWD_SHAPES = [(2, 77, 77, 8, 2, 120), (1, 45, 130, 8, 1, 128),
               (2, 131, 131, 3, 3, 64), (2, 60, 90, 16, 4, 112),
-              (1, 70, 70, 40, 8, 128)]
+              (1, 70, 70, 40, 8, 128), (2, 90, 90, 48, 8, 128),
+              (1, 333, 333, 32, 8, 120)]
 
 
 def _bwd_operands(seed, shape, dtype, masks):
@@ -876,6 +880,39 @@ def test_prefill_attention_bwd_kernel_matches_plain(cuda, dtype, masks,
         torch.testing.assert_close(g.float(), r.float(), **FLASH_TOL[dtype])
     _, lse_k = fops._launch_forward(q, k, v, qp, kp, want_lse=True, **masks)
     torch.testing.assert_close(lse_k, lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hd", range(8, 129, 8))
+def test_prefill_attention_bwd_kernel_every_head_dim(cuda, hd):
+    """The bf16 backward at every head dim it takes (a multiple of 8 up to
+    128): below 64 one TMA box is wider than a head row, and columns past
+    hd land as zeros in both operands of each product."""
+    masks = FLASH_MASKS[-1]
+    q, k, v, qp, kp, o, lse, do = _bwd_operands(41, (2, 70, 70, 12, 4, hd),
+                                                torch.bfloat16, masks)
+    got = fops.prefill_attention_bwd(q, k, v, o, lse, do, qp, kp, **masks)
+    ref = fops.prefill_attention_bwd_plain(q, k, v, o, lse, do, qp, kp,
+                                           **masks)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.float(), r.float(),
+                                   **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("masks", [FLASH_MASKS[0], FLASH_MASKS[-1]],
+                         ids=["causal", "all"])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_prefill_attention_bwd_kernel_is_deterministic(cuda, masks, shape):
+    """Two bf16 backward calls on the same inputs give the same dq, dk and
+    dv bit for bit: each output element is summed by one thread in one
+    order (dK and dV over the GQA group in one block, dQ in another
+    kernel), with no atomics."""
+    q, k, v, qp, kp, o, lse, do = _bwd_operands(37, shape, torch.bfloat16,
+                                                masks)
+    first = fops.prefill_attention_bwd(q, k, v, o, lse, do, qp, kp, **masks)
+    second = fops.prefill_attention_bwd(q, k, v, o, lse, do, qp, kp, **masks)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

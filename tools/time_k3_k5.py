@@ -37,27 +37,13 @@ ITERS = 200
 def whole_trace(fn, iters, kernel=None):
     """[(name, launches per call, device ms per call)] of ``iters`` calls of
     ``fn`` from a trace in which ``kernel`` (if given) ran once a call and
-    every row a whole number of times a call; taken again where a trace
-    lost rows."""
-    import torch
-    from torch.autograd import DeviceType
+    every row a whole number of times a call (``chip_smoke.whole_trace``)."""
     import chip_smoke as cs
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        prof = cs.profiled(fn, iters)     # its window padded
-        rows = [(r.key, r.count / iters,
-                 getattr(r, "self_device_time_total",
-                         getattr(r, "self_cuda_time_total", 0.0))
-                 / 1e3 / iters)
-                for r in prof.key_averages()
-                if r.device_type != DeviceType.CPU and r.count]
-        own = sum(c for n, c, _ in rows if kernel and kernel in n)
-        if rows and own == (1 if kernel else 0) \
-                and all(c == int(c) for _, c, _ in rows):
-            return rows
-    raise RuntimeError(f"three traces of {kernel} lost rows: {rows}")
+
+    def once(rows):
+        return sum(c for n, c, _ in rows if kernel and kernel in n) \
+            == (1 if kernel else 0)
+    return cs.whole_trace(fn, iters, once, warmup=5)
 
 
 def split(rows, kernel):
