@@ -40,7 +40,16 @@ Phases (any failure raises and the script exits non-zero):
      ran read from a trace, the forward's LSE against the plain LSE, and
      the forward with its LSE and the backward timed at the training
      shape beside ``scaled_dot_product_attention`` forward, forward plus
-     backward, and backward alone;
+     backward, and backward alone; the expert FFN's backward (bf16 on
+     ``mma.sync``, f32 on the CUDA cores) against its plain version at
+     phi-tiny-moe's training shape (8,192 routed tokens, C 1,280, one
+     expert forced tokenless), qwen2-moe's and DBRX's widths and an odd d
+     and f under each activation, bf16 twice and bit-identical, the
+     tokenless experts' weight gradients exact zeros, the skipped tiles
+     counted on the card, the kernels that ran read from a trace, timed
+     beside its plain version, its bound and the bmm composition's
+     backward; K7's forward timed at the training shape; one MoE layer's
+     gradient at phi-tiny-moe's width taken twice, bit-identical;
   4. reduced yi-6b, qwen2-moe, h2o-danube-3-4b (prompts past its 64-token
      window), nemotron-4-15b at 12 / 2 heads (its GQA group of 6),
      Llama-4 at 4 layers with its dense/MoE interleaving (prompts past its
@@ -49,9 +58,12 @@ Phases (any failure raises and the script exits non-zero):
      (two super-blocks of Mamba2 layers and the shared attention block,
      and a tail) and xlstm-1.3b at 4 layers (no KV: no block, no kernel)
      served on the CPU (plain versions) and on the card (kernels):
-     identical tokens; then reduced h2o-danube-3-4b trained two AdamW
-     steps on the CPU and on the card from the same weights and batches
-     (loss, grad_norm, moments and parameters at stated tolerances);
+     identical tokens; then reduced h2o-danube-3-4b, phi-tiny-moe (at an
+     odd expert width of 183), qwen2-moe and Llama-4 (4 layers, its
+     interleaving) each trained two AdamW steps in f32 and in bf16 on the
+     CPU and on the card from the same weights and batches (loss,
+     grad_norm, moments and parameters at stated tolerances; K4's and
+     K7's launches counted);
   5. the first path: full-width yi-6b (random weights from a seed) served
      through ``HarvestRuntime(...).server(...)`` with evictions, reloads and
      quantized demotions; every kernel of the path must have launched; then
@@ -100,9 +112,13 @@ Phases (any failure raises and the script exits non-zero):
      and 24 backward launches a step, nothing else); each step's wall,
      tokens/s, loss and grad_norm, peak memory and the model-flops share
      of the bf16 peak printed, one step profiled (its trace must show the
-     backward's wgmma kernels and no other backward kernel); then every
-     kernel without a backward must raise when handed a tensor that
-     requires grad;
+     backward's wgmma kernels and no other backward kernel); then
+     phi-tiny-moe the same way at full width and depth (32 layers, 16
+     experts top-2 of width 915, 3.812 B parameters), through K4's and
+     K7's forward and backward (64 + 32 launches of each a step), the
+     share of the peak from the flops of the experts a token passes
+     through; then every kernel without a backward must raise when
+     handed a tensor that requires grad, and K7's gradient must arrive;
 then the card's name and power limit, one JSON line of per-kernel
 numbers, and the JSON result line.  The launch counts are set to 0 just
 before each path and read just after it.  It imports neither JAX nor the
@@ -139,7 +155,7 @@ from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.serving import TenantSpec, Workload  # noqa: E402
 from repro_torch.train.loop import cosine_lr  # noqa: E402
 from repro_torch.train.optim import (  # noqa: E402
-    adamw_init, train_step, tree_leaves)
+    AdamWState, adamw_init, train_step, tree_leaves)
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
@@ -1057,6 +1073,234 @@ def check_moe_ffn_experts(cfg, params, rows=None):
                 max_abs_err=err)
 
 
+#: K7's backward against its plain version: each gradient within this
+#: share of the output's largest entry.  bf16: the kernels and cuBLAS sum
+#: in other orders, so dA, dH or dG may round one bf16 step apart, and the
+#: gradients that read them move by a step of their own magnitude; f32:
+#: sums over C, d and f in other orders.
+MOE_BWD_REL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+
+
+def hold_moe_bwd(got, ref, dtype):
+    """Holds K7's gradients (dxd, dwi, dwg, dwo) to the plain backward's
+    within ``MOE_BWD_REL``; returns each one's largest |difference|."""
+    errs = []
+    for name, g, r in zip(("dxd", "dwi", "dwg", "dwo"), got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        err, scale = _max_err(g, r), r.float().abs().max().item()
+        assert err <= MOE_BWD_REL[dtype] * scale, (name, err, scale)
+        errs.append(err)
+    return errs
+
+
+_LIB_ACT = {"silu": torch.nn.functional.silu,
+            "gelu": lambda u: torch.nn.functional.gelu(u, approximate="tanh"),
+            "relu2": lambda u: torch.relu(u).square()}
+
+
+def library_moe(xd, w, activation):
+    """The bmm composition of the expert FFN (bmm, act, bmm, bmm)."""
+    act = _LIB_ACT[activation]
+    return torch.bmm(act(torch.bmm(xd, w[1])) * torch.bmm(xd, w[0]), w[2])
+
+
+def moe_bwd_bound(xd, f, rows, filled):
+    """K7's backward at least: 12 flops a dispatched row per (d, f) pair
+    (dA, dX's two products, dWi, dWg, dWo; h and g recomputed are not
+    counted), and the bytes of xd, dout and dX, the weights of the experts
+    holding a token read once and every expert's three weight gradients
+    written once."""
+    e, _, d = xd.shape
+    elem = xd.element_size()
+    nbytes = elem * (3 * xd.numel() + 3 * d * f * (filled + e))
+    peak = BF16_FLOPS if xd.dtype == torch.bfloat16 else F32_FLOPS
+    return bound(nbytes, 12 * rows * d * f, peak)
+
+
+def moe_bwd_case(label, xd, w, dout, activation, time=True):
+    """K7's backward at one shape: held to the plain backward, a bf16 call
+    repeated bit for bit, each tokenless expert's weight gradients exact
+    zeros, the 64-row tiles without a token skipped (counted on the card),
+    the kernels that ran read from a trace; then (``time``) timed beside
+    the plain backward, the bmm composition's backward
+    (``torch.autograd.grad`` of one forward, the graph kept) and the
+    bound.  Returns its row."""
+    dtype = xd.dtype
+    e, c, d = xd.shape
+    f = w[0].shape[-1]
+    empty = (xd == 0).all(-1)
+    rows = int((~empty).sum())
+    tokenless = [x for x in range(e) if bool(empty[x].all())]
+    filled = e - len(tokenless)
+    tiles = int(sum(bool(empty[x, t:t + mops.BWD_TILE].all())
+                    for x in range(e) for t in range(0, c, mops.BWD_TILE)))
+    skipped = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    got = mops.moe_ffn_bwd(xd, *w, dout, activation=activation,
+                           skipped=skipped)
+    if dtype == torch.bfloat16:
+        again = mops.moe_ffn_bwd(xd, *w, dout, activation=activation)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), label
+        del again
+    assert int(skipped.item()) == tiles, (label, skipped, tiles)
+    for g in got[1:]:
+        assert all(bool((g[x] == 0).all()) for x in tokenless), label
+    ref = mops.moe_ffn_bwd_plain(xd, *w, dout, activation)
+    errs = hold_moe_bwd(got, ref, dtype)
+    del got, ref
+    traced = assert_moe_bwd_kernels(trace_rows(lambda: mops.moe_ffn_bwd(
+        xd, *w, dout, activation=activation), 1), dtype)
+    row = dict(shape=label, dtype=str(dtype)[6:], activation=activation,
+               E=e, C=c, d=d, f=f, rows=rows, experts_with_token=filled,
+               tiles_skipped=tiles, max_abs_err=max(errs))
+    line = (f"  moe_ffn_bwd {label} (E {e}, C {c}, d {d}, f {f}, "
+            f"{str(dtype)[6:]}, {activation}; {rows} dispatched rows, "
+            f"{filled} experts hold a token, {tiles} 64-row tiles skipped): "
+            f"max_abs_err dxd {errs[0]:.3g}, dwi {errs[1]:.3g}, dwg "
+            f"{errs[2]:.3g}, dwo {errs[3]:.3g} (within "
+            f"{MOE_BWD_REL[dtype]:.3g} of each one's largest)"
+            + (", a second call bit-identical"
+               if dtype == torch.bfloat16 else ""))
+    if time:
+        ms, _ = time_ms(lambda: mops.moe_ffn_bwd(xd, *w, dout,
+                                                 activation=activation),
+                        5, warmup=2)
+        plain_ms, _ = time_ms(lambda: mops.moe_ffn_bwd_plain(
+            xd, *w, dout, activation), 3, warmup=1)
+        leaves = [t.detach().requires_grad_() for t in (xd, *w)]
+        out = library_moe(leaves[0], leaves[1:], activation)
+        library_ms, _ = time_ms(lambda: torch.autograd.grad(
+            out, leaves, dout, retain_graph=True), 3, warmup=1)
+        del out, leaves
+        bound_ms, bound_by = moe_bwd_bound(xd, f, rows, filled)
+        row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   kernels_ms={n[:60]: t for n, t in traced})
+        line += (f"; {ms:.4f} ms device ("
+                 + ", ".join(f"{n.split('<')[0].split('::')[-1]} {t:.4f}"
+                             for n, t in traced)
+                 + f"); plain {plain_ms:.4f}; library (autograd of bmm, "
+                 f"{activation}, bmm, bmm) {library_ms:.4f}; bound "
+                 f"{bound_ms:.4f} ({bound_by}, "
+                 f"{12 * rows * d * f / 1e9:.1f} GFLOP)")
+    print(line)
+    return row
+
+
+def check_moe_ffn_bwd(phi, qwen, dbrx):
+    """K7's backward against its plain version on the card: phi-tiny-moe's
+    training shape (8,192 tokens routed top-2 over 16 experts by a random
+    router, C 1,280, one expert forced tokenless; also K7's forward timed
+    there), qwen2-moe's width (64 experts, f 1,408, 512 tokens routed
+    top-4), DBRX's f 10,752 at C 5 (16 tokens routed top-4), all bf16 and
+    silu; an odd d 37 and f 77 in f32 and bf16 under silu, gelu and relu2.
+    The cotangent is zero on every empty slot, as the combine leaves it.
+    Then a whole MoE layer's gradient at phi-tiny-moe's width taken twice
+    on the card: the dispatch gather's and the combine's backward repeat
+    bit for bit.  Returns (the backward's kernel entry, K7's forward row at
+    the training shape)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    rows = []
+
+    def routed(cfg, t, tokenless=()):
+        mc = cfg.moe
+        xd = dispatch_buffer(cfg, t, gen)[0]
+        xd[list(tokenless)] = 0
+        w = expert_weights(mc.num_experts, cfg.d_model, mc.d_ff_expert,
+                           torch.bfloat16, gen)
+        dout = torch.randn(xd.shape, generator=gen, device="cuda").bfloat16()
+        dout[(xd == 0).all(-1)] = 0
+        return xd, w, dout
+
+    xd, w, dout = routed(phi, 8192, tokenless=(0,))
+    rows.append(moe_bwd_case("phi-tiny-moe training shape", xd, w, dout,
+                             phi.activation))
+    # K7's forward at the same shape: what the training step launches
+    e, c, d = xd.shape
+    f = w[0].shape[-1]
+    empty = (xd == 0).all(-1)
+    n_rows, filled = int((~empty).sum()), int((~empty).any(1).sum())
+    f_ms, _ = time_ms(lambda: mops.moe_ffn(xd, *w), 5, warmup=2)
+    f_plain, _ = time_ms(lambda: mops.moe_ffn_plain(xd, *w), 3, warmup=1)
+    f_lib, _ = time_ms(lambda: library_moe(xd, w, "silu"), 3, warmup=1)
+    f_bound, f_by = bound(filled * 3 * d * f * 2 + 2 * xd.numel() * 2,
+                          n_rows * 2 * 3 * d * f, BF16_FLOPS)
+    print(f"  moe_ffn forward at phi-tiny-moe's training shape (E {e}, C {c}"
+          f", d {d}, f {f}; {n_rows} rows, {filled} experts): {f_ms:.4f} ms "
+          f"device; plain {f_plain:.4f}; library (bmm, silu, bmm, bmm) "
+          f"{f_lib:.4f}; bound {f_bound:.4f} ({f_by})")
+    fwd_row = dict(shape="phi-tiny-moe training shape", E=e, C=c, d=d, f=f,
+                   rows=n_rows, ms=f_ms, plain_ms=f_plain, library_ms=f_lib,
+                   bound_ms=f_bound, bound_by=f_by)
+    del xd, w, dout
+    for label, cfg, t in (("qwen2-moe width", qwen, 512),
+                          ("dbrx-132b width", dbrx, 16)):
+        xd, w, dout = routed(cfg, t)
+        rows.append(moe_bwd_case(label, xd, w, dout, cfg.activation))
+        del xd, w, dout
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = torch.randn((3, 70, 37), generator=gen, device="cuda")
+        xd[:, 60:], xd[1] = 0, 0
+        w = [(torch.randn(s, generator=gen, device="cuda") * sc).to(dtype)
+             for s, sc in (((3, 37, 77), 37 ** -0.5), ((3, 37, 77),
+                                                      37 ** -0.5),
+                           ((3, 77, 37), 77 ** -0.5))]
+        dout = torch.randn(xd.shape, generator=gen, device="cuda")
+        dout[(xd == 0).all(-1)] = 0
+        for act in ("silu", "gelu", "relu2"):
+            rows.append(moe_bwd_case(
+                "odd d 37 and f 77", xd.to(dtype), w, dout.to(dtype), act,
+                time=False))
+    check_moe_layer_grad_repeats(phi, gen)
+    torch.cuda.synchronize()
+    main = rows[0]
+    return dict(name="moe_ffn_bwd", route="cuda",
+                source="src/repro_torch/csrc/moe_ffn.cu",
+                replaces="src/repro/models/moe.py:77",
+                note="no Pallas counterpart: the JAX package differentiates "
+                "moe.expert_ffn (three einsums) with XLA; this is that "
+                "gradient", max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"],
+                library_backend="torch.autograd.grad of the bmm composition "
+                "(bmm, act, bmm, bmm), the graph kept", shape=main["shape"],
+                by_shape=rows), fwd_row
+
+
+def check_moe_layer_grad_repeats(cfg, gen):
+    """One MoE layer at ``cfg``'s width over 8,192 bf16 tokens: the
+    gradient of ``sum(y * ct) + aux`` with respect to x and the layer's
+    weights, taken twice on the card, is the same bits both times (the
+    dispatch gather's backward accumulates each token's top-k rows, the
+    combine's its slots); the device kernels of the backward that index,
+    scatter or sort are printed by name."""
+    mc, d = cfg.moe, cfg.d_model
+    p = {"router": torch.randn((d, mc.num_experts), generator=gen,
+                               device="cuda") * 0.02}
+    p.update(zip(("wi", "wg", "wo"), expert_weights(
+        mc.num_experts, d, mc.d_ff_expert, torch.bfloat16, gen)))
+    x = torch.randn((1, 8192, d), generator=gen, device="cuda").bfloat16()
+    ct = torch.randn(x.shape, generator=gen, device="cuda")
+    leaves = [x, *p.values()]
+
+    def grads():
+        ls = [t.detach().requires_grad_() for t in leaves]
+        y, probs, ids = MOE.moe_layer(ls[0], dict(zip(p, ls[1:])), cfg)
+        loss = torch.sum(y.float() * ct) \
+            + MOE.load_balance_loss(probs, ids, mc.num_experts)
+        return torch.autograd.grad(loss, ls)
+
+    first, second = grads(), grads()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    rows = trace_rows(grads, 1)
+    names = sorted({n.removeprefix("void ").split("<")[0] for n, _ in rows
+                    if any(k in n.lower() for k in ("index", "scatter",
+                                                    "sort", "put"))})
+    print(f"  moe_layer at {cfg.name}'s width, 8192 tokens: its gradient "
+          f"(x, router, wi, wg, wo) taken twice, bit-identical; indexing "
+          f"kernels of the pass and backward: {names}")
+
+
 #: K4 against its plain version.  bf16: the plain version rounds each
 #: probability to bf16 against the running max of its 1024-key chunk, the
 #: kernel against that of its 64-key tile, so p differs by about one bf16
@@ -1464,13 +1708,17 @@ BF16_TRAIN_TOL = dict(loss=1e-3, nll=1e-3, grad_norm=2.0 ** -7,
                       mu=2.0 ** -5, nu=2.0 ** -4)
 
 
-def _train_steps(params, batches, cfg, lr, device):
+def _train_steps(params, batches, cfg, lr, device, opt=None):
     """``train_step`` over ``batches`` on ``device`` from a copy of
-    ``params``: ([metrics per step], the parameters' leaves after the last
-    step, [(mu's leaves, nu's leaves) after each step]), all on the
-    CPU."""
+    ``params`` and of the AdamW state ``opt`` (a fresh one if None):
+    ([metrics per step], the parameters' leaves after the last step,
+    [(mu's leaves, nu's leaves) after each step], (the parameters, the
+    AdamW state) after the last step), all on the CPU."""
     p = _map(params, lambda t: t.clone().to(device))
-    opt = adamw_init(p)
+    opt = adamw_init(p) if opt is None else AdamWState(
+        opt.step.to(device, copy=True),
+        *(_map(m, lambda t: t.to(device, copy=True))
+          for m in (opt.mu, opt.nu)))
     hist, moments = [], []
     for b in batches:
         p, opt, m = train_step(p, opt, {k: torch.from_numpy(v).to(device)
@@ -1480,7 +1728,12 @@ def _train_steps(params, batches, cfg, lr, device):
         # the tensor itself
         moments.append(([t.to("cpu", copy=True) for t in tree_leaves(opt.mu)],
                         [t.to("cpu", copy=True) for t in tree_leaves(opt.nu)]))
-    return hist, [t.to("cpu", copy=True) for t in tree_leaves(p)], moments
+    end = (_map(p, lambda t: t.to("cpu", copy=True)),
+           AdamWState(opt.step.cpu(), *(_map(m, lambda t: t.to("cpu",
+                                                               copy=True))
+                                        for m in (opt.mu, opt.nu))))
+    return hist, [t.to("cpu", copy=True) for t in tree_leaves(p)], moments, \
+        end
 
 
 def _leaf_rel(ref, run):
@@ -1500,7 +1753,7 @@ def hold_training(ref, run, dtype, lr):
     noise.  bf16: ``BF16_TRAIN_TOL``, and the parameters each within 2 lr
     a step plus a bf16 epsilon of their size.  Returns what it measured
     for the print."""
-    (h_ref, p_ref, m_ref), (h_run, p_run, m_run) = ref, run
+    (h_ref, p_ref, m_ref), (h_run, p_run, m_run) = ref[:3], run[:3]
     bf16 = dtype == torch.bfloat16
     tol = BF16_TRAIN_TOL if bf16 else dict(loss=1e-5, nll=1e-5,
                                            grad_norm=1e-5, mu=1e-4, nu=1e-4)
@@ -1532,57 +1785,199 @@ def hold_training(ref, run, dtype, lr):
     return dict(moments=worst_mom, worst=worst, off=off, total=total)
 
 
+#: K7's backward kernels, as the trace names them up to their template
+#: arguments (the dtype first): the gate pass (A, dH, dG), dX, the weights
+MOE_BWD_KERNELS = ("moe_bwd_gate_kernel", "moe_bwd_dx_kernel",
+                   "moe_bwd_dw_kernel")
+MOE_BWD_TYPE = {torch.bfloat16: "__nv_bfloat16", torch.float32: "float"}
+
+
+def assert_moe_bwd_kernels(rows, dtype):
+    """K7's backward kernels in a trace's rows are ``dtype``'s, each of the
+    three ran, and no other dtype's; returns their rows."""
+    names = [n for n, _ in rows if "moe_bwd_" in n]
+    ran = {k for k in MOE_BWD_KERNELS for n in names
+           if f"{k}<{MOE_BWD_TYPE[dtype]}" in n}
+    stray = [n for n in names
+             if not any(f"{k}<{MOE_BWD_TYPE[dtype]}" in n
+                        for k in MOE_BWD_KERNELS)]
+    assert ran == set(MOE_BWD_KERNELS) and not stray, (dtype, names)
+    return [(n, ms) for n, ms in rows if "moe_bwd_" in n]
+
+
+def expected_training_launches(cfg, steps):
+    """What a training run of ``steps`` steps launches: K4's forward twice
+    an attention layer a step (the pass and the recompute) and its
+    backward once, K7's the same for each MoE layer, nothing else."""
+    L, moe = cfg.num_layers, cfg.num_moe_layers
+    return dict({n: 0 for n in COUNTERS}, prefill_attention=2 * L * steps,
+                prefill_attention_bwd=L * steps, moe_ffn=2 * moe * steps,
+                moe_ffn_bwd=moe * steps)
+
+
+class Routing:
+    """Inside ``with``: records every call of the MoE router (its top-k
+    ids, each row's gap log(p_k / p_(k+1)) between its k-th and (k + 1)-th
+    probability, and the log-probabilities, on the CPU), or with
+    ``replay`` (another run's calls) takes the ids of that run's call of
+    the same index, its gate weights gathered from this run's
+    probabilities, as the router's own."""
+
+    def __init__(self, replay=None):
+        self.calls, self.replay = [], replay
+
+    def __enter__(self):
+        self.orig = MOE.router_topk
+        MOE.router_topk = self.topk
+        return self
+
+    def __exit__(self, *exc):
+        MOE.router_topk = self.orig
+
+    def topk(self, logits, top_k):
+        weights, ids, probs = self.orig(logits, top_k)
+        if self.replay is not None:
+            ids = self.replay[len(self.calls)][0].to(ids.device)
+            weights = probs.gather(1, ids.long())
+            weights = weights / torch.clamp(weights.sum(-1, keepdim=True),
+                                            min=1e-9)
+        logp = torch.log(probs.detach())
+        top = torch.sort(logp, dim=-1, descending=True).values
+        self.calls.append((ids.cpu(), (top[:, top_k - 1] - top[:, top_k])
+                           .cpu(), logp.cpu()))
+        return weights, ids, probs
+
+
+def routing_differences(cpu, card, first_step_calls):
+    """[(call, row, gap)] of the rows that the card routed to other experts
+    than the CPU did (the least of the two runs' gaps).  In the first
+    ``first_step_calls`` calls (the first step, from the same parameters,
+    so the router's inputs differ by the runs' roundings alone) each must
+    be a near tie that those roundings explain: the two runs' gaps sum to
+    no more than twice the row's largest difference of a log-probability
+    between the runs (a swap of two experts across the k-th place moves
+    their log-ratio by at most that much)."""
+    assert len(cpu) == len(card), (len(cpu), len(card))
+    out = []
+    for i, ((ia, ga, la), (ib, gb, lb)) in enumerate(zip(cpu, card)):
+        differ = (ia.sort(-1).values != ib.sort(-1).values).any(-1)
+        for r in differ.nonzero().flatten().tolist():
+            moved = float((la[r] - lb[r]).abs().max())
+            assert i >= first_step_calls \
+                or float(ga[r] + gb[r]) <= 2 * moved, \
+                (i, r, float(ga[r]), float(gb[r]), moved)
+            out.append((i, r, float(min(ga[r], gb[r]))))
+    return out
+
+
 def check_reduced_training(arch="h2o-danube-3-4b", dtype=torch.float32,
-                           steps=2, batch=2, seq_len=160, lr=1e-3):
+                           steps=2, batch=2, seq_len=160, lr=1e-3,
+                           **changes):
     """A reduced model (danube's: window 64, so the 160-token sequences
-    cross it) trained ``steps`` AdamW steps on the CPU (plain versions)
-    and on the card (K4's forward and backward kernels: f32 on the CUDA
-    cores, bf16 on the tensor cores) from the same weights (f32, or the
-    seed's bf16) and batches, held by ``hold_training``.  On the card K4
-    must launch twice a layer a step (the pass and the recompute in the
-    backward) and its backward once, and the profile must show the
-    backward's kernels for ``dtype`` and no other backward kernel."""
-    cfg = get_config(arch).reduced()
-    params = _map(M.init_params(cfg, torch.Generator().manual_seed(SEED),
-                                "cpu"), lambda t: t.to(dtype))
+    cross it; ``changes`` replace fields of the reduced config) trained
+    ``steps`` AdamW steps on the CPU (plain versions) and on the card (K4's
+    and, for an MoE model, K7's forward and backward kernels: f32 on the
+    CUDA cores, bf16 on the tensor cores) from the same weights (f32, or
+    the seed's bf16) and batches, held by ``hold_training``.  An MoE model
+    in bf16 is held step by step, each step's CPU reference taken from
+    the card's parameters and AdamW state before it: in bf16 a router near
+    tie or a gradient entry whose sign AdamW's update follows makes the two
+    runs' parameters part after one step, and an MoE layer's experts,
+    each fed by a few tokens, carry that into the next step's moments
+    (reduced Llama-4's trajectory: its dense MLP's mu 0.0319 of the leaf's
+    largest after two steps, the limit 2^-5).  A row that the card routes
+    to other experts than the CPU must be a near tie that the runs'
+    roundings explain (``routing_differences``; every call of a step taken
+    from one state, the first step's calls of a trajectory), and the CPU's
+    reference is then taken again under the card's routing.  On the card
+    each kernel must launch as ``expected_training_launches`` says, and the
+    profile must show the backward kernels for ``dtype`` and no other
+    backward kernel."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+    # the seed's dtypes (bf16, the MoE router f32), or all widened to f32
+    params = M.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    if dtype == torch.float32:
+        params = _map(params, lambda t: t.float())
     batches = list(make_batches(SyntheticCorpus(vocab_size=cfg.vocab_size,
                                                 seed=SEED), batch, seq_len,
                                 num_batches=steps))
-    ref = _train_steps(params, batches, cfg, lr, "cpu")
+    by_step = dtype == torch.bfloat16 and cfg.moe is not None
+    parts = [[b] for b in batches] if by_step else [batches]
+    first_calls = 2 * cfg.num_moe_layers
     for fn in COUNTERS.values():
         fn.launches = 0
+    state, held, refs, runs, ties = (params, None), [], [], [], []
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        run = _train_steps(params, batches, cfg, lr, "cuda")
+        for part in parts:
+            with Routing() as cpu_routes:
+                ref = _train_steps(*state[:1], part, cfg, lr, "cpu",
+                                   state[1])
+            with Routing() as card_routes:
+                run = _train_steps(*state[:1], part, cfg, lr, "cuda",
+                                   state[1])
+            part_ties = routing_differences(
+                cpu_routes.calls, card_routes.calls,
+                len(cpu_routes.calls) if by_step else first_calls)
+            if part_ties:
+                with Routing(replay=card_routes.calls) as again:
+                    ref = _train_steps(*state[:1], part, cfg, lr, "cpu",
+                                       state[1])
+                assert len(again.calls) == len(card_routes.calls)
+            held.append(hold_training(ref, run, dtype, lr))
+            ties += [(len(refs), c, g) for _, c, g in part_ties]
+            refs.append(ref)
+            runs.append(run)
+            state = run[3]
     launches = {name: fn.launches for name, fn in COUNTERS.items()}
-    L = cfg.num_layers
-    assert launches == dict({n: 0 for n in COUNTERS}, prefill_attention=2 * L
-                            * steps, prefill_attention_bwd=L * steps), \
-        launches
-    assert all(t.dtype == dtype for t in run[1]), {t.dtype for t in run[1]}
+    assert launches == expected_training_launches(cfg, steps), launches
+    assert all(t.dtype == p.dtype for t, p in zip(runs[-1][1], tree_leaves(
+        params))), {t.dtype for t in runs[-1][1]}
     # the backward's kernels for the dtype ran, the other dtype's did not
-    ran = assert_bwd_kernels(device_rows(prof, 1), dtype)
-    got = hold_training(ref, run, dtype, lr)
+    rows = device_rows(prof, 1)
+    ran = assert_bwd_kernels(rows, dtype)
+    if cfg.moe:
+        ran += assert_moe_bwd_kernels(rows, dtype)
+    else:
+        assert not any("moe_" in n for n, _ in rows), rows
     name = str(dtype).removeprefix("torch.")
     kernels = ", ".join(sorted(n[:40] for n, _ in ran))
-    print(f"reduced {arch} trained {steps} steps in {name} on cpu and cuda: "
-          f"losses {[round(h['loss'], 6) for h in ref[0]]} / "
-          f"{[round(h['loss'], 6) for h in run[0]]}, grad_norm "
-          f"{[round(h['grad_norm'], 6) for h in ref[0]]} / "
-          f"{[round(h['grad_norm'], 6) for h in run[0]]}; moments per leaf "
-          f"within {got['moments']['mu']:.3g} (mu) and "
-          f"{got['moments']['nu']:.3g} (nu) of the leaf's largest; "
-          f"parameters: {got['off']} of {got['total']} past 2e-6, largest "
-          f"difference {got['worst']:.3g}; K4 launches "
+    label = {k: v for k, v in changes.items() if k != "moe"}
+    if "moe" in changes:
+        label.update(d_ff_expert=cfg.moe.d_ff_expert,
+                     layer_period=cfg.moe.layer_period)
+    loss = [[round(h["loss"], 6) for r in rs for h in r[0]]
+            for rs in (refs, runs)]
+    gnorm = [[round(h["grad_norm"], 6) for r in rs for h in r[0]]
+             for rs in (refs, runs)]
+    print(f"reduced {arch} {label or ''} trained {steps} steps in {name} "
+          f"on cpu and cuda"
+          + (", each step's reference from the card's state before it"
+             if by_step else "") + f": losses {loss[0]} / {loss[1]}, "
+          f"grad_norm {gnorm[0]} / {gnorm[1]}; moments per leaf within "
+          f"{max(g['moments']['mu'] for g in held):.3g} (mu) and "
+          f"{max(g['moments']['nu'] for g in held):.3g} (nu) of the leaf's "
+          f"largest; parameters: {sum(g['off'] for g in held)} of "
+          f"{sum(g['total'] for g in held)} past 2e-6, largest difference "
+          f"{max(g['worst'] for g in held):.3g}; launches K4 "
           f"{launches['prefill_attention']} forward, "
-          f"{launches['prefill_attention_bwd']} backward ({kernels})")
+          f"{launches['prefill_attention_bwd']} backward, K7 "
+          f"{launches['moe_ffn']} forward, {launches['moe_ffn_bwd']} "
+          f"backward ({kernels}); "
+          + (f"{len(ties)} router rows routed otherwise on the card (gaps "
+             f"{sorted({round(g, 6) for _, _, g in ties})[:6]}, in (part, "
+             f"call) {sorted({(p, c) for p, c, _ in ties})}), the CPU's "
+             f"reference taken again under the card's routing" if ties
+             else "the same routing on both"))
 
 
 def check_no_backward():
-    """Every kernel without a backward (K1, K2, K3, K5, K6, K7) raises on
-    a CUDA tensor that requires grad in grad mode, naming itself, and runs
-    under ``torch.no_grad``; none returns a tensor that drops the
-    gradient."""
+    """Every kernel without a backward (K1, K2, K3, K5, K6) raises on a
+    CUDA tensor that requires grad in grad mode, naming itself, and runs
+    under ``torch.no_grad``; none returns a tensor that drops the gradient.
+    K7, which has a backward, takes its gradient on the card: through
+    autograd one forward and one backward launch, and the gradient that
+    arrives equals the plain backward's within ``MOE_BWD_REL``."""
     dev = "cuda"
     q = torch.randn((2, 8, 64), device=dev, requires_grad=True)
     pool = torch.randn((4, 8, 2, 64), device=dev, requires_grad=True)
@@ -1592,9 +1987,6 @@ def check_no_backward():
     flat = torch.randn((4, 64), device=dev, requires_grad=True)
     ids = torch.tensor([0, 2], dtype=torch.int32, device=dev)
     values, scales = hops.quantize_blocks(flat.detach(), ids)
-    xd, wi, wg, wo = (torch.randn(s, device=dev, requires_grad=True)
-                      for s in ((2, 16, 32), (2, 32, 48), (2, 32, 48),
-                                (2, 48, 32)))
     calls = {
         "paged_decode_partials": lambda: pops.paged_decode_partials(
             q, pool, pool, req, base, pos, scale=0.125),
@@ -1603,8 +1995,7 @@ def check_no_backward():
             flat, values, scales, ids),
         "gather_blocks": lambda: hops.gather_blocks(flat, ids),
         "copy_blocks": lambda: hops.copy_blocks(flat, flat.detach().clone(),
-                                                ids, ids),
-        "moe_ffn": lambda: mops.moe_ffn(xd, wi, wg, wo)}
+                                                ids, ids)}
     for name, call in calls.items():
         try:
             call()
@@ -1614,34 +2005,72 @@ def check_no_backward():
             raise AssertionError(f"{name} cut a gradient without raising")
         with torch.no_grad():
             call()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    xd, wi, wg, wo = (torch.randn(s, generator=gen, device=dev).mul_(0.2)
+                      for s in ((2, 16, 32), (2, 32, 48), (2, 32, 48),
+                                (2, 48, 32)))
+    dout = torch.randn(xd.shape, generator=gen, device=dev)
+    leaves = [t.clone().requires_grad_() for t in (xd, wi, wg, wo)]
+    f0, b0 = mops.moe_ffn.launches, mops.moe_ffn_bwd.launches
+    got = torch.autograd.grad(mops.moe_ffn(*leaves), leaves, dout)
     torch.cuda.synchronize()
+    assert (mops.moe_ffn.launches - f0, mops.moe_ffn_bwd.launches - b0) \
+        == (1, 1)
+    err = hold_moe_bwd(got, mops.moe_ffn_bwd_plain(xd, wi, wg, wo, dout),
+                       torch.float32)
     print(f"kernels without a backward raise under grad on the card: "
-          f"{', '.join(calls)}")
+          f"{', '.join(calls)}; moe_ffn's gradient arrives through its "
+          f"backward kernels (one forward and one backward launch), "
+          f"{max(err):.3g} from the plain backward (f32)")
 
 
-def _model_flops(cfg, n_params, tokens, pairs):
-    """A training step's flops: 6 per parameter per token for the pass and
-    the backward, 2 more for the recomputed pass, the embedding's gather
-    left out; attention's products over the kept pairs, forward twice."""
-    gemm = 8 * (n_params - cfg.vocab_size * cfg.d_model) * tokens
+def _expert_params(tree) -> int:
+    """The parameters of the routed experts (each MoE layer's stacked wi,
+    wg and wo; the shared expert and the router are not among them)."""
+    if not isinstance(tree, dict):
+        return 0
+    if "router" in tree:
+        return sum(tree[k].numel() for k in ("wi", "wg", "wo"))
+    return sum(_expert_params(v) for v in tree.values())
+
+
+def _model_flops(cfg, params, tokens, pairs):
+    """A training step's flops: 8 per parameter a token passes through (6
+    for the pass and the backward, 2 more for the recomputed pass): every
+    parameter but the embedding's gather, and of an MoE layer's routed
+    experts only the ``top_k`` of ``num_experts`` each token is sent to;
+    attention's products over the kept pairs, forward twice.  Returns
+    (flops, the formula as text)."""
+    n_params = M.param_count(params)
+    embed = cfg.vocab_size * cfg.d_model
+    experts = _expert_params(params)
+    share = cfg.moe.top_k / cfg.moe.num_experts if cfg.moe else 1.0
+    active = n_params - embed - experts * (1 - share)
     fwd, bwd = attention_flops(pairs, cfg.num_heads, cfg.resolved_head_dim)
-    return gemm + cfg.num_layers * (2 * fwd + bwd)
+    attn = cfg.num_layers * (2 * fwd + bwd)
+    text = (f"8 x ({n_params / 1e9:.3f} B - {embed / 1e9:.3f} B embedding"
+            + (f" - {experts / 1e9:.3f} B experts x (1 - {cfg.moe.top_k}/"
+               f"{cfg.moe.num_experts})" if experts else "")
+            + f" = {active / 1e9:.3f} B) x {tokens} tokens + "
+            f"{cfg.num_layers} layers x (2 x {fwd / 1e12:.3f} + "
+            f"{bwd / 1e12:.3f}) TFLOP attention over {pairs} pairs a head")
+    return 8 * active * tokens + attn, text
 
 
 def train_path(arch="h2o-danube-3-4b", steps=5, batch=1, seq_len=8192,
                lr=3e-4, warmup=100, total=1000):
     """Full-width training on the card: ``abstract_params`` reckons the
-    footprint (parameters and their gradients in bf16, AdamW's two f32
-    moments) before anything is allocated; then weights from the seed and
-    ``steps`` fused steps (``train_step``: loss, gradients through K4's
-    forward and backward, AdamW) on ``make_batches``'s sequences, each
-    step timed on the host clock around a synchronised step, the learning
-    rate ``train``'s schedule (``cosine_lr``) at the first steps of a
-    ``warmup``-step warmup to ``lr``.  The launch
-    counts are set to 0 just before the steps and read just after: K4's
-    forward twice a layer a step (the pass and the recompute), its
-    backward once, and no other kernel.  Then one step profiled for where
-    the time goes.  Returns (launch counts, the numbers kept)."""
+    footprint (parameters and their gradients in the parameters' dtypes,
+    AdamW's two f32 moments) before anything is allocated; then weights
+    from the seed and ``steps`` fused steps (``train_step``: loss,
+    gradients through K4's forward and backward and, for an MoE model,
+    K7's, AdamW) on ``make_batches``'s sequences, each step timed on the
+    host clock around a synchronised step, the learning rate ``train``'s
+    schedule (``cosine_lr``) at the first steps of a ``warmup``-step warmup
+    to ``lr``.  The launch counts are set to 0 just before the steps and
+    read just after: ``expected_training_launches``, exactly.  Then one
+    step profiled for where the time goes, K4's and K7's forward and
+    backward rows split out.  Returns (launch counts, the numbers kept)."""
     cfg = get_config(arch)
     ap = M.abstract_params(cfg)
     n_params = M.param_count(ap)
@@ -1650,7 +2079,7 @@ def train_path(arch="h2o-danube-3-4b", steps=5, batch=1, seq_len=8192,
     layer_in = batch * seq_len * cfg.d_model * 2
     print(f"{arch} training: {n_params / 1e9:.3f} B parameters; reckoned "
           f"before allocating: parameters {p_bytes / 1e9:.2f} GB, gradients "
-          f"{p_bytes / 1e9:.2f} GB (the parameters' dtype), AdamW moments "
+          f"{p_bytes / 1e9:.2f} GB (the parameters' dtypes), AdamW moments "
           f"{8 * n_params / 1e9:.2f} GB (f32): {state / 1e9:.2f} GB "
           f"({state / 2 ** 30:.2f} GiB), plus the layer inputs kept for the "
           f"recompute ({cfg.num_layers} x {layer_in / 1e6:.0f} MB), one "
@@ -1676,7 +2105,7 @@ def train_path(arch="h2o-danube-3-4b", steps=5, batch=1, seq_len=8192,
     pos = torch.arange(seq_len, dtype=torch.int32, device="cuda")[None]
     pairs = int(fops.band_mask(pos, pos, cfg.sliding_window,
                                cfg.attention_chunk).sum())
-    flops = _model_flops(cfg, n_params, batch * seq_len, pairs)
+    flops, formula = _model_flops(cfg, ap, batch * seq_len, pairs)
     for fn in COUNTERS.values():
         fn.launches = 0
     walls, hist = [], []
@@ -1693,15 +2122,16 @@ def train_path(arch="h2o-danube-3-4b", steps=5, batch=1, seq_len=8192,
         hist.append(vals)
         print(f"  step {step}: {walls[-1] * 1e3:.1f} ms wall, "
               f"{batch * seq_len / walls[-1]:.0f} tokens/s, loss "
-              f"{vals['loss']:.5f}, nll {vals['nll']:.5f}, grad_norm "
-              f"{vals['grad_norm']:.5f}, lr {cur_lr:.2e}")
+              f"{vals['loss']:.5f}, nll {vals['nll']:.5f}, aux "
+              f"{vals['aux']:.5f}, grad_norm {vals['grad_norm']:.5f}, lr "
+              f"{cur_lr:.2e}")
     launches = {name: fn.launches for name, fn in COUNTERS.items()}
-    L = cfg.num_layers
-    expect = dict({n: 0 for n in COUNTERS},
-                  prefill_attention=2 * L * steps,
-                  prefill_attention_bwd=L * steps)
+    expect = expected_training_launches(cfg, steps)
+    moe_layers = cfg.num_moe_layers
     print(f"{arch} training: launches {launches} (predicted: K4 forward "
-          f"{2 * L} and backward {L} a step, nothing else)")
+          f"{2 * cfg.num_layers} and backward {cfg.num_layers} a step, K7 "
+          f"forward {2 * moe_layers} and backward {moe_layers} a step, "
+          f"nothing else)")
     assert launches == expect, (launches, expect)
     assert int(opt.step) == steps
     peak = torch.cuda.max_memory_allocated()
@@ -1711,32 +2141,39 @@ def train_path(arch="h2o-danube-3-4b", steps=5, batch=1, seq_len=8192,
           f"1-{steps - 1}; step 0 {walls[0] * 1e3:.1f} ms), "
           f"{batch * seq_len / steady:.0f} tokens/s, peak memory "
           f"{peak / 2 ** 30:.2f} GiB ({peak / 1e9:.2f} GB), model flops "
-          f"{flops / 1e12:.1f} TFLOP a step (8 x {n_params / 1e9:.3f} B "
-          f"less the embedding x {batch * seq_len} tokens, attention over "
-          f"{pairs} pairs a head), {100 * mfu:.1f}% of the bf16 peak")
+          f"{flops / 1e12:.1f} TFLOP a step ({formula}), {100 * mfu:.1f}% "
+          f"of the bf16 peak")
     b = next_batch()
     rows = trace_rows(lambda: train_step(params, opt, b, cfg, lr=cur_lr), 1)
     assert_bwd_kernels(rows, torch.bfloat16)
+    if moe_layers:
+        assert_moe_bwd_kernels(rows, torch.bfloat16)
     busy = sum(ms for _, ms in rows)
-    k4f = sum(ms for n, ms in rows if "flash_prefill" in n)
-    k4b = sum(ms for n, ms in rows if "flash_bwd" in n)
+    split = {"k4_forward_ms": "flash_prefill", "k4_backward_ms": "flash_bwd",
+             "k7_forward_ms": ("gate_up_mma_kernel", "down_mma_kernel"),
+             "k7_backward_ms": "moe_bwd_"}
+    parts = {k: sum(ms for n, ms in rows
+                    if any(w in n for w in ((v,) if isinstance(v, str)
+                                            else v)))
+             for k, v in split.items()}
     print(f"{arch} training: one step profiled: {busy:.1f} ms device-busy "
           f"({100 * busy / (steady * 1e3):.1f}% of the mean step wall), K4 "
-          f"forward {k4f:.1f} ms, K4 backward {k4b:.1f} ms")
-    for name, ms in rows[:8]:
+          f"forward {parts['k4_forward_ms']:.1f} ms, K4 backward "
+          f"{parts['k4_backward_ms']:.1f} ms, K7 forward "
+          f"{parts['k7_forward_ms']:.1f} ms, K7 backward "
+          f"{parts['k7_backward_ms']:.1f} ms")
+    for name, ms in rows[:12]:
         print(f"  {ms:9.3f} ms/step  {name[:90]}")
     del params, opt, b
     gc.collect()
     torch.cuda.empty_cache()
-    check_no_backward()
     return launches, dict(steps=steps, tokens_per_step=batch * seq_len,
                           step_ms=[w * 1e3 for w in walls],
                           steady_step_ms=steady * 1e3,
                           tokens_per_s=batch * seq_len / steady,
                           peak_gib=peak / 2 ** 30, mfu=mfu,
-                          device_busy_ms=busy, k4_forward_ms=k4f,
-                          k4_backward_ms=k4b,
-                          losses=[h["loss"] for h in hist],
+                          model_tflop=flops / 1e12, device_busy_ms=busy,
+                          **parts, losses=[h["loss"] for h in hist],
                           grad_norms=[h["grad_norm"] for h in hist])
 
 
@@ -1900,7 +2337,8 @@ COUNTERS = {"paged_decode_partials": pops.paged_decode_partials,
             "gather_blocks": hops.gather_blocks,
             "copy_blocks": hops.copy_blocks,
             "moe_ffn": mops.moe_ffn,
-            "prefill_attention_bwd": fops.prefill_attention_bwd}
+            "prefill_attention_bwd": fops.prefill_attention_bwd,
+            "moe_ffn_bwd": mops.moe_ffn_bwd}
 
 
 #: what one eviction may put on the card: K6 (twice), K2 and K3 (a
@@ -2123,6 +2561,11 @@ def main() -> int:
     kernels.append(k4_bwd)
     next(k for k in kernels if k["name"] == "prefill_attention")[
         "training_forward_with_lse"] = k4_train_fwd
+    phi = get_config("phi-tiny-moe")
+    k7_bwd, k7_train_fwd = check_moe_ffn_bwd(phi, moe, get_config(DBRX))
+    kernels.append(k7_bwd)
+    next(k for k in kernels if k["name"] == "moe_ffn")[
+        "training_forward"] = k7_train_fwd
     tolerance = {"paged_decode_partials": "rtol 1e-4, atol 1e-4 (f32 sums "
                  "in another order)", "quantize_demote": "bit-identical",
                  "dequantize_reload": "bit-identical",
@@ -2135,7 +2578,10 @@ def main() -> int:
                  "atol 1e-4 (sums in another order than cuBLAS)",
                  "prefill_attention_bwd": "bf16 rtol 1.6e-2, atol 2^-7; f32 "
                  "rtol 1e-4, atol 1e-4 (each gradient rounded once from f32 "
-                 "sums taken in another order)"}
+                 "sums taken in another order)",
+                 "moe_ffn_bwd": "bf16 2^-7, f32 1e-5 of each gradient's "
+                 "largest entry (dA, dH, dG rounded from sums in another "
+                 "order than cuBLAS's); bf16 repeats bit for bit"}
     for k in kernels:
         print(f"kernel {k['name']}: ms {k['ms']:.5f}  plain_ms "
               f"{k['plain_ms']:.5f}  library_ms {k['library_ms']}  bound_ms "
@@ -2170,8 +2616,18 @@ def main() -> int:
             label["layer_period"] = changes["moe"].layer_period
         print(f"reduced {arch} {label or ''}: cpu and cuda tokens "
               f"identical ({tokens[:2]} ...)")
-    check_reduced_training(dtype=torch.float32)
-    check_reduced_training(dtype=torch.bfloat16)
+    # MoE training, card against CPU: phi-tiny-moe at an odd expert width
+    # (its tiles ragged, its weights staged by plain loads), qwen2-moe (a
+    # shared expert), Llama-4 at 4 layers with its dense/MoE interleaving
+    for arch, changes in (
+            ("h2o-danube-3-4b", {}),
+            ("phi-tiny-moe", dict(moe=dataclasses.replace(
+                get_config("phi-tiny-moe").reduced().moe, d_ff_expert=183))),
+            ("qwen2-moe", {}),
+            (LLAMA4, dict(num_layers=4, moe=dataclasses.replace(
+                l4_moe, layer_period=2)))):
+        for dtype in (torch.float32, torch.bfloat16):
+            check_reduced_training(arch, dtype, **changes)
 
     # ---- phases 5 to 10: the paths at full width ----
     movers = ["paged_decode_partials", "quantize_demote",
@@ -2224,6 +2680,11 @@ def main() -> int:
     # the training path: full-width h2o-danube-3-4b, 1 x 8,192 tokens
     # (twice its window) a step, through K4's forward and backward
     paths["h2o-danube-3-4b training"], training = train_path()
+    # phi-tiny-moe at full width and depth (3.812 B parameters, 16 experts
+    # top-2 of width 915), 1 x 8,192 tokens a step, through K4's and K7's
+    # forward and backward
+    paths["phi-tiny-moe training"], training_moe = train_path("phi-tiny-moe")
+    check_no_backward()
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -2232,6 +2693,8 @@ def main() -> int:
             k["llama4_pool"] = k1_llama4
         if k["name"] == "prefill_attention_bwd":
             k["training"] = training
+        if k["name"] == "moe_ffn_bwd":
+            k["training"] = training_moe
         if k["name"] == "moe_ffn":
             k["by_shape"] += [k7_llama4, k7_dbrx]
             k["max_abs_err"] = max(k["max_abs_err"],

@@ -41,6 +41,10 @@
 //   bank twice.  Widths that are no multiple of 8 (or operands not 16-byte
 //   aligned) are staged by plain loads instead of cp.async.
 // - f32: products on the CUDA cores (FMA, no TF32), tiles staged as f32.
+//
+// The backward (moe_ffn_bwd, at the end) has no Pallas counterpart: the
+// JAX package differentiates expert_ffn's einsums with XLA.  Its design
+// is set out above its kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -525,6 +529,461 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// ---------------------------------------------------------------------------
+// Backward: the gradient of out = (act(x wg) * (x wi)) wo for dY = dout
+// ---------------------------------------------------------------------------
+//
+// With h = x wi, g = x wg, A = act(g) * h (each rounded as the forward
+// rounds them):
+//   dA = dY wo^T,  dH = dA * act(g),  dG = dA * h * act'(g)
+//   dX = dH wi^T + dG wg^T,  dWi = x^T dH,  dWg = x^T dG,  dWo = A^T dY
+// dA, dH and dX are rounded to the dtype once each; dG once from its f32
+// product, act'(g) taken in f32 from the rounded g.  Three kinds of
+// launch, none with atomics on a value, so a second call is bit-identical:
+// - B1 (gate): per (f tile, C tile, expert), h and g over d, then dA over
+//   d; writes A, dH and dG to (E, C, fp) workspaces (fp = f rounded up to
+//   8, so their rows are 16-byte aligned and cp.async reads them whatever
+//   f is; the pad columns hold zeros), and whether the C tile of x holds
+//   a nonzero value to a flag.
+// - B2 (dx): per (d tile, C tile, expert), dX over f; a flagged-zero tile
+//   writes zeros.
+// - B3 (dw): per (f tile, d tile, expert) dWi and dWg, per (d tile, f
+//   tile, expert) dWo, each summed over the C rows up to the expert's last
+//   nonzero tile in one order.  An expert without a token writes zeros and
+//   reads nothing.
+// A zero row of x gives h = g = A = dH = dG = 0, so tiles of zero rows
+// (tokenless experts, the empty tail of each expert's buffer) add exact
+// zeros and are skipped, as in the forward; B1 counts the skipped tiles.
+// Tiles are 64 x 64 outputs (the C tile 64 rows: training fills C).
+// bf16: mma.sync m16n8k16 with f32 accumulators, 8 warps of 32 x 16, the
+// operands staged through a ring of kBStages 32-deep stages by cp.async
+// where their rows allow it (else plain loads: wi and wg at an f that is
+// no multiple of 8), each stored in the layout its ldmatrix wants.
+// f32: FMA on the CUDA cores, 4 x 4 outputs a thread.
+
+constexpr int kBM = 64;                   // output rows per block
+constexpr int kBN = 64;                   // output columns per block
+constexpr int kBK = 32;                   // depth of one stage
+constexpr int kBStages = 4;
+constexpr int kKStr = kBK + 8;            // a [mn][k] tile's row (bf16)
+constexpr int kMnStr = kBM + 8;           // a [k][mn] tile's row (bf16)
+constexpr int kOpElems = kBM * kKStr;     // >= kBK * kMnStr
+constexpr int kFK = 16;                   // f32: depth of one stage
+constexpr int kFStr = kBM + 1;            // f32: a [k][mn] tile's row
+
+// Stage the (R, W) box at (r0, c0) of a row-major matrix (leading dim ld,
+// valid rows < nr and columns < nc, zero elsewhere) into dst (row stride
+// sstr).  VEC: 16-byte cp.async copies; a copy whose first column is valid
+// reads 8 values, so nc % 8 == 0 or the row is padded with zeros.
+template <int R, int W, bool VEC>
+__device__ __forceinline__ void stage_box(bf16* dst, int sstr, const bf16* src,
+                                          int ld, int r0, int nr, int c0,
+                                          int nc) {
+  if (VEC) {
+#pragma unroll
+    for (int i = threadIdx.x; i < R * W / 8; i += kThreads) {
+      const int r = i / (W / 8), c = i % (W / 8) * 8;
+      const bool ok = r0 + r < nr && c0 + c < nc;
+      cp_async16(dst + r * sstr + c,
+                 ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * W; i += kThreads) {
+      const int r = i / W, c = i - r * W;
+      const bool ok = r0 + r < nr && c0 + c < nc;
+      dst[r * sstr + c] = ok ? src[(size_t)(r0 + r) * ld + c0 + c]
+                             : from_f<bf16>(0.f);
+    }
+  }
+}
+
+// One operand's stage: the (64 of mn) x (kBK of k) slice at (mn0, k0) of a
+// matrix stored [k][mn] (KROW) or [mn][k], kept in shared memory in the
+// same orientation.
+template <bool KROW, bool VEC>
+__device__ __forceinline__ void stage_operand(bf16* dst, const bf16* src,
+                                              int ld, int mn0, int mn, int k0,
+                                              int k) {
+  if (KROW)
+    stage_box<kBK, kBM, VEC>(dst, kMnStr, src, ld, k0, k, mn0, mn);
+  else
+    stage_box<kBM, kBK, VEC>(dst, kKStr, src, ld, mn0, mn, k0, k);
+}
+
+// acc[b] (the block's 64 x 64 tile at (m0, n0), 16 values a thread) +=
+// A . B_b over depth k, for A (m rows) stored [k][m] (AK) or [m][k] and
+// B_b (n columns) stored [k][n] (BK) or [n][k].  Value j of a thread is
+// mma tile (j / 8, (j / 4) % 2) of its warp, fragment entry j % 4.
+template <int NB, bool AK, bool BK, bool VA, bool VB>
+__device__ __forceinline__ void mma_gemm(float (&acc)[NB][16], bf16* smem,
+                                         const bf16* a, int lda, int m,
+                                         const bf16* b0, const bf16* b1,
+                                         int ldb, int n, int m0, int n0,
+                                         int k) {
+  constexpr int kStage = (1 + NB) * kOpElems;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 16;
+  const int nk = (k + kBK - 1) / kBK;
+  __syncthreads();             // an earlier product may still read the ring
+  auto load = [&](int s, int kt) {
+    bf16* st = smem + s * kStage;
+    stage_operand<AK, VA>(st, a, lda, m0, m, kt * kBK, k);
+    stage_operand<BK, VB>(st + kOpElems, b0, ldb, n0, n, kt * kBK, k);
+    if (NB == 2)
+      stage_operand<BK, VB>(st + 2 * kOpElems, b1, ldb, n0, n, kt * kBK, k);
+  };
+#pragma unroll
+  for (int s = 0; s < kBStages - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  // ldmatrix lane addresses (elements) of the warp's fragments at k16 step
+  // 0: A [m][k] (x4: rows lane & 15, k half lane >> 4) or [k][m] (x4.trans:
+  // k rows (lane & 7) + 8 (lane >> 4), m half (lane >> 3) & 1); B [k][n]
+  // (x4.trans: k rows (lane & 7) + 8 ((lane >> 3) & 1), n half lane >> 4)
+  // or [n][k] (x4: n rows (lane & 7) + 8 (lane >> 4), k half (lane >> 3) & 1)
+  const int a_off = AK ? ((lane & 7) + ((lane >> 4) << 3)) * kMnStr + wm
+                             + ((lane >> 3) & 1) * 8
+                       : (wm + (lane & 15)) * kKStr + (lane >> 4) * 8;
+  const int a_mt = AK ? 16 : 16 * kKStr;          // next m16 tile
+  const int a_kk = AK ? 16 * kMnStr : 16;         // next k16 step
+  const int b_off = BK ? ((lane & 7) + (((lane >> 3) & 1) << 3)) * kMnStr
+                             + wn + (lane >> 4) * 8
+                       : (wn + (lane & 7) + ((lane >> 4) << 3)) * kKStr
+                             + ((lane >> 3) & 1) * 8;
+  const int b_kk = BK ? 16 * kMnStr : 16;
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kBStages - 2>();
+    __syncthreads();
+    if (kt + kBStages - 1 < nk) load((kt + kBStages - 1) % kBStages,
+                                     kt + kBStages - 1);
+    cp_async_commit();
+    const bf16* st = smem + (kt % kBStages) * kStage;
+    const uint32_t sa = smem_u32(st + a_off);
+    const uint32_t sb = smem_u32(st + kOpElems + b_off);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const uint32_t at = sa + 2 * (mt * a_mt + kk * a_kk);
+        if (AK) ldmatrix_x4_trans(af[mt], at);
+        else ldmatrix_x4(af[mt], at);
+      }
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        uint32_t bfr[4];
+        const uint32_t bt = sb + 2 * (b * kOpElems + kk * b_kk);
+        if (BK) ldmatrix_x4_trans(bfr, bt);
+        else ldmatrix_x4(bfr, bt);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(*reinterpret_cast<float(*)[4]>(&acc[b][mt * 8]), af[mt],
+                   bfr[0], bfr[1]);
+          mma_bf16(*reinterpret_cast<float(*)[4]>(&acc[b][mt * 8 + 4]),
+                   af[mt], bfr[2], bfr[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// f32: one operand's kFK x 64 slice into dst[k][mn] (row stride kFStr).
+template <bool KROW>
+__device__ __forceinline__ void stage_f32_operand(float* dst,
+                                                  const float* src, int ld,
+                                                  int mn0, int mn, int k0,
+                                                  int k) {
+  for (int i = threadIdx.x; i < kFK * kBM; i += kThreads) {
+    const int kk = KROW ? i / kBM : i % kFK;
+    const int r = KROW ? i % kBM : i / kFK;
+    const bool ok = k0 + kk < k && mn0 + r < mn;
+    const size_t at = KROW ? (size_t)(k0 + kk) * ld + mn0 + r
+                           : (size_t)(mn0 + r) * ld + k0 + kk;
+    dst[kk * kFStr + r] = ok ? src[at] : 0.f;
+  }
+}
+
+// mma_gemm's contract on the CUDA cores: value j of a thread is row
+// ty + 16 (j / 4), column tx + 16 (j % 4) of the tile.
+template <int NB, bool AK, bool BK>
+__device__ __forceinline__ void fma_gemm(float (&acc)[NB][16], float* smem,
+                                         const float* a, int lda, int m,
+                                         const float* b0, const float* b1,
+                                         int ldb, int n, int m0, int n0,
+                                         int k) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* as = smem;
+  float* bs = smem + kFK * kFStr;
+  for (int k0 = 0; k0 < k; k0 += kFK) {
+    __syncthreads();
+    stage_f32_operand<AK>(as, a, lda, m0, m, k0, k);
+    stage_f32_operand<BK>(bs, b0, ldb, n0, n, k0, k);
+    if (NB == 2) stage_f32_operand<BK>(bs + kFK * kFStr, b1, ldb, n0, n, k0,
+                                       k);
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kFK; ++kk) {
+      float av[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = as[kk * kFStr + ty + 16 * i];
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float bv = bs[b * kFK * kFStr + kk * kFStr + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            acc[b][4 * i + j] = fmaf(av[i], bv, acc[b][4 * i + j]);
+        }
+    }
+  }
+}
+
+template <typename T, int NB, bool AK, bool BK, bool VA, bool VB>
+__device__ __forceinline__ void tile_gemm(float (&acc)[NB][16], void* smem,
+                                          const T* a, int lda, int m,
+                                          const T* b0, const T* b1, int ldb,
+                                          int n, int m0, int n0, int k) {
+  if constexpr (sizeof(T) == 4)
+    fma_gemm<NB, AK, BK>(acc, static_cast<float*>(smem), a, lda, m, b0, b1,
+                         ldb, n, m0, n0, k);
+  else
+    mma_gemm<NB, AK, BK, VA, VB>(acc, static_cast<bf16*>(smem), a, lda, m,
+                                 b0, b1, ldb, n, m0, n0, k);
+}
+
+// (row, column) in the block's tile of a thread's value j
+template <typename T>
+__device__ __forceinline__ void tile_rc(int j, int& r, int& c) {
+  if constexpr (sizeof(T) == 4) {
+    r = (threadIdx.x >> 4) + 16 * (j >> 2);
+    c = (threadIdx.x & 15) + 16 * (j & 3);
+  } else {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    r = (warp >> 2) * 32 + 16 * (j >> 3) + (lane >> 2) + 8 * ((j >> 1) & 1);
+    c = (warp & 3) * 16 + 8 * ((j >> 2) & 1) + 2 * (lane & 3) + (j & 1);
+  }
+}
+
+template <typename T>
+constexpr size_t bwd_smem(int nb) {
+  return sizeof(T) == 4 ? (size_t)(1 + nb) * kFK * kFStr * 4
+                        : (size_t)kBStages * (1 + nb) * kOpElems * 2;
+}
+
+// d act(u) / du in f32, of the activations above
+__device__ __forceinline__ float activation_grad(float u, int act) {
+  if (act == kSilu) {
+    const float s = 1.f / (1.f + expf(-u));
+    return s * (1.f + u * (1.f - s));
+  }
+  if (act == kGelu) {
+    const float c = 0.7978845608028654f;
+    const float t = tanhf(c * (u + 0.044715f * (u * u * u)));
+    return 0.5f * (1.f + t)
+           + 0.5f * u * (1.f - t * t) * c * (1.f + 3.f * 0.044715f * u * u);
+  }
+  return 2.f * fmaxf(u, 0.f);
+}
+
+// B1: A, dH, dG (E, C, fp) and the C tiles' flags (E, mt)
+template <typename T, bool VX, bool VF>
+__global__ void __launch_bounds__(kThreads)
+moe_bwd_gate_kernel(const T* __restrict__ x, const T* __restrict__ wi,
+                    const T* __restrict__ wg, const T* __restrict__ wo,
+                    const T* __restrict__ dy, T* __restrict__ aw,
+                    T* __restrict__ dh, T* __restrict__ dg,
+                    int* __restrict__ flags, int C, int d, int f, int fp,
+                    int act, int* __restrict__ skipped) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int e = blockIdx.z, c0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int rows = min(kBM, C - c0);
+  const size_t xo = (size_t)e * C * d, wof = (size_t)e * d * f,
+               po = (size_t)e * C * fp;
+  const bool nz = tile_has_nonzero<T, VX>(x + xo, c0, rows, d);
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    flags[e * gridDim.y + blockIdx.y] = nz;
+  if (!nz) {
+    const int cols = min(kBN, fp - n0);
+    zero_tile(aw + po, c0, rows, n0, cols, fp);
+    zero_tile(dh + po, c0, rows, n0, cols, fp);
+    zero_tile(dg + po, c0, rows, n0, cols, fp);
+    if (skipped && blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(skipped, 1);
+    return;
+  }
+  float hg[2][16] = {}, da[1][16] = {};
+  tile_gemm<T, 2, false, true, VX, VF>(hg, smem_raw, x + xo, d, C, wi + wof,
+                                       wg + wof, f, f, c0, n0, d);
+  tile_gemm<T, 1, false, false, VX, VX>(da, smem_raw, dy + xo, d, C,
+                                        wo + wof, nullptr, d, f, c0, n0, d);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    int r, c;
+    tile_rc<T>(j, r, c);
+    const int n = n0 + c;
+    if (r < rows && n < fp) {    // columns f..fp-1 come out exact zeros
+      const float h = rnd<T>(hg[0][j]), g = rnd<T>(hg[1][j]);
+      const float a = rnd<T>(da[0][j]);
+      const float ag = activation<T>(g, act);
+      const size_t at = po + (size_t)(c0 + r) * fp + n;
+      aw[at] = from_f<T>(ag * h);
+      dh[at] = from_f<T>(a * ag);
+      dg[at] = from_f<T>(a * h * activation_grad(g, act));
+    }
+  }
+}
+
+// B2: dX (E, C, d) = dH wi^T + dG wg^T
+template <typename T, bool VF>
+__global__ void __launch_bounds__(kThreads)
+moe_bwd_dx_kernel(const T* __restrict__ dh, const T* __restrict__ dg,
+                  const T* __restrict__ wi, const T* __restrict__ wg,
+                  const int* __restrict__ flags, T* __restrict__ dx, int C,
+                  int d, int f, int fp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int e = blockIdx.z, c0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int rows = min(kBM, C - c0);
+  T* dxe = dx + (size_t)e * C * d;
+  if (!flags[e * gridDim.y + blockIdx.y]) {
+    zero_tile(dxe, c0, rows, n0, min(kBN, d - n0), d);
+    return;
+  }
+  const size_t wof = (size_t)e * d * f, po = (size_t)e * C * fp;
+  float acc[1][16] = {};
+  tile_gemm<T, 1, false, false, true, VF>(acc, smem_raw, dh + po, fp, C,
+                                          wi + wof, nullptr, f, d, c0, n0, f);
+  tile_gemm<T, 1, false, false, true, VF>(acc, smem_raw, dg + po, fp, C,
+                                          wg + wof, nullptr, f, d, c0, n0, f);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    int r, c;
+    tile_rc<T>(j, r, c);
+    if (r < rows && n0 + c < d)
+      dxe[(size_t)(c0 + r) * d + n0 + c] = from_f<T>(acc[0][j]);
+  }
+}
+
+// B3: dWi, dWg (E, d, f) = x^T dH, x^T dG, or (DWO) dWo (E, f, d) = A^T dY,
+// over the C rows up to the expert's last flagged tile
+template <typename T, bool VX, bool DWO>
+__global__ void __launch_bounds__(kThreads)
+moe_bwd_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                  const T* __restrict__ aw, const T* __restrict__ dh,
+                  const T* __restrict__ dg, const int* __restrict__ flags,
+                  T* __restrict__ dwi, T* __restrict__ dwg,
+                  T* __restrict__ dwo, int C, int d, int f, int fp, int mt) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int e = blockIdx.z, m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int m = DWO ? f : d, n = DWO ? d : f;
+  const int rows = min(kBM, m - m0), cols = min(kBN, n - n0);
+  int last = -1;
+  for (int i = 0; i < mt; ++i)
+    if (flags[e * mt + i]) last = i;
+  const int depth = min(C, (last + 1) * kBM);
+  const size_t xo = (size_t)e * C * d, po = (size_t)e * C * fp,
+               wof = (size_t)e * d * f;
+  if (depth == 0) {                // no token: zeros, nothing read
+    if (DWO) {
+      zero_tile(dwo + wof, m0, rows, n0, cols, n);
+    } else {
+      zero_tile(dwi + wof, m0, rows, n0, cols, n);
+      zero_tile(dwg + wof, m0, rows, n0, cols, n);
+    }
+    return;
+  }
+  if (DWO) {
+    float acc[1][16] = {};
+    tile_gemm<T, 1, true, true, true, VX>(acc, smem_raw, aw + po, fp, f,
+                                          dy + xo, nullptr, d, d, m0, n0,
+                                          depth);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      int r, c;
+      tile_rc<T>(j, r, c);
+      if (r < rows && c < cols)
+        dwo[wof + (size_t)(m0 + r) * d + n0 + c] = from_f<T>(acc[0][j]);
+    }
+  } else {
+    float acc[2][16] = {};
+    tile_gemm<T, 2, true, true, VX, true>(acc, smem_raw, x + xo, d, d,
+                                          dh + po, dg + po, fp, f, m0, n0,
+                                          depth);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      int r, c;
+      tile_rc<T>(j, r, c);
+      if (r < rows && c < cols) {
+        const size_t at = wof + (size_t)(m0 + r) * f + n0 + c;
+        dwi[at] = from_f<T>(acc[0][j]);
+        dwg[at] = from_f<T>(acc[1][j]);
+      }
+    }
+  }
+}
+
+template <typename T, bool VX, bool VF>
+int run_bwd(const T* x, const T* wi, const T* wg, const T* wo, const T* dy,
+            T* dx, T* dwi, T* dwg, T* dwo, T* aw, T* dh, T* dg, int* flags,
+            int E, int C, int d, int f, int fp, int act, int* skipped,
+            cudaStream_t st) {
+  static bool ready = false;     // the shared-memory limits are set once
+  const size_t s1 = bwd_smem<T>(1), s2 = bwd_smem<T>(2);
+  if (!ready) {
+    cudaError_t err = allow_smem(moe_bwd_gate_kernel<T, VX, VF>, s2);
+    if (err == cudaSuccess) err = allow_smem(moe_bwd_dx_kernel<T, VF>, s1);
+    if (err == cudaSuccess)
+      err = allow_smem(moe_bwd_dw_kernel<T, VX, false>, s2);
+    if (err == cudaSuccess)
+      err = allow_smem(moe_bwd_dw_kernel<T, VX, true>, s1);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  const int mt = (C + kBM - 1) / kBM;
+  const int dt = (d + kBN - 1) / kBN, ft = (f + kBN - 1) / kBN;
+  const int fpt = (fp + kBN - 1) / kBN;
+  moe_bwd_gate_kernel<T, VX, VF><<<dim3(fpt, mt, E), kThreads, s2, st>>>(
+      x, wi, wg, wo, dy, aw, dh, dg, flags, C, d, f, fp, act, skipped);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  moe_bwd_dx_kernel<T, VF><<<dim3(dt, mt, E), kThreads, s1, st>>>(
+      dh, dg, wi, wg, flags, dx, C, d, f, fp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  moe_bwd_dw_kernel<T, VX, false><<<dim3(ft, dt, E), kThreads, s2, st>>>(
+      x, dy, aw, dh, dg, flags, dwi, dwg, dwo, C, d, f, fp, mt);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  moe_bwd_dw_kernel<T, VX, true><<<dim3(dt, ft, E), kThreads, s1, st>>>(
+      x, dy, aw, dh, dg, flags, dwi, dwg, dwo, C, d, f, fp, mt);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_bwd(const void* x, const void* wi, const void* wg,
+                 const void* wo, const void* dy, void* dx, void* dwi,
+                 void* dwg, void* dwo, void* aw, void* dh, void* dg,
+                 int* flags, int E, int C, int d, int f, int fp, int act,
+                 int* skipped, cudaStream_t st, bool vx, bool vf) {
+#define MOE_BWD_ARGS                                                       \
+  static_cast<const T*>(x), static_cast<const T*>(wi),                     \
+      static_cast<const T*>(wg), static_cast<const T*>(wo),                \
+      static_cast<const T*>(dy), static_cast<T*>(dx), static_cast<T*>(dwi), \
+      static_cast<T*>(dwg), static_cast<T*>(dwo), static_cast<T*>(aw),     \
+      static_cast<T*>(dh), static_cast<T*>(dg), flags, E, C, d, f, fp, act, \
+      skipped, st
+  if constexpr (sizeof(T) == 4) {
+    return run_bwd<T, false, false>(MOE_BWD_ARGS);
+  } else {
+    if (vx && vf) return run_bwd<T, true, true>(MOE_BWD_ARGS);
+    if (vx) return run_bwd<T, true, false>(MOE_BWD_ARGS);
+    if (vf) return run_bwd<T, false, true>(MOE_BWD_ARGS);
+    return run_bwd<T, false, false>(MOE_BWD_ARGS);
+  }
+#undef MOE_BWD_ARGS
+}
+
 }  // namespace
 
 extern "C" {
@@ -549,6 +1008,37 @@ int moe_ffn(const void* x, const void* wi, const void* wg, const void* wo,
   if (vec)
     return run_mma<true>(x, wi, wg, wo, work, out, E, C, d, f, act, sk, st);
   return run_mma<false>(x, wi, wg, wo, work, out, E, C, d, f, act, sk, st);
+}
+
+// The gradient of moe_ffn for dy (E, C, d): dx (E, C, d), dwi and dwg
+// (E, d, f), dwo (E, f, d), all contiguous, of x's dtype; workspaces aw,
+// dh, dg (E, C, fp) of that dtype, fp = f rounded up to a multiple of 8,
+// 16-byte aligned, and flags (E, ceil(C / 64)) int32.  dtype and act as
+// moe_ffn's; skipped: null, or an int the gate pass adds the number of
+// (expert, 64-row tile) pairs it skipped to.  Returns a cudaError_t as
+// int.
+int moe_ffn_bwd(const void* x, const void* wi, const void* wg,
+                const void* wo, const void* dy, void* dx, void* dwi,
+                void* dwg, void* dwo, void* aw, void* dh, void* dg,
+                void* flags, int E, int C, int d, int f, int fp, int dtype,
+                int act, void* skipped, void* stream) {
+  if (E == 0 || C == 0 || d == 0 || f == 0) return 0;
+  if (E > 65535 || (C + kBM - 1) / kBM > 65535 || (d + kBN - 1) / kBN > 65535
+      || (f + kBN - 1) / kBN > 65535 || fp % 8 != 0 || fp < f)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(aw) || !aligned16(dh) || !aligned16(dg))
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* fl = static_cast<int*>(flags);
+  int* sk = static_cast<int*>(skipped);
+  const bool vx = d % 8 == 0 && aligned16(x) && aligned16(dy)
+                  && aligned16(wo);
+  const bool vf = f % 8 == 0 && aligned16(wi) && aligned16(wg);
+  if (dtype == 0)
+    return dispatch_bwd<float>(x, wi, wg, wo, dy, dx, dwi, dwg, dwo, aw, dh,
+                               dg, fl, E, C, d, f, fp, act, sk, st, vx, vf);
+  return dispatch_bwd<bf16>(x, wi, wg, wo, dy, dx, dwi, dwg, dwo, aw, dh, dg,
+                            fl, E, C, d, f, fp, act, sk, st, vx, vf);
 }
 
 const char* moe_ffn_error_string(int e) {

@@ -4,6 +4,13 @@ CPU example (quickstart scale):
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --reduced \
       --steps 200 --batch 8 --seq-len 128 --device cpu
 
+On the card (the default device) every family trains through the
+hand-written kernels: attention's forward and backward (K4) and, for a
+mixture-of-experts model (phi-tiny-moe, qwen2-moe, Llama-4, DBRX), the
+expert FFN's forward and backward (K7):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch phi-tiny-moe \
+      --steps 5 --batch 1 --seq-len 8192
+
 The JAX launcher's flags, with ``--device`` (default ``cuda``) in place
 of ``--mesh``: multi-device training is not ported yet.
 """

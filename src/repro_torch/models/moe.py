@@ -8,6 +8,17 @@ expert FFN runs on the buffer (kernel K7 on the card) and the outputs are
 combined back per token with the gate weights.  Everything stays on the
 device: ``capacity`` is a Python int from static shapes, and no step reads
 a value back to the host.
+
+Training: with grad on, the expert FFN's gradient comes from K7's backward
+kernels on the card (``moe_ffn`` takes its autograd Function), the rest of
+the layer's from autograd.  Under ``torch.utils.checkpoint`` the layer runs
+again in the backward pass, and the recompute must route as the pass did:
+the router's stable sort, the dispatch's stable argsort and
+``searchsorted``, and the combine's fixed order are deterministic ops on
+the same inputs, so it does, bit for bit.  The dispatch gather and the
+combine are each other's gradient (:class:`_DispatchGather`,
+:class:`_SumSlots`): each token sums its own ``top_k`` slots' rows in a
+fixed order, and each slot takes its one token's row; no atomics.
 """
 from __future__ import annotations
 
@@ -90,10 +101,85 @@ def _build_dispatch(ids, weights, num_experts: int, capacity: int):
 
 
 def expert_ffn(xd, p, cfg: ModelConfig):
-    """Each expert's FFN on its dispatch buffer.
+    """Each expert's FFN on its dispatch buffer: K7's forward, and with
+    grad on its backward too.
 
     xd: (E, C, d);  p["wi"]/p["wg"]: (E, d, ffe);  p["wo"]: (E, ffe, d)."""
     return moe_ffn(xd, p["wi"], p["wg"], p["wo"], activation=cfg.activation)
+
+
+def _slots_of_tokens(slot, order, t: int, k: int):
+    """(t, k): each token's dispatch slots in ascending order (a dropped
+    choice: the drop slot, ``num_experts * capacity``)."""
+    slot_of = torch.empty_like(slot)
+    slot_of[order] = slot                       # per (token, choice)
+    return torch.sort(slot_of.view(t, k), dim=1).values
+
+
+def _sum_slots(rows, per_token):
+    """y[token] = sum of ``rows[slot]`` over the token's slots in
+    ascending order, each add rounded to the working dtype, the drop slot
+    reading a zero row appended to ``rows``."""
+    rows = torch.cat([rows, rows.new_zeros((1, rows.shape[-1]))])
+    y = rows[per_token[:, 0]]
+    for j in range(1, per_token.shape[1]):
+        y = y + rows[per_token[:, j]]
+    return y
+
+
+def _gather_slots(rows, slot_token):
+    """(E*C, d): each slot's token row of ``rows`` (t, d), an empty slot
+    (token t) a zero row."""
+    return torch.cat([rows, rows.new_zeros((1, rows.shape[-1]))])[
+        slot_token.long()]
+
+
+def _token_of_slots(per_token, n: int):
+    """(n,) int64: each of the n dispatch slots' token, t where empty."""
+    t, k = per_token.shape
+    token = torch.full((n + 1,), t, dtype=torch.long,
+                       device=per_token.device)
+    # the drop slot n takes several tokens' writes; it is cut off
+    token[per_token.reshape(-1)] = torch.arange(
+        t, device=per_token.device).repeat_interleave(k)
+    return token[:n]
+
+
+class _DispatchGather(torch.autograd.Function):
+    """:func:`_gather_slots` whose gradient is each token's own slots'
+    rows summed (:func:`_sum_slots`), as the JAX package's scatter-add in
+    slot order rounds them.  Autograd's backward of the index would
+    scatter into the rows by sorting the slots' token ids instead, and
+    every empty slot carries the id t: one run of thousands of rows
+    (about 5,100 of phi-tiny-moe's 20,480 slots at 8,192 tokens) that a
+    single warp of the card adds up one after another."""
+
+    @staticmethod
+    def forward(ctx, xt, slot_token, per_token):
+        ctx.save_for_backward(per_token)
+        return _gather_slots(xt, slot_token)
+
+    @staticmethod
+    def backward(ctx, dxd):
+        per_token, = ctx.saved_tensors
+        return _sum_slots(dxd, per_token), None, None
+
+
+class _SumSlots(torch.autograd.Function):
+    """:func:`_sum_slots` whose gradient is each slot's one token's row
+    (:func:`_gather_slots`; an empty slot's zero), where autograd would
+    scatter into the slots with every dropped choice on the drop row."""
+
+    @staticmethod
+    def forward(ctx, rows, per_token):
+        ctx.save_for_backward(per_token)
+        ctx.n = rows.shape[0]
+        return _sum_slots(rows, per_token)
+
+    @staticmethod
+    def backward(ctx, dy):
+        per_token, = ctx.saved_tensors
+        return _gather_slots(dy, _token_of_slots(per_token, ctx.n)), None
 
 
 def _combine(out, slot_weight, slot, order, t: int, k: int):
@@ -104,16 +190,11 @@ def _combine(out, slot_weight, slot, order, t: int, k: int):
     order, which is the same sequence of roundings, in a fixed order on
     any device (``index_add_`` on CUDA adds with atomics in no fixed
     order).  A dropped choice adds an exact zero."""
-    d = out.shape[-1]
     contrib = out * slot_weight[:, None].to(out.dtype)
-    contrib = torch.cat([contrib, contrib.new_zeros((1, d))])   # drop row
-    slot_of = torch.empty_like(slot)
-    slot_of[order] = slot                       # per (token, choice)
-    per_token = torch.sort(slot_of.view(t, k), dim=1).values
-    y = contrib[per_token[:, 0]]
-    for j in range(1, k):
-        y = y + contrib[per_token[:, j]]
-    return y
+    per_token = _slots_of_tokens(slot, order, t, k)
+    if torch.is_grad_enabled() and contrib.requires_grad:
+        return _SumSlots.apply(contrib, per_token)
+    return _sum_slots(contrib, per_token)
 
 
 def moe_layer(x, p, cfg: ModelConfig,
@@ -141,8 +222,12 @@ def moe_layer(x, p, cfg: ModelConfig,
         ids, weights, mc.num_experts, capacity)
 
     # empty slots read row t, a zero row
-    xpad = torch.cat([xt, xt.new_zeros((1, d))])
-    xd = xpad[slot_token.long()].view(mc.num_experts, capacity, d)
+    if torch.is_grad_enabled() and xt.requires_grad:
+        xd = _DispatchGather.apply(
+            xt, slot_token, _slots_of_tokens(slot, order, t, mc.top_k))
+    else:
+        xd = _gather_slots(xt, slot_token)
+    xd = xd.view(mc.num_experts, capacity, d)
     out = expert_ffn(xd, p, cfg).view(mc.num_experts * capacity, d)
     y = _combine(out, slot_weight, slot, order, t, mc.top_k)
 

@@ -650,6 +650,118 @@ def test_moe_ffn_raises_on_cuda(cuda):
         mops.moe_ffn(x, wi.cpu(), wg, wo)
 
 
+# K7's backward against its plain version: each gradient within this
+# share of the output's largest entry.  bf16: the kernel and cuBLAS sum in
+# other orders, so dA, dH or dG may round one bf16 step apart, and the
+# gradients that read them move by a step of their own magnitude; f32:
+# sums over C, d and f in other orders
+MOE_BWD_REL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+
+
+def _bwd_inputs(seed, e, c, d, f, dtype, tail=5, tokenless=(1,)):
+    """K7's operands and a cotangent as the MoE layer gives them: the
+    ``tokenless`` experts hold no token, every expert's last ``tail`` rows
+    are empty, and the cotangent is zero on every empty row."""
+    xd, wi, wg, wo = _expert_inputs(seed, e, c, d, f, dtype,
+                                    empty_slots=tail)
+    xd[list(tokenless)] = 0
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dout = torch.randn(xd.shape, generator=gen, device="cuda").to(dtype)
+    dout[(xd == 0).all(-1)] = 0
+    return xd, wi, wg, wo, dout
+
+
+def _assert_bwd_close(got, ref, dtype):
+    for name, g, r in zip(("dxd", "dwi", "dwg", "dwo"), got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        err = (g.float() - r.float()).abs().max().item()
+        scale = r.float().abs().max().item()
+        assert err <= MOE_BWD_REL[dtype] * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("activation", ["silu", "gelu", "relu2"])
+@pytest.mark.parametrize("shape", [(4, 80, 256, 352), (3, 70, 96, 915),
+                                   (2, 33, 37, 77)],
+                         ids=["aligned", "phi-f", "odd"])
+def test_moe_ffn_bwd_kernel_matches_plain(cuda, dtype, activation, shape):
+    """K7's backward against ``moe_ffn_bwd_plain``: ragged C, d and f tiles
+    (f = 915, and odd d and f, staged by plain loads), a tokenless expert
+    whose weight gradients are exact zeros, empty tail rows whose dX is
+    zero; one counted launch a call; a second call bit-identical (no
+    atomics)."""
+    e, c, d, f = shape
+    args = _bwd_inputs(40, e, c, d, f, dtype)
+    before = mops.moe_ffn_bwd.launches
+    skipped = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    got = mops.moe_ffn_bwd(*args, activation=activation, skipped=skipped)
+    torch.cuda.synchronize()
+    assert mops.moe_ffn_bwd.launches == before + 1
+    ref = mops.moe_ffn_bwd_plain(*args, activation=activation)
+    _assert_bwd_close(got, ref, dtype)
+    dx, dwi, dwg, dwo = got
+    for g in (dwi[1], dwg[1], dwo[1], dx[1], dx[:, -5:]):
+        assert torch.all(g == 0)
+    # expert 1's 64-row tiles are skipped, and none of the others'
+    assert int(skipped.item()) == (c + 63) // 64
+    again = mops.moe_ffn_bwd(*args, activation=activation)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_ffn_bwd_skips_empty_tiles(cuda, dtype):
+    """Experts filled to 0, 1, 64, 65 and 200 of 200 rows (the dispatch
+    buffer fills each from row 0): each skips its 64-row tiles past its
+    last token (counted on the card) and still matches the plain version;
+    an expert without a token gets zero weight gradients."""
+    filled = (0, 1, 64, 65, 200)
+    e, c, d, f = len(filled), 200, 128, 96
+    xd, wi, wg, wo, dout = _bwd_inputs(41, e, c, d, f, dtype, tail=0,
+                                       tokenless=())
+    for ex, n in enumerate(filled):
+        xd[ex, n:] = 0
+        dout[ex, n:] = 0
+    skipped = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    got = mops.moe_ffn_bwd(xd, wi, wg, wo, dout, skipped=skipped)
+    ref = mops.moe_ffn_bwd_plain(xd, wi, wg, wo, dout)
+    _assert_bwd_close(got, ref, dtype)
+    tiles = sum(4 - (n + 63) // 64 for n in filled)
+    assert int(skipped.item()) == tiles
+    assert all(torch.all(g[0] == 0) for g in got)
+
+
+def test_moe_ffn_gradient_on_cuda(cuda):
+    """``moe_ffn`` on CUDA tensors that require grad goes through
+    ``MoeFFN``: one forward launch, one backward launch, and the gradient
+    that arrives equals ``moe_ffn_bwd_plain``'s within the backward's
+    tolerance."""
+    args = _bwd_inputs(42, 3, 40, 64, 48, torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in args[:4]]
+    f0, b0 = mops.moe_ffn.launches, mops.moe_ffn_bwd.launches
+    out = mops.moe_ffn(*leaves)
+    got = torch.autograd.grad(out, leaves, args[4])
+    torch.cuda.synchronize()
+    assert (mops.moe_ffn.launches, mops.moe_ffn_bwd.launches) == (f0 + 1,
+                                                                  b0 + 1)
+    _assert_bwd_close(got, mops.moe_ffn_bwd_plain(*args), torch.bfloat16)
+
+
+def test_moe_ffn_bwd_raises_on_cuda(cuda):
+    xd, wi, wg, wo, dout = _bwd_inputs(43, 2, 8, 16, 24, torch.bfloat16)
+    with pytest.raises(ValueError):
+        mops.moe_ffn_bwd(xd, wi, wg, wo, dout[:, :4])
+    with pytest.raises(ValueError):
+        mops.moe_ffn_bwd(xd, wi, wg, wo, dout.float())
+    with pytest.raises(ValueError):
+        mops.moe_ffn_bwd(xd, wi, wg, wo, dout.transpose(0, 1).contiguous()
+                         .transpose(0, 1))
+    with pytest.raises(TypeError):
+        mops.moe_ffn_bwd(xd.half(), wi.half(), wg.half(), wo.half(),
+                         dout.half())
+    with pytest.raises(ValueError):
+        mops.moe_ffn_bwd(xd, wi, wg, wo.cpu(), dout)
+
+
 @pytest.mark.parametrize("q_pos", [(41, 24, 33, 17), (7, 0, 15, 3)])
 def test_paged_partials_at_zamba2_heads(cuda, q_pos):
     """K1 as zamba2-7b's shared attention block gives it at full width:
@@ -942,10 +1054,10 @@ def test_prefill_attention_bwd_at_danube_window(cuda, dtype):
 
 
 def test_kernels_without_backward_raise_under_grad(cuda):
-    """K1, K2, K3, K5, K6 and K7 have no backward: on a CUDA tensor that
+    """K1, K2, K3, K5 and K6 have no backward: on a CUDA tensor that
     requires grad, in grad mode, each raises and names itself instead of
     returning a tensor that drops the gradient; under ``torch.no_grad`` each
-    runs."""
+    runs.  (K7 has one: ``test_moe_ffn_gradient_on_cuda``.)"""
     q = torch.randn((2, 8, 64), device=cuda, requires_grad=True)
     pool = torch.randn((4, 8, 2, 64), device=cuda, requires_grad=True)
     req = torch.tensor([0, 0, 1, -1], dtype=torch.int32, device=cuda)
@@ -954,9 +1066,6 @@ def test_kernels_without_backward_raise_under_grad(cuda):
     flat = torch.randn((4, 64), device=cuda, requires_grad=True)
     ids = torch.tensor([0, 2], dtype=torch.int32, device=cuda)
     values, scales = hops.quantize_blocks(flat.detach(), ids)
-    xd, wi, wg, wo = (torch.randn(s, device=cuda, requires_grad=True)
-                      for s in ((2, 16, 32), (2, 32, 48), (2, 32, 48),
-                                (2, 48, 32)))
     calls = {
         "paged_decode_partials": lambda: pops.paged_decode_partials(
             q, pool, pool, req, base, pos, scale=0.125),
@@ -966,7 +1075,6 @@ def test_kernels_without_backward_raise_under_grad(cuda):
         "gather_blocks": lambda: hops.gather_blocks(flat, ids),
         "copy_blocks": lambda: hops.copy_blocks(flat, flat.detach().clone(),
                                                 ids, ids),
-        "moe_ffn": lambda: mops.moe_ffn(xd, wi, wg, wo),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match=f"{name}: the kernel has no "

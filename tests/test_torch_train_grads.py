@@ -95,20 +95,24 @@ def test_loss_fn_gathers_what_the_one_hot_contracts():
 @pytest.mark.parametrize("arch,dtype", [
     ("yi-6b", "float32"), ("yi-6b", "bfloat16"), ("command-r-35b", "float32"),
     ("zamba2-7b", "float32"), ("qwen2-moe", "float32"),
-    ("qwen2-vl-72b", "float32"), ("xlstm-1.3b", "float32")])
+    ("qwen2-vl-72b", "float32"), ("xlstm-1.3b", "float32"),
+    ("phi-tiny-moe", "float32"), ("phi-tiny-moe", "bfloat16")])
 def test_grads_match_jax(arch, dtype):
     """Gradients leaf by leaf against ``jax.grad`` of JAX's ``loss_fn``:
     dense, parallel blocks with tied embeddings, hybrid (K4 in the shared
-    block), MoE (the plain expert FFN stays differentiable on the CPU),
-    vlm and ssm; f32 within ``F32_GRAD_REL`` of each leaf's largest entry,
-    bf16 (in the parameters' dtype, as JAX's) within ``BF16_GRAD_REL``."""
+    block), MoE (the expert FFN's gradient through ``MoeFFN`` and its
+    plain backward on the CPU), vlm and ssm; f32 within ``F32_GRAD_REL``
+    of each leaf's largest entry, bf16 (in the parameters' dtype, as
+    JAX's) within ``BF16_GRAD_REL``."""
     _, _, jg = _jax_value_and_grad(arch, dtype)
     _, _, tg = _port_value_and_grad(arch, dtype)
+    params = dict(_leaves(_models(arch, dtype)[3]))
     assert jg.keys() == tg.keys()
     rel = F32_GRAD_REL if dtype == "float32" else BF16_GRAD_REL
     for path, r in jg.items():
         g = tg[path]
-        assert str(g.dtype)[6:] == dtype, path
+        # the parameter's dtype: the MoE router stays f32 in a bf16 model
+        assert g.dtype == params[path].dtype, path
         assert g.shape == r.shape, path
         err = np.abs(g.float().numpy() - r).max()
         scale = np.abs(r).max()
@@ -154,10 +158,50 @@ def test_blocks_are_recomputed_in_the_backward(monkeypatch):
         assert torch.equal(a, b)
 
 
+def test_moe_blocks_are_recomputed_in_the_backward(monkeypatch):
+    """An MoE model's blocks under ``torch.utils.checkpoint``: the expert
+    FFN's forward runs twice a layer (the pass and the recompute) and its
+    backward once, as attention's do; the gradients equal those of a pass
+    without recompute bit for bit (the recompute routes as the pass did)."""
+    from repro_torch.kernels.moe_ffn import ops as mops
+    cfg, tcfg, _, tp = _models("phi-tiny-moe", "float32")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
+    calls = {"fwd": 0, "bwd": 0, "attn": 0}
+    plain_fwd, plain_bwd, attn_fwd = mops.moe_ffn_plain, \
+        mops.moe_ffn_bwd_plain, fops.prefill_attention_plain
+
+    def counted(key, fn):
+        def call(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return call
+
+    monkeypatch.setattr(mops, "moe_ffn_plain", counted("fwd", plain_fwd))
+    monkeypatch.setattr(mops, "moe_ffn_bwd_plain", counted("bwd", plain_bwd))
+    monkeypatch.setattr(fops, "prefill_attention_plain",
+                        counted("attn", attn_fwd))
+
+    def grads():
+        p = _map(tp, lambda t: t.detach().clone().requires_grad_())
+        leaves = [t for _, t in _leaves(p)]
+        loss, _ = TM.loss_fn(p, batch, tcfg)
+        return torch.autograd.grad(loss, leaves)
+
+    L = tcfg.num_layers
+    remat = grads()
+    assert calls == {"fwd": 2 * L, "bwd": L, "attn": 2 * L}
+    monkeypatch.setattr(TM, "_wants_grad", lambda params: False)
+    calls.update(fwd=0, bwd=0, attn=0)
+    once = grads()
+    assert calls == {"fwd": L, "bwd": L, "attn": L}
+    for a, b in zip(remat, once):
+        assert torch.equal(a, b)
+
+
 def test_plain_versions_stay_differentiable_on_cpu():
-    """The wrappers of kernels without a backward run their plain versions
-    on the CPU, which autograd differentiates: the expert FFN's gradient
-    reaches its weights (MoE trains on the CPU as JAX's does)."""
+    """The expert FFN on CPU tensors that require grad goes through
+    ``MoeFFN``, whose backward is the plain backward on the CPU: its
+    gradient reaches its weights (MoE trains on the CPU as JAX's does)."""
     from repro_torch.kernels.moe_ffn import ops as mops
     gen = torch.Generator().manual_seed(0)
     xd, wi, wg, wo = (torch.randn(s, generator=gen).requires_grad_()
