@@ -40,16 +40,18 @@ Phases (any failure raises and the script exits non-zero):
      ran read from a trace, the forward's LSE against the plain LSE, and
      the forward with its LSE and the backward timed at the training
      shape beside ``scaled_dot_product_attention`` forward, forward plus
-     backward, and backward alone; the expert FFN's backward (bf16 on
-     ``mma.sync``, f32 on the CUDA cores) against its plain version at
-     phi-tiny-moe's training shape (8,192 routed tokens, C 1,280, one
-     expert forced tokenless), qwen2-moe's and DBRX's widths and an odd d
-     and f under each activation, bf16 twice and bit-identical, the
-     tokenless experts' weight gradients exact zeros, the skipped tiles
-     counted on the card, the kernels that ran read from a trace, timed
-     beside its plain version, its bound and the bmm composition's
-     backward; K7's forward timed at the training shape; one MoE layer's
-     gradient at phi-tiny-moe's width taken twice, bit-identical;
+     backward, and backward alone; the expert FFN's training forward
+     (bf16 on wgmma, writing A, h and g) and its backward (bf16 on wgmma
+     from the saved A, h and g, f32 on the CUDA cores) against their
+     plain versions at phi-tiny-moe's training shape (8,192 routed
+     tokens, C 1,280, one expert forced tokenless), qwen2-moe's and
+     DBRX's widths and an odd d and f under each activation, bf16 twice
+     and bit-identical, the tokenless experts' weight gradients exact
+     zeros, the skipped tiles counted on the card, the kernels that ran
+     read from a trace, the forward timed beside the bmm composition and
+     its bound, the backward beside its plain version, its bound and the
+     bmm composition's backward; one MoE layer's gradient at
+     phi-tiny-moe's width taken twice, bit-identical;
   4. reduced yi-6b, qwen2-moe, h2o-danube-3-4b (prompts past its 64-token
      window), nemotron-4-15b at 12 / 2 heads (its GQA group of 6),
      Llama-4 at 4 layers with its dense/MoE interleaving (prompts past its
@@ -63,7 +65,7 @@ Phases (any failure raises and the script exits non-zero):
      interleaving) each trained two AdamW steps in f32 and in bf16 on the
      CPU and on the card from the same weights and batches (loss,
      grad_norm, moments and parameters at stated tolerances; K4's and
-     K7's launches counted);
+     K7's launches counted, K7's forward in bf16 the training forward);
   5. the first path: full-width yi-6b (random weights from a seed) served
      through ``HarvestRuntime(...).server(...)`` with evictions, reloads and
      quantized demotions; every kernel of the path must have launched; then
@@ -115,9 +117,10 @@ Phases (any failure raises and the script exits non-zero):
      backward's wgmma kernels and no other backward kernel); then
      phi-tiny-moe the same way at full width and depth (32 layers, 16
      experts top-2 of width 915, 3.812 B parameters), through K4's and
-     K7's forward and backward (64 + 32 launches of each a step), the
-     share of the peak from the flops of the experts a token passes
-     through; then every kernel without a backward must raise when
+     K7's forward and backward (64 + 32 launches of each a step; K7's
+     forward the training forward, its profile without the decode
+     kernels), the share of the peak from the flops of the experts a token
+     passes through; then every kernel without a backward must raise when
      handed a tensor that requires grad, and K7's gradient must arrive;
 then the card's name and power limit, one JSON line of per-kernel
 numbers, and the JSON result line.  The launch counts are set to 0 just
@@ -1106,39 +1109,113 @@ def library_moe(xd, w, activation):
 
 def moe_bwd_bound(xd, f, rows, filled):
     """K7's backward at least: 12 flops a dispatched row per (d, f) pair
-    (dA, dX's two products, dWi, dWg, dWo; h and g recomputed are not
-    counted), and the bytes of xd, dout and dX, the weights of the experts
-    holding a token read once and every expert's three weight gradients
-    written once."""
-    e, _, d = xd.shape
+    (dA, dX's two products, dWi, dWg, dWo), and the bytes of xd, dout and
+    dX, in bf16 the training forward's A, h and g that it reads, the
+    weights of the experts holding a token read once and every expert's
+    three weight gradients written once."""
+    e, c, d = xd.shape
     elem = xd.element_size()
-    nbytes = elem * (3 * xd.numel() + 3 * d * f * (filled + e))
+    saved = 3 * e * c * f if xd.dtype == torch.bfloat16 else 0
+    nbytes = elem * (3 * xd.numel() + saved + 3 * d * f * (filled + e))
     peak = BF16_FLOPS if xd.dtype == torch.bfloat16 else F32_FLOPS
     return bound(nbytes, 12 * rows * d * f, peak)
+
+
+def moe_train_fwd_case(label, xd, w, activation, time=True):
+    """K7's bf16 training forward (``moe_ffn_train``) at one shape: held to
+    ``moe_ffn_plain(..., residuals=True)`` (the output, and A, h and g
+    with their pad columns zero, within ``MOE_TOL``), its 128-row C tiles
+    without a token skipped (counted on the card), a second call the same
+    bits; then (``time``) timed beside the plain version, the bmm
+    composition and the bound (6 flops a dispatched row per (d, f) pair;
+    xd and the output, the weights of the experts holding a token and
+    the A, h and g it writes).  Returns (its row, what it saved)."""
+    e, c, d = xd.shape
+    f = w[0].shape[-1]
+    empty = (xd == 0).all(-1)
+    rows, filled = int((~empty).sum()), int((~empty).any(1).sum())
+    t = mops.TRAIN_TILE
+    tiles = int(sum(bool(empty[x, r:r + t].all())
+                    for x in range(e) for r in range(0, c, t)))
+    skipped = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    out, saved = mops.moe_ffn_train(xd, *w, activation=activation,
+                                    skipped=skipped)
+    ref, res = mops.moe_ffn_plain(xd, *w, activation, residuals=True)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **MOE_TOL[torch.bfloat16])
+    err = _max_err(out, ref)
+    for got, r in zip(saved[4:7], res):
+        torch.testing.assert_close(got[..., :f].float(), r.float(),
+                                   **MOE_TOL[torch.bfloat16])
+        assert bool((got[..., f:] == 0).all())
+    assert bool((out[empty] == 0).all())
+    assert int(skipped.item()) == tiles, (label, skipped, tiles)
+    again, saved2 = mops.moe_ffn_train(xd, *w, activation=activation)
+    assert torch.equal(out, again) and all(
+        torch.equal(a, b) for a, b in zip(saved, saved2)), label
+    del ref, res, again, saved2
+    row = dict(shape=label, activation=activation, E=e, C=c, d=d, f=f,
+               rows=rows, experts_with_token=filled, tiles_skipped=tiles,
+               max_abs_err=err)
+    line = (f"  moe_ffn_train {label} (E {e}, C {c}, d {d}, f {f}, "
+            f"{activation}; {rows} dispatched rows, {tiles} 128-row tiles "
+            f"skipped): max_abs_err {err:.3g} (A, h, g held too, their pad "
+            f"columns zero), a second call bit-identical")
+    if time:
+        ms, _ = time_ms(lambda: mops.moe_ffn_train(xd, *w,
+                                                   activation=activation),
+                        5, warmup=2)
+        plain_ms, _ = time_ms(lambda: mops.moe_ffn_plain(xd, *w, activation),
+                              3, warmup=1)
+        library_ms, _ = time_ms(lambda: library_moe(xd, w, activation), 5,
+                                warmup=2)
+        nbytes = 2 * (2 * xd.numel() + 3 * e * c * f + filled * 3 * d * f)
+        bound_ms, bound_by = bound(nbytes, rows * 2 * 3 * d * f, BF16_FLOPS)
+        traced = [(n, ms_) for n, ms_ in trace_rows(
+            lambda: mops.moe_ffn_train(xd, *w, activation=activation), 1)]
+        row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   kernels_ms={n[:60]: t_ for n, t_ in traced})
+        line += (f"; {ms:.4f} ms device ("
+                 + ", ".join(f"{n.split('<')[0].split('::')[-1][:40]} "
+                             f"{t_:.4f}" for n, t_ in traced)
+                 + f"); plain {plain_ms:.4f}; library (bmm, {activation}, "
+                 f"bmm, bmm) {library_ms:.4f}; bound {bound_ms:.4f} "
+                 f"({bound_by}, {6 * rows * d * f / 1e9:.1f} GFLOP)")
+    print(line)
+    return row, saved
 
 
 def moe_bwd_case(label, xd, w, dout, activation, time=True):
     """K7's backward at one shape: held to the plain backward, a bf16 call
     repeated bit for bit, each tokenless expert's weight gradients exact
-    zeros, the 64-row tiles without a token skipped (counted on the card),
-    the kernels that ran read from a trace; then (``time``) timed beside
-    the plain backward, the bmm composition's backward
-    (``torch.autograd.grad`` of one forward, the graph kept) and the
-    bound.  Returns its row."""
+    zeros, the C tiles without a token skipped (128 rows in bf16, 64 in
+    f32; counted on the card), the kernels that ran read from a trace; in
+    bf16 the training forward first held by ``moe_train_fwd_case``; then
+    (``time``) timed beside the plain backward, the bmm composition's
+    backward (``torch.autograd.grad`` of one forward, the graph kept) and
+    the bound: in bf16 the backward alone on the training forward's saved
+    A, h and g (``moe_ffn_bwd_saved``, what a training step runs), in f32
+    ``moe_ffn_bwd``.  Returns (its row, the training forward's row or
+    None)."""
     dtype = xd.dtype
     e, c, d = xd.shape
     f = w[0].shape[-1]
+    bf16 = dtype == torch.bfloat16
+    fwd_row, saved = moe_train_fwd_case(label, xd, w, activation, time) \
+        if bf16 else (None, None)
     empty = (xd == 0).all(-1)
     rows = int((~empty).sum())
     tokenless = [x for x in range(e) if bool(empty[x].all())]
     filled = e - len(tokenless)
-    tiles = int(sum(bool(empty[x, t:t + mops.BWD_TILE].all())
-                    for x in range(e) for t in range(0, c, mops.BWD_TILE)))
+    t = mops.bwd_tile(dtype)
+    tiles = int(sum(bool(empty[x, r:r + t].all())
+                    for x in range(e) for r in range(0, c, t)))
     skipped = torch.zeros((1,), dtype=torch.int32, device="cuda")
     got = mops.moe_ffn_bwd(xd, *w, dout, activation=activation,
                            skipped=skipped)
-    if dtype == torch.bfloat16:
-        again = mops.moe_ffn_bwd(xd, *w, dout, activation=activation)
+    if bf16:
+        again = mops.moe_ffn_bwd_saved(saved, dout, activation=activation)
         assert all(torch.equal(a, b) for a, b in zip(got, again)), label
         del again
     assert int(skipped.item()) == tiles, (label, skipped, tiles)
@@ -1147,23 +1224,26 @@ def moe_bwd_case(label, xd, w, dout, activation, time=True):
     ref = mops.moe_ffn_bwd_plain(xd, *w, dout, activation)
     errs = hold_moe_bwd(got, ref, dtype)
     del got, ref
-    traced = assert_moe_bwd_kernels(trace_rows(lambda: mops.moe_ffn_bwd(
-        xd, *w, dout, activation=activation), 1), dtype)
+
+    def bwd():
+        if bf16:
+            return mops.moe_ffn_bwd_saved(saved, dout, activation=activation)
+        return mops.moe_ffn_bwd(xd, *w, dout, activation=activation)
+
+    traced = assert_moe_bwd_kernels(trace_rows(bwd, 1), dtype)
     row = dict(shape=label, dtype=str(dtype)[6:], activation=activation,
                E=e, C=c, d=d, f=f, rows=rows, experts_with_token=filled,
                tiles_skipped=tiles, max_abs_err=max(errs))
     line = (f"  moe_ffn_bwd {label} (E {e}, C {c}, d {d}, f {f}, "
             f"{str(dtype)[6:]}, {activation}; {rows} dispatched rows, "
-            f"{filled} experts hold a token, {tiles} 64-row tiles skipped): "
+            f"{filled} experts hold a token, {tiles} {t}-row tiles skipped): "
             f"max_abs_err dxd {errs[0]:.3g}, dwi {errs[1]:.3g}, dwg "
             f"{errs[2]:.3g}, dwo {errs[3]:.3g} (within "
             f"{MOE_BWD_REL[dtype]:.3g} of each one's largest)"
-            + (", a second call bit-identical"
-               if dtype == torch.bfloat16 else ""))
+            + (", the backward on the saved forward bit-identical to "
+               "moe_ffn_bwd's" if bf16 else ""))
     if time:
-        ms, _ = time_ms(lambda: mops.moe_ffn_bwd(xd, *w, dout,
-                                                 activation=activation),
-                        5, warmup=2)
+        ms, _ = time_ms(bwd, 5, warmup=2)
         plain_ms, _ = time_ms(lambda: mops.moe_ffn_bwd_plain(
             xd, *w, dout, activation), 3, warmup=1)
         leaves = [t.detach().requires_grad_() for t in (xd, *w)]
@@ -1183,23 +1263,25 @@ def moe_bwd_case(label, xd, w, dout, activation, time=True):
                  f"{bound_ms:.4f} ({bound_by}, "
                  f"{12 * rows * d * f / 1e9:.1f} GFLOP)")
     print(line)
-    return row
+    return row, fwd_row
 
 
 def check_moe_ffn_bwd(phi, qwen, dbrx):
-    """K7's backward against its plain version on the card: phi-tiny-moe's
-    training shape (8,192 tokens routed top-2 over 16 experts by a random
-    router, C 1,280, one expert forced tokenless; also K7's forward timed
-    there), qwen2-moe's width (64 experts, f 1,408, 512 tokens routed
-    top-4), DBRX's f 10,752 at C 5 (16 tokens routed top-4), all bf16 and
-    silu; an odd d 37 and f 77 in f32 and bf16 under silu, gelu and relu2.
-    The cotangent is zero on every empty slot, as the combine leaves it.
-    Then a whole MoE layer's gradient at phi-tiny-moe's width taken twice
-    on the card: the dispatch gather's and the combine's backward repeat
-    bit for bit.  Returns (the backward's kernel entry, K7's forward row at
-    the training shape)."""
+    """K7's training kernels against their plain versions on the card:
+    phi-tiny-moe's training shape (8,192 tokens routed top-2 over 16
+    experts by a random router, C 1,280, one expert forced tokenless),
+    qwen2-moe's width (64 experts, f 1,408, 512 tokens routed top-4),
+    DBRX's f 10,752 at C 5 (16 tokens routed top-4), all bf16 and silu,
+    the training forward and the backward each timed (no target at the
+    last two); an odd d 37 and f 77 in f32 and bf16 under silu, gelu and
+    relu2.  The cotangent is zero on every empty slot, as the combine
+    leaves it.  Then a whole MoE layer's gradient at phi-tiny-moe's width
+    taken twice on the card: the training forward's and the backward's
+    kernels, the dispatch gather's and the combine's backward repeat bit
+    for bit.  Returns (the backward's kernel entry, the training
+    forward's)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
-    rows = []
+    rows, fwd_rows = [], []
 
     def routed(cfg, t, tokenless=()):
         mc = cfg.moe
@@ -1211,31 +1293,18 @@ def check_moe_ffn_bwd(phi, qwen, dbrx):
         dout[(xd == 0).all(-1)] = 0
         return xd, w, dout
 
-    xd, w, dout = routed(phi, 8192, tokenless=(0,))
-    rows.append(moe_bwd_case("phi-tiny-moe training shape", xd, w, dout,
-                             phi.activation))
-    # K7's forward at the same shape: what the training step launches
-    e, c, d = xd.shape
-    f = w[0].shape[-1]
-    empty = (xd == 0).all(-1)
-    n_rows, filled = int((~empty).sum()), int((~empty).any(1).sum())
-    f_ms, _ = time_ms(lambda: mops.moe_ffn(xd, *w), 5, warmup=2)
-    f_plain, _ = time_ms(lambda: mops.moe_ffn_plain(xd, *w), 3, warmup=1)
-    f_lib, _ = time_ms(lambda: library_moe(xd, w, "silu"), 3, warmup=1)
-    f_bound, f_by = bound(filled * 3 * d * f * 2 + 2 * xd.numel() * 2,
-                          n_rows * 2 * 3 * d * f, BF16_FLOPS)
-    print(f"  moe_ffn forward at phi-tiny-moe's training shape (E {e}, C {c}"
-          f", d {d}, f {f}; {n_rows} rows, {filled} experts): {f_ms:.4f} ms "
-          f"device; plain {f_plain:.4f}; library (bmm, silu, bmm, bmm) "
-          f"{f_lib:.4f}; bound {f_bound:.4f} ({f_by})")
-    fwd_row = dict(shape="phi-tiny-moe training shape", E=e, C=c, d=d, f=f,
-                   rows=n_rows, ms=f_ms, plain_ms=f_plain, library_ms=f_lib,
-                   bound_ms=f_bound, bound_by=f_by)
-    del xd, w, dout
-    for label, cfg, t in (("qwen2-moe width", qwen, 512),
-                          ("dbrx-132b width", dbrx, 16)):
-        xd, w, dout = routed(cfg, t)
-        rows.append(moe_bwd_case(label, xd, w, dout, cfg.activation))
+    def case(*args, **kw):
+        row, fwd_row = moe_bwd_case(*args, **kw)
+        rows.append(row)
+        if fwd_row is not None:
+            fwd_rows.append(fwd_row)
+
+    for label, cfg, t, tokenless in (
+            ("phi-tiny-moe training shape", phi, 8192, (0,)),
+            ("qwen2-moe width", qwen, 512, ()),
+            ("dbrx-132b width", dbrx, 16, ())):
+        xd, w, dout = routed(cfg, t, tokenless)
+        case(label, xd, w, dout, cfg.activation)
         del xd, w, dout
     for dtype in (torch.float32, torch.bfloat16):
         xd = torch.randn((3, 70, 37), generator=gen, device="cuda")
@@ -1247,24 +1316,36 @@ def check_moe_ffn_bwd(phi, qwen, dbrx):
         dout = torch.randn(xd.shape, generator=gen, device="cuda")
         dout[(xd == 0).all(-1)] = 0
         for act in ("silu", "gelu", "relu2"):
-            rows.append(moe_bwd_case(
-                "odd d 37 and f 77", xd.to(dtype), w, dout.to(dtype), act,
-                time=False))
+            case("odd d 37 and f 77", xd.to(dtype), w, dout.to(dtype), act,
+                 time=False)
     check_moe_layer_grad_repeats(phi, gen)
     torch.cuda.synchronize()
-    main = rows[0]
-    return dict(name="moe_ffn_bwd", route="cuda",
-                source="src/repro_torch/csrc/moe_ffn.cu",
-                replaces="src/repro/models/moe.py:77",
-                note="no Pallas counterpart: the JAX package differentiates "
-                "moe.expert_ffn (three einsums) with XLA; this is that "
-                "gradient", max_abs_err=max(r["max_abs_err"] for r in rows),
-                ms=main["ms"], plain_ms=main["plain_ms"],
-                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=main["library_ms"],
-                library_backend="torch.autograd.grad of the bmm composition "
-                "(bmm, act, bmm, bmm), the graph kept", shape=main["shape"],
-                by_shape=rows), fwd_row
+    main, fwd = rows[0], fwd_rows[0]
+    bwd_entry = dict(
+        name="moe_ffn_bwd", route="cuda",
+        source="src/repro_torch/csrc/moe_ffn.cu",
+        replaces="src/repro/models/moe.py:77",
+        note="no Pallas counterpart: the JAX package differentiates "
+        "moe.expert_ffn (three einsums) with XLA; this is that gradient, "
+        "in bf16 read from the training forward's A, h and g",
+        max_abs_err=max(r["max_abs_err"] for r in rows), ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=main["library_ms"],
+        library_backend="torch.autograd.grad of the bmm composition (bmm, "
+        "act, bmm, bmm), the graph kept", shape=main["shape"], by_shape=rows)
+    fwd_entry = dict(
+        name="moe_ffn_train", route="cuda",
+        source="src/repro_torch/csrc/moe_ffn.cu",
+        replaces="src/repro/kernels/moe_ffn/kernel.py:53",
+        note="K7's forward on the training path (bf16 under grad): 128-row "
+        "tiles on wgmma, writing A, h and g for the backward; calls "
+        "without a gradient keep moe_ffn's decode kernels",
+        max_abs_err=max(r["max_abs_err"] for r in fwd_rows), ms=fwd["ms"],
+        plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
+        bound_by=fwd["bound_by"], library_ms=fwd["library_ms"],
+        library_backend="the bmm composition (bmm, act, bmm, bmm)",
+        shape=fwd["shape"], by_shape=fwd_rows)
+    return bwd_entry, fwd_entry
 
 
 def check_moe_layer_grad_repeats(cfg, gen):
@@ -1785,34 +1866,57 @@ def hold_training(ref, run, dtype, lr):
     return dict(moments=worst_mom, worst=worst, off=off, total=total)
 
 
-#: K7's backward kernels, as the trace names them up to their template
-#: arguments (the dtype first): the gate pass (A, dH, dG), dX, the weights
-MOE_BWD_KERNELS = ("moe_bwd_gate_kernel", "moe_bwd_dx_kernel",
-                   "moe_bwd_dw_kernel")
-MOE_BWD_TYPE = {torch.bfloat16: "__nv_bfloat16", torch.float32: "float"}
+#: K7's backward kernels for each dtype, as the trace names them: bf16
+#: on wgmma (dA with dH and dG, dX, dWi and dWg, dWo), f32 on the CUDA
+#: cores (the gate pass recomputing h and g, dX, the weights)
+MOE_BWD_KERNELS = {
+    torch.bfloat16: ("moe_bwd_dgate_wgmma_kernel", "moe_bwd_dx_wgmma_kernel",
+                     "moe_bwd_dw_wgmma_kernel", "moe_bwd_dwo_wgmma_kernel"),
+    torch.float32: ("moe_bwd_gate_f32_kernel", "moe_bwd_dx_f32_kernel",
+                    "moe_bwd_dw_f32_kernel")}
+#: K7's forward kernels under grad: bf16's training forward, f32's decode
+#: kernels; and the bf16 decode kernels, which training must not run
+MOE_FWD_KERNELS = {
+    torch.bfloat16: ("moe_train_flags_kernel", "moe_train_gate_wgmma_kernel",
+                     "moe_train_down_wgmma_kernel"),
+    torch.float32: ("gate_up_f32_kernel", "down_f32_kernel")}
+MOE_DECODE_BF16 = ("gate_up_mma_kernel", "down_mma_kernel")
 
 
 def assert_moe_bwd_kernels(rows, dtype):
-    """K7's backward kernels in a trace's rows are ``dtype``'s, each of the
-    three ran, and no other dtype's; returns their rows."""
+    """K7's backward kernels in a trace's rows are ``dtype``'s, each of
+    them ran, and no other (PR 25's bf16 mma.sync kernels are gone);
+    returns their rows."""
     names = [n for n, _ in rows if "moe_bwd_" in n]
-    ran = {k for k in MOE_BWD_KERNELS for n in names
-           if f"{k}<{MOE_BWD_TYPE[dtype]}" in n}
-    stray = [n for n in names
-             if not any(f"{k}<{MOE_BWD_TYPE[dtype]}" in n
-                        for k in MOE_BWD_KERNELS)]
-    assert ran == set(MOE_BWD_KERNELS) and not stray, (dtype, names)
+    want = MOE_BWD_KERNELS[dtype]
+    ran = {k for k in want for n in names if k in n}
+    stray = [n for n in names if not any(k in n for k in want)]
+    assert ran == set(want) and not stray, (dtype, names)
     return [(n, ms) for n, ms in rows if "moe_bwd_" in n]
 
 
-def expected_training_launches(cfg, steps):
+def assert_moe_fwd_kernels(rows, dtype):
+    """K7's forward kernels under grad in a trace's rows: ``dtype``'s
+    (bf16: the training forward's three), and not the bf16 decode
+    kernels; returns their rows."""
+    want = MOE_FWD_KERNELS[dtype]
+    names = [n for n, _ in rows]
+    assert all(any(k in n for n in names) for k in want), (dtype, names)
+    assert not any(k in n for k in MOE_DECODE_BF16 for n in names), names
+    return [(n, ms) for n, ms in rows if any(k in n for k in want)]
+
+
+def expected_training_launches(cfg, steps, dtype=torch.bfloat16):
     """What a training run of ``steps`` steps launches: K4's forward twice
     an attention layer a step (the pass and the recompute) and its
-    backward once, K7's the same for each MoE layer, nothing else."""
+    backward once, K7's the same for each MoE layer (its forward the
+    training forward in bf16, the decode kernels' in f32), nothing
+    else."""
     L, moe = cfg.num_layers, cfg.num_moe_layers
+    fwd = "moe_ffn_train" if dtype == torch.bfloat16 else "moe_ffn"
     return dict({n: 0 for n in COUNTERS}, prefill_attention=2 * L * steps,
-                prefill_attention_bwd=L * steps, moe_ffn=2 * moe * steps,
-                moe_ffn_bwd=moe * steps)
+                prefill_attention_bwd=L * steps, moe_ffn_bwd=moe * steps,
+                **{fwd: 2 * moe * steps})
 
 
 class Routing:
@@ -1930,7 +2034,8 @@ def check_reduced_training(arch="h2o-danube-3-4b", dtype=torch.float32,
             runs.append(run)
             state = run[3]
     launches = {name: fn.launches for name, fn in COUNTERS.items()}
-    assert launches == expected_training_launches(cfg, steps), launches
+    assert launches == expected_training_launches(cfg, steps, dtype), \
+        launches
     assert all(t.dtype == p.dtype for t, p in zip(runs[-1][1], tree_leaves(
         params))), {t.dtype for t in runs[-1][1]}
     # the backward's kernels for the dtype ran, the other dtype's did not
@@ -1938,6 +2043,7 @@ def check_reduced_training(arch="h2o-danube-3-4b", dtype=torch.float32,
     ran = assert_bwd_kernels(rows, dtype)
     if cfg.moe:
         ran += assert_moe_bwd_kernels(rows, dtype)
+        ran += assert_moe_fwd_kernels(rows, dtype)
     else:
         assert not any("moe_" in n for n, _ in rows), rows
     name = str(dtype).removeprefix("torch.")
@@ -2148,9 +2254,10 @@ def train_path(arch="h2o-danube-3-4b", steps=5, batch=1, seq_len=8192,
     assert_bwd_kernels(rows, torch.bfloat16)
     if moe_layers:
         assert_moe_bwd_kernels(rows, torch.bfloat16)
+        assert_moe_fwd_kernels(rows, torch.bfloat16)
     busy = sum(ms for _, ms in rows)
     split = {"k4_forward_ms": "flash_prefill", "k4_backward_ms": "flash_bwd",
-             "k7_forward_ms": ("gate_up_mma_kernel", "down_mma_kernel"),
+             "k7_forward_ms": ("moe_train_", "moe_pad_rows"),
              "k7_backward_ms": "moe_bwd_"}
     parts = {k: sum(ms for n, ms in rows
                     if any(w in n for w in ((v,) if isinstance(v, str)
@@ -2338,7 +2445,8 @@ COUNTERS = {"paged_decode_partials": pops.paged_decode_partials,
             "copy_blocks": hops.copy_blocks,
             "moe_ffn": mops.moe_ffn,
             "prefill_attention_bwd": fops.prefill_attention_bwd,
-            "moe_ffn_bwd": mops.moe_ffn_bwd}
+            "moe_ffn_bwd": mops.moe_ffn_bwd,
+            "moe_ffn_train": mops.moe_ffn_train}
 
 
 #: what one eviction may put on the card: K6 (twice), K2 and K3 (a
@@ -2441,6 +2549,10 @@ def main_path(arch, bs, kernels_of_path, *, num_requests=6, local_slots=10,
         assert kv["allocated"] == 0, kv
         assert not any(launches.values()), launches
     assert all(launches[n] > 0 for n in kernels_of_path), launches
+    # serving runs no backward and no training forward
+    assert not any(launches[n] for n in ("prefill_attention_bwd",
+                                         "moe_ffn_bwd", "moe_ffn_train")), \
+        launches
     stats.check_clock_identity()
     for h in served:
         assert all(0 <= tok < full.vocab_size for tok in h.tokens)
@@ -2562,10 +2674,7 @@ def main() -> int:
     next(k for k in kernels if k["name"] == "prefill_attention")[
         "training_forward_with_lse"] = k4_train_fwd
     phi = get_config("phi-tiny-moe")
-    k7_bwd, k7_train_fwd = check_moe_ffn_bwd(phi, moe, get_config(DBRX))
-    kernels.append(k7_bwd)
-    next(k for k in kernels if k["name"] == "moe_ffn")[
-        "training_forward"] = k7_train_fwd
+    kernels += check_moe_ffn_bwd(phi, moe, get_config(DBRX))
     tolerance = {"paged_decode_partials": "rtol 1e-4, atol 1e-4 (f32 sums "
                  "in another order)", "quantize_demote": "bit-identical",
                  "dequantize_reload": "bit-identical",
@@ -2581,7 +2690,10 @@ def main() -> int:
                  "sums taken in another order)",
                  "moe_ffn_bwd": "bf16 2^-7, f32 1e-5 of each gradient's "
                  "largest entry (dA, dH, dG rounded from sums in another "
-                 "order than cuBLAS's); bf16 repeats bit for bit"}
+                 "order than cuBLAS's); bf16 repeats bit for bit",
+                 "moe_ffn_train": "bf16 rtol 1.6e-2, atol 2^-7, the output "
+                 "and A, h, g alike (sums in another order than cuBLAS); "
+                 "repeats bit for bit"}
     for k in kernels:
         print(f"kernel {k['name']}: ms {k['ms']:.5f}  plain_ms "
               f"{k['plain_ms']:.5f}  library_ms {k['library_ms']}  bound_ms "

@@ -79,6 +79,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -1307,42 +1309,6 @@ struct StageMeta {
   int t0, cls;
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile("{\n .reg .pred p;\n"
-                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 " selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-// one box of a 4-D map (columns, heads, positions, batch) into shared
-// memory at dst, its bytes completing on bar; zeros outside the tensor
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3), "r"(bar) : "memory");
-}
-
 // the consumers take turns to start their products (named barriers 1 and
 // 2, each passed by its own warpgroup's bar.sync and the other's
 // bar.arrive), so one's exponentials overlap the other's products
@@ -1351,43 +1317,6 @@ __device__ __forceinline__ void turn_wait(int w) {
 }
 __device__ __forceinline__ void turn_pass(int w) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - w) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// registers that an asynchronous wgmma reads or writes: pinned here, after
-// its wait, so that the compiler neither reads them earlier nor reuses
-// them while it runs
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-__device__ __forceinline__ void pin(uint32_t (&r)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// the wgmma descriptor of a tile in shared memory as TMA wrote it with the
-// 128-byte swizzle: rows of 128 bytes in 1,024-byte atoms of 8 rows, the
-// atom 1,024-aligned.  Stride byte offset 1,024 (the next 8 rows: of M or
-// N for a K-major operand, of K for an MN-major one), leading byte offset
-// unused (no operand here is wider than one 128-byte row along its
-// contiguous dimension), layout 1 (128-byte swizzle).  A K-major operand
-// steps along K by adding 32 bytes a k16 step inside the 128-byte row.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
-         | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
 #define WG_D32                                                              \
@@ -2136,32 +2065,6 @@ cudaError_t launch_prep(const void* q, const void* o, const void* dout,
         static_cast<const __nv_bfloat16*>(dout),
         static_cast<__nv_bfloat16*>(qs), delta, n_rows, sq, nq, hd, scale);
   return cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
 }
 
 // a map of a contiguous bf16 (b, len, heads, hd) tensor as the 4-D

@@ -2,8 +2,9 @@
 libraries with a plain C interface, and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so`` (the hash
-covers the source and the flags, so an edited source is rebuilt), built at
-first use.  :func:`build_all` starts one ``nvcc`` per source at once.
+covers the source, the headers of ``csrc`` and the flags, so an edited
+source or header is rebuilt), built at first use.  :func:`build_all`
+starts one ``nvcc`` per source at once.
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

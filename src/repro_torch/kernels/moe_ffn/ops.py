@@ -9,10 +9,15 @@ by op), so in bf16 they agree with it to a rounding step and in f32 with
 the Pallas kernel ``repro/kernels/moe_ffn/kernel.py::moe_ffn``.
 
 When grad mode is on and an operand requires grad, ``moe_ffn`` goes
-through ``MoeFFN``, a ``torch.autograd.Function`` whose backward is
-``moe_ffn_bwd``: the backward kernels on a CUDA tensor, ``moe_ffn_bwd_plain``
-on the CPU.  The JAX package has no backward kernel (XLA differentiates
-``expert_ffn``); this one computes that gradient.
+through ``MoeFFN``, a ``torch.autograd.Function``.  On a CUDA bf16 tensor
+its forward is ``moe_ffn_train``, the training forward (128-row tiles on
+wgmma), which also keeps A = act(g) * h, h and g, and its backward the
+kernels that read them instead of recomputing h and g; every call without
+a gradient keeps the decode kernels.  In f32 the forward is the decode
+kernels' and the backward ``moe_ffn_bwd`` recomputes h and g.  On the CPU
+the plain forward returns (A, h, g) beside its output and the plain
+backward consumes them.  The JAX package has no backward kernel (XLA
+differentiates ``expert_ffn``); these compute that gradient.
 """
 from __future__ import annotations
 
@@ -34,7 +39,11 @@ def _kernels():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.moe_ffn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p, p]
     lib.moe_ffn.restype = i
-    lib.moe_ffn_bwd.argtypes = [p] * 13 + [i] * 7 + [p, p]
+    lib.moe_ffn_train.argtypes = [p] * 13 + [i] * 5 + [p, p]
+    lib.moe_ffn_train.restype = i
+    lib.moe_ffn_bwd_train.argtypes = [p] * 16 + [i] * 5 + [p, p]
+    lib.moe_ffn_bwd_train.restype = i
+    lib.moe_ffn_bwd.argtypes = [p] * 13 + [i] * 6 + [p, p]
     lib.moe_ffn_bwd.restype = i
     lib.moe_ffn_error_string.argtypes = [i]
     lib.moe_ffn_error_string.restype = ctypes.c_char_p
@@ -64,13 +73,22 @@ def _check(xd, wi, wg, wo, activation: str) -> None:
         raise ValueError(f"moe_ffn: every operand must be on {xd.device}")
 
 
-def moe_ffn_plain(xd, wi, wg, wo, activation: str = "silu"):
-    """The JAX model's ``expert_ffn`` in PyTorch: each einsum sums in f32
-    and rounds to the working dtype, as does each op of the activation."""
+def _plain_residuals(xd, wi, wg, activation):
     act = _activation(activation)
     h = torch.einsum("ecd,edf->ecf", xd, wi)
     g = torch.einsum("ecd,edf->ecf", xd, wg)
-    return torch.einsum("ecf,efd->ecd", act(g) * h, wo)
+    return act(g) * h, h, g
+
+
+def moe_ffn_plain(xd, wi, wg, wo, activation: str = "silu", *,
+                  residuals: bool = False):
+    """The JAX model's ``expert_ffn`` in PyTorch: each einsum sums in f32
+    and rounds to the working dtype, as does each op of the activation.
+    ``residuals``: return ``(out, (A, h, g))``, the rounded h = xd wi,
+    g = xd wg and A = act(g) * h that the backward reads."""
+    a, h, g = _plain_residuals(xd, wi, wg, activation)
+    out = torch.einsum("ecf,efd->ecd", a, wo)
+    return (out, (a, h, g)) if residuals else out
 
 
 def _activation_grad(name: str):
@@ -91,19 +109,20 @@ def _activation_grad(name: str):
     return {"silu": silu, "gelu": gelu, "relu2": relu2}[name]
 
 
-def moe_ffn_bwd_plain(xd, wi, wg, wo, dout, activation: str = "silu"):
+def moe_ffn_bwd_plain(xd, wi, wg, wo, dout, activation: str = "silu", *,
+                      saved=None):
     """The gradient (dxd, dwi, dwg, dwo) of ``moe_ffn_plain`` at cotangent
     ``dout`` (E, C, d), rounding where the kernel rounds: h, g, act(g)
-    and A = act(g) * h as the forward rounds them (recomputed from xd);
-    dA = dout wo^T, dH = dA * act(g), dX = dH wi^T + dG wg^T (one f32 sum),
-    dWi = xd^T dH, dWg = xd^T dG and dWo = A^T dout, each product summed in
-    f32 and rounded once to the dtype; dG = dA * h * act'(g) in f32 from
-    the rounded factors, rounded once.  In f32 the roundings vanish."""
-    act = _activation(activation)
-    h = torch.einsum("ecd,edf->ecf", xd, wi)
-    g = torch.einsum("ecd,edf->ecf", xd, wg)
-    ag = act(g)
-    a = ag * h
+    and A = act(g) * h as the forward rounds them (recomputed from xd, or
+    ``saved``: the ``(A, h, g)`` of ``moe_ffn_plain(..., residuals=True)``,
+    which gives the same bits); dA = dout wo^T, dH = dA * act(g),
+    dX = dH wi^T + dG wg^T (one f32 sum), dWi = xd^T dH, dWg = xd^T dG and
+    dWo = A^T dout, each product summed in f32 and rounded once to the
+    dtype; dG = dA * h * act'(g) in f32 from the rounded factors, rounded
+    once.  In f32 the roundings vanish."""
+    a, h, g = saved if saved is not None else _plain_residuals(
+        xd, wi, wg, activation)
+    ag = _activation(activation)(g)
     da = torch.einsum("ecd,efd->ecf", dout, wo)
     dh = da * ag
     dg = (da.float() * h.float()
@@ -150,28 +169,180 @@ def _launch(xd, wi, wg, wo, activation, skipped):
     return out
 
 
+#: rows of a C tile of the bf16 training kernels (the training forward and
+#: the bf16 backward): the granularity of their flags and of their skip
+TRAIN_TILE = 128
+#: rows of a C tile of the f32 backward kernels
+F32_BWD_TILE = 64
+
+
+def bwd_tile(dtype) -> int:
+    """Rows of the C tiles that ``moe_ffn_bwd`` skips and counts in
+    ``dtype``."""
+    return TRAIN_TILE if dtype == torch.bfloat16 else F32_BWD_TILE
+
+
+def _padded_like(t):
+    """None if TMA can read ``t`` as it is (rows of a multiple of 8 values,
+    its start on 16 bytes), else a workspace of its shape with rows of the
+    next multiple of 8, which the kernels fill with it and zero columns."""
+    w = t.shape[-1]
+    if w % 8 == 0 and t.data_ptr() % 16 == 0:
+        return None
+    return torch.empty((*t.shape[:-1], -(-w // 8) * 8), dtype=t.dtype,
+                       device=t.device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _train_launch(xd, wi, wg, wo, activation, skipped):
+    """The bf16 training forward on CUDA tensors (not counted).  Returns
+    (out, saved): saved is what the backward reads, (x, wi, wg, wo as the
+    kernels read them (their rows padded to 8 values where they were not),
+    A, h, g (E, C, fp), the C tiles' flags (E, ceil(C / 128)))."""
+    if not all(t.is_contiguous() for t in (xd, wi, wg, wo)):
+        raise ValueError("moe_ffn: operands must be contiguous")
+    e, c, d = xd.shape
+    f = wi.shape[-1]
+    fp = -(-f // 8) * 8
+    pads = [_padded_like(t) for t in (xd, wi, wg, wo)]
+    out = torch.empty_like(xd)
+    aw, hw, gw = (torch.empty((e, c, fp), dtype=xd.dtype, device=xd.device)
+                  for _ in range(3))
+    flags = torch.empty((e, -(-c // TRAIN_TILE)), dtype=torch.int32,
+                        device=xd.device)
+    saved = (*(t if pad is None else pad
+               for t, pad in zip((xd, wi, wg, wo), pads)), aw, hw, gw, flags)
+    if f == 0 or xd.numel() == 0:
+        for t in (out, aw, hw, gw, flags):
+            t.zero_()
+        return out, saved
+    lib = _kernels()
+    with torch.cuda.device(xd.device):
+        rc = lib.moe_ffn_train(
+            xd.data_ptr(), wi.data_ptr(), wg.data_ptr(), wo.data_ptr(),
+            *(_ptr(t) for t in pads), aw.data_ptr(), hw.data_ptr(),
+            gw.data_ptr(), flags.data_ptr(), out.data_ptr(), e, c, d, f,
+            _ACT_CODE[activation],
+            None if skipped is None else skipped.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError("moe_ffn_train: launch failed: "
+                           + lib.moe_ffn_error_string(rc).decode())
+    return out, saved
+
+
+def moe_ffn_train(xd, wi, wg, wo, *, activation: str = "silu",
+                  skipped=None):
+    """The forward that a training step runs, and what its backward
+    (``moe_ffn_bwd_saved``) reads.  On a bf16 CUDA tensor one call
+    launches the pads of the operands whose rows TMA cannot read, the
+    flags pass, gate-up and down (128-row C tiles on wgmma) and counts one
+    launch; a 128-row tile of xd that is all zero reads no weight and
+    gives zeros, and ``skipped`` (as ``moe_ffn``'s) counts those (expert,
+    128-row tile) pairs.  On the CPU the plain forward, saving (xd, wi,
+    wg, wo, A, h, g).  f32 on the card trains on ``moe_ffn``'s kernels."""
+    _check(xd, wi, wg, wo, activation)
+    _check_skipped(skipped, xd)
+    if xd.device.type == "cpu":
+        out, res = moe_ffn_plain(xd, wi, wg, wo, activation, residuals=True)
+        return out, (xd, wi, wg, wo, *res)
+    if xd.dtype != torch.bfloat16:
+        raise ValueError("moe_ffn_train: takes bf16 on the card; got "
+                         f"{xd.dtype}")
+    out, saved = _train_launch(xd, wi, wg, wo, activation, skipped)
+    moe_ffn_train.launches += 1
+    return out, saved
+
+
+#: kernel launches since the count was last set to 0
+moe_ffn_train.launches = 0
+
+
+def moe_ffn_bwd_saved(saved, dout, *, activation: str = "silu",
+                      skipped=None):
+    """The gradient (dxd, dwi, dwg, dwo) at cotangent ``dout`` (E, C, d)
+    from what ``moe_ffn_train`` saved.  On the card (bf16) one call
+    launches the backward's four kernels on wgmma (dA with dH and dG from
+    the saved h and g; dX; dWi and dWg; dWo) and counts one
+    ``moe_ffn_bwd`` launch; ``skipped`` counts the (expert, 128-row tile)
+    pairs without a token.  On the CPU ``moe_ffn_bwd_plain`` on the saved
+    A, h and g."""
+    if dout.device.type == "cpu":
+        xd, wi, wg, wo, *res = saved
+        return moe_ffn_bwd_plain(xd, wi, wg, wo, dout, activation, saved=res)
+    xp, wip, wgp, wop, aw, hw, gw, flags = saved
+    e, c, _ = xp.shape
+    d, fp = wip.shape[1:]
+    f = wop.shape[1]
+    if activation not in _ACT_CODE:
+        raise ValueError(f"moe_ffn_bwd_saved: unknown activation "
+                         f"{activation!r}")
+    _check_skipped(skipped, dout)
+    if dout.shape != (e, c, d) or dout.dtype != torch.bfloat16 \
+            or dout.device != xp.device:
+        raise ValueError(f"moe_ffn_bwd_saved: dout {tuple(dout.shape)} "
+                         f"{dout.dtype} does not match the saved forward")
+    dx = torch.empty((e, c, d), dtype=xp.dtype, device=xp.device)
+    dwi, dwg = (torch.empty((e, d, f), dtype=xp.dtype, device=xp.device)
+                for _ in range(2))
+    dwo = torch.empty((e, f, d), dtype=xp.dtype, device=xp.device)
+    if f == 0 or dx.numel() == 0:
+        return tuple(t.zero_() for t in (dx, dwi, dwg, dwo))
+    dout = dout.contiguous()
+    dyp = _padded_like(dout)
+    dh, dg = (torch.empty((e, c, fp), dtype=xp.dtype, device=xp.device)
+              for _ in range(2))
+    lib = _kernels()
+    with torch.cuda.device(xp.device):
+        rc = lib.moe_ffn_bwd_train(
+            xp.data_ptr(), wip.data_ptr(), wgp.data_ptr(), wop.data_ptr(),
+            aw.data_ptr(), hw.data_ptr(), gw.data_ptr(), flags.data_ptr(),
+            dout.data_ptr(), _ptr(dyp), dh.data_ptr(), dg.data_ptr(),
+            dx.data_ptr(), dwi.data_ptr(), dwg.data_ptr(), dwo.data_ptr(),
+            e, c, d, f, _ACT_CODE[activation],
+            None if skipped is None else skipped.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError("moe_ffn_bwd: launch failed: "
+                           + lib.moe_ffn_error_string(rc).decode())
+    moe_ffn_bwd.launches += 1
+    return dx, dwi, dwg, dwo
+
+
 class MoeFFN(torch.autograd.Function):
-    """``moe_ffn`` with a gradient.  The forward is the kernel pair on a
-    CUDA tensor and the plain version on the CPU, and saves its four
-    operands (h and g are recomputed in the backward, not saved); the
-    backward is ``moe_ffn_bwd``.  Under ``torch.utils.checkpoint`` the
-    forward runs again in the backward pass (a second launch)."""
+    """``moe_ffn`` with a gradient.  On the CPU and on a CUDA bf16 tensor
+    the forward is ``moe_ffn_train``, which saves what its backward
+    ``moe_ffn_bwd_saved`` reads (A, h and g instead of a recompute; on the
+    card also the padded operands and the tiles' flags); in f32 on the
+    card it is the decode kernels, saving the operands for ``moe_ffn_bwd``,
+    which recomputes h and g.  Under ``torch.utils.checkpoint`` the
+    forward runs again in the backward pass (a second launch), and what it
+    saves lives only until that block's backward."""
 
     @staticmethod
     def forward(ctx, xd, wi, wg, wo, activation, skipped):
-        if xd.device.type == "cpu":
-            out = moe_ffn_plain(xd, wi, wg, wo, activation)
+        ctx.activation = activation
+        ctx.kept = xd.device.type == "cpu" or xd.dtype == torch.bfloat16
+        if ctx.kept:
+            out, saved = moe_ffn_train(xd, wi, wg, wo, activation=activation,
+                                       skipped=skipped)
+            ctx.save_for_backward(*saved)
         else:
             out = _launch(xd, wi, wg, wo, activation, skipped)
-        ctx.save_for_backward(xd, wi, wg, wo)
-        ctx.activation = activation
+            ctx.save_for_backward(xd, wi, wg, wo)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        xd, wi, wg, wo = ctx.saved_tensors
-        grads = moe_ffn_bwd(xd, wi, wg, wo, dout.contiguous(),
-                            activation=ctx.activation)
+        saved = ctx.saved_tensors
+        if ctx.kept:
+            grads = moe_ffn_bwd_saved(saved, dout, activation=ctx.activation)
+        else:
+            grads = moe_ffn_bwd(*saved, dout.contiguous(),
+                                activation=ctx.activation)
         return (*grads, None, None)
 
 
@@ -183,7 +354,9 @@ def moe_ffn(xd, wi, wg, wo, *, activation: str = "silu", skipped=None):
     one-element int32 tensor on the card to which the kernel adds the
     number of (expert, 16-row tile) pairs it skipped; it takes no part in
     the gradient.  With grad mode on and an operand requiring grad it goes
-    through ``MoeFFN``, whose backward is a kernel too."""
+    through ``MoeFFN`` (in bf16 on the card the training forward, counted
+    as ``moe_ffn_train``'s launch, its tiles 128 rows), whose backward is
+    a kernel too."""
     _check(xd, wi, wg, wo, activation)
     _check_skipped(skipped, xd)
     if torch.is_grad_enabled() and any(t.requires_grad
@@ -197,21 +370,20 @@ def moe_ffn(xd, wi, wg, wo, *, activation: str = "silu", skipped=None):
 #: kernel launches since the count was last set to 0
 moe_ffn.launches = 0
 
-#: rows of a C tile of the backward kernels: the granularity of their skip
-BWD_TILE = 64
-
 
 def moe_ffn_bwd(xd, wi, wg, wo, dout, *, activation: str = "silu",
                 skipped=None):
     """The gradient (dxd, dwi, dwg, dwo) of ``moe_ffn`` at cotangent
-    ``dout`` (E, C, d).  On a CUDA tensor one call launches the backward's
-    four kernels (A, dH and dG from recomputed h and g; dX; dWi and dWg;
-    dWo: bf16 on the tensor cores, f32 on the CUDA cores) and counts one
-    launch; no kernel adds with atomics, so a second call gives the same
-    bits.  A 64-row tile of xd that is all zero adds nothing and is
-    skipped; an expert without a token gets zero weight gradients without
-    a weight being read.  ``skipped``: as ``moe_ffn``'s, counting (expert,
-    64-row tile) pairs.  On the CPU it runs ``moe_ffn_bwd_plain``."""
+    ``dout`` (E, C, d).  On a CUDA tensor one call counts one launch.  In
+    bf16 it launches the training forward (for A, h and g) and then the
+    backward's four kernels on wgmma (dA with dH and dG; dX; dWi and dWg;
+    dWo); in f32 four kernels on the CUDA cores that recompute h and g
+    first.  No kernel adds with atomics, so a second call gives the same
+    bits.  A C tile of xd that is all zero (128 rows in bf16, 64 in f32:
+    ``bwd_tile``) adds nothing and is skipped; an expert without a token
+    gets zero weight gradients without a weight being read.  ``skipped``:
+    as ``moe_ffn``'s, counting the backward's (expert, tile) pairs.  On
+    the CPU it runs ``moe_ffn_bwd_plain``."""
     _check(xd, wi, wg, wo, activation)
     _check_skipped(skipped, xd)
     if dout.shape != xd.shape or dout.dtype != xd.dtype \
@@ -224,6 +396,10 @@ def moe_ffn_bwd(xd, wi, wg, wo, dout, *, activation: str = "silu",
         return moe_ffn_bwd_plain(xd, wi, wg, wo, dout, activation)
     if not all(t.is_contiguous() for t in (xd, wi, wg, wo, dout)):
         raise ValueError("moe_ffn_bwd: operands must be contiguous")
+    if xd.dtype == torch.bfloat16:
+        _, saved = _train_launch(xd, wi, wg, wo, activation, None)
+        return moe_ffn_bwd_saved(saved, dout, activation=activation,
+                                 skipped=skipped)
     e, c, d = xd.shape
     f = wi.shape[-1]
     dx, dwi, dwg, dwo = (torch.empty_like(t) for t in (xd, wi, wg, wo))
@@ -232,7 +408,7 @@ def moe_ffn_bwd(xd, wi, wg, wo, dout, *, activation: str = "silu",
     fp = -(-f // 8) * 8
     aw, dh, dg = (torch.empty((e, c, fp), dtype=xd.dtype, device=xd.device)
                   for _ in range(3))
-    flags = torch.empty((e, -(-c // BWD_TILE)), dtype=torch.int32,
+    flags = torch.empty((e, -(-c // F32_BWD_TILE)), dtype=torch.int32,
                         device=xd.device)
     lib = _kernels()
     with torch.cuda.device(xd.device):
@@ -240,8 +416,7 @@ def moe_ffn_bwd(xd, wi, wg, wo, dout, *, activation: str = "silu",
             xd.data_ptr(), wi.data_ptr(), wg.data_ptr(), wo.data_ptr(),
             dout.data_ptr(), dx.data_ptr(), dwi.data_ptr(), dwg.data_ptr(),
             dwo.data_ptr(), aw.data_ptr(), dh.data_ptr(), dg.data_ptr(),
-            flags.data_ptr(), e, c, d, f, fp, _DTYPE_CODE[xd.dtype],
-            _ACT_CODE[activation],
+            flags.data_ptr(), e, c, d, f, fp, _ACT_CODE[activation],
             None if skipped is None else skipped.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:

@@ -702,8 +702,9 @@ def test_moe_ffn_bwd_kernel_matches_plain(cuda, dtype, activation, shape):
     dx, dwi, dwg, dwo = got
     for g in (dwi[1], dwg[1], dwo[1], dx[1], dx[:, -5:]):
         assert torch.all(g == 0)
-    # expert 1's 64-row tiles are skipped, and none of the others'
-    assert int(skipped.item()) == (c + 63) // 64
+    # expert 1's C tiles (128 rows in bf16, 64 in f32) are skipped, and
+    # none of the others'
+    assert int(skipped.item()) == -(-c // mops.bwd_tile(dtype))
     again = mops.moe_ffn_bwd(*args, activation=activation)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
@@ -711,9 +712,10 @@ def test_moe_ffn_bwd_kernel_matches_plain(cuda, dtype, activation, shape):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_moe_ffn_bwd_skips_empty_tiles(cuda, dtype):
     """Experts filled to 0, 1, 64, 65 and 200 of 200 rows (the dispatch
-    buffer fills each from row 0): each skips its 64-row tiles past its
-    last token (counted on the card) and still matches the plain version;
-    an expert without a token gets zero weight gradients."""
+    buffer fills each from row 0): each skips its C tiles past its last
+    token (128 rows in bf16, 64 in f32; counted on the card) and still
+    matches the plain version; an expert without a token gets zero weight
+    gradients."""
     filled = (0, 1, 64, 65, 200)
     e, c, d, f = len(filled), 200, 128, 96
     xd, wi, wg, wo, dout = _bwd_inputs(41, e, c, d, f, dtype, tail=0,
@@ -725,25 +727,143 @@ def test_moe_ffn_bwd_skips_empty_tiles(cuda, dtype):
     got = mops.moe_ffn_bwd(xd, wi, wg, wo, dout, skipped=skipped)
     ref = mops.moe_ffn_bwd_plain(xd, wi, wg, wo, dout)
     _assert_bwd_close(got, ref, dtype)
-    tiles = sum(4 - (n + 63) // 64 for n in filled)
+    t = mops.bwd_tile(dtype)
+    tiles = sum(-(-c // t) + (-n // t) for n in filled)
+    assert tiles == {64: 12, 128: 5}[t]
     assert int(skipped.item()) == tiles
     assert all(torch.all(g[0] == 0) for g in got)
 
 
 def test_moe_ffn_gradient_on_cuda(cuda):
     """``moe_ffn`` on CUDA tensors that require grad goes through
-    ``MoeFFN``: one forward launch, one backward launch, and the gradient
-    that arrives equals ``moe_ffn_bwd_plain``'s within the backward's
-    tolerance."""
+    ``MoeFFN``: one training-forward launch (not the decode kernels'), one
+    backward launch, and the gradient that arrives equals
+    ``moe_ffn_bwd_plain``'s within the backward's tolerance."""
     args = _bwd_inputs(42, 3, 40, 64, 48, torch.bfloat16)
     leaves = [t.clone().requires_grad_() for t in args[:4]]
-    f0, b0 = mops.moe_ffn.launches, mops.moe_ffn_bwd.launches
+    counts = (mops.moe_ffn.launches, mops.moe_ffn_train.launches,
+              mops.moe_ffn_bwd.launches)
     out = mops.moe_ffn(*leaves)
     got = torch.autograd.grad(out, leaves, args[4])
     torch.cuda.synchronize()
-    assert (mops.moe_ffn.launches, mops.moe_ffn_bwd.launches) == (f0 + 1,
-                                                                  b0 + 1)
+    assert (mops.moe_ffn.launches, mops.moe_ffn_train.launches,
+            mops.moe_ffn_bwd.launches) == (counts[0], counts[1] + 1,
+                                           counts[2] + 1)
     _assert_bwd_close(got, mops.moe_ffn_bwd_plain(*args), torch.bfloat16)
+
+
+# (E, C, d, f, empty tail rows): phi-tiny-moe's training C and expert
+# width, its reduced width 183, an odd d and f, a capacity of 5
+TRAIN_SHAPES = {"phi-c1280": (4, 1280, 256, 915, 300),
+                "f183": (3, 200, 64, 183, 20), "odd": (2, 33, 37, 77, 5),
+                "c5": (4, 5, 96, 183, 1)}
+
+
+@pytest.mark.parametrize("activation", ["silu", "gelu", "relu2"])
+@pytest.mark.parametrize("shape", list(TRAIN_SHAPES))
+def test_moe_ffn_train_matches_plain(cuda, activation, shape):
+    """The bf16 training forward against ``moe_ffn_plain(...,
+    residuals=True)``: the output within ``moe_ffn``'s tolerance, A, h and
+    g (E, C, fp) within it too with their pad columns zero, a tokenless
+    expert and empty tail rows giving zeros; its skip count (128-row C
+    tiles without a token) counted on the card; one counted launch; a
+    second call the same bits, output and residuals alike."""
+    e, c, d, f, tail = TRAIN_SHAPES[shape]
+    xd, wi, wg, wo, _ = _bwd_inputs(44, e, c, d, f, torch.bfloat16,
+                                    tail=tail)
+    skipped = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    before = mops.moe_ffn_train.launches
+    out, saved = mops.moe_ffn_train(xd, wi, wg, wo, activation=activation,
+                                    skipped=skipped)
+    torch.cuda.synchronize()
+    assert mops.moe_ffn_train.launches == before + 1
+    ref, res = mops.moe_ffn_plain(xd, wi, wg, wo, activation,
+                                  residuals=True)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **MOE_TOL[torch.bfloat16])
+    fp = -(-f // 8) * 8
+    for got, r in zip(saved[4:7], res):
+        assert got.shape == (e, c, fp)
+        torch.testing.assert_close(got[..., :f].float(), r.float(),
+                                   **MOE_TOL[torch.bfloat16])
+        assert torch.all(got[..., f:] == 0)
+    assert torch.all(out[1] == 0) and torch.all(out[:, c - tail:] == 0)
+    t = mops.TRAIN_TILE
+    tiles = sum(bool((xd[x, r:r + t] == 0).all()) for x in range(e)
+                for r in range(0, c, t))
+    assert int(skipped.item()) == tiles
+    assert torch.equal(saved[7].bool(), torch.tensor(
+        [[not bool((xd[x, r:r + t] == 0).all()) for r in range(0, c, t)]
+         for x in range(e)], device=cuda))
+    again, saved2 = mops.moe_ffn_train(xd, wi, wg, wo, activation=activation)
+    assert torch.equal(out, again)
+    assert all(torch.equal(a, b) for a, b in zip(saved, saved2))
+
+
+@pytest.mark.parametrize("shape", list(TRAIN_SHAPES))
+def test_moe_train_backward_matches_plain(cuda, shape):
+    """Through ``MoeFFN`` in bf16 (the training forward, then the backward
+    reading its A, h and g): the gradient within the backward's tolerance
+    of ``moe_ffn_bwd_plain``'s, the tokenless expert's exact zeros, and a
+    second forward and backward the same bits."""
+    e, c, d, f, tail = TRAIN_SHAPES[shape]
+    args = _bwd_inputs(45, e, c, d, f, torch.bfloat16, tail=tail)
+
+    def grads():
+        leaves = [t.clone().requires_grad_() for t in args[:4]]
+        return torch.autograd.grad(mops.moe_ffn(*leaves), leaves, args[4])
+
+    got = grads()
+    _assert_bwd_close(got, mops.moe_ffn_bwd_plain(*args), torch.bfloat16)
+    assert all(torch.all(g[1] == 0) for g in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, grads()))
+
+
+def _kernel_names(fn):
+    """The device kernels' names in a profiler trace of two calls of
+    ``fn``, the card idle 25 ms on each side inside the window (a bare
+    window around a short call can lose its rows); taken again, up to
+    three times, where the trace came back empty."""
+    import time
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.025)
+            fn()
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.025)
+        names = {r.key for r in prof.key_averages()
+                 if r.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            return names
+    raise AssertionError("three traces came back without a kernel")
+
+
+def test_no_grad_call_keeps_the_decode_kernels(cuda):
+    """Read from a profiler trace by kernel name: a call without a gradient
+    runs the decode kernels (gate_up_mma_kernel, down_mma_kernel) and no
+    training kernel; a call under grad runs the training forward's
+    kernels and, in its backward, the wgmma backward's, and no decode
+    kernel."""
+    args = _bwd_inputs(46, 3, 70, 96, 183, torch.bfloat16)
+    with torch.no_grad():
+        plain = _kernel_names(lambda: mops.moe_ffn(*args[:4]))
+    assert any("gate_up_mma_kernel" in n for n in plain), plain
+    assert any("down_mma_kernel" in n for n in plain), plain
+    assert not any("wgmma" in n or "moe_train" in n for n in plain), plain
+    leaves = [t.clone().requires_grad_() for t in args[:4]]
+    trained = _kernel_names(lambda: torch.autograd.grad(
+        mops.moe_ffn(*leaves), leaves, args[4]))
+    for k in ("moe_train_flags_kernel", "moe_train_gate_wgmma_kernel",
+              "moe_train_down_wgmma_kernel", "moe_bwd_dgate_wgmma_kernel",
+              "moe_bwd_dx_wgmma_kernel", "moe_bwd_dw_wgmma_kernel",
+              "moe_bwd_dwo_wgmma_kernel"):
+        assert any(k in n for n in trained), (k, trained)
+    assert not any("_mma_kernel" in n and "wgmma" not in n
+                   for n in trained), trained
 
 
 def test_moe_ffn_bwd_raises_on_cuda(cuda):

@@ -5,7 +5,9 @@ The JAX package has no backward kernel: its loss differentiates
 ``repro.models.moe.expert_ffn`` (three einsums) with XLA.  Here the same
 numpy inputs go through ``jax.vjp`` of ``expert_ffn`` (and, in f32, of the
 Pallas kernel's oracle ``moe_ffn_ref``) and through the port's plain
-backward ``moe_ffn_bwd_plain``, its autograd Function ``MoeFFN`` (which
+backward ``moe_ffn_bwd_plain`` (recomputing A, h and g, or reading those
+that the plain forward returns, as the card's bf16 training kernels read
+the training forward's), its autograd Function ``MoeFFN`` (which
 ``moe_ffn`` takes when an operand requires grad) and the whole MoE layer.
 The CUDA kernels are held against the plain backward on the card by
 tests/test_torch_kernels_gpu.py.
@@ -20,6 +22,7 @@ import torch
 
 from repro.configs import get_config
 from repro.kernels.moe_ffn.ref import moe_ffn_ref
+from repro.models.layers import _activation as jax_activation
 from repro.models import model as JM
 from repro.models import moe as JMOE
 from repro_torch.bridge import params_from_numpy
@@ -116,6 +119,69 @@ def test_plain_backward_matches_jax_vjp(activation, dtype, shape):
     assert all(str(g.dtype)[6:] == dtype for g in got)
     _assert_rel(got, ref, F32_GRAD_REL if dtype == "float32"
                 else BF16_GRAD_REL, (activation, dtype, shape))
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+def test_plain_forward_residuals_match_jax(activation, dtype, shape):
+    """``moe_ffn_plain(..., residuals=True)``: its output is
+    ``moe_ffn_plain``'s bit for bit, and its output, A, h and g match
+    JAX's ``expert_ffn`` and the einsums inside it (h = xd wi, g = xd wg,
+    A = act(g) * h) within ``F32_GRAD_REL`` in f32 and ``BF16_GRAD_REL``
+    in bf16 of each one's largest entry (each side sums in its own order,
+    and a sum at a rounding boundary rounds one bf16 step apart)."""
+    arrays = _round(_inputs(8, *SHAPES[shape]), dtype)[:4]
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    xd, wi, wg, wo = (jnp.asarray(a, jd) for a in arrays)
+    jh = jnp.einsum("ecd,edf->ecf", xd, wi)
+    jg = jnp.einsum("ecd,edf->ecf", xd, wg)
+    ja = jax_activation(activation)(jg) * jh
+    jout = JMOE.expert_ffn(xd, {"wi": wi, "wg": wg, "wo": wo},
+                           _cfg(activation))
+    args = _torch(arrays, dtype)
+    out, (a, h, g) = mops.moe_ffn_plain(*args, activation, residuals=True)
+    assert torch.equal(out, mops.moe_ffn_plain(*args, activation))
+    rel = F32_GRAD_REL if dtype == "float32" else BF16_GRAD_REL
+    for name, got, ref in (("out", out, jout), ("A", a, ja), ("h", h, jh),
+                           ("g", g, jg)):
+        assert str(got.dtype)[6:] == dtype, name
+        ref = np.asarray(ref, np.float32)
+        err = np.abs(got.float().numpy() - ref).max()
+        assert err <= rel * np.abs(ref).max(), (name, err)
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+def test_saved_backward_equals_recompute(activation, dtype, shape):
+    """The plain backward from the plain forward's (A, h, g) gives the
+    same bits as its recompute of them from xd, with a tokenless expert and
+    empty tail slots."""
+    xd, wi, wg, wo, dout = _torch(_round(_inputs(9, *SHAPES[shape]), dtype),
+                                  dtype)
+    _, saved = mops.moe_ffn_plain(xd, wi, wg, wo, activation, residuals=True)
+    got = mops.moe_ffn_bwd_plain(xd, wi, wg, wo, dout, activation,
+                                 saved=saved)
+    ref = mops.moe_ffn_bwd_plain(xd, wi, wg, wo, dout, activation)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+def test_saved_backward_matches_jax_vjp(activation, dtype):
+    """The path bf16 takes on the card, on the CPU: the plain forward's
+    residuals fed to the plain backward, against ``jax.vjp`` of JAX's
+    ``expert_ffn`` at the odd f (tokenless expert, empty tail slots) within
+    ``F32_GRAD_REL`` / ``BF16_GRAD_REL`` of each output's largest entry."""
+    arrays = _round(_inputs(10, *SHAPES["odd"]), dtype)
+    ref = _jax_vjp(arrays, activation, dtype)
+    xd, wi, wg, wo, dout = _torch(arrays, dtype)
+    _, saved = mops.moe_ffn_plain(xd, wi, wg, wo, activation, residuals=True)
+    got = mops.moe_ffn_bwd_plain(xd, wi, wg, wo, dout, activation,
+                                 saved=saved)
+    _assert_rel(got, ref, F32_GRAD_REL if dtype == "float32"
+                else BF16_GRAD_REL, (activation, dtype))
 
 
 @pytest.mark.parametrize("activation", ACTIVATIONS)
