@@ -12,15 +12,19 @@ Phases (any failure raises and the script exits non-zero):
      shapes the full-width serving paths give it and at edge cases, and
      time kernel, plain version, library call and bound (paged decode also
      at nemotron-4-15b's, command-r-35b's, llama4-maverick-400b-a17b's,
-     qwen2-vl-72b's and zamba2-7b's full-width shapes, GQA groups of 6,
-     8, 5, 8 and 1 (zamba2's MHA at head dim 112),
+     qwen2-vl-72b's, zamba2-7b's and musicgen-medium's full-width shapes,
+     GQA groups of 6, 8, 5, 8, 1 and 1 (zamba2's MHA at head dim 112,
+     musicgen's at 64), over a local and a peer pool merged by LSE as the
+     in-place mode calls it (musicgen's rows, one row with no block on
+     the peer),
      at a card-filling yi-6b
      pool of 65,536 slots holding 64 short contexts, and at Llama-4's heads
      with its 8,192-token attention chunk, rows on both sides of the
      boundary; prefill attention at 40-, 1,032- and 6,000-token prompts,
      an 8,800-token Llama-4 prompt past its chunk, Command-R's, Nemotron's,
-     DBRX's and zamba2-7b's smoke prompts and qwen2-vl-72b's 1,024 prefix
-     positions ahead of one, with a sliding window, an attention chunk and
+     DBRX's and zamba2-7b's smoke prompts, qwen2-vl-72b's 1,024 prefix
+     positions ahead of one and musicgen-medium's 64 ahead of a
+     1,500-frame prompt (MHA at head dim 64), with a sliding window, an attention chunk and
      a logit softcap, in bf16 on the tensor cores and f32 on the CUDA
      cores, the kernel that ran read from the trace; quantize-on-demote and
      dequantize-on-reload on f32, bf16 and f16 pools, timed at each path's
@@ -66,11 +70,18 @@ Phases (any failure raises and the script exits non-zero):
      CPU and on the card from the same weights and batches (loss,
      grad_norm, moments and parameters at stated tolerances; K4's and
      K7's launches counted, K7's forward in bf16 the training forward);
+     reduced musicgen-medium at model level (the engine refuses the audio
+     family), each row prefilled alone, then 16 decode steps in fetch
+     mode and 16 in place (half of each row's blocks on a peer pool), on
+     the CPU and on the card: identical (step, row, codebook) tokens;
   5. the first path: full-width yi-6b (random weights from a seed) served
      through ``HarvestRuntime(...).server(...)`` with evictions, reloads and
      quantized demotions; every kernel of the path must have launched; then
-     one full-width decode step profiled (wall time, device-busy share, the
-     largest kernels);
+     one decode step over random pools in fetch mode and in place (each
+     row's first block on a peer pool; its launches a path of their own:
+     K1 once a layer, twice in place), logits and argmax held and each
+     mode profiled; then one full-width decode step profiled (wall time,
+     device-busy share, the largest kernels);
   6. the second path: full-width qwen2-moe (15.15 B parameters) served the
      same way, through the MoE expert FFN kernel too, and profiled;
   7. the long-prompt path: full-width h2o-danube-3-4b (sliding window
@@ -83,7 +94,9 @@ Phases (any failure raises and the script exits non-zero):
      quantized round trip only: no id copied to the card, no copy of the
      payload on it), one reload (the payload's copy to the card and the
      copy kernel, no id copied), and one 6,000-token prefill profiled for
-     prefill attention's share;
+     prefill attention's share; its in-place step (before the profiles)
+     puts the first half of each row's blocks on the peer, inside and
+     outside the window;
   8. Llama-4 (llama4-maverick-400b-a17b) at full width and 4 of its 48
      layers (two dense/MoE pairs, 35.04 B parameters; the whole model does
      not fit one card), 4 requests of 8,300-8,800 prompt tokens over
@@ -106,7 +119,16 @@ Phases (any failure raises and the script exits non-zero):
      each decode step carrying the batch's recurrent states (their bytes
      printed); a decode step from zero states and a 40-token prefill
      profiled;
- 12. the training path: full-width h2o-danube-3-4b (all 24 layers, 3.962
+ 12. musicgen-medium whole (48 layers, 1.38 B parameters, bf16) at model
+     level: 4 rows of 64 conditioning embeddings and 250-1,500 audio
+     frames, each prefilled alone through K4 and placed into 16-token
+     blocks, then 64 decode steps in fetch mode and 64 in place (the
+     first half of each row's blocks on a peer pool) through K1, both fed
+     the fetch mode's tokens: K4 48 launches a prefill, K1 48 a step and
+     96 in place; the modes' (step, row, codebook) tokens equal but for
+     named near ties; the in-place logits held to a full-sequence forward
+     over the same tokens; each mode's step and one prefill profiled;
+ 13. the training path: full-width h2o-danube-3-4b (all 24 layers, 3.962
      B parameters) trained 5 AdamW steps of 1 x 8,192 tokens from the
      synthetic corpus, its footprint reckoned from ``abstract_params``
      before it is allocated, every block recomputed in the backward pass,
@@ -123,8 +145,10 @@ Phases (any failure raises and the script exits non-zero):
      passes through; then every kernel without a backward must raise when
      handed a tensor that requires grad, and K7's gradient must arrive;
 then the card's name and power limit, one JSON line of per-kernel
-numbers, and the JSON result line.  The launch counts are set to 0 just
-before each path and read just after it.  It imports neither JAX nor the
+numbers (``launches_by_path`` over the served paths, the two in-place
+steps, musicgen-medium and the two training paths), and the JSON result
+line.  The launch counts are set to 0 just before each path and read
+just after it.  It imports neither JAX nor the
 JAX package.
 """
 from __future__ import annotations
@@ -173,6 +197,30 @@ ZAMBA2, XLSTM = "zamba2-7b", "xlstm-1.3b"
 #: of weights), 10 of dbrx-132b's 40 (63.0 GiB); every layer of each has
 #: the same shape
 QWEN2_VL_LAYERS, DBRX_LAYERS = 36, 10
+MUSICGEN = "musicgen-medium"
+#: musicgen-medium's audio prompts: 5, 10, 20 and 30 s at EnCodec's 50 Hz
+#: frame rate (MusicGen generates up to 30 s), each behind its 64
+#: conditioning embeddings; the decode steps of each mode
+MUSICGEN_FRAMES, MUSICGEN_STEPS = (250, 500, 1000, 1500), 64
+#: largest |in-place decode logit - full-sequence forward logit| of
+#: full-width musicgen-medium, bf16, 48 layers: the forward reads bf16 k
+#: and v through K4 (its probabilities rounded to bf16), the decode f32
+#: pools through K1, and the two residual streams part by bf16 steps over
+#: the layers; 8 bf16 steps of a logit in [2, 4) (measured on an H100:
+#: 0.0586-0.0625)
+AUDIO_FORWARD_TOL = 2.0 ** -3
+#: largest |in-place - fetch| logit of one full-width bf16 decode step:
+#: the two pools' partials sum in another order than one pool's, which
+#: moves the attention output by f32 ulps and, where one rounds to bf16
+#: otherwise, the residual stream by a bf16 step, carried through the
+#: layers; 8 bf16 steps of a logit in [4, 8) (measured on an H100:
+#: 0.109-0.141 at yi-6b, 0.086-0.135 at h2o-danube-3-4b, 0.047-0.059 at
+#: musicgen-medium)
+INPLACE_LOGIT_TOL = 0.25
+#: the kernels of one K1 call in a trace: the live-slot bitmap's pre-pass
+#: (tables past 1,024 slots), the split partials, the merge of the splits
+K1_KERNELS = ("live_bits_kernel", "paged_split_kernel",
+              "merge_splits_kernel")
 #: the least size of a timing pool that calls cycle through: past the
 #: card's 50 MB L2, so that each call finds its rows cold
 POOL_BYTES = 64 * 2 ** 20
@@ -245,27 +293,79 @@ def events_ms(fn, iters) -> float:
 TRACE_PAD_S = 0.025
 
 
-def profiled(fn, iters):
-    """The profiler (CUDA activity) after ``iters`` calls of ``fn``, the
-    card idle for ``TRACE_PAD_S`` before and after them in its window."""
+#: how long ``trace_rows`` goes on taking again a trace that came back
+#: without a device row, where its caller asks it to, and the most idle
+#: padding it gives the window.  One H100 run of this script lost five
+#: single-call traces of K2 in a row, the padding doubled from 25 ms to
+#: 400 ms, and another three; 300 such traces taken right after K1's and
+#: K2's checks lost none (tools/probe_trace_streak.py).  So a retake waits
+#: the loss out: it doubles the padding up to the cap, records CPU activity
+#: on every other attempt and takes eight times the calls from the fifth on
+TRACE_RETAKE_S = 90.0
+TRACE_PAD_MAX_S = 3.2
+
+
+def profiled(fn, iters, pad_s=TRACE_PAD_S, cpu=False):
+    """The profiler (CUDA activity, and CPU activity where ``cpu``) after
+    ``iters`` calls of ``fn``, the card idle for ``pad_s`` before and after
+    them in its window."""
     from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     torch.cuda.synchronize()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")     # one profiling cycle is all
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(TRACE_PAD_S)
+        with profile(activities=acts) as prof:
+            time.sleep(pad_s)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-            time.sleep(TRACE_PAD_S)
+            time.sleep(pad_s)
     return prof
 
 
-def trace_rows(fn, iters):
+def trace_rows(fn, iters, pad_s=TRACE_PAD_S, retake_s=0.0):
     """[(name, device ms per call)] of every kernel, memset and copy that
     ``iters`` calls of ``fn`` put on the card, from the profiler's trace,
-    largest first."""
-    return device_rows(profiled(fn, iters), iters)
+    largest first.  Where ``retake_s`` is given, a trace without a device
+    row is taken again (``TRACE_RETAKE_S``'s note says how) until one has a
+    row or ``retake_s`` seconds have passed, and then it raises; each retake
+    is named on stderr."""
+    t0 = time.perf_counter()
+    attempt, calls, cpu = 0, iters, False
+    while True:
+        prof = profiled(fn, calls, pad_s, cpu)
+        rows = device_rows(prof, calls)
+        if not retake_s or any(t > 0 for _, t in rows):
+            return rows
+        launches = sum(e.count for e in prof.key_averages()
+                       if "Launch" in e.key) if cpu else None
+        attempt += 1
+        waited = time.perf_counter() - t0
+        print(f"  a trace came back without a device row ({calls} calls, "
+              f"{pad_s * 1e3:.0f} ms padding, CPU activity {cpu}: "
+              f"{launches} launch calls recorded; {waited:.1f} s since the "
+              f"first): taken again", file=sys.stderr)
+        if waited > retake_s:
+            raise RuntimeError(f"{attempt} traces in {waited:.1f} s showed no "
+                               f"device row")
+        pad_s = min(2 * pad_s, TRACE_PAD_MAX_S)
+        cpu = attempt % 2 == 1
+        calls = iters * (8 if attempt >= 4 else 1)
+
+
+def wall_and_rows(fn, iters=5, warmup=3):
+    """(host wall ms per call, ``trace_rows`` per call) of ``fn``: after
+    ``warmup`` calls, ``iters`` calls back to back between two
+    synchronisations, then a trace of ``iters`` more."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) * 1e3 / iters,
+            trace_rows(fn, iters, retake_s=TRACE_RETAKE_S))
 
 
 def whole_trace(fn, iters, want=None, warmup=1):
@@ -550,6 +650,115 @@ def time_card_pool_k1(cfg, bs):
                 owned=owned, splits=splits)
 
 
+def deal_pools(L, q_pos, bs, nkv, hd, peer_of, seed, steps=1,
+               device="cuda", fill=None):
+    """Each row's blocks (those its positions up to ``q_pos[r] + steps -
+    1`` need) dealt in shuffled order over a fetch pool of ``bs``-token
+    slots, (L, n, bs, nkv, hd) f32 of random values that ``fill(pk, pv,
+    where)`` may overwrite; the in-place layout then moves the blocks
+    ``peer_of(r, j)`` names to a peer pool of their own, in shuffled
+    slots, and frees them in a copy of the fetch pool (the local pool),
+    leaving garbage behind.  Each pool keeps 8 free slots of garbage.
+    Returns the fetch, local and peer ``KVPools`` (the append fields each
+    row's slot and offset at ``q_pos``) and {(row, block): fetch slot}."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    blocks = [(r, j) for r, p in enumerate(q_pos)
+              for j in range((p + steps - 1) // bs + 1)]
+    moved = [rj for rj in blocks if peer_of(*rj)]
+
+    def pool(owned):
+        n = len(owned) + 8
+        kv = [torch.randn((L, n, bs, nkv, hd), generator=gen, device=device)
+              for _ in range(2)]
+        sr = np.full((n,), -1, np.int32)
+        sb = rng.integers(0, 512, size=n).astype(np.int32)
+        where = dict(zip(owned, rng.permutation(n).tolist()))
+        for (r, j), slot in where.items():
+            sr[slot], sb[slot] = r, j * bs
+        return kv + [sr, sb], where
+
+    fetch, where = pool(blocks)
+    if fill is not None:
+        fill(fetch[0], fetch[1], where)
+    peer, at = pool(moved)
+    src = [where[rj] for rj in moved]
+    dst = [at[rj] for rj in moved]
+    local = [fetch[0].clone(), fetch[1].clone(), fetch[2].copy(), fetch[3]]
+    local[2][src] = -1
+    for a in range(2):
+        peer[a][:, dst] = fetch[a][:, src]
+        local[a][:, src] = torch.randn(local[a][:, src].shape, generator=gen,
+                                       device=device)
+    cast = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(device)  # noqa: E731,E501
+    aslot = cast([where[(r, p // bs)] for r, p in enumerate(q_pos)])
+    aoff = cast(np.asarray(q_pos) % bs)
+    return tuple(M.KVPools(p[0], p[1], cast(p[2]), cast(p[3]), aslot, aoff)
+                 for p in (fetch, local, peer)) + (where,)
+
+
+def time_two_pool_k1(cfg, bs, q_pos):
+    """K1 as the in-place mode calls it at ``cfg``'s decode shape: once
+    over the local pool and once over the peer pool holding the first half
+    of each row's blocks (row 1 none), the two calls' partials merged by
+    log-sum-exp and normalised (``paged_decode_attention``).  Held to the
+    same over the plain version and to one call over the fetch pool that
+    holds every block; row 1's peer partials must be empty (m -1e30, l 0,
+    acc 0) and its merged result its local result bit for bit.  Timed
+    beside the plain version and the fetch call; the bound counts each
+    row's positions once, over both pools."""
+    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    fetch, local, peer, _ = deal_pools(
+        1, q_pos, bs, nkv, hd,
+        lambda r, j: r != 1 and j < (q_pos[r] // bs + 1) // 2, SEED + 11)
+    fetch, local, peer = ((kv.pool_k[0], kv.pool_v[0], kv.slot_req,
+                           kv.slot_base) for kv in (fetch, local, peer))
+    q = torch.randn((len(q_pos), nq, hd), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        SEED + 11))
+    qp = torch.tensor(q_pos, dtype=torch.int32, device="cuda")
+
+    def plain(pools):
+        parts = [pops.paged_decode_partials_plain(
+            q, *p, qp, scale=hd ** -0.5) for p in pools]
+        return tpa.finalize(tpa.merge_partials(parts))
+
+    before = pops.paged_decode_partials.launches
+    got = tpa.paged_decode_attention(q, [local, peer], qp, cfg)
+    torch.cuda.synchronize()
+    assert pops.paged_decode_partials.launches == before + 2
+    ref = plain([local, peer])
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    err = _max_err(got, ref)
+    one = tpa.paged_decode_attention(q, [fetch], qp, cfg)
+    torch.testing.assert_close(got, one, rtol=1e-4, atol=1e-4)
+    empty = tpa.pool_partials(q, *peer, qp, cfg)
+    assert torch.all(empty.m[1] == -1e30) and torch.all(empty.l[1] == 0) \
+        and torch.all(empty.acc[1] == 0)
+    assert torch.equal(got[1], tpa.paged_decode_attention(
+        q, [local], qp, cfg)[1])
+    ms, ms_wall = time_ms(lambda: tpa.paged_decode_attention(
+        q, [local, peer], qp, cfg), 100)
+    plain_ms, _ = time_ms(lambda: plain([local, peer]), 10)
+    fetch_ms, _ = time_ms(lambda: tpa.paged_decode_attention(
+        q, [fetch], qp, cfg), 100)
+    n_slots = local[2].shape[0] + peer[2].shape[0]
+    bound_ms, bound_by = k1_bound(q_pos, n_slots, nq, nkv, hd)
+    on_peer = int((peer[2] >= 0).sum())
+    print(f"  paged_decode_partials over a local and a peer pool, merged, at "
+          f"{cfg.name} ({nq}/{nkv} heads, gq {nq // nkv}, hd {hd}), rows at "
+          f"{list(q_pos)}, {on_peer} of {int((fetch[2] >= 0).sum())} blocks "
+          f"of {bs} on the peer (row 1 none): {ms:.5f} ms device (two K1 "
+          f"calls and the merge), {ms_wall:.5f} between events; one call "
+          f"over the fetch pool {fetch_ms:.5f}; plain {plain_ms:.5f}; bound "
+          f"{bound_ms:.6f} ({bound_by}); max_abs_err {err:.3g}")
+    return dict(shape=f"{cfg.name} local + peer pools merged, rows "
+                f"{list(q_pos)}", ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                gq=nq // nkv, fetch_ms=fetch_ms, launches_per_call=2,
+                blocks_on_peer=on_peer)
+
+
 def block_elems(cfg, bs) -> int:
     """f32 elements of one demoted block: a row of L_kv * 2 * bs * nkv * hd,
     as the engine's _degrade passes it."""
@@ -563,18 +772,13 @@ RUNTIME_CALLS = ("cudaFuncSetAttribute", "cudaLaunchKernelEx")
 
 
 def traced_rows(fn, iters):
-    """``trace_rows`` of ``iters`` calls of ``fn``, taken again (up to three
-    times) where a trace came back without a device row; asserts that no
-    row is named after a runtime call."""
-    for _ in range(3):
-        rows = [(n, t) for n, t in trace_rows(fn, iters) if t > 0]
-        if rows:
-            assert not any(c in n for n, _ in rows for c in RUNTIME_CALLS), \
-                rows
-            return rows
-        print("  a trace came back without a device row: taken again",
-              file=sys.stderr)
-    raise RuntimeError("three traces showed no device row")
+    """``trace_rows`` of ``iters`` calls of ``fn``, a trace without a device
+    row taken again; its rows with device time, none of them named after a
+    runtime call."""
+    rows = [(n, t) for n, t in trace_rows(fn, iters,
+                                          retake_s=TRACE_RETAKE_S) if t > 0]
+    assert not any(c in n for n, _ in rows for c in RUNTIME_CALLS), rows
+    return rows
 
 
 def check_quant(paths):
@@ -1230,7 +1434,8 @@ def moe_bwd_case(label, xd, w, dout, activation, time=True):
             return mops.moe_ffn_bwd_saved(saved, dout, activation=activation)
         return mops.moe_ffn_bwd(xd, *w, dout, activation=activation)
 
-    traced = assert_moe_bwd_kernels(trace_rows(bwd, 1), dtype)
+    traced = assert_moe_bwd_kernels(
+        trace_rows(bwd, 1, retake_s=TRACE_RETAKE_S), dtype)
     row = dict(shape=label, dtype=str(dtype)[6:], activation=activation,
                E=e, C=c, d=d, f=f, rows=rows, experts_with_token=filled,
                tiles_skipped=tiles, max_abs_err=max(errs))
@@ -1577,7 +1782,8 @@ def check_flash_bwd(danube, yi, llama4, zamba2):
             del again
         traced = assert_bwd_kernels(trace_rows(
             lambda: fops.prefill_attention_bwd(q, k, v, o, lse, do, pos, pos,
-                                               **masks), 1), dtype)
+                                               **masks), 1,
+            retake_s=TRACE_RETAKE_S), dtype)
         ref = fops.prefill_attention_bwd_plain(q, k, v, o, lse, do, pos, pos,
                                                **masks)
         torch.cuda.synchronize()
@@ -2250,7 +2456,8 @@ def train_path(arch="h2o-danube-3-4b", steps=5, batch=1, seq_len=8192,
           f"{flops / 1e12:.1f} TFLOP a step ({formula}), {100 * mfu:.1f}% "
           f"of the bf16 peak")
     b = next_batch()
-    rows = trace_rows(lambda: train_step(params, opt, b, cfg, lr=cur_lr), 1)
+    rows = trace_rows(lambda: train_step(params, opt, b, cfg, lr=cur_lr), 1,
+                      retake_s=TRACE_RETAKE_S)
     assert_bwd_kernels(rows, torch.bfloat16)
     if moe_layers:
         assert_moe_bwd_kernels(rows, torch.bfloat16)
@@ -2354,15 +2561,7 @@ def profile_decode_step(cfg, params, bs, pos=(41, 24, 33, 17), n_slots=20,
         logits, _ = M.serve_step(params, state, cfg)
         logits.float().cpu()        # the engine samples on the host
 
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    rows = trace_rows(step, steps)
+    wall_ms, rows = wall_and_rows(step, steps)
     return wall_ms, sum(ms for _, ms in rows), rows[:5], (pool, dev)
 
 
@@ -2376,16 +2575,8 @@ def profile_prefill(cfg, params, n):
              "positions": torch.arange(n, dtype=torch.int32,
                                        device="cuda")[None]}
 
-    def prefill():
-        return M.forward(params, batch, cfg, want_kv=True)
-
-    prefill()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    prefill()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = trace_rows(prefill, 1)
+    wall_ms, rows = wall_and_rows(
+        lambda: M.forward(params, batch, cfg, want_kv=True), 1, 1)
     k4 = sum(ms for name, ms in rows if "flash_prefill" in name)
     return wall_ms, sum(ms for _, ms in rows), k4
 
@@ -2604,6 +2795,333 @@ def main_path(arch, bs, kernels_of_path, *, num_requests=6, local_slots=10,
     return launches, k1, extra
 
 
+# ---------------------------------------------------------------------------
+# the audio family (musicgen-medium) at model level, and the harvested peer
+# tier read in place
+# ---------------------------------------------------------------------------
+
+
+def audio_rows(cfg, frames, gen, device):
+    """One row per entry of ``frames``: (1, n, ncb) codebook tokens and
+    (1, npre, d) conditioning embeddings (bf16, std 0.5), drawn from
+    ``gen`` (a CPU generator: the same rows on the CPU and the card)."""
+    ncb, npre = cfg.modality.num_codebooks, cfg.modality.num_prefix_embeddings
+    rows = []
+    for n in frames:
+        toks = torch.randint(0, cfg.vocab_size, (1, n, ncb), generator=gen,
+                             dtype=torch.int32)
+        pre = 0.5 * torch.randn((1, npre, cfg.d_model), generator=gen)
+        rows.append((toks.to(device), pre.to(torch.bfloat16).to(device)))
+    return rows
+
+
+def audio_batch(toks, pre):
+    n = pre.shape[1] + toks.shape[1]
+    return {"tokens": toks, "prefix_embeddings": pre,
+            "positions": torch.arange(n, dtype=torch.int32,
+                                      device=toks.device)[None]}
+
+
+def audio_pools(cfg, kvs, bs, steps, seed, device):
+    """Each row's prefill KV (``kvs``: the stacked (L, 1, P, nkv, hd) k and
+    v of each row) in ``bs``-token blocks of a fetch pool with room for
+    ``steps`` more positions a row, and the in-place layout with the
+    first half of each row's prefill blocks on a peer pool
+    (``deal_pools``).  Returns the fetch, local and peer ``KVPools``, the
+    (steps, b) append slots and offsets of each step, and the blocks on
+    the peer."""
+    P = [k.shape[2] for k, _ in kvs]
+
+    def fill(pk, pv, where):
+        for (r, j), slot in where.items():
+            lo, hi = j * bs, min(j * bs + bs, P[r])
+            for t, kv in zip((pk, pv), kvs[r]):
+                if lo < hi:
+                    t[:, slot, :hi - lo] = kv[:, 0, lo:hi].float()
+
+    fetch, local, peer, where = deal_pools(
+        M.num_kv_layers(cfg), P, bs, cfg.num_kv_heads,
+        cfg.resolved_head_dim, lambda r, j: j < (P[r] // bs + 1) // 2,
+        seed, steps, device, fill)
+    pos = np.asarray(P)[None] + np.arange(steps)[:, None]
+    aslot = [[where[(r, p // bs)] for r, p in enumerate(row)] for row in pos]
+    cast = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(device)  # noqa: E731,E501
+    return (fetch, local, peer, cast(aslot), cast(pos % bs),
+            int((peer.slot_req >= 0).sum()))
+
+
+def audio_decode(params, cfg, kv, peer, first, P, aslot, aoff, feed=None):
+    """``len(aslot)`` decode steps of every row from positions ``P``, the
+    first fed ``first`` (b, ncb), each later one the previous step's
+    argmax, or ``feed[t]`` where given; in place where ``peer`` is given
+    (``harvest_inplace``).  Returns the (steps, b, ncb) argmax tokens and
+    the (steps, b, ncb, V) logits."""
+    dev = first.device
+    pos0 = torch.as_tensor(P, dtype=torch.int32, device=dev)
+    state = M.DecodeState(tokens=first, pos=pos0, kv=kv, peer=peer)
+    toks, logits = [], []
+    for t in range(aslot.shape[0]):
+        state = state._replace(
+            tokens=first if t == 0 else (feed[t - 1] if feed is not None
+                                         else toks[-1]),
+            pos=pos0 + t, kv=state.kv._replace(append_slot=aslot[t],
+                                               append_off=aoff[t]))
+        lg, state = M.serve_step(params, state, cfg,
+                                 harvest_inplace=peer is not None)
+        toks.append(state.tokens)
+        logits.append(lg)
+    return torch.stack(toks), torch.stack(logits)
+
+
+def near_ties(ref, got):
+    """Where ``got``'s argmax token differs from ``ref``'s: every such
+    (step, row, codebook) must be a near tie, ``ref``'s top-1/top-2 gap no
+    more than twice that vector's largest difference d (the guard of the
+    port's engine tests, tests/test_torch_engine.py); and at least half
+    the vectors must be decided (gap above 2 d).  Returns the ties that
+    differ, each with its gap and d, and the decided count."""
+    ref, got = ref.float(), got.float()
+    d = (ref - got).abs().amax(-1)
+    top = torch.topk(ref, 2, dim=-1).values
+    gap = top[..., 0] - top[..., 1]
+    decided = int((gap > 2 * d).sum())
+    differ = torch.argmax(ref, -1) != torch.argmax(got, -1)
+    ties = [(tuple(int(i) for i in ix), float(gap[tuple(ix)]),
+             float(d[tuple(ix)])) for ix in torch.nonzero(differ).tolist()]
+    assert all(g <= 2 * dd for _, g, dd in ties), ties
+    assert decided >= d.numel() // 2, (decided, d.numel())
+    return ties, decided
+
+
+def check_reduced_audio(steps=16, frames=(29, 13), bs=8):
+    """Reduced musicgen-medium (2 layers, 4 codebooks, 8 prefix
+    embeddings) at model level on the CPU (plain versions) and on the card
+    (K4, K1), f32 weights as ``check_reduced_tokens`` holds the other
+    families: each row prefilled alone, then ``steps`` decode steps in
+    fetch mode and ``steps`` in place from the same prefill (the first
+    half of each row's blocks on the peer), each run fed its own argmax;
+    the (steps, b, ncb) tokens identical on both devices in both modes."""
+    cfg = get_config(MUSICGEN).reduced()
+    params = _map(M.init_params(cfg, torch.Generator().manual_seed(SEED),
+                                "cpu"), lambda t: t.float())
+    out = {}
+    for device in ("cpu", "cuda"):
+        p = _map(params, lambda t: t.to(device))
+        rows = audio_rows(cfg, frames, torch.Generator().manual_seed(SEED),
+                          device)
+        pre = [M.prefill(p, audio_batch(*r), cfg) for r in rows]
+        first = torch.cat([torch.argmax(lg, -1) for lg, _ in pre]).to(
+            torch.int32)
+        kvs = [o.kv for _, o in pre]
+        P = [k.shape[2] for k, _ in kvs]
+        fetch, local, peer, aslot, aoff, _ = audio_pools(
+            cfg, kvs, bs, steps, SEED, device)
+        tf, _ = audio_decode(p, cfg, fetch, None, first, P, aslot, aoff)
+        ti, _ = audio_decode(p, cfg, local, peer, first, P, aslot, aoff)
+        out[device] = (tf.cpu(), ti.cpu())
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert torch.equal(a, b), (a, b)
+    return out["cuda"]
+
+
+def audio_path(frames=MUSICGEN_FRAMES, steps=MUSICGEN_STEPS, bs=16):
+    """musicgen-medium at full width and depth (48 layers, 1.38 B
+    parameters, bf16, seed 0) at model level (the serving engine refuses
+    the audio family, as the JAX engine cannot serve it): 4 rows of 64
+    conditioning embeddings and an audio prompt of ``frames`` frames (5-30
+    s at EnCodec's 50 Hz), each prefilled alone through K4 and placed into
+    ``bs``-token blocks; then ``steps`` decode steps in fetch mode (every
+    block local) and ``steps`` in place (the first half of each row's
+    prefill blocks on a peer pool, ``harvest_inplace``) from the same
+    prefill, both fed the fetch mode's tokens.  Launches as predicted;
+    the two modes' argmax tokens equal but for named near ties; the in-place
+    logits against a full-sequence forward over the same tokens.  Then
+    each mode's decode step and one prefill profiled.  Returns (launch
+    counts of prefill and decode, numbers)."""
+    cfg = get_config(MUSICGEN)
+    L = cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    print(f"{MUSICGEN} full width, {L} layers: "
+          f"{M.param_count(params) / 1e9:.3f} B params initialised on the "
+          f"card in {time.perf_counter() - t0:.1f} s")
+    rows = audio_rows(cfg, frames, torch.Generator().manual_seed(SEED),
+                      "cuda")
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    pre, prefill_ms = [], []
+    for r in rows:
+        t1 = time.perf_counter()
+        pre.append(M.prefill(params, audio_batch(*r), cfg))
+        torch.cuda.synchronize()
+        prefill_ms.append(1e3 * (time.perf_counter() - t1))
+    k4 = fops.prefill_attention.launches
+    assert k4 == L * len(rows), k4
+    first = torch.cat([torch.argmax(lg, -1) for lg, _ in pre]).to(
+        torch.int32)
+    kvs = [o.kv for _, o in pre]
+    P = [k.shape[2] for k, _ in kvs]
+    del pre
+    fetch, local, peer, aslot, aoff, n_moved = audio_pools(
+        cfg, kvs, bs, steps, SEED, "cuda")
+    del kvs
+    t1 = time.perf_counter()
+    tf, lf = audio_decode(params, cfg, fetch, None, first, P, aslot, aoff)
+    torch.cuda.synchronize()
+    fetch_s = time.perf_counter() - t1
+    k1_fetch = pops.paged_decode_partials.launches
+    t1 = time.perf_counter()
+    ti, li = audio_decode(params, cfg, local, peer, first, P, aslot, aoff,
+                          feed=tf)
+    torch.cuda.synchronize()
+    inplace_s = time.perf_counter() - t1
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    k1_inplace = launches["paged_decode_partials"] - k1_fetch
+    print(f"{MUSICGEN}: rows at positions {P} "
+          f"({cfg.modality.num_prefix_embeddings} conditioning positions "
+          f"and {list(frames)} frames), {int((fetch.slot_req >= 0).sum())} "
+          f"blocks of {bs}, {n_moved} of them on the peer in place; "
+          f"launches: K4 {k4} (predicted {L} x {len(rows)} prefills = "
+          f"{L * len(rows)}), K1 {k1_fetch} fetch (predicted {L} x {steps} "
+          f"= {L * steps}), {k1_inplace} in place (predicted 2 x {L} x "
+          f"{steps} = {2 * L * steps}); all: {launches}")
+    assert k1_fetch == L * steps and k1_inplace == 2 * L * steps
+    assert launches["prefill_attention"] == L * len(rows)
+    assert sum(launches.values()) == launches["prefill_attention"] \
+        + launches["paged_decode_partials"], launches
+    assert torch.isfinite(lf.float()).all() and torch.isfinite(
+        li.float()).all()
+    assert tuple(tf.shape) == (steps, len(rows), cfg.modality.num_codebooks)
+    ties, decided = near_ties(lf, li)
+    same = int((tf == ti).sum())
+    apart = (lf.float() - li.float()).abs().max().item()
+    print(f"{MUSICGEN}: logits max |in place - fetch| {apart:.4g} "
+          f"(tolerance {INPLACE_LOGIT_TOL}); argmax tokens equal at {same} "
+          f"of {tf.numel()} (step, row, codebook), {decided} decided (gap > "
+          f"2 d); the near ties that differ (index, gap, d): {ties}")
+    assert apart <= INPLACE_LOGIT_TOL, apart
+    # the in-place logits against the full-sequence forward over the same
+    # tokens: step t's input is the fed token at position P + t
+    errs = []
+    for r, (toks, pre_emb) in enumerate(rows):
+        seq = torch.cat([toks, first[r:r + 1, None], tf[:-1, r][None]], 1)
+        full, _ = M.forward(params, audio_batch(seq, pre_emb), cfg)
+        ref = full[0, P[r]:P[r] + steps]
+        errs.append((li[:, r].float() - ref.float()).abs().amax().item())
+        del full
+    err = max(errs)
+    print(f"{MUSICGEN}: in-place logits against a full-sequence forward "
+          f"over the same tokens: max |diff| per row {errs}, tolerance "
+          f"{AUDIO_FORWARD_TOL}")
+    assert err <= AUDIO_FORWARD_TOL, errs
+    numbers = dict(positions=P, blocks_on_peer=n_moved,
+                   prefill_wall_ms=prefill_ms,
+                   decode_wall_ms=dict(fetch=1e3 * fetch_s / steps,
+                                       inplace=1e3 * inplace_s / steps),
+                   near_ties=ties, inplace_max_abs_err=apart,
+                   forward_max_abs_err=err)
+    for mode, kv, pr in (("fetch", fetch, None), ("in place", local, peer)):
+        state = M.DecodeState(
+            tokens=first, pos=torch.as_tensor(P, dtype=torch.int32,
+                                              device="cuda"),
+            kv=kv._replace(append_slot=aslot[0], append_off=aoff[0]),
+            peer=pr)
+
+        def step():
+            lg, _ = M.serve_step(params, state, cfg,
+                                 harvest_inplace=pr is not None)
+            lg.float().cpu()
+
+        wall, rows_ = wall_and_rows(step)
+        busy = sum(ms for _, ms in rows_)
+        k1 = sum(ms for n, ms in rows_ if any(k in n for k in K1_KERNELS))
+        print(f"{MUSICGEN}: decode step profile, {mode} ({len(P)} rows at "
+              f"{P}): {wall:.2f} ms wall, {busy:.3f} ms device-busy "
+              f"({100 * busy / wall:.1f}%), K1 {k1:.3f} ms")
+        for name, ms in rows_[:5]:
+            print(f"  {ms:8.3f} ms/step  {name[:90]}")
+        numbers[f"step_{mode.replace(' ', '')}"] = dict(
+            wall_ms=wall, busy_ms=busy, k1_ms=k1,
+            top=[(n[:60], ms) for n, ms in rows_[:5]])
+    batch = audio_batch(*rows[-1])
+    wall, rows_ = wall_and_rows(lambda: M.prefill(params, batch, cfg), 1, 1)
+    busy = sum(ms for _, ms in rows_)
+    k4_ms = sum(ms for n, ms in rows_ if "flash_prefill" in n)
+    print(f"{MUSICGEN}: prefill profile ({P[-1]} positions): {wall:.2f} ms "
+          f"wall, {busy:.2f} ms device-busy ({100 * busy / wall:.1f}%), K4 "
+          f"{k4_ms:.3f} ms ({100 * k4_ms / busy:.1f}% of device time); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    numbers["prefill_profile"] = dict(positions=P[-1], wall_ms=wall,
+                                      busy_ms=busy, k4_ms=k4_ms)
+    return launches, numbers
+
+
+def inplace_step(label, bs, pos, peer_of):
+    """An ``on_model`` hook: one decode step of the served model over
+    random f32 pools, rows at ``pos``, in fetch mode (every block local)
+    and in place (the blocks ``peer_of(r, j)`` names on a peer pool,
+    ``deal_pools``), the same tokens and KV; the launch counts set to 0
+    before and read after.  The in-place logits within
+    ``INPLACE_LOGIT_TOL`` of the fetch step's, the argmax equal but for
+    near ties; K1 launched once a KV layer in fetch mode, twice in place.
+    Each mode's step profiled.  Returns (launch counts, numbers)."""
+    def hook(cfg, params):
+        L, b = M.num_kv_layers(cfg), len(pos)
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        kv, local, peer, _ = deal_pools(L, pos, bs, cfg.num_kv_heads,
+                                        cfg.resolved_head_dim, peer_of,
+                                        SEED + 12)
+        tokens = torch.from_numpy(np.random.default_rng(SEED + 12).integers(
+            3, 250, size=b).astype(np.int32)).cuda()
+        fetch = M.DecodeState(
+            tokens=tokens, pos=torch.tensor(pos, dtype=torch.int32,
+                                            device="cuda"),
+            kv=kv, peer=None, states=M.init_states(cfg, b, "cuda"))
+        inplace = fetch._replace(kv=local, peer=peer)
+        lf, _ = M.serve_step(params, fetch, cfg)
+        k1_fetch = pops.paged_decode_partials.launches
+        li, _ = M.serve_step(params, inplace, cfg, harvest_inplace=True)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in COUNTERS.items()}
+        k1_inplace = launches["paged_decode_partials"] - k1_fetch
+        assert (k1_fetch, k1_inplace) == (L, 2 * L), (k1_fetch, k1_inplace)
+        err = (lf.float() - li.float()).abs().max().item()
+        ties, decided = near_ties(lf, li)
+        on_peer = int((peer.slot_req >= 0).sum())
+        print(f"{label}: one decode step, rows at {list(pos)}, {on_peer} of "
+              f"{int((kv.slot_req >= 0).sum())} blocks of {bs} on the peer: "
+              f"K1 {k1_fetch} launches fetch, {k1_inplace} in place "
+              f"(predicted {L} and {2 * L}); logits max |in place - fetch| "
+              f"{err:.4g} (tolerance {INPLACE_LOGIT_TOL}); argmax differs at "
+              f"near ties {ties} ({decided} of {b} decided)")
+        assert err <= INPLACE_LOGIT_TOL, err
+        numbers = dict(positions=list(pos), blocks_on_peer=on_peer,
+                       max_abs_err=err, near_ties=ties)
+        for mode, st in (("fetch", fetch), ("inplace", inplace)):
+            def step():
+                lg, _ = M.serve_step(params, st, cfg,
+                                     harvest_inplace=st.peer is not None)
+                lg.float().cpu()
+
+            wall, rows = wall_and_rows(step)
+            busy = sum(ms for _, ms in rows)
+            k1 = sum(ms for n, ms in rows if any(k in n for k in K1_KERNELS))
+            print(f"{label}: decode step {mode}: {wall:.2f} ms wall, "
+                  f"{busy:.3f} ms device-busy, K1 {k1:.3f} ms; largest rows "
+                  f"{[(n[:40], round(ms, 3)) for n, ms in rows[:3]]}")
+            numbers[mode] = dict(wall_ms=wall, busy_ms=busy, k1_ms=k1)
+        return launches, numbers
+
+    return hook
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2645,13 +3163,18 @@ def main() -> int:
                                    num_layers=QWEN2_VL_LAYERS)
     dbrx = dataclasses.replace(get_config(DBRX), num_layers=DBRX_LAYERS)
     zamba2 = get_config(ZAMBA2)
+    musicgen = get_config(MUSICGEN)
     npre = qwen2_vl.modality.num_prefix_embeddings
+    # musicgen-medium's rows: its 64 conditioning positions and each prompt
+    audio_pos = tuple(musicgen.modality.num_prefix_embeddings + n
+                      for n in MUSICGEN_FRAMES)
     bs = 8
     # K1's 10-slot decode shape at Llama-4's 48 and qwen2-vl-72b's 80
     # layers, so that its pools cycle past the L2 as the other models' do
     kernels = [check_paged_decode(yi, bs, more=[nemotron, command_r,
                                                 get_config(LLAMA4),
-                                                get_config(QWEN2_VL), zamba2],
+                                                get_config(QWEN2_VL), zamba2,
+                                  musicgen],
                                   chunked=[llama4])] \
         + check_quant([(yi, bs), (moe, bs), (danube, 16), (llama4, 16),
                        (command_r, bs), (nemotron, bs), (qwen2_vl, bs),
@@ -2664,11 +3187,20 @@ def main() -> int:
             (f"{QWEN2_VL} {npre} prefix positions and a smoke prompt",
              qwen2_vl, npre + 40, {}),
             ("dbrx-132b smoke prompt", dbrx, 40, {}),
-            ("zamba2-7b smoke prompt (MHA, hd 112)", zamba2, 40, {})])] \
+            ("zamba2-7b smoke prompt (MHA, hd 112)", zamba2, 40, {}),
+            (f"{MUSICGEN} 64 conditioning positions and a "
+             f"{MUSICGEN_FRAMES[-1]}-frame prompt (MHA, hd 64)", musicgen,
+             audio_pos[-1], {})])] \
         + check_movers([(yi, bs), (danube, 16), (llama4, 16),
                         (command_r, bs), (nemotron, bs), (qwen2_vl, bs),
                         (dbrx, bs), (zamba2, bs), (moe, bs)]) \
         + [check_moe_ffn(moe, get_config("phi-tiny-moe"))]
+    # K1 as the in-place mode calls it, at musicgen-medium's decode shape
+    # and rows, over a local and a peer pool
+    two_pools = time_two_pool_k1(musicgen, 16, audio_pos)
+    kernels[0]["by_shape"].append(two_pools)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
+                                    two_pools["max_abs_err"])
     k4_bwd, k4_train_fwd = check_flash_bwd(danube, yi, llama4, zamba2)
     kernels.append(k4_bwd)
     next(k for k in kernels if k["name"] == "prefill_attention")[
@@ -2728,6 +3260,13 @@ def main() -> int:
             label["layer_period"] = changes["moe"].layer_period
         print(f"reduced {arch} {label or ''}: cpu and cuda tokens "
               f"identical ({tokens[:2]} ...)")
+    # the audio family at model level (the engine refuses it): prefill,
+    # then decode in fetch mode and in place, card against CPU
+    fetch_toks, inplace_toks = check_reduced_audio()
+    print(f"reduced {MUSICGEN}: cpu and cuda (steps, rows, codebooks) "
+          f"tokens identical, fetch {tuple(fetch_toks.shape)} and in place "
+          f"({fetch_toks[:2, 0].tolist()} / {inplace_toks[:2, 0].tolist()} "
+          f"...)")
     # MoE training, card against CPU: phi-tiny-moe at an odd expert width
     # (its tiles ragged, its weights staged by plain loads), qwen2-moe (a
     # shared expert), Llama-4 at 4 layers with its dense/MoE interleaving
@@ -2746,18 +3285,29 @@ def main() -> int:
               "dequantize_reload", "prefill_attention", "gather_blocks",
               "copy_blocks"]
     paths = {}
-    paths["yi-6b"], _, _ = main_path("yi-6b", bs, movers)
+    # each served model's weights then take one decode step in fetch mode
+    # and one in place (its launches a path of their own): yi-6b with each
+    # row's first block on the peer
+    paths["yi-6b"], _, (paths["yi-6b in-place step"], inplace_yi) = \
+        main_path("yi-6b", bs, movers, on_model=inplace_step(
+            "yi-6b", bs, (41, 24, 33, 17), lambda r, j: j == 0))
     paths["qwen2-moe"], _, _ = main_path("qwen2-moe", bs,
                                          movers + ["moe_ffn"])
     # the long-prompt path: 4 requests of 4,500-6,000 tokens (past the
     # 4,096-token window), 2 rows, 16-token blocks; 800 local slots hold
     # two requests' blocks, and each preemption evicts a request's 280-375
-    # blocks past a peer budget of 64 into the host
-    paths["h2o-danube-3-4b"], k1_long, _ = main_path(
-        "h2o-danube-3-4b", 16, movers, num_requests=4, local_slots=800,
-        peer_blocks=64, max_batch=2, prompt=(4500, 6000),
-        profile_pos=(5999, 4700), profile_slots=800, prefill_tokens=6000,
-        profile_evict=True)
+    # blocks past a peer budget of 64 into the host; its in-place step
+    # puts the first half of each row's blocks on the peer, inside and
+    # outside the 4,096-token window
+    danube_pos = (5999, 4700)
+    paths["h2o-danube-3-4b"], k1_long, \
+        (paths["h2o-danube-3-4b in-place step"], inplace_danube) = main_path(
+            "h2o-danube-3-4b", 16, movers, num_requests=4, local_slots=800,
+            peer_blocks=64, max_batch=2, prompt=(4500, 6000),
+            profile_pos=danube_pos, profile_slots=800, prefill_tokens=6000,
+            profile_evict=True, on_model=inplace_step(
+                "h2o-danube-3-4b", 16, danube_pos,
+                lambda r, j: j < (danube_pos[r] // 16 + 1) // 2))
     # Llama-4 at two dense/MoE pairs, the long path's geometry with
     # prompts of 8,300-8,800 tokens: prefill and decode cross the 8,192
     # attention chunk; K7 then runs at the decode shape on the model's own
@@ -2789,6 +3339,9 @@ def main() -> int:
                                     pool_k1=False)
     paths[XLSTM], _, _ = main_path(XLSTM, bs, [], prefill_tokens=40,
                                    pool_k1=False)
+    # musicgen-medium whole (48 layers) at model level: prefill through K4,
+    # decode through K1 in fetch mode and in place
+    paths[MUSICGEN], audio = audio_path()
     # the training path: full-width h2o-danube-3-4b, 1 x 8,192 tokens
     # (twice its window) a step, through K4's forward and backward
     paths["h2o-danube-3-4b training"], training = train_path()
@@ -2803,6 +3356,9 @@ def main() -> int:
         if k["name"] == "paged_decode_partials":
             k["long_pool"] = k1_long
             k["llama4_pool"] = k1_llama4
+            k["inplace_steps"] = {"yi-6b": inplace_yi,
+                                  "h2o-danube-3-4b": inplace_danube,
+                                  MUSICGEN: audio}
         if k["name"] == "prefill_attention_bwd":
             k["training"] = training
         if k["name"] == "moe_ffn_bwd":

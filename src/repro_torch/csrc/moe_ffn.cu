@@ -91,7 +91,9 @@ template <typename T> __device__ __forceinline__ float activation(float u,
   if (act == kGelu) {
     const float c = rnd<T>(0.7978845608028654f);     // sqrt(2 / pi)
     const float u3 = rnd<T>(rnd<T>(u * u) * u);
-    const float inner = rnd<T>(c * rnd<T>(u + rnd<T>(0.044715f * u3)));
+    // the constant rounds to T first, as JAX's weakly typed one does
+    const float k = rnd<T>(0.044715f);
+    const float inner = rnd<T>(c * rnd<T>(u + rnd<T>(k * u3)));
     const float half = rnd<T>(0.5f * rnd<T>(1.f + rnd<T>(tanhf(inner))));
     return rnd<T>(u * half);
   }

@@ -226,9 +226,11 @@ def main():
     from repro_torch.models import model as M
     from repro_torch.serving import (ControllerConfig, SpecDecodeConfig,
                                TenantSpec, Workload)
+    from repro_torch.serving.engine import check_servable
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch).reduced()
+    check_servable(cfg)
     params = M.init_params(
         cfg, torch.Generator(device=device).manual_seed(args.seed), device)
     budget = int(args.peer_budget_mb * 2**20)

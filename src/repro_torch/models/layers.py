@@ -1,6 +1,7 @@
 """Core transformer layers of the dense decoder: RMS norm, rotary
-embeddings (RoPE and Qwen2-VL's three-section M-RoPE), prefill attention
-(kernel K4, online softmax) and the MLP.
+embeddings (RoPE and Qwen2-VL's three-section M-RoPE), MusicGen's
+sinusoidal positions, prefill attention (kernel K4, online softmax) and
+the MLP.
 
 Every function mirrors its namesake in ``repro.models.layers`` dtype for
 dtype: bf16 operands, f32 accumulation where the JAX code asks for it, and a
@@ -10,6 +11,8 @@ single-token decode against the paged KV pool lives in
 ``repro_torch.core.paged_attention``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -82,6 +85,26 @@ def position_embedding(x, positions, cfg: ModelConfig, positions_3d=None):
     return x  # "none": non-rotary positions
 
 
+def sinusoidal_positions(positions, d_model: int):
+    """MusicGen's sinusoidal embedding of ``positions`` (..., s): an f32
+    (..., s, d_model) table, the sines of the ``d_model // 2`` angles and
+    then their cosines, as ``repro.models.layers.sinusoidal_positions``.
+    The frequencies divide by ``half`` as a multiply by its f32
+    reciprocal, which is how XLA computes the JAX package's ``/ half``.
+    ``exp``, ``sin`` and ``cos`` still round otherwise than XLA's (and than
+    CUDA's on the card): the f32 frequencies differ in their last bits,
+    which the angle multiplies by the position, so the table agrees with
+    the JAX package's to a tolerance that grows with the position, not bit
+    for bit."""
+    half = d_model // 2
+    f32 = torch.float32
+    exps = torch.arange(half, dtype=f32, device=positions.device) \
+        * torch.tensor(-math.log(10_000.0), dtype=f32) \
+        * torch.tensor(1.0 / half, dtype=f32)
+    ang = positions[..., None].to(f32) * torch.exp(exps)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def chunked_attention(q, k, v, q_positions, k_positions, cfg: ModelConfig,
                       kv_chunk: int = 1024, logit_softcap=None):
     """Causal GQA attention with an online softmax over KV chunks, the
@@ -151,10 +174,15 @@ def _silu(u):
 
 
 def _gelu(u):
-    # jax.nn.gelu's default tanh approximation, op for op (agrees with the
-    # jitted JAX MLP to a bf16 rounding step)
-    c = torch.tensor((2 / torch.pi) ** 0.5, dtype=u.dtype)
-    return u * (0.5 * (1 + torch.tanh(c * (u + 0.044715 * (u * u * u)))))
+    # jax.nn.gelu's default tanh approximation, op for op, each op rounded
+    # in u's dtype; its constants are weakly typed in JAX, so they round
+    # to u's dtype first (a Python float would multiply at f32).  In bf16
+    # this equals the jitted JAX gelu on every bf16 input above 1e-36 (XLA
+    # on the CPU flushes the subnormals below to zero); in f32 it differs
+    # by XLA's own tanh, a rational approximation, a few f32 ulp apart
+    c = torch.tensor((2 / math.pi) ** 0.5, dtype=u.dtype)
+    k = torch.tensor(0.044715, dtype=u.dtype)
+    return u * (0.5 * (1 + torch.tanh(c * (u + k * (u * u * u)))))
 
 
 def _relu2(u):  # nemotron squared relu

@@ -1,6 +1,9 @@
 """The decoder of the port: dense blocks (serial, or parallel attention and
 MLP as in Command-R; the vlm family's are dense blocks with qkv bias and
-M-RoPE, behind a prefix of patch embeddings), MoE blocks where every
+M-RoPE, behind a prefix of patch embeddings; the audio family's, MusicGen,
+dense blocks with a non-gated gelu MLP over the sum of its codebooks'
+embeddings plus sinusoidal positions, behind a prefix of conditioning
+embeddings, with one head per codebook), MoE blocks where every
 layer's FFN is a mixture of experts (``layer_period == 1``) or every other
 layer's, after a dense layer (``layer_period == 2``, Llama-4), the hybrid
 family (Zamba2: Mamba2 layers with ONE shared attention block after every
@@ -12,6 +15,10 @@ Entry points:
   loss_fn(params, batch, cfg)               -> (loss, metrics)
   prefill(params, batch, cfg)               -> (logits_last, ForwardOut)
   serve_step(params, state, cfg)            -> (logits, new_state)  1 token
+
+The audio family's tokens carry a trailing codebook dim: (b, s, ncb) into
+``forward``, (b, ncb) in ``DecodeState.tokens``; its logits are (b, s,
+ncb, V) and (b, ncb, V).
 
 Parameters are the nested dict of ``repro_torch.models.params`` (leaves
 stacked over layers); the JAX package's layer ``scan`` is a Python loop,
@@ -47,7 +54,7 @@ from repro_torch.models import xlstm as X
 from repro_torch.models.moe import load_balance_loss, moe_layer
 from repro_torch.models.params import (  # noqa: F401  (re-exported)
     abstract_params, build_schema, check_family, init_params, is_interleaved,
-    param_count)
+    num_codebooks, param_count)
 
 
 def _unbind(node):
@@ -106,11 +113,34 @@ def _run(remat: bool, fn, *args):
 
 
 def embed(params, tokens, cfg: ModelConfig):
-    return params["embed"][tokens.long()]
+    """tokens (b, s) -> (b, s, d); the audio family's (b, s, ncb) -> the
+    sum of the codebooks' embeddings, added one at a time in codebook
+    order, each add rounded in the table's dtype (the jitted JAX ``sum``
+    rounds so; one f32 sum rounded once would not match it)."""
+    ncb = num_codebooks(cfg)
+    if not ncb:
+        return params["embed"][tokens.long()]
+    table, tokens = params["embed"], tokens.long()
+    x = table[0][tokens[..., 0]]
+    for c in range(1, ncb):
+        x = x + table[c][tokens[..., c]]
+    return x
+
+
+def add_positions(x, positions, cfg: ModelConfig):
+    """The audio family's sinusoidal positions added to the input stream
+    (``positions`` (b, s) for ``x`` (b, s, d)): the f32 table rounded to
+    x's dtype first and then added, as the jitted JAX model adds it; other
+    models take their positions in attention and get ``x`` back."""
+    if cfg.family != "audio" or cfg.rope_style != "none":
+        return x
+    return x + L.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
 
 
 def unembed(params, x, cfg: ModelConfig):
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if num_codebooks(cfg):
+        return torch.einsum("bsd,cdv->bscv", x, params["lm_head"])
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, params["embed"])
     return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
@@ -279,14 +309,16 @@ def backbone(params, x, positions, cfg: ModelConfig, positions_3d=None,
 
 
 def forward(params, batch, cfg: ModelConfig, want_kv: bool = False):
-    """batch: dict(tokens (b, s), positions (b, npre + s)[, prefix_embeddings
-    (b, npre, d), positions_3d (b, npre + s, 3)]).  A model with prefix
-    embeddings (the vision frontend's patches, precomputed) reads them
-    ahead of the tokens."""
+    """batch: dict(tokens (b, s) or (b, s, ncb), positions (b, npre + s)[,
+    prefix_embeddings (b, npre, d), positions_3d (b, npre + s, 3)]).  A
+    model with prefix embeddings (the vision frontend's patches, MusicGen's
+    conditioning, precomputed) reads them ahead of the tokens; MusicGen's
+    sinusoidal positions are added over the prefix and the tokens alike."""
     check_family(cfg)
     x = embed(params, batch["tokens"], cfg)
     if cfg.modality is not None and cfg.modality.num_prefix_embeddings:
         x = torch.cat([batch["prefix_embeddings"].to(x.dtype), x], dim=1)
+    x = add_positions(x, batch["positions"], cfg)
     out = backbone(params, x, batch["positions"], cfg,
                    batch.get("positions_3d"), want_kv=want_kv)
     return unembed(params, out.hidden, cfg), out
@@ -299,7 +331,8 @@ def loss_fn(params, batch, cfg: ModelConfig):
     the log-sum-exp in f32, the target logit gathered (for finite logits
     equal bit for bit to the JAX package's one-hot contraction, without a
     (b, s, V) one-hot).  batch: ``forward``'s and labels (b, s).  Returns
-    (loss, {"nll", "aux"}), aux unweighted."""
+    (loss, {"nll", "aux"}), aux unweighted.  The audio family's labels are
+    (b, s, ncb), one per codebook, averaged alike."""
     logits, out = forward(params, batch, cfg)
     labels = batch["labels"]
     npre = cfg.modality.num_prefix_embeddings if cfg.modality else 0
@@ -339,7 +372,7 @@ class KVPools(NamedTuple):
 
 
 class DecodeState(NamedTuple):
-    tokens: torch.Tensor      # (b,) last emitted token
+    tokens: torch.Tensor      # (b,) or (b, ncb) last emitted token(s)
     pos: torch.Tensor         # (b,) int32 current position
     kv: Optional[KVPools]
     peer: Optional[KVPools]   # harvested peer tier (in-place mode)
@@ -377,9 +410,15 @@ def _decode_attn_sublayer(u, lp, cfg, state: DecodeState, layer: int,
 
 def serve_step(params, state: DecodeState, cfg: ModelConfig,
                harvest_inplace: bool = False):
-    """Decode ONE token for every active request. Returns (logits, state)."""
+    """Decode ONE token for every active request. Returns (logits, state):
+    logits (b, V), or (b, ncb, V) for the audio family, and the argmax
+    tokens in ``state.tokens``.  ``harvest_inplace`` with ``state.peer``
+    set: the harvested peer pool joins each layer's softmax where it lies
+    (K1 over each pool, the partials merged by log-sum-exp); the step's k
+    and v go to the local pool alone."""
     check_family(cfg)
-    x = embed(params, state.tokens[:, None], cfg)
+    x = add_positions(embed(params, state.tokens[:, None], cfg),
+                      state.pos[:, None], cfg)
     use_peer = harvest_inplace and state.peer is not None
     states = state.states
     if cfg.family == "hybrid":

@@ -2,7 +2,9 @@
 vlm, the dense stack with qkv bias; MoE with every layer an MoE layer;
 MoE interleaved with dense layers, ``layer_period == 2``; the hybrid
 family, Mamba2 layers and one shared attention block; and the ssm family,
-xLSTM super-blocks of mLSTM blocks and one sLSTM block): one declaration
+xLSTM super-blocks of mLSTM blocks and one sLSTM block; and the audio
+family, MusicGen's dense stack of non-gated MLP blocks over codebooks,
+each with its own embedding and head): one declaration
 drives init and the bridge's shape checks.  Leaves are stacked over
 layers (leading dims) exactly as in the JAX package, so the two parameter
 trees line up key by key and shape by shape.
@@ -153,17 +155,26 @@ def is_interleaved(cfg: ModelConfig) -> bool:
     return cfg.family == "moe" and cfg.moe.layer_period == 2
 
 
+def num_codebooks(cfg: ModelConfig) -> int:
+    """The audio family's parallel codebooks (MusicGen: 4), each with its
+    own embedding table and head, or 0 for a model of one token stream."""
+    if cfg.family == "audio" and cfg.modality.num_codebooks > 1:
+        return cfg.modality.num_codebooks
+    return 0
+
+
 def check_family(cfg: ModelConfig) -> None:
-    """The families the port covers so far: dense, vlm (the dense stack
-    with M-RoPE, qkv bias and prefix embeddings), MoE with every layer an
-    MoE layer or every other one, hybrid (Mamba2 and a shared attention
-    block) and ssm (xLSTM); not yet audio."""
-    if not (cfg.family in ("dense", "vlm", "hybrid", "ssm") or is_moe(cfg)
-            or is_interleaved(cfg)):
+    """The families the port covers: dense, vlm (the dense stack with
+    M-RoPE, qkv bias and prefix embeddings), audio (the dense stack over
+    parallel codebooks, sinusoidal positions, prefix embeddings), MoE with
+    every layer an MoE layer or every other one, hybrid (Mamba2 and a
+    shared attention block) and ssm (xLSTM)."""
+    if not (cfg.family in ("dense", "vlm", "audio", "hybrid", "ssm")
+            or is_moe(cfg) or is_interleaved(cfg)):
         raise NotImplementedError(
-            f"{cfg.name}: the port covers the dense, vlm, hybrid and ssm "
-            f"families and MoE with every layer or every other layer an "
-            f"MoE layer so far (family {cfg.family!r})")
+            f"{cfg.name}: the port covers the dense, vlm, audio, hybrid and "
+            f"ssm families and MoE with every layer or every other layer an "
+            f"MoE layer (family {cfg.family!r})")
     if is_interleaved(cfg) and cfg.num_layers % 2:
         raise ValueError(f"{cfg.name}: interleaved dense/MoE pairs need an "
                          f"even layer count, got {cfg.num_layers}")
@@ -183,9 +194,17 @@ def _norms(cfg: ModelConfig, parallel: bool) -> dict:
 def build_schema(cfg: ModelConfig) -> dict:
     check_family(cfg)
     d = cfg.d_model
-    schema: dict = {"embed": ParamDef((cfg.vocab_size, d))}
-    if not cfg.tie_embeddings:
-        schema["lm_head"] = ParamDef((d, cfg.vocab_size))
+    ncb = num_codebooks(cfg)
+    if ncb:
+        # one embedding table and one head per codebook
+        schema: dict = {"embed": ParamDef((ncb, cfg.vocab_size, d),
+                                          stacked=1),
+                        "lm_head": ParamDef((ncb, d, cfg.vocab_size),
+                                            stacked=1)}
+    else:
+        schema = {"embed": ParamDef((cfg.vocab_size, d))}
+        if not cfg.tie_embeddings:
+            schema["lm_head"] = ParamDef((d, cfg.vocab_size))
     schema["final_norm"] = ParamDef((d,), "ones")
     if is_interleaved(cfg):
         # the JAX package scans (dense, moe) pairs: layer 2i is

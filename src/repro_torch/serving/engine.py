@@ -252,6 +252,22 @@ class SpecDecodeConfig:
         return e
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """The families the engine serves: every family of the model but
+    audio.  The JAX package's engine prefills a (1, n) row of prompt
+    tokens (``repro/serving/engine.py:953-956``) where the audio family's
+    ``embed`` takes (b, s, ncb) codebook tokens, so it cannot serve
+    MusicGen, and the port serves no more than its reference."""
+    M.check_family(cfg)
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            f"{cfg.name}: the serving engine takes one token stream, and the "
+            f"audio family's model takes (b, s, ncb) codebook tokens; the "
+            f"reference engine passes (1, n) prompt tokens "
+            f"(repro/serving/engine.py:953-956), so neither serves it (the "
+            f"model entry points do)")
+
+
 def _pct(xs: List[float], q: float) -> float:
     """Nearest-rank percentile; 0.0 on an empty sample (guarded)."""
     if not xs:
@@ -532,7 +548,7 @@ class HarvestServingEngine:
                  controller: "str | ControllerConfig | StabilityController "
                              "| None" = None,
                  device="cuda"):
-        M.check_family(cfg)
+        check_servable(cfg)
         self.device = resolve_device(device)
         off = [t.device for t in _leaves(params) if t.device != self.device]
         if off:

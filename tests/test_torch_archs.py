@@ -398,3 +398,28 @@ def test_cli_serves_the_arch_on_the_cpu(capsys, monkeypatch, arch_id):
         "--fidelity-policy", "slo", "--mode", "async"])
     serve.main()
     assert "3/3 requests served" in capsys.readouterr().out
+
+
+#: the two MoE configs of the catalog no other port test serves: Mixtral
+#: (8 experts top-2, a sliding window, 64 when reduced) and Phi-3.5-MoE (16
+#: experts top-2), reduced (4 experts top-2, every layer an MoE layer)
+MORE_MOE = ["mixtral-8x7b", "phi-3.5-moe"]
+
+
+@pytest.mark.parametrize("arch_id", MORE_MOE)
+def test_more_moe_engines_match_jax(arch_id):
+    """Reduced Mixtral and Phi-3.5-MoE, bf16, through both engines on the
+    seed-golden ``_run`` workload: identical tokens, kv and allocator
+    stats and clock, the sampled logits under the near-tie guard, with
+    evictions to the peer and reloads."""
+    cfg, tcfg = get_config(arch_id).reduced(), t_get_config(arch_id).reduced()
+    assert cfg.family == "moe" and cfg.moe.layer_period == 1
+    assert (cfg.moe.num_experts, cfg.moe.top_k) == (4, 2)
+    jp = JM.init_params(jax.random.PRNGKey(0), cfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    j = _run(JaxEngine, HarvestRuntime, H100_NVLINK, cfg, jp, 64 * MiB)
+    t = _run(TorchEngine, tcore.HarvestRuntime, tcore.H100_NVLINK, tcfg, tp,
+             64 * MiB, device="cpu")
+    kv = j[0].kv_mgr.stats
+    assert kv["evict_to_peer"] > 0 and kv["reload_peer"] > 0, kv
+    _assert_same_run(j, t, KNOWN_NEAR_TIES.get((arch_id, "bfloat16"), ()))

@@ -72,6 +72,75 @@ def test_paged_partials_kernel_matches_plain(cuda, window, chunk, gq, hd,
     assert torch.all(got.l[1] == 0) and torch.all(got.m[1] == -1e30)
 
 
+def _two_pools(seed, bs, nkv, gq, hd, q_pos, alone):
+    """Each row's blocks dealt over a local pool and a peer pool, the
+    first half of them on the peer but for row ``alone``, which has none
+    there; the fetch pool holds every block in the local pool's slots.
+    Free slots hold garbage.  Returns q, q_pos and three (pool_k, pool_v,
+    slot_req, slot_base) tuples on the card: local, peer, fetch."""
+    rng = np.random.default_rng(seed)
+    blocks = [(r, j) for r, p in enumerate(q_pos) for j in range(p // bs + 1)]
+    n_local, n_peer = len(blocks) + 5, len(blocks) + 5
+
+    def table(n):
+        return (rng.normal(size=(n, bs, nkv, hd)).astype(np.float32),
+                rng.normal(size=(n, bs, nkv, hd)).astype(np.float32),
+                np.full((n,), -1, np.int32),
+                rng.integers(0, 64, size=n).astype(np.int32))
+
+    fetch, peer = table(n_local), table(n_peer)
+    local_slots = rng.permutation(n_local)
+    peer_slots = iter(rng.permutation(n_peer))
+    local = None
+    moved = []
+    for (r, j), slot in zip(blocks, local_slots):
+        fetch[2][slot], fetch[3][slot] = r, j * bs
+        if r != alone and j < (q_pos[r] // bs + 1) // 2:
+            moved.append((slot, next(peer_slots)))
+    local = tuple(a.copy() for a in fetch)
+    for slot, ps in moved:
+        for a in range(4):
+            peer[a][ps] = fetch[a][slot]
+        local[2][slot] = -1
+    q = rng.normal(size=(len(q_pos), nkv * gq, hd)).astype(np.float32)
+    dev = [tuple(torch.from_numpy(a).cuda() for a in t)
+           for t in (local, peer, fetch)]
+    return (torch.from_numpy(q).cuda(),
+            torch.from_numpy(np.asarray(q_pos, np.int32)).cuda(), *dev)
+
+
+@pytest.mark.parametrize("gq,hd,bs", [(1, 64, 16), (8, 128, 8)])
+def test_paged_decode_over_two_pools_merged(cuda, gq, hd, bs):
+    """K1 as the in-place mode calls it: once over the local pool and once
+    over the peer pool, the partials merged by LSE and normalised
+    (``paged_decode_attention``), at musicgen-medium's heads (24 / 24 of
+    64) and yi-6b's (32 / 4 of 128): two launches, and the result against
+    the plain version over the same two pools and against one K1 call
+    over the fetch pool that holds every block.  Row 1 has no block on
+    the peer: K1 leaves it m -1e30, l 0, acc 0 there, and the merge gives
+    its local result unchanged, bit for bit."""
+    nkv = 24 if gq == 1 else 4
+    cfg = get_config("yi-6b").reduced()
+    q, q_pos, local, peer, fetch = _two_pools(
+        31, bs, nkv, gq, hd, (70, 33, 129, 5), alone=1)
+    before = pops.paged_decode_partials.launches
+    got = tpa.paged_decode_attention(q, [local, peer], q_pos, cfg)
+    torch.cuda.synchronize()
+    assert pops.paged_decode_partials.launches == before + 2
+    cpu = lambda t: tuple(a.cpu() for a in t)  # noqa: E731
+    ref = tpa.paged_decode_attention(q.cpu(), [cpu(local), cpu(peer)],
+                                     q_pos.cpu(), cfg)
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)
+    one = tpa.paged_decode_attention(q, [fetch], q_pos, cfg)
+    torch.testing.assert_close(got, one, rtol=1e-4, atol=1e-4)
+    empty = tpa.pool_partials(q, *peer, q_pos, cfg)
+    assert torch.all(empty.m[1] == -1e30) and torch.all(empty.l[1] == 0)
+    assert torch.all(empty.acc[1] == 0)
+    alone = tpa.paged_decode_attention(q, [local], q_pos, cfg)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[1], alone[1])
+
+
 # (name, sliding window, attention chunk, logit softcap)
 K1_MASKS = [("causal", None, None, None), ("window", 21, None, None),
             ("chunk", None, 24, None), ("softcap", 37, None, 5.0)]
@@ -1009,6 +1078,22 @@ def test_prefill_attention_at_zamba2_heads(cuda, dtype, n):
     on the tensor cores (hd 112 is 7 k-steps of 16) and f32."""
     q, k, v, qp, kp = _flash_inputs(25, 1, n, n, 32, 32, 112, dtype)
     got = fops.prefill_attention(q, k, v, qp, kp)
+    ref = fops.prefill_attention_plain(q, k, v, qp, kp)
+    torch.testing.assert_close(got.float(), ref.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [72, 1564])
+def test_prefill_attention_at_musicgen_heads(cuda, dtype, n):
+    """K4 as musicgen-medium's prefill gives it at full width: its 64
+    conditioning positions ahead of an audio prompt (8 frames, and 1,500:
+    30 s at 50 Hz), one sequence, 24 q over 24 kv heads (MHA) of 64, so
+    four k-steps of 16 on the tensor cores in bf16; causal over both."""
+    q, k, v, qp, kp = _flash_inputs(26, 1, n, n, 24, 24, 64, dtype)
+    before = fops.prefill_attention.launches
+    got = fops.prefill_attention(q, k, v, qp, kp)
+    torch.cuda.synchronize()
+    assert fops.prefill_attention.launches == before + 1
     ref = fops.prefill_attention_plain(q, k, v, qp, kp)
     torch.testing.assert_close(got.float(), ref.float(), **FLASH_TOL[dtype])
 

@@ -2,6 +2,7 @@
 size: parameters cross with the bridge bit for bit, and prefill logits and
 one decode step agree with the jitted JAX functions on identical inputs."""
 import dataclasses
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -274,18 +275,32 @@ def test_serve_step_matches_jax_and_forward(setup):
                                atol=LOGIT_TOL)
 
 
-def test_unsupported_families_raise():
-    """The audio family (musicgen-medium) is the one the port still
-    refuses: in the params, the model and the engine."""
+def test_unsupported_families_raise(monkeypatch):
+    """The audio family (musicgen-medium): the params and the model take
+    it (tests/test_torch_audio.py), the serving engine and the serve CLI
+    refuse it with the reference's own reason, the JAX engine's (1, n)
+    prompt tokens where the model takes (b, s, ncb); the CLI stops before
+    it allocates a weight."""
+    from repro_torch.launch import serve
     from repro_torch.serving.engine import HarvestServingEngine
     cfg = t_get_config("musicgen-medium").reduced()
     assert cfg.family == "audio"
-    with pytest.raises(NotImplementedError):
-        TM.init_params(cfg, torch.Generator(), "cpu")
+    params = TM.init_params(cfg, torch.Generator(), "cpu")
     tokens = torch.zeros((1, 8, cfg.modality.num_codebooks),
                          dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        TM.forward({}, {"tokens": tokens,
-                        "positions": torch.arange(8)[None]}, cfg)
-    with pytest.raises(NotImplementedError):
-        HarvestServingEngine(cfg, {}, device="cpu")
+    npre = cfg.modality.num_prefix_embeddings
+    logits, _ = TM.forward(params, {
+        "tokens": tokens, "positions": torch.arange(npre + 8)[None],
+        "prefix_embeddings": torch.zeros((1, npre, cfg.d_model))}, cfg)
+    assert tuple(logits.shape) == (1, npre + 8, cfg.modality.num_codebooks,
+                                   cfg.vocab_size)
+    reason = r"\(1, n\) prompt tokens.*engine\.py:953-956"
+    with pytest.raises(NotImplementedError, match=reason):
+        HarvestServingEngine(cfg, params, device="cpu")
+    calls = []
+    monkeypatch.setattr(TM, "init_params", lambda *a, **k: calls.append(a))
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", "musicgen-medium",
+                                      "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match=reason):
+        serve.main()
+    assert calls == []
