@@ -60,7 +60,8 @@ Phases (any failure raises and the script exits non-zero):
      window), nemotron-4-15b at 12 / 2 heads (its GQA group of 6),
      Llama-4 at 4 layers with its dense/MoE interleaving (prompts past its
      64-token chunk), Command-R at 4 layers (parallel blocks), qwen2-vl-72b
-     (M-RoPE, qkv bias, 8 prefix embeddings), DBRX, zamba2-7b at 5 layers
+     (M-RoPE, qkv bias, 8 prefix embeddings), DBRX, Mixtral (its reduced
+     64-token window), Phi-3.5-MoE, zamba2-7b at 5 layers
      (two super-blocks of Mamba2 layers and the shared attention block,
      and a tail) and xlstm-1.3b at 4 layers (no KV: no block, no kernel)
      served on the CPU (plain versions) and on the card (kernels):
@@ -112,14 +113,33 @@ Phases (any failure raises and the script exits non-zero):
      embeddings) at 36 of its 80 layers (34.09 B parameters) and dbrx-132b
      (16 experts top-4 of width 10,752, every layer) at 10 of its 40
      (33.82 B) on yi-6b's workload, each profiled; the expert FFN held and
-     timed at DBRX's decode shape on the model's own 16 experts;
+     timed at DBRX's decode shape on the model's own 16 experts; then
+     mixtral-8x7b (8 experts top-2 of width 14,336, window 4,096) and
+     phi-3.5-moe (16 top-2 of 6,400) at 16 of their 32 layers (23.48 B and
+     21.07 B) and phi-tiny-moe whole (16 top-2 of 915, 3.81 B) the same
+     way, the expert FFN at each decode shape on the model's own experts;
  11. zamba2-7b (81 Mamba2 layers and one shared attention block after
      every sixth: 13 KV layers, 6.75 B parameters) and xlstm-1.3b (48
      mLSTM and sLSTM blocks, no KV, 2.05 B) whole on yi-6b's workload,
      each decode step carrying the batch's recurrent states (their bytes
      printed); a decode step from zero states and a 40-token prefill
      profiled;
- 12. musicgen-medium whole (48 layers, 1.38 B parameters, bf16) at model
+ 12. sharded decode: two ranks (``launch``; NCCL where there are two
+     cards, else gloo on the one) on the mesh (data 1, model 2) decode
+     full-width yi-6b (4 rows over 24 slots of 8, 12 a rank; in fetch
+     mode, and in place with each row's first block on a peer pool split
+     the same way), h2o-danube-3-4b (rows at 5,999 and 4,700 over 800
+     slots of 16, 400 a rank) and phi-tiny-moe (8 of 16 experts a rank) 8
+     steps sharded and unsharded from the same weights and pools: the
+     logits and appended k and v within stated tolerances, the tokens
+     equal but for named near ties, each rank's pool shards the matching
+     slots of the unsharded pools, K1 once a KV layer a step on each rank
+     (twice in place) and K7 once an MoE layer over the rank's experts;
+     phi-tiny-moe's rows its router sent elsewhere by itself named, its
+     steps then held replayed under the unsharded routing; per rank the
+     step's wall, one profiled step's device-busy ms and the collectives'
+     host ms and share;
+ 13. musicgen-medium whole (48 layers, 1.38 B parameters, bf16) at model
      level: 4 rows of 64 conditioning embeddings and 250-1,500 audio
      frames, each prefilled alone through K4 and placed into 16-token
      blocks, then 64 decode steps in fetch mode and 64 in place (the
@@ -128,7 +148,7 @@ Phases (any failure raises and the script exits non-zero):
      96 in place; the modes' (step, row, codebook) tokens equal but for
      named near ties; the in-place logits held to a full-sequence forward
      over the same tokens; each mode's step and one prefill profiled;
- 13. the training path: full-width h2o-danube-3-4b (all 24 layers, 3.962
+ 14. the training path: full-width h2o-danube-3-4b (all 24 layers, 3.962
      B parameters) trained 5 AdamW steps of 1 x 8,192 tokens from the
      synthetic corpus, its footprint reckoned from ``abstract_params``
      before it is allocated, every block recomputed in the backward pass,
@@ -146,13 +166,15 @@ Phases (any failure raises and the script exits non-zero):
      handed a tensor that requires grad, and K7's gradient must arrive;
 then the card's name and power limit, one JSON line of per-kernel
 numbers (``launches_by_path`` over the served paths, the two in-place
-steps, musicgen-medium and the two training paths), and the JSON result
-line.  The launch counts are set to 0 just before each path and read
+steps, each rank of the sharded cases, musicgen-medium and the two
+training paths), and the JSON result line.  Each phase prints its
+seconds.  The launch counts are set to 0 just before each path and read
 just after it.  It imports neither JAX nor the
 JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -168,8 +190,10 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.bridge import shard_decode  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import HarvestRuntime, paged_attention as tpa  # noqa: E402
+from repro_torch.core import HarvestRuntime, collectives  # noqa: E402
+from repro_torch.core import paged_attention as tpa  # noqa: E402
 from repro_torch.core.tiers import Fidelity, kv_block_bytes  # noqa: E402
 from repro_torch.data.pipeline import SyntheticCorpus, make_batches  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -177,8 +201,10 @@ from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.harvest_copy import ops as hops  # noqa: E402
 from repro_torch.kernels.moe_ffn import ops as mops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pops  # noqa: E402
+from repro_torch.launch.mesh import Mesh, launch, make_rules  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
+from repro_torch.models.sharding import kv_block_axes  # noqa: E402
 from repro_torch.serving import TenantSpec, Workload  # noqa: E402
 from repro_torch.train.loop import cosine_lr  # noqa: E402
 from repro_torch.train.optim import (  # noqa: E402
@@ -197,6 +223,12 @@ ZAMBA2, XLSTM = "zamba2-7b", "xlstm-1.3b"
 #: of weights), 10 of dbrx-132b's 40 (63.0 GiB); every layer of each has
 #: the same shape
 QWEN2_VL_LAYERS, DBRX_LAYERS = 36, 10
+MIXTRAL, PHI35, PHI_TINY = "mixtral-8x7b", "phi-3.5-moe", "phi-tiny-moe"
+#: the depths that fit one card: 16 of mixtral-8x7b's 32 layers (23.48 B
+#: parameters, 43.74 GiB in bf16; the whole model 86.99 GiB) and 16 of
+#: phi-3.5-moe's 32 (21.07 B, 39.24 GiB; whole 77.99 GiB, no room left
+#: for the engine beside it); phi-tiny-moe whole (3.81 B, 7.10 GiB)
+MIXTRAL_LAYERS, PHI35_LAYERS = 16, 16
 MUSICGEN = "musicgen-medium"
 #: musicgen-medium's audio prompts: 5, 10, 20 and 30 s at EnCodec's 50 Hz
 #: frame rate (MusicGen generates up to 30 s), each behind its 64
@@ -224,6 +256,13 @@ K1_KERNELS = ("live_bits_kernel", "paged_split_kernel",
 #: the least size of a timing pool that calls cycle through: past the
 #: card's 50 MB L2, so that each call finds its rows cold
 POOL_BYTES = 64 * 2 ** 20
+
+
+def phase_done(name: str, t0: float) -> float:
+    """Print the seconds a phase took since ``t0``; returns the time now."""
+    now = time.perf_counter()
+    print(f"phase {name}: {now - t0:.1f} s")
+    return now
 
 
 def card_line() -> str:
@@ -323,34 +362,52 @@ def profiled(fn, iters, pad_s=TRACE_PAD_S, cpu=False):
     return prof
 
 
-def trace_rows(fn, iters, pad_s=TRACE_PAD_S, retake_s=0.0):
+def trace_rows(fn, iters, pad_s=TRACE_PAD_S, retake_s=0.0, want=None):
     """[(name, device ms per call)] of every kernel, memset and copy that
     ``iters`` calls of ``fn`` put on the card, from the profiler's trace,
     largest first.  Where ``retake_s`` is given, a trace without a device
-    row is taken again (``TRACE_RETAKE_S``'s note says how) until one has a
-    row or ``retake_s`` seconds have passed, and then it raises; each retake
-    is named on stderr."""
+    row, or without what ``want(rows)`` asks for where given (a row the
+    trace lost at its window's edge: one H100 run lost the first of K7's
+    four backward kernels from a single call's trace), is taken again
+    (``TRACE_RETAKE_S``'s note says how) until one has it or ``retake_s``
+    seconds have passed, and then it raises; each retake is named on
+    stderr."""
     t0 = time.perf_counter()
     attempt, calls, cpu = 0, iters, False
     while True:
         prof = profiled(fn, calls, pad_s, cpu)
         rows = device_rows(prof, calls)
-        if not retake_s or any(t > 0 for _, t in rows):
+        if not retake_s or (any(t > 0 for _, t in rows)
+                            and (want is None or want(rows))):
             return rows
         launches = sum(e.count for e in prof.key_averages()
                        if "Launch" in e.key) if cpu else None
         attempt += 1
         waited = time.perf_counter() - t0
-        print(f"  a trace came back without a device row ({calls} calls, "
+        what = "a device row" if not any(t > 0 for _, t in rows) else \
+            f"the rows asked for (it holds {[n[:40] for n, _ in rows]})"
+        print(f"  a trace came back without {what} ({calls} calls, "
               f"{pad_s * 1e3:.0f} ms padding, CPU activity {cpu}: "
               f"{launches} launch calls recorded; {waited:.1f} s since the "
               f"first): taken again", file=sys.stderr)
         if waited > retake_s:
-            raise RuntimeError(f"{attempt} traces in {waited:.1f} s showed no "
-                               f"device row")
+            raise RuntimeError(f"{attempt} traces in {waited:.1f} s showed "
+                               f"no device row or not the rows asked for")
         pad_s = min(2 * pad_s, TRACE_PAD_MAX_S)
         cpu = attempt % 2 == 1
         calls = iters * (8 if attempt >= 4 else 1)
+
+
+def holds(check, *args):
+    """``check(rows, *args)``, an asserting check of a trace's rows, as a
+    predicate for ``trace_rows``' ``want``."""
+    def want(rows):
+        try:
+            check(rows, *args)
+        except AssertionError:
+            return False
+        return True
+    return want
 
 
 def wall_and_rows(fn, iters=5, warmup=3):
@@ -651,14 +708,15 @@ def time_card_pool_k1(cfg, bs):
 
 
 def deal_pools(L, q_pos, bs, nkv, hd, peer_of, seed, steps=1,
-               device="cuda", fill=None):
+               device="cuda", fill=None, slots=None, peer_slots=None):
     """Each row's blocks (those its positions up to ``q_pos[r] + steps -
     1`` need) dealt in shuffled order over a fetch pool of ``bs``-token
     slots, (L, n, bs, nkv, hd) f32 of random values that ``fill(pk, pv,
     where)`` may overwrite; the in-place layout then moves the blocks
     ``peer_of(r, j)`` names to a peer pool of their own, in shuffled
     slots, and frees them in a copy of the fetch pool (the local pool),
-    leaving garbage behind.  Each pool keeps 8 free slots of garbage.
+    leaving garbage behind.  Each pool keeps 8 free slots of garbage, or
+    holds ``slots`` (the fetch and local pools) and ``peer_slots`` slots.
     Returns the fetch, local and peer ``KVPools`` (the append fields each
     row's slot and offset at ``q_pos``) and {(row, block): fetch slot}."""
     rng = np.random.default_rng(seed)
@@ -667,8 +725,9 @@ def deal_pools(L, q_pos, bs, nkv, hd, peer_of, seed, steps=1,
               for j in range((p + steps - 1) // bs + 1)]
     moved = [rj for rj in blocks if peer_of(*rj)]
 
-    def pool(owned):
-        n = len(owned) + 8
+    def pool(owned, n=None):
+        n = n or len(owned) + 8
+        assert n >= len(owned), (n, len(owned))
         kv = [torch.randn((L, n, bs, nkv, hd), generator=gen, device=device)
               for _ in range(2)]
         sr = np.full((n,), -1, np.int32)
@@ -678,10 +737,10 @@ def deal_pools(L, q_pos, bs, nkv, hd, peer_of, seed, steps=1,
             sr[slot], sb[slot] = r, j * bs
         return kv + [sr, sb], where
 
-    fetch, where = pool(blocks)
+    fetch, where = pool(blocks, slots)
     if fill is not None:
         fill(fetch[0], fetch[1], where)
-    peer, at = pool(moved)
+    peer, at = pool(moved, peer_slots)
     src = [where[rj] for rj in moved]
     dst = [at[rj] for rj in moved]
     local = [fetch[0].clone(), fetch[1].clone(), fetch[2].copy(), fetch[3]]
@@ -1435,7 +1494,8 @@ def moe_bwd_case(label, xd, w, dout, activation, time=True):
         return mops.moe_ffn_bwd(xd, *w, dout, activation=activation)
 
     traced = assert_moe_bwd_kernels(
-        trace_rows(bwd, 1, retake_s=TRACE_RETAKE_S), dtype)
+        trace_rows(bwd, 1, retake_s=TRACE_RETAKE_S,
+                   want=holds(assert_moe_bwd_kernels, dtype)), dtype)
     row = dict(shape=label, dtype=str(dtype)[6:], activation=activation,
                E=e, C=c, d=d, f=f, rows=rows, experts_with_token=filled,
                tiles_skipped=tiles, max_abs_err=max(errs))
@@ -1783,7 +1843,8 @@ def check_flash_bwd(danube, yi, llama4, zamba2):
         traced = assert_bwd_kernels(trace_rows(
             lambda: fops.prefill_attention_bwd(q, k, v, o, lse, do, pos, pos,
                                                **masks), 1,
-            retake_s=TRACE_RETAKE_S), dtype)
+            retake_s=TRACE_RETAKE_S, want=holds(assert_bwd_kernels, dtype)),
+            dtype)
         ref = fops.prefill_attention_bwd_plain(q, k, v, o, lse, do, pos, pos,
                                                **masks)
         torch.cuda.synchronize()
@@ -2456,12 +2517,15 @@ def train_path(arch="h2o-danube-3-4b", steps=5, batch=1, seq_len=8192,
           f"{flops / 1e12:.1f} TFLOP a step ({formula}), {100 * mfu:.1f}% "
           f"of the bf16 peak")
     b = next_batch()
+    def training_kernels(rows):
+        assert_bwd_kernels(rows, torch.bfloat16)
+        if moe_layers:
+            assert_moe_bwd_kernels(rows, torch.bfloat16)
+            assert_moe_fwd_kernels(rows, torch.bfloat16)
+
     rows = trace_rows(lambda: train_step(params, opt, b, cfg, lr=cur_lr), 1,
-                      retake_s=TRACE_RETAKE_S)
-    assert_bwd_kernels(rows, torch.bfloat16)
-    if moe_layers:
-        assert_moe_bwd_kernels(rows, torch.bfloat16)
-        assert_moe_fwd_kernels(rows, torch.bfloat16)
+                      retake_s=TRACE_RETAKE_S, want=holds(training_kernels))
+    training_kernels(rows)
     busy = sum(ms for _, ms in rows)
     split = {"k4_forward_ms": "flash_prefill", "k4_backward_ms": "flash_bwd",
              "k7_forward_ms": ("moe_train_", "moe_pad_rows"),
@@ -2699,6 +2763,7 @@ def main_path(arch, bs, kernels_of_path, *, num_requests=6, local_slots=10,
     ``profile_evict``, one eviction and one reload of the served engine.
     Returns (launch counts, K1's numbers at that pool or None,
     ``on_model``'s result or None); the weights are freed on return."""
+    t_path = time.perf_counter()
     full = get_config(arch)
     if layers:
         full = dataclasses.replace(full, num_layers=layers)
@@ -2792,6 +2857,7 @@ def main_path(arch, bs, kernels_of_path, *, num_requests=6, local_slots=10,
               f"{100 * k4_ms / wall_ms:.1f}% of wall)")
         print(f"{arch}: peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"{arch}: the path took {time.perf_counter() - t_path:.1f} s")
     return launches, k1, extra
 
 
@@ -3122,6 +3188,360 @@ def inplace_step(label, bs, pos, peer_of):
     return hook
 
 
+# ---------------------------------------------------------------------------
+# sharded decode: two ranks on the mesh (data 1, model 2)
+# ---------------------------------------------------------------------------
+
+#: the sharded phase's mesh: each pool's slots split over both ranks
+#: (``kv_blocks`` = (data, model)), an MoE layer's experts over ``model``,
+#: the batch whole on each rank (``data`` 1)
+SHARD_MESH = ((1, 2), ("data", "model"))
+#: the decode steps of each sharded case, sharded and unsharded
+SHARD_STEPS = 8
+#: largest |sharded - unsharded| logit over a case's 8 steps: the ranks'
+#: partials merge in another order than one K1 call's splits, which moves
+#: the attention output by f32 ulps and, where one rounds to bf16
+#: otherwise, the residual stream by a bf16 step, carried through the
+#: layers and, through the appended k and v, into the later steps; twice
+#: the in-place mode's bound for its one step, 16 bf16 steps of a logit
+#: in [4, 8) (measured on an H100: 0.15-0.22 at yi-6b and danube)
+SHARD_LOGIT_TOL = 2 * INPLACE_LOGIT_TOL
+#: largest |sharded - unsharded| entry of the k and v the steps appended
+#: (a row's k of a layer past the first reads a residual stream a bf16
+#: step or a few apart, times its weights; measured on an H100:
+#: 0.15-0.24); every other entry of each rank's pool shard equal bit for
+#: bit
+SHARD_KV_TOL = 0.5
+#: case -> (arch, block size, each row's first decode position, local
+#: slots, peer slots, which of a row's blocks lie on the peer (in place)
+#: or None (fetch mode))
+SHARD_CASES = {
+    # 24 slots of 8: the rows' 21 blocks over 8 steps, 12 a rank
+    "yi-6b": ("yi-6b", 8, (41, 24, 33, 17), 24, None, None),
+    # each row's first block on a peer pool of 8 slots, 4 a rank
+    "yi-6b in place": ("yi-6b", 8, (41, 24, 33, 17), 24, 8,
+                       lambda r, j: j == 0),
+    # 800 slots of 16, 400 a rank, rows inside and past the 4,096 window
+    "h2o-danube-3-4b": ("h2o-danube-3-4b", 16, (5999, 4700), 800, None,
+                        None),
+    # 8 of 16 experts a rank, the KV as yi-6b's
+    PHI_TINY: (PHI_TINY, 8, (41, 24, 33, 17), 24, None, None),
+}
+
+
+def _same_on_ranks(tensors, what):
+    """Every rank holds the same ``tensors`` (each one's sum, compared
+    over the world)."""
+    fp = torch.stack([t.float().sum() for t in tensors])
+    hi, lo = fp.clone(), -fp
+    collectives.all_reduce(hi, "max", None)
+    collectives.all_reduce(lo, "max", None)
+    assert torch.equal(hi, fp) and torch.equal(-lo, fp), \
+        f"the ranks' {what} differ"
+
+
+def _lockstep_profile(step, rank, world, iters=3, warmup=2):
+    """(wall ms per step, device rows per step, the collectives' host ms
+    per step) of ``step``, which every rank calls in lockstep (it holds
+    collectives): the wall and the time inside the collectives over
+    ``iters`` steps after ``warmup``, then one rank at a time profiles
+    ``iters`` steps while the others run them unprofiled (two processes'
+    CUPTI on one card are left untried); a round whose trace came back
+    empty on some rank is taken again, up to three times."""
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    collectives.reset_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / iters
+    coll = collectives.stats["seconds"] * 1e3 / iters
+    for _ in range(3):
+        rows = []
+        for who in range(world):
+            if who == rank:
+                rows = device_rows(profiled(step, iters), iters)
+            else:
+                for _ in range(iters):
+                    step()
+                torch.cuda.synchronize()
+        empty = torch.tensor([float(not any(t > 0 for _, t in rows))],
+                             device="cuda")
+        collectives.all_reduce(empty, "max", None)
+        if not empty.item():
+            return wall, rows, coll
+    raise RuntimeError("three lockstep traces came back without a device "
+                       "row")
+
+
+def _sharded_case(case, cfg, params, rules, rank, world):
+    """One sharded case on this rank: the full pools dealt as
+    ``SHARD_CASES`` says (the same on every rank, from a seed), this rank's
+    shard of them and of the experts (``bridge.shard_decode``); then
+    ``SHARD_STEPS`` unsharded steps from random tokens, each fed the last
+    step's argmax, and the same steps sharded, fed the unsharded tokens,
+    the launch counts set to 0 just before them and read just after.
+    Held: the logits within ``SHARD_LOGIT_TOL``, the argmax equal but for
+    near ties, the rank's pool shards against the matching slots of the
+    unsharded pools (appended entries within ``SHARD_KV_TOL``, the rest bit
+    for bit, the peer unchanged), K1 once a KV layer a step (twice in
+    place), K7 once an MoE layer a step over the rank's own experts.  An
+    MoE model's router may send a row to another expert where its k-th and
+    (k + 1)-th probabilities nearly tie: every such row of the first step
+    must be a near tie the runs' roundings explain, and the sharded steps
+    run again from the same shard under the unsharded run's routing
+    (``Routing``'s replay) give the numbers held.  Then one sharded step
+    profiled in lockstep.  Returns its numbers, ``problems`` naming what
+    failed."""
+    _, bs, pos, slots, peer_slots, peer_of = SHARD_CASES[case]
+    L, b = M.num_kv_layers(cfg), len(pos)
+    inplace = peer_of is not None
+    fetch, local, peer, where = deal_pools(
+        L, pos, bs, cfg.num_kv_heads, cfg.resolved_head_dim,
+        peer_of or (lambda r, j: False), SEED + 13, steps=SHARD_STEPS,
+        device="cuda", slots=slots, peer_slots=peer_slots or None)
+    _same_on_ranks([fetch.pool_k, peer.pool_k], "pools")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    tokens = torch.randint(3, 250, (b,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    q0 = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    full = M.DecodeState(tokens=tokens, pos=q0, kv=local if inplace else
+                         fetch, peer=peer if inplace else None)
+    p_r, st_r = shard_decode(params, full, cfg, rules)
+    # a second copy of the shard's pools, for the replayed run
+    st_r2 = st_r._replace(kv=st_r.kv._replace(
+        pool_k=st_r.kv.pool_k.clone(), pool_v=st_r.kv.pool_v.clone()))
+    n_loc = st_r.kv.slot_req.shape[0]
+    lo = rules.mesh.axis_index(kv_block_axes(rules)) * n_loc
+
+    def at(st, t, toks):
+        p = [q + t for q in pos]
+        return st._replace(tokens=toks, pos=q0 + t, kv=st.kv._replace(
+            append_slot=torch.tensor([where[(r, q // bs)] for r, q in
+                                      enumerate(p)], dtype=torch.int32,
+                                     device="cuda"),
+            append_off=torch.tensor([q % bs for q in p], dtype=torch.int32,
+                                    device="cuda")))
+
+    st, ref, feed = full, [], [tokens]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    record = Routing if cfg.moe is not None else contextlib.nullcontext
+    with record() as ref_routes:
+        for t in range(SHARD_STEPS):
+            lg, st = M.serve_step(params, at(st, t, feed[-1]), cfg,
+                                  harvest_inplace=inplace)
+            ref.append(lg.float())
+            feed.append(st.tokens)
+    torch.cuda.synchronize()
+    unsharded_ms = (time.perf_counter() - t0) * 1e3 / SHARD_STEPS
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    collectives.reset_stats()
+    st, got = st_r, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with record() as routes:
+        for t in range(SHARD_STEPS):
+            lg, st = M.serve_step(p_r, at(st, t, feed[t]), cfg,
+                                  harvest_inplace=inplace, rules=rules)
+            got.append(lg.float())
+    torch.cuda.synchronize()
+    sharded_ms = (time.perf_counter() - t0) * 1e3 / SHARD_STEPS
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    coll_calls = collectives.stats["calls"] // SHARD_STEPS
+    # an MoE model's rows that the sharded run routed otherwise: each in
+    # the first step a near tie the runs' roundings explain; then the
+    # sharded steps again under the unsharded routing, and these are held
+    rerouted, routed_err = [], None
+    if cfg.moe is not None:
+        rerouted = routing_differences(ref_routes.calls, routes.calls,
+                                       cfg.num_moe_layers)
+        routed_err = max((a - b).abs().max().item()
+                         for a, b in zip(ref, got))
+        st, got = st_r2, []
+        with Routing(replay=ref_routes.calls):
+            for t in range(SHARD_STEPS):
+                lg, st = M.serve_step(p_r, at(st, t, feed[t]), cfg,
+                                      harvest_inplace=inplace, rules=rules)
+                got.append(lg.float())
+    want_k1 = L * SHARD_STEPS * (2 if inplace else 1)
+    want_k7 = cfg.num_moe_layers * SHARD_STEPS
+    problems = []
+    if (launches["paged_decode_partials"], launches["moe_ffn"]) != \
+            (want_k1, want_k7) or any(
+                n for k, n in launches.items()
+                if k not in ("paged_decode_partials", "moe_ffn")):
+        problems.append(f"launches {launches}, K1 and K7 predicted "
+                        f"{want_k1} and {want_k7}")
+    experts = None
+    if cfg.moe is not None:
+        experts = p_r["layers"]["moe"]["wi"].shape[1]
+        if experts != cfg.moe.num_experts // rules.axis_size("model"):
+            problems.append(f"{experts} experts on the rank")
+    ref, got = torch.stack(ref), torch.stack(got)
+    if not torch.isfinite(got).all():
+        problems.append("non-finite logits")
+    step_err = (ref - got).abs().amax(dim=(1, 2)).tolist()
+    err = max(step_err)
+    if err > SHARD_LOGIT_TOL:
+        problems.append(f"logits {err} apart")
+    # every argmax that differs must be a near tie: the unsharded step's
+    # top-1/top-2 gap within twice that vector's largest difference
+    d = (ref - got).abs().amax(-1)
+    top = torch.topk(ref, 2, dim=-1).values
+    gap = top[..., 0] - top[..., 1]
+    decided = int((gap > 2 * d).sum())
+    ties = [(tuple(ix), round(float(gap[tuple(ix)]), 5),
+             round(float(d[tuple(ix)]), 5)) for ix in torch.nonzero(
+                 torch.argmax(ref, -1) != torch.argmax(got, -1)).tolist()]
+    if any(g > 2 * dd for _, g, dd in ties):
+        problems.append(f"tokens differ past near ties: {ties}")
+    # the pools: appended entries near, the rest bit for bit
+    appended = torch.zeros((n_loc, bs), dtype=torch.bool, device="cuda")
+    for t in range(SHARD_STEPS):
+        for r, q in enumerate(pos):
+            s = where[(r, (q + t) // bs)] - lo
+            if 0 <= s < n_loc:
+                appended[s, (q + t) % bs] = True
+    kv_err = 0.0
+    for mine, whole in ((st.kv.pool_k, full.kv.pool_k),
+                        (st.kv.pool_v, full.kv.pool_v)):
+        whole = whole[:, lo:lo + n_loc]
+        if not torch.equal(mine[:, ~appended], whole[:, ~appended]):
+            problems.append("a pool entry the steps did not write differs")
+        kv_err = max(kv_err, (mine[:, appended] - whole[:, appended]).abs()
+                     .max().item() if appended.any() else 0.0)
+    if kv_err > SHARD_KV_TOL:
+        problems.append(f"appended kv {kv_err} apart")
+    if inplace:
+        n_p = st.peer.slot_req.shape[0]
+        p_lo = rules.mesh.axis_index(kv_block_axes(rules)) * n_p
+        if not torch.equal(st.peer.pool_k, peer.pool_k[:, p_lo:p_lo + n_p]):
+            problems.append("the peer shard changed")
+    last = at(st, SHARD_STEPS - 1, feed[SHARD_STEPS - 1])
+
+    def step():
+        lg, _ = M.serve_step(p_r, last, cfg, harvest_inplace=inplace,
+                             rules=rules)
+        lg.float().cpu()        # the engine samples on the host
+
+    wall, rows, coll_ms = _lockstep_profile(step, rank, world)
+    busy = sum(ms for _, ms in rows)
+    k1 = sum(ms for n, ms in rows if any(k in n for k in K1_KERNELS))
+    k7 = sum(ms for n, ms in rows if "moe_ffn" in n)
+    nccl = sum(ms for n, ms in rows if "nccl" in n.lower())
+    copies = sum(ms for n, ms in rows if "Memcpy" in n)
+    owned = int((st_r.kv.slot_req >= 0).sum())
+    return dict(positions=list(pos), vectors=SHARD_STEPS * b, slots=slots,
+                slots_here=n_loc,
+                owned_here=owned, steps=SHARD_STEPS, launches=launches,
+                experts_here=experts, max_abs_err=err,
+                step_max_abs_err=[round(e, 5) for e in step_err],
+                near_ties=ties, decided=decided, kv_max_abs_err=kv_err,
+                rerouted=[(i // cfg.num_moe_layers, i % cfg.num_moe_layers,
+                           r, round(g, 6)) for i, r, g in rerouted],
+                max_abs_err_own_routing=routed_err, problems=problems,
+                sharded_loop_ms=sharded_ms, unsharded_loop_ms=unsharded_ms,
+                collectives_per_step=coll_calls, wall_ms=wall, busy_ms=busy,
+                k1_ms=k1, k7_ms=k7, collectives_ms=coll_ms,
+                collectives_share=coll_ms / wall, nccl_ms=nccl,
+                memcpy_ms=copies, top=[(n[:50], round(ms, 4))
+                                       for n, ms in rows[:4]])
+
+
+def sharded_rank(rank, world, backend):
+    """One rank of the sharded phase (run by ``launch``): its card (its
+    own with NCCL, the one card with gloo), the mesh and rules, then each
+    model drawn from the seed (the same weights on every rank, checked)
+    and its cases.  Returns {case: numbers}."""
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    rules = make_rules(Mesh(*SHARD_MESH))
+    out = {}
+    for arch in dict.fromkeys(a for a, *_ in SHARD_CASES.values()):
+        cfg = get_config(arch)
+        params = M.init_params(cfg, torch.Generator(device="cuda")
+                               .manual_seed(SEED), "cuda")
+        _same_on_ranks(tree_leaves(params), f"{arch} weights")
+        for case, (a, *_) in SHARD_CASES.items():
+            if a == arch:
+                out[case] = _sharded_case(case, cfg, params, rules, rank,
+                                          world)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _over_experts(n):
+    return "" if n is None else f" over {n} experts"
+
+
+def sharded_phase():
+    """Two ranks decode the full-width models with the KV pool (and
+    phi-tiny-moe's experts) sharded over them: over NCCL on two cards
+    where there are two, else over gloo on the one card (NCCL refuses two
+    ranks on one device; gloo takes the CUDA tensors and stages them
+    through the host).  The parent's card memory is
+    freed first.  Prints each rank's numbers; returns ({path: launches},
+    {case: [each rank's numbers]})."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    where = "two cards" if backend == "nccl" else \
+        "one card; gloo stages each collective's operands through the host"
+    print(f"sharded decode: 2 ranks on the mesh (data 1, model 2) over "
+          f"{backend} ({where})")
+    t0 = time.perf_counter()
+    ranks = launch(sharded_rank, 2, (backend,), backend=backend,
+                   timeout=900)
+    print(f"sharded decode: {time.perf_counter() - t0:.1f} s, the ranks' "
+          f"start included")
+    paths, numbers = {}, {}
+    for case in SHARD_CASES:
+        numbers[case] = [dict(r[case], transport=backend) for r in ranks]
+        for rank, n in enumerate(numbers[case]):
+            paths[f"{case} sharded, rank {rank}"] = n["launches"]
+            print(f"{case} sharded, rank {rank}: {n['slots_here']} of "
+                  f"{n['slots']} slots ({n['owned_here']} owned), rows at "
+                  f"{n['positions']}; {n['steps']} steps: K1 "
+                  f"{n['launches']['paged_decode_partials']}, K7 "
+                  f"{n['launches']['moe_ffn']} launches"
+                  f"{_over_experts(n['experts_here'])}; "
+                  f"logits max |sharded - unsharded| {n['max_abs_err']:.4g} "
+                  f"(tolerance {SHARD_LOGIT_TOL}); argmax differs at near "
+                  f"ties {n['near_ties']} ({n['decided']} of "
+                  f"{n['vectors']} decided); appended kv max |diff| "
+                  f"{n['kv_max_abs_err']:.4g} (tolerance {SHARD_KV_TOL}), "
+                  f"the rest bit for bit; logits apart by step "
+                  f"{n['step_max_abs_err']}")
+            if n["max_abs_err_own_routing"] is not None:
+                print(f"{case} sharded, rank {rank}: routed by itself, its "
+                      f"logits {n['max_abs_err_own_routing']:.4g} from the "
+                      f"unsharded step's; rows it routed to other experts "
+                      f"(step, MoE layer, row, gap log p_k/p_k+1) "
+                      f"{n['rerouted']}; the numbers above from the steps "
+                      f"replayed under the unsharded routing")
+            print(f"{case} sharded, rank {rank}: step loop {n['sharded_loop_ms']:.2f} "
+                  f"ms sharded, {n['unsharded_loop_ms']:.2f} unsharded; "
+                  f"profiled step {n['wall_ms']:.2f} ms wall, "
+                  f"{n['busy_ms']:.3f} ms device-busy (K1 {n['k1_ms']:.3f}, "
+                  f"K7 {n['k7_ms']:.3f}, copies {n['memcpy_ms']:.3f}, NCCL "
+                  f"{n['nccl_ms']:.3f}); {n['collectives_per_step']} "
+                  f"collectives a step, {n['collectives_ms']:.2f} ms host "
+                  f"({100 * n['collectives_share']:.1f}% of the wall); "
+                  f"largest rows {n['top']}")
+    problems = [(case, rank, p) for case, ns in numbers.items()
+                for rank, n in enumerate(ns) for p in n.pop("problems")]
+    assert not problems, problems
+    return paths, numbers
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3137,6 +3557,7 @@ def main() -> int:
 
     t = build.build_all()
     print(f"build: {len(build.sources())} sources in {t:.1f} s")
+    t_phase = time.perf_counter()
     for name in build.sources():
         for fn, (regs, spills) in ptxas_by_kernel(
                 build.ptxas_report(name)).items():
@@ -3226,6 +3647,7 @@ def main() -> int:
                  "moe_ffn_train": "bf16 rtol 1.6e-2, atol 2^-7, the output "
                  "and A, h, g alike (sums in another order than cuBLAS); "
                  "repeats bit for bit"}
+    t_phase = phase_done("kernels against their plain versions", t_phase)
     for k in kernels:
         print(f"kernel {k['name']}: ms {k['ms']:.5f}  plain_ms "
               f"{k['plain_ms']:.5f}  library_ms {k['library_ms']}  bound_ms "
@@ -3253,7 +3675,9 @@ def main() -> int:
             (DBRX, (5, 40), 10, {}),
             # two super-blocks and a tail, 8 slots: its requests overlap
             (ZAMBA2, (5, 40), 8, dict(num_layers=5)),
-            (XLSTM, (5, 40), 10, dict(num_layers=4))):
+            (XLSTM, (5, 40), 10, dict(num_layers=4)),
+            (MIXTRAL, (5, 40), 10, {}),
+            (PHI35, (5, 40), 10, {})):
         tokens = check_reduced_tokens(arch, prompt, slots, **changes)
         label = {k: v for k, v in changes.items() if k != "moe"}
         if "moe" in changes:
@@ -3267,6 +3691,8 @@ def main() -> int:
           f"tokens identical, fetch {tuple(fetch_toks.shape)} and in place "
           f"({fetch_toks[:2, 0].tolist()} / {inplace_toks[:2, 0].tolist()} "
           f"...)")
+    t_phase = phase_done("reduced models served and decoded, CPU and card",
+                         t_phase)
     # MoE training, card against CPU: phi-tiny-moe at an odd expert width
     # (its tiles ragged, its weights staged by plain loads), qwen2-moe (a
     # shared expert), Llama-4 at 4 layers with its dense/MoE interleaving
@@ -3280,6 +3706,7 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             check_reduced_training(arch, dtype, **changes)
 
+    t_phase = phase_done("reduced models trained, CPU and card", t_phase)
     # ---- phases 5 to 10: the paths at full width ----
     movers = ["paged_decode_partials", "quantize_demote",
               "dequantize_reload", "prefill_attention", "gather_blocks",
@@ -3331,6 +3758,17 @@ def main() -> int:
         DBRX, bs, movers + ["moe_ffn"], layers=DBRX_LAYERS,
         on_model=lambda cfg, params: check_moe_ffn_experts(cfg, params,
                                                            rows=4))
+    # mixtral-8x7b (8 experts top-2 of width 14,336, sliding window 4,096)
+    # and phi-3.5-moe (16 top-2 of 6,400) at 16 of their 32 layers, and
+    # phi-tiny-moe whole, on yi-6b's workload; K7 then at each decode
+    # shape (4 rows, top-2) on the model's own experts
+    k7_more = {}
+    for arch, layers in ((MIXTRAL, MIXTRAL_LAYERS), (PHI35, PHI35_LAYERS),
+                         (PHI_TINY, None)):
+        paths[arch], _, k7_more[arch] = main_path(
+            arch, bs, movers + ["moe_ffn"], layers=layers,
+            on_model=lambda cfg, params: check_moe_ffn_experts(cfg, params,
+                                                               rows=4))
     # zamba2-7b (81 Mamba2 layers, the shared attention block at 13 of
     # them: 13 KV layers, MHA at hd 112) and xlstm-1.3b (48 layers, no KV)
     # whole, on yi-6b's workload, each decode step carrying the batch's
@@ -3339,9 +3777,17 @@ def main() -> int:
                                     pool_k1=False)
     paths[XLSTM], _, _ = main_path(XLSTM, bs, [], prefill_tokens=40,
                                    pool_k1=False)
+    # two ranks decode yi-6b (fetch and in place), h2o-danube-3-4b and
+    # phi-tiny-moe with the pool's slots (and the experts) sharded over
+    # them; each rank's launches a path of their own
+    t_phase = phase_done("the served paths", t_phase)
+    sharded_paths, sharded = sharded_phase()
+    paths.update(sharded_paths)
+    t_phase = phase_done("sharded decode", t_phase)
     # musicgen-medium whole (48 layers) at model level: prefill through K4,
     # decode through K1 in fetch mode and in place
     paths[MUSICGEN], audio = audio_path()
+    t_phase = phase_done(MUSICGEN, t_phase)
     # the training path: full-width h2o-danube-3-4b, 1 x 8,192 tokens
     # (twice its window) a step, through K4's forward and backward
     paths["h2o-danube-3-4b training"], training = train_path()
@@ -3350,6 +3796,7 @@ def main() -> int:
     # forward and backward
     paths["phi-tiny-moe training"], training_moe = train_path("phi-tiny-moe")
     check_no_backward()
+    phase_done("the training paths", t_phase)
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -3359,15 +3806,18 @@ def main() -> int:
             k["inplace_steps"] = {"yi-6b": inplace_yi,
                                   "h2o-danube-3-4b": inplace_danube,
                                   MUSICGEN: audio}
+            k["sharded"] = sharded
         if k["name"] == "prefill_attention_bwd":
             k["training"] = training
         if k["name"] == "moe_ffn_bwd":
             k["training"] = training_moe
         if k["name"] == "moe_ffn":
-            k["by_shape"] += [k7_llama4, k7_dbrx]
-            k["max_abs_err"] = max(k["max_abs_err"],
-                                   k7_llama4["max_abs_err"],
-                                   k7_dbrx["max_abs_err"])
+            k["by_shape"] += [k7_llama4, k7_dbrx, *k7_more.values()]
+            k["max_abs_err"] = max(
+                [k["max_abs_err"], k7_llama4["max_abs_err"],
+                 k7_dbrx["max_abs_err"]]
+                + [r["max_abs_err"] for r in k7_more.values()])
+            k["sharded"] = {PHI_TINY: sharded[PHI_TINY]}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -15,6 +15,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.params import ParamDef, build_schema
+from repro_torch.models.sharding import kv_block_axes
 
 
 def _leaf(arr: np.ndarray, pd: ParamDef, path, dev) -> torch.Tensor:
@@ -74,3 +75,61 @@ def params_to_numpy(params):
     if isinstance(params, torch.Tensor):
         return tensor_to_numpy(params)
     return {k: params_to_numpy(v) for k, v in params.items()}
+
+
+def _expert_leaves(params):
+    """The stacked MoE expert weight dicts of ``params`` (each holding
+    ``wi``, ``wg``, ``wo`` of shape (layers, E, ...))."""
+    if "blocks" in params:
+        return [params["blocks"]["moe"]["moe"]]
+    layers = params.get("layers", {})
+    return [layers["moe"]] if "moe" in layers else []
+
+
+def shard_decode(params, state, cfg: ModelConfig, rules):
+    """This rank's shard of the full parameters and a full ``DecodeState``
+    for ``serve_step(..., rules=rules)``: the experts it holds (E /
+    |experts| of each MoE layer's ``wi``, ``wg``, ``wo``, where the batch
+    takes the expert-parallel path) and its slots of the local and peer
+    pools (the pools, ``slot_req`` and ``slot_base`` split over
+    ``kv_blocks``: shard ``idx`` takes slots ``idx * n / shards`` on).
+    Every other tensor is the same on every rank and is shared, not
+    copied; the shards are copies, so the step's appends leave the full
+    pools as they were.  The experts' weights over ``data`` (FSDP) stay
+    whole: GSPMD's gathers of them are not ported."""
+    from repro_torch.models.moe import expert_parallel
+
+    if cfg.moe is not None and expert_parallel(state.tokens.shape[0], cfg,
+                                               rules):
+        eax = rules.axis("experts")
+        e_loc = cfg.moe.num_experts // rules.axis_size(eax)
+        e0 = rules.mesh.axis_index(eax) * e_loc
+
+        experts = {id(d) for d in _expert_leaves(params)}
+
+        def cut(node):
+            if id(node) in experts:
+                return {k: (v[:, e0:e0 + e_loc].clone()
+                            if k in ("wi", "wg", "wo") else v)
+                        for k, v in node.items()}
+            if isinstance(node, dict):
+                return {k: cut(v) for k, v in node.items()}
+            return node
+
+        params = cut(params)
+    axes = kv_block_axes(rules)
+    shards, idx = rules.axis_size(axes), rules.mesh.axis_index(axes)
+
+    def pools(kv):
+        if kv is None:
+            return None
+        n = kv.slot_req.shape[0]
+        if n % shards:
+            raise ValueError(f"{n} slots over {shards} shards")
+        lo, hi = idx * n // shards, (idx + 1) * n // shards
+        return kv._replace(pool_k=kv.pool_k[:, lo:hi].clone(),
+                           pool_v=kv.pool_v[:, lo:hi].clone(),
+                           slot_req=kv.slot_req[lo:hi].clone(),
+                           slot_base=kv.slot_base[lo:hi].clone())
+
+    return params, state._replace(kv=pools(state.kv), peer=pools(state.peer))

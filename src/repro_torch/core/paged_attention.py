@@ -14,7 +14,10 @@ Shapes (one pool):
   q_pos:    (b,) int32             current decode position per request
 
 ``pool_partials`` runs kernel K1 on the card (its plain version on the CPU);
-the merge, the normalisation and the KV append are plain PyTorch.
+the merge, the normalisation and the KV append are plain PyTorch.  With
+the pool's slot dimension sharded over ranks, each rank merges its own
+pools' partials and ``finalize`` merges the ranks' over a process group,
+as the JAX package's ``pmax``/``psum`` do inside ``shard_map``.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.collectives import all_reduce
 from repro_torch.kernels.paged_attention.ops import (NEG_INF, Partials,
                                                      paged_decode_partials)
 
@@ -54,9 +58,23 @@ def merge_partials(parts: Sequence[Partials]) -> Partials:
     return out
 
 
-def finalize(parts: Partials) -> torch.Tensor:
-    """Normalisation of merged partials; returns (b, nq, hd) f32."""
-    out = parts.acc / torch.clamp(parts.l, min=1e-30)[..., None]
+def finalize(parts: Partials, group=None) -> torch.Tensor:
+    """Cross-rank merge over ``group`` (a process group; the max of m,
+    then the sums of ``l * corr`` and ``acc * corr``) and normalisation.
+    Returns (b, nq, hd) f32.  A rank that holds no block of a row has m
+    -1e30 and l 0 there, so its corr is 0 and it adds nothing; with no
+    group it is a plain normalisation."""
+    m, l, acc = parts
+    if group is not None:
+        m_g = all_reduce(m.clone(), "max", group)
+        corr = torch.exp(m - m_g)
+        # l and acc reduced in one buffer
+        both = torch.cat([(l * corr).reshape(-1),
+                          (acc * corr[..., None]).reshape(-1)])
+        all_reduce(both, "sum", group)
+        l, acc = both[:l.numel()].view(l.shape), \
+            both[l.numel():].view(acc.shape)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
     b, nkv, gq, hd = out.shape
     return out.reshape(b, nkv * gq, hd)
 
@@ -76,13 +94,16 @@ def append_kv(pool_k, pool_v, k_new, v_new, local_slot, offset):
     return pool_k, pool_v
 
 
-def paged_decode_attention(q, pools, q_pos, cfg: ModelConfig) -> torch.Tensor:
+def paged_decode_attention(q, pools, q_pos, cfg: ModelConfig,
+                           group=None) -> torch.Tensor:
     """Attention of one decode token against the union of KV pools.
 
     ``pools`` is a sequence of (pool_k, pool_v, slot_req, slot_base) tuples:
     [local] (fetch mode: peer blocks were copied in before the step) or
     [local, peer] (in-place mode: the harvested tier joins the softmax).
+    ``group``: the ranks over which the pools' slots are sharded (each
+    passes its own shards), or None.
     """
     parts = [pool_partials(q, pk, pv, sr, sb, q_pos, cfg)
              for (pk, pv, sr, sb) in pools]
-    return finalize(merge_partials(parts))
+    return finalize(merge_partials(parts), group)

@@ -14,7 +14,7 @@ Entry points:
   forward(params, batch, cfg, want_kv)      -> (logits, ForwardOut)
   loss_fn(params, batch, cfg)               -> (loss, metrics)
   prefill(params, batch, cfg)               -> (logits_last, ForwardOut)
-  serve_step(params, state, cfg)            -> (logits, new_state)  1 token
+  serve_step(params, state, cfg, rules)     -> (logits, new_state)  1 token
 
 The audio family's tokens carry a trailing codebook dim: (b, s, ncb) into
 ``forward``, (b, ncb) in ``DecodeState.tokens``; its logits are (b, s,
@@ -37,7 +37,13 @@ Decode attention runs against the Harvest KV pools through
 ``repro_torch.core.paged_attention``.  ``serve_step`` writes the step's k
 and v into the pools IN PLACE (the JAX code carries the pools through its
 scan and rebuilds them with ``.at[].set``); the returned state holds the
-same pool tensors, and new recurrent states.
+same pool tensors, and new recurrent states.  With ``rules`` (a mesh of
+ranks, ``repro_torch.launch.mesh``) each rank holds its shard of the
+pools' slots (``bridge.shard_decode``) and of the MoE layers' experts,
+and the step runs the JAX package's sharded decode: attention over the
+rank's own slots merged across the ``kv_blocks`` ranks, expert
+parallelism over ``act_batch`` and ``experts``; every other tensor is
+the same on every rank.
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ from repro_torch.models.moe import load_balance_loss, moe_layer
 from repro_torch.models.params import (  # noqa: F401  (re-exported)
     abstract_params, build_schema, check_family, init_params, is_interleaved,
     num_codebooks, param_count)
+from repro_torch.models.sharding import kv_block_axes
 
 
 def _unbind(node):
@@ -151,7 +158,8 @@ def unembed(params, x, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def _block(x, s, lp, cfg: ModelConfig, attend, keep_sum: bool = False):
+def _block(x, s, lp, cfg: ModelConfig, attend, keep_sum: bool = False,
+           rules=None):
     """One pre-LN block on the residual ``x``: attention, then the MLP or
     the MoE FFN on the second norm, or (parallel blocks) the MLP on the
     attention's own normed input, ``x + a + mlp(u)`` rounded add by add as
@@ -163,6 +171,7 @@ def _block(x, s, lp, cfg: ModelConfig, attend, keep_sum: bool = False):
     package scans interleaved (dense, moe) pairs in one body, where XLA
     lets the MoE layer's first norm read the dense layer's sum before its
     rounding, as it does for the second norm (``layers.residual_norm``).
+    ``rules``: the MoE FFN's mesh (expert parallelism), or None.
     Returns (x, s, kv, the MoE layer's (probs, ids) routing or None)."""
     u = L.rms_norm(x if s is None else s, lp["ln1"], cfg.norm_eps).to(x.dtype)
     a, kv = attend(u)
@@ -170,7 +179,7 @@ def _block(x, s, lp, cfg: ModelConfig, attend, keep_sum: bool = False):
         return x + a + L.mlp(u, lp["mlp"], cfg), None, kv, None
     x, u2 = L.residual_norm(x, a, lp["ln2"], cfg.norm_eps)
     if "moe" in lp:
-        y, probs, ids = moe_layer(u2, lp["moe"], cfg)
+        y, probs, ids = moe_layer(u2, lp["moe"], cfg, rules=rules)
         return x + y, None, kv, (probs, ids)
     y = L.mlp(u2, lp["mlp"], cfg)
     if not keep_sum:
@@ -388,34 +397,50 @@ def num_kv_layers(cfg: ModelConfig) -> int:
     return cfg.num_layers
 
 
+def _kv_shard(rules):
+    """(the process group of the ranks the pools' slots are sharded over,
+    this rank's shard index), or (None, 0) without rules."""
+    if rules is None:
+        return None, 0
+    axes = kv_block_axes(rules)
+    return rules.mesh.group(axes), rules.mesh.axis_index(axes)
+
+
 def _decode_attn_sublayer(u, lp, cfg, state: DecodeState, layer: int,
-                          use_peer: bool):
+                          use_peer: bool, rules=None):
     """u: (b, 1, d), the normed residual. Appends this step's k/v to layer
     ``layer`` of the pools in place and returns the attention output (b,
-    1, d)."""
+    1, d).  With ``rules`` the pools are this rank's shard of the slots
+    (shard ``idx`` holds global slots ``idx * n_slots`` on): a row's k and
+    v land here only where its append slot does, K1 runs over the rank's
+    slots, and the ranks' partials merge in ``finalize``."""
     p3 = None if state.positions_3d is None else state.positions_3d[:, None]
     q, k, v = L.rotary_qkv(u, lp["attn"], cfg, state.pos[:, None], p3)
     kvp = state.kv
     pk, pv = kvp.pool_k[layer], kvp.pool_v[layer]
-    pa.append_kv(pk, pv, k[:, 0], v[:, 0], kvp.append_slot, kvp.append_off)
+    group, idx = _kv_shard(rules)
+    a_slot = kvp.append_slot if idx == 0 else \
+        kvp.append_slot - idx * pk.shape[0]
+    pa.append_kv(pk, pv, k[:, 0], v[:, 0], a_slot, kvp.append_off)
     pools = [(pk, pv, kvp.slot_req, kvp.slot_base)]
     if use_peer:
         pp = state.peer
         pools.append((pp.pool_k[layer], pp.pool_v[layer], pp.slot_req,
                       pp.slot_base))
-    o = pa.paged_decode_attention(q[:, 0], pools, state.pos, cfg)
+    o = pa.paged_decode_attention(q[:, 0], pools, state.pos, cfg, group)
     y = torch.einsum("bnh,nhd->bd", o.to(u.dtype), lp["attn"]["wo"])
     return y[:, None]
 
 
 def serve_step(params, state: DecodeState, cfg: ModelConfig,
-               harvest_inplace: bool = False):
+               harvest_inplace: bool = False, rules=None):
     """Decode ONE token for every active request. Returns (logits, state):
     logits (b, V), or (b, ncb, V) for the audio family, and the argmax
     tokens in ``state.tokens``.  ``harvest_inplace`` with ``state.peer``
     set: the harvested peer pool joins each layer's softmax where it lies
     (K1 over each pool, the partials merged by log-sum-exp); the step's k
-    and v go to the local pool alone."""
+    and v go to the local pool alone.  ``rules``: this rank's place on a
+    mesh of ranks (module docstring); None runs on one device."""
     check_family(cfg)
     x = add_positions(embed(params, state.tokens[:, None], cfg),
                       state.pos[:, None], cfg)
@@ -425,7 +450,8 @@ def serve_step(params, state: DecodeState, cfg: ModelConfig,
         x, _, states = _hybrid_layers(
             params, x, cfg, state.states, True,
             lambda j, u: (_decode_attn_sublayer(
-                u, params["shared_attn"], cfg, state, j, use_peer), None))
+                u, params["shared_attn"], cfg, state, j, use_peer, rules),
+                None))
     elif cfg.family == "ssm":
         x, states = _xlstm_layers(params, x, cfg, state.states, True)
     else:
@@ -433,8 +459,8 @@ def serve_step(params, state: DecodeState, cfg: ModelConfig,
         for i, lp in enumerate(_layers(params)):
             x, s, _, _ = _block(
                 x, s, lp, cfg, lambda u: (_decode_attn_sublayer(
-                    u, lp, cfg, state, i, use_peer), None),
-                _keeps_sum(cfg, i))
+                    u, lp, cfg, state, i, use_peer, rules), None),
+                _keeps_sum(cfg, i), rules)
     logits = unembed(params, x, cfg)[:, 0]
     new_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
     return logits, state._replace(tokens=new_tokens, pos=state.pos + 1,

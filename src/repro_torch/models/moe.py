@@ -19,6 +19,13 @@ the same inputs, so it does, bit for bit.  The dispatch gather and the
 combine are each other's gradient (:class:`_DispatchGather`,
 :class:`_SumSlots`): each token sums its own ``top_k`` slots' rows in a
 fixed order, and each slot takes its one token's row; no atomics.
+
+Expert parallelism (``rules`` naming a mesh of ranks, the JAX package's
+``_moe_layer_local``): each rank routes its own share of the batch rows,
+fills the dispatch slots of the experts it holds, runs their FFN (K7 over
+the rank's experts alone), and the ranks' combined rows are summed over the
+expert axis and gathered back over the batch axis.  Decode only: no
+gradient crosses the collectives.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.collectives import all_gather, all_reduce
 from repro_torch.kernels.moe_ffn.ops import moe_ffn
 from repro_torch.models.layers import mlp
 
@@ -47,7 +55,14 @@ def router_topk(logits, top_k: int):
 
 
 def load_balance_loss(probs, ids, num_experts: int):
-    """Switch-style auxiliary loss: E * sum_e f_e * P_e."""
+    """Switch-style auxiliary loss: E * sum_e f_e * P_e.  probs (t, E) and
+    ids (t, k); or, from the expert-parallel layer, (n, t, E) and (n, t,
+    k), one slice per batch shard: the sum of the shards' losses over n,
+    as the JAX package's ``_moe_layer_local`` returns it."""
+    if probs.dim() == 3:
+        n = probs.shape[0]
+        return torch.stack([load_balance_loss(p, i, num_experts) / n
+                            for p, i in zip(probs, ids)]).sum()
     counts = torch.zeros((num_experts,), dtype=torch.float32,
                          device=probs.device)
     flat = ids.reshape(-1).long()
@@ -197,29 +212,53 @@ def _combine(out, slot_weight, slot, order, t: int, k: int):
     return _sum_slots(contrib, per_token)
 
 
+def _route(xt, p, cfg: ModelConfig, capacity_factor: float):
+    """Route the (t, d) rows ``xt`` with the router: (probs, ids, the
+    capacity of each expert from the t rows, ``_build_dispatch``'s
+    tables)."""
+    mc = cfg.moe
+    # a bf16 x against the f32 router promotes to f32, as jnp.einsum does
+    logits = torch.einsum("td,de->te", xt.float(), p["router"].float())
+    weights, ids, probs = router_topk(logits, mc.top_k)
+    capacity = max(int(xt.shape[0] * mc.top_k / mc.num_experts
+                       * capacity_factor), 4)
+    return probs, ids, capacity, _build_dispatch(ids, weights,
+                                                 mc.num_experts, capacity)
+
+
+def expert_parallel(batch: int, cfg: ModelConfig, rules) -> bool:
+    """The JAX package's condition for ``_moe_layer_local``: rules whose
+    ``act_batch`` and ``experts`` axes are named, the first dividing the
+    batch and the second the experts."""
+    if rules is None:
+        return False
+    ax, eax = rules.axis("act_batch"), rules.axis("experts")
+    return (ax is not None and eax is not None
+            and batch % rules.axis_size(ax) == 0
+            and cfg.moe.num_experts % rules.axis_size(eax) == 0)
+
+
 def moe_layer(x, p, cfg: ModelConfig,
-              capacity_factor: Optional[float] = None):
+              capacity_factor: Optional[float] = None, rules=None):
     """MoE FFN sublayer.  x: (b, s, d) -> (y, probs, ids): the output and
     the routing that :func:`load_balance_loss` reads.  The loss is left to
     the caller that wants it, so a decode step launches none of its work.
 
     The capacity comes from all b * s rows, so every row the caller
     passes (padding and idle batch rows included) takes its share of
-    it, as in the JAX package."""
+    it, as in the JAX package.  Where :func:`expert_parallel` holds,
+    :func:`_moe_layer_local` runs instead."""
     mc = cfg.moe
     if capacity_factor is None:
         capacity_factor = mc.capacity_factor
+    if expert_parallel(x.shape[0], cfg, rules):
+        return _moe_layer_local(x, p, cfg, rules, capacity_factor)
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
 
-    # a bf16 x against the f32 router promotes to f32, as jnp.einsum does
-    logits = torch.einsum("td,de->te", xt.float(), p["router"].float())
-    weights, ids, probs = router_topk(logits, mc.top_k)
-
-    capacity = max(int(t * mc.top_k / mc.num_experts * capacity_factor), 4)
-    slot_token, slot_weight, order, slot = _build_dispatch(
-        ids, weights, mc.num_experts, capacity)
+    probs, ids, capacity, (slot_token, slot_weight, order, slot) = _route(
+        xt, p, cfg, capacity_factor)
 
     # empty slots read row t, a zero row
     if torch.is_grad_enabled() and xt.requires_grad:
@@ -234,3 +273,55 @@ def moe_layer(x, p, cfg: ModelConfig,
     if mc.num_shared_experts:
         y = y + mlp(xt[None], p["shared"], cfg)[0]
     return y.view(b, s, d), probs, ids
+
+
+def _moe_layer_local(x, p, cfg: ModelConfig, rules, capacity_factor: float):
+    """Expert parallelism over a mesh of ranks, as the JAX package's
+    ``_moe_layer_local`` runs on each (data i, model j) device: route the
+    rank's own ``b / |act_batch|`` rows with the (replicated) router, the
+    capacity from those rows; keep the dispatch slots of the ``E /
+    |experts|`` experts the rank holds (``p``'s ``wi``, ``wg``, ``wo``:
+    this rank's experts alone, ``bridge.shard_decode``), run their FFN,
+    combine each row's own slots in ascending order, sum over the experts'
+    ranks (in f32, rounded once: XLA's bf16 add) and gather the rows back
+    over the batch's ranks.  The shared expert then runs on every row, as
+    there.  Returns (y, probs, ids), the routing of each batch shard
+    stacked (n, t / n, ...) where the batch is split (n > 1)."""
+    mc = cfg.moe
+    b, s, d = x.shape
+    dax, eax = rules.axis("act_batch"), rules.axis("experts")
+    dsize, esize = rules.axis_size(dax), rules.axis_size(eax)
+    e_loc = mc.num_experts // esize
+    if p["wi"].shape[0] != e_loc:
+        raise ValueError(f"expert parallelism over {esize} ranks wants this "
+                         f"rank's {e_loc} experts, got {p['wi'].shape[0]} "
+                         f"(bridge.shard_decode)")
+    b_loc = b // dsize
+    t_loc = b_loc * s
+    i, j = rules.mesh.axis_index(dax), rules.mesh.axis_index(eax)
+    xt = x[i * b_loc:(i + 1) * b_loc].reshape(t_loc, d)
+
+    probs, ids, capacity, (slot_token, slot_weight, order, slot) = _route(
+        xt, p, cfg, capacity_factor)
+    n_loc = e_loc * capacity
+    e0 = j * n_loc
+    own_tok, own_w = slot_token[e0:e0 + n_loc], slot_weight[e0:e0 + n_loc]
+
+    xd = _gather_slots(xt, own_tok).view(e_loc, capacity, d)
+    out = expert_ffn(xd, p, cfg).view(n_loc, d)
+    # each row's slots among this rank's, in ascending order; the others
+    # (and a dropped choice) read the zero row n_loc
+    per_token = _slots_of_tokens(slot, order, t_loc, mc.top_k) - e0
+    per_token = torch.where((per_token >= 0) & (per_token < n_loc),
+                            per_token, torch.full_like(per_token, n_loc))
+    y = _sum_slots(out * own_w[:, None].to(out.dtype), per_token)
+    y = all_reduce(y.float(), "sum", rules.mesh.group(eax)).to(x.dtype)
+    y = y.view(b_loc, s, d)
+    if dsize > 1:
+        dgroup, dorder = rules.mesh.group(dax), rules.mesh.group_order(dax)
+        y = all_gather(y, dgroup, dorder)
+        probs = all_gather(probs[None], dgroup, dorder)
+        ids = all_gather(ids[None], dgroup, dorder)
+    if mc.num_shared_experts:
+        y = y + mlp(x, p["shared"], cfg)
+    return y, probs, ids

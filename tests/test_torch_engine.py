@@ -309,7 +309,8 @@ def test_port_imports_neither_jax_nor_repro():
         "assert len(names) > 30, names\n"
         "new = {'repro_torch.data.pipeline', 'repro_torch.train.optim',\n"
         "       'repro_torch.train.loop', 'repro_torch.train.checkpoint',\n"
-        "       'repro_torch.launch.train'}\n"
+        "       'repro_torch.launch.train', 'repro_torch.launch.mesh',\n"
+        "       'repro_torch.models.sharding', 'repro_torch.core.collectives'}\n"
         "assert new <= set(names), new - set(names)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=src,
                          capture_output=True, text=True, timeout=120,
