@@ -164,10 +164,28 @@ Phases (any failure raises and the script exits non-zero):
      kernels), the share of the peak from the flops of the experts a token
      passes through; then every kernel without a backward must raise when
      handed a tensor that requires grad, and K7's gradient must arrive;
+ 15. sharded training: four ranks (``launch``; NCCL where there are four
+     cards, else gloo on the one) on the mesh (data 2, model 2), FSDP over
+     data and the experts over model: reduced phi-tiny-moe (2 of 4 experts
+     a rank) and reduced yi-6b trained two AdamW steps on the card and on
+     the CPU over that mesh, f32 and bf16 (held as phase 4 holds one rank,
+     every tree gathered whole); then phi-tiny-moe at full width (its row
+     and depth cut to fit four ranks on one card, the cut printed), each
+     rank drawing its shard of the seed's weights, 3 steps of the global
+     batch timed and one profiled on every rank at once; per rank the step
+     walls, global tokens/s, peak memory, the collectives' calls, host ms
+     and share of the wall, K4's and K7's launches a step (asserted), the
+     whole leaves equal across ranks after each step, the device-busy ms
+     of the profiled step; a checkpoint of the ranks' shards at two
+     layers saved (gathered in pieces, rank 0 writing, no rank's device
+     growing by half the whole tree) and restored re-sharded bit for bit;
+     step 0's loss and grad_norm held against the unsharded ``train_step``
+     of the same weights and rows after the ranks end;
 then the card's name and power limit, one JSON line of per-kernel
 numbers (``launches_by_path`` over the served paths, the two in-place
-steps, each rank of the sharded cases, musicgen-medium and the two
-training paths), and the JSON result line.  Each phase prints its
+steps, each rank of the sharded cases, musicgen-medium, the two
+training paths and each rank of the sharded training path), and the JSON
+result line.  Each phase prints its
 seconds.  The launch counts are set to 0 just before each path and read
 just after it.  It imports neither JAX nor the
 JAX package.
@@ -178,9 +196,12 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -190,7 +211,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.bridge import shard_decode  # noqa: E402
+from repro_torch.bridge import (  # noqa: E402
+    gather_train, shard_decode, shard_train)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import HarvestRuntime, collectives  # noqa: E402
 from repro_torch.core import paged_attention as tpa  # noqa: E402
@@ -206,9 +228,12 @@ from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.sharding import kv_block_axes  # noqa: E402
 from repro_torch.serving import TenantSpec, Workload  # noqa: E402
+from repro_torch.train.checkpoint import (  # noqa: E402
+    restore_checkpoint, save_checkpoint)
 from repro_torch.train.loop import cosine_lr  # noqa: E402
 from repro_torch.train.optim import (  # noqa: E402
-    AdamWState, adamw_init, train_step, tree_leaves)
+    AdamWState, _global_norm, _sharded_norm, _spec_leaves, _sync_grads,
+    adamw_init, train_step, tree_leaves, tree_unflatten)
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
@@ -1534,8 +1559,10 @@ def moe_bwd_case(label, xd, w, dout, activation, time=True):
 def check_moe_ffn_bwd(phi, qwen, dbrx):
     """K7's training kernels against their plain versions on the card:
     phi-tiny-moe's training shape (8,192 tokens routed top-2 over 16
-    experts by a random router, C 1,280, one expert forced tokenless),
-    qwen2-moe's width (64 experts, f 1,408, 512 tokens routed top-4),
+    experts by a random router, C 1,280, one expert forced tokenless), a
+    rank's shape on the sharded training path (``SHARDED_SEQ`` tokens
+    routed over the 16, C 640, the 8 experts of one ``model`` index kept;
+    untimed), qwen2-moe's width (64 experts, f 1,408, 512 tokens routed top-4),
     DBRX's f 10,752 at C 5 (16 tokens routed top-4), all bf16 and silu,
     the training forward and the backward each timed (no target at the
     last two); an odd d 37 and f 77 in f32 and bf16 under silu, gelu and
@@ -1548,11 +1575,13 @@ def check_moe_ffn_bwd(phi, qwen, dbrx):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
     rows, fwd_rows = [], []
 
-    def routed(cfg, t, tokenless=()):
+    def routed(cfg, t, tokenless=(), held=None):
         mc = cfg.moe
         xd = dispatch_buffer(cfg, t, gen)[0]
         xd[list(tokenless)] = 0
-        w = expert_weights(mc.num_experts, cfg.d_model, mc.d_ff_expert,
+        if held is not None:        # the experts one rank holds
+            xd = xd[held].contiguous()
+        w = expert_weights(xd.shape[0], cfg.d_model, mc.d_ff_expert,
                            torch.bfloat16, gen)
         dout = torch.randn(xd.shape, generator=gen, device="cuda").bfloat16()
         dout[(xd == 0).all(-1)] = 0
@@ -1564,12 +1593,17 @@ def check_moe_ffn_bwd(phi, qwen, dbrx):
         if fwd_row is not None:
             fwd_rows.append(fwd_row)
 
-    for label, cfg, t, tokenless in (
-            ("phi-tiny-moe training shape", phi, 8192, (0,)),
-            ("qwen2-moe width", qwen, 512, ()),
-            ("dbrx-132b width", dbrx, 16, ())):
-        xd, w, dout = routed(cfg, t, tokenless)
-        case(label, xd, w, dout, cfg.activation)
+    half = phi.moe.num_experts // TRAIN_MESH[0][1]
+    for label, cfg, t, tokenless, held, timed in (
+            ("phi-tiny-moe training shape", phi, 8192, (0,), None, True),
+            ("qwen2-moe width", qwen, 512, (), None, True),
+            ("dbrx-132b width", dbrx, 16, (), None, True),
+            # a rank of the sharded training path: its data shard's 4,096
+            # tokens routed over all 16 experts (C 640), its 8 kept
+            (f"{PHI_TINY} sharded training rank", phi, SHARDED_SEQ, (),
+             slice(half, 2 * half), False)):
+        xd, w, dout = routed(cfg, t, tokenless, held)
+        case(label, xd, w, dout, cfg.activation, time=timed)
         del xd, w, dout
     for dtype in (torch.float32, torch.bfloat16):
         xd = torch.randn((3, 70, 37), generator=gen, device="cuda")
@@ -1788,11 +1822,13 @@ def assert_bwd_kernels(rows, dtype):
     return [(n, ms) for n, ms in rows if "flash_bwd_" in n]
 
 
-def check_flash_bwd(danube, yi, llama4, zamba2):
+def check_flash_bwd(danube, yi, llama4, zamba2, phi):
     """K4's backward against its plain version on the card, on the same o,
     LSE and dO: at danube's training sequence (8,192 tokens, twice its
     window), yi-6b's heads at 2,048 tokens, Llama-4's heads across its
-    8,192-token chunk, zamba2-7b's MHA at hd 112, and a small f32 case.
+    8,192-token chunk, zamba2-7b's MHA at hd 112, phi-tiny-moe's heads
+    over a sharded training rank's row (``SHARDED_SEQ`` tokens), and a
+    small f32 case.
     The forward's LSE is held to the plain LSE, and a second forward's
     output and LSE to the first's bit for bit (the recompute in the
     backward pass must read what the pass saw); in bf16 a second backward
@@ -1814,6 +1850,8 @@ def check_flash_bwd(danube, yi, llama4, zamba2):
               (f"{LLAMA4} heads across its chunk", llama4, 8800,
                torch.bfloat16, dict(attention_chunk=llama4.attention_chunk)),
               ("zamba2-7b MHA at hd 112", zamba2, 1032, torch.bfloat16, {}),
+              (f"{PHI_TINY} heads over a sharded training rank's row", phi,
+               SHARDED_SEQ, torch.bfloat16, {}),
               ("yi-6b heads in f32, window 100", yi, 300, torch.float32,
                dict(sliding_window=100))]
     rows, err, fwd_row = [], 0.0, None
@@ -2056,26 +2094,40 @@ BF16_TRAIN_TOL = dict(loss=1e-3, nll=1e-3, grad_norm=2.0 ** -7,
                       mu=2.0 ** -5, nu=2.0 ** -4)
 
 
-def _train_steps(params, batches, cfg, lr, device, opt=None):
+def _train_steps(params, batches, cfg, lr, device, opt=None, rules=None):
     """``train_step`` over ``batches`` on ``device`` from a copy of
     ``params`` and of the AdamW state ``opt`` (a fresh one if None):
     ([metrics per step], the parameters' leaves after the last step,
     [(mu's leaves, nu's leaves) after each step], (the parameters, the
-    AdamW state) after the last step), all on the CPU."""
+    AdamW state) after the last step), all on the CPU.  ``rules``: a rank
+    of a mesh; it trains its shard (``bridge.shard_train``) and every tree
+    returned is gathered whole on every rank (``bridge.gather_train``,
+    collective)."""
     p = _map(params, lambda t: t.clone().to(device))
-    opt = adamw_init(p) if opt is None else AdamWState(
+    opt = None if opt is None else AdamWState(
         opt.step.to(device, copy=True),
         *(_map(m, lambda t: t.to(device, copy=True))
           for m in (opt.mu, opt.nu)))
+    if rules is not None:
+        p, opt = shard_train(p, opt, cfg, rules)
+    opt = adamw_init(p) if opt is None else opt
+
+    def whole(p, opt):
+        return (p, opt) if rules is None else \
+            gather_train(p, opt, cfg, rules, dst=None)
+
     hist, moments = [], []
     for b in batches:
         p, opt, m = train_step(p, opt, {k: torch.from_numpy(v).to(device)
-                                        for k, v in b.items()}, cfg, lr=lr)
+                                        for k, v in b.items()}, cfg, rules,
+                               lr=lr)
         hist.append({k: float(v) for k, v in m.items()})
         # copies: the update works in place, and .cpu() of a CPU tensor is
         # the tensor itself
-        moments.append(([t.to("cpu", copy=True) for t in tree_leaves(opt.mu)],
-                        [t.to("cpu", copy=True) for t in tree_leaves(opt.nu)]))
+        o = whole(p, opt)[1]
+        moments.append(([t.to("cpu", copy=True) for t in tree_leaves(o.mu)],
+                        [t.to("cpu", copy=True) for t in tree_leaves(o.nu)]))
+    p, opt = whole(p, opt)
     end = (_map(p, lambda t: t.to("cpu", copy=True)),
            AdamWState(opt.step.cpu(), *(_map(m, lambda t: t.to("cpu",
                                                                copy=True))
@@ -2243,7 +2295,7 @@ def routing_differences(cpu, card, first_step_calls):
 
 def check_reduced_training(arch="h2o-danube-3-4b", dtype=torch.float32,
                            steps=2, batch=2, seq_len=160, lr=1e-3,
-                           **changes):
+                           rules=None, **changes):
     """A reduced model (danube's: window 64, so the 160-token sequences
     cross it; ``changes`` replace fields of the reduced config) trained
     ``steps`` AdamW steps on the CPU (plain versions) and on the card (K4's
@@ -2263,7 +2315,13 @@ def check_reduced_training(arch="h2o-danube-3-4b", dtype=torch.float32,
     reference is then taken again under the card's routing.  On the card
     each kernel must launch as ``expected_training_launches`` says, and the
     profile must show the backward kernels for ``dtype`` and no other
-    backward kernel."""
+    backward kernel.  ``rules``: this is a rank of a mesh (the sharded
+    training phase): both runs train the rank's shard of the same weights
+    on its rows of the same global batches (``_train_steps``), every tree
+    held gathered whole; a rerun under the card's routing is taken on
+    every rank where any rank needs one (its collectives must match); no
+    profile (the ranks share the card).  Returns the line it prints
+    (with ``rules``, the caller prints it)."""
     cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
     # the seed's dtypes (bf16, the MoE router f32), or all widened to f32
     params = M.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
@@ -2278,23 +2336,29 @@ def check_reduced_training(arch="h2o-danube-3-4b", dtype=torch.float32,
     for fn in COUNTERS.values():
         fn.launches = 0
     state, held, refs, runs, ties = (params, None), [], [], [], []
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    profile = contextlib.nullcontext() if rules is not None else \
+        torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+    with profile as prof:
         for part in parts:
             with Routing() as cpu_routes:
                 ref = _train_steps(*state[:1], part, cfg, lr, "cpu",
-                                   state[1])
+                                   state[1], rules)
             with Routing() as card_routes:
                 run = _train_steps(*state[:1], part, cfg, lr, "cuda",
-                                   state[1])
+                                   state[1], rules)
             part_ties = routing_differences(
                 cpu_routes.calls, card_routes.calls,
                 len(cpu_routes.calls) if by_step else first_calls)
-            if part_ties:
-                with Routing(replay=card_routes.calls) as again:
+            again = bool(part_ties)
+            if rules is not None:       # every rank reruns, or none
+                flag = torch.tensor([float(again)])
+                again = bool(collectives.all_reduce(flag, "max", None))
+            if again:
+                with Routing(replay=card_routes.calls) as rerun:
                     ref = _train_steps(*state[:1], part, cfg, lr, "cpu",
-                                       state[1])
-                assert len(again.calls) == len(card_routes.calls)
+                                       state[1], rules)
+                assert len(rerun.calls) == len(card_routes.calls)
             held.append(hold_training(ref, run, dtype, lr))
             ties += [(len(refs), c, g) for _, c, g in part_ties]
             refs.append(ref)
@@ -2305,16 +2369,20 @@ def check_reduced_training(arch="h2o-danube-3-4b", dtype=torch.float32,
         launches
     assert all(t.dtype == p.dtype for t, p in zip(runs[-1][1], tree_leaves(
         params))), {t.dtype for t in runs[-1][1]}
-    # the backward's kernels for the dtype ran, the other dtype's did not
-    rows = device_rows(prof, 1)
-    ran = assert_bwd_kernels(rows, dtype)
-    if cfg.moe:
-        ran += assert_moe_bwd_kernels(rows, dtype)
-        ran += assert_moe_fwd_kernels(rows, dtype)
-    else:
-        assert not any("moe_" in n for n, _ in rows), rows
     name = str(dtype).removeprefix("torch.")
-    kernels = ", ".join(sorted(n[:40] for n, _ in ran))
+    if rules is None:
+        # the backward's kernels for the dtype ran, the other dtype's did
+        # not
+        rows = device_rows(prof, 1)
+        ran = assert_bwd_kernels(rows, dtype)
+        if cfg.moe:
+            ran += assert_moe_bwd_kernels(rows, dtype)
+            ran += assert_moe_fwd_kernels(rows, dtype)
+        else:
+            assert not any("moe_" in n for n, _ in rows), rows
+        kernels = ", ".join(sorted(n[:40] for n, _ in ran))
+    else:
+        kernels = "no profile: the ranks share the card"
     label = {k: v for k, v in changes.items() if k != "moe"}
     if "moe" in changes:
         label.update(d_ff_expert=cfg.moe.d_ff_expert,
@@ -2323,8 +2391,10 @@ def check_reduced_training(arch="h2o-danube-3-4b", dtype=torch.float32,
             for rs in (refs, runs)]
     gnorm = [[round(h["grad_norm"], 6) for r in rs for h in r[0]]
              for rs in (refs, runs)]
-    print(f"reduced {arch} {label or ''} trained {steps} steps in {name} "
-          f"on cpu and cuda"
+    where = "" if rules is None else \
+        f" on rank {rules.mesh.rank} of the mesh {rules.mesh.shape}"
+    line = (f"reduced {arch} {label or ''} trained {steps} steps in {name} "
+          f"on cpu and cuda{where}"
           + (", each step's reference from the card's state before it"
              if by_step else "") + f": losses {loss[0]} / {loss[1]}, "
           f"grad_norm {gnorm[0]} / {gnorm[1]}; moments per leaf within "
@@ -2342,6 +2412,9 @@ def check_reduced_training(arch="h2o-danube-3-4b", dtype=torch.float32,
              f"call) {sorted({(p, c) for p, c, _ in ties})}), the CPU's "
              f"reference taken again under the card's routing" if ties
              else "the same routing on both"))
+    if rules is None:
+        print(line)
+    return line
 
 
 def check_no_backward():
@@ -3542,6 +3615,429 @@ def sharded_phase():
     return paths, numbers
 
 
+#: the sharded training phase's mesh: FSDP over ``data``, experts over
+#: ``model``; four ranks share the one card over gloo (NCCL refuses two
+#: ranks on one device), or take a card each over NCCL where there are four
+TRAIN_MESH = ((2, 2), ("data", "model"))
+#: full-width phi-tiny-moe's global batch on that mesh: one row of
+#: synthetic tokens for each data index, the steps timed, then one step
+#: profiled on every rank at once.  Cut to fit the card, in the order the
+#: sequence, then the depth: at 2 x 8,192 tokens and all 32 layers a
+#: rank's backward stopped at 16.41 GiB allocated (1.47 GiB more reserved),
+#: and at 2 x 4,096 at 16.39 (1.48), the four ranks then holding 78.66 of
+#: the card's 79.18 GiB (expandable segments on; measured on an H100
+#: 80GB HBM3); a rank's state is 13.16 GB at 32 layers, 10.09 at 24
+SHARDED_ROWS, SHARDED_SEQ, SHARDED_STEPS = 2, 4096, 3
+SHARDED_LAYERS = 24
+#: the row and the depth that the cuts left
+SHARDED_SEQ_FULL = 8192
+
+
+def _sharded_cfg():
+    """phi-tiny-moe at full width and ``SHARDED_LAYERS`` of its layers."""
+    return dataclasses.replace(get_config(PHI_TINY),
+                               num_layers=SHARDED_LAYERS)
+
+
+def _sharded_cut(cfg) -> str:
+    """The cuts of the sharded training path, as its lines name them."""
+    full = get_config(PHI_TINY)
+    return (f"cut: the row {SHARDED_SEQ_FULL} -> {SHARDED_SEQ} tokens and "
+            f"the depth {full.num_layers} -> {cfg.num_layers} layers, "
+            f"four ranks did not fit the card uncut")
+
+
+#: largest |sharded - unsharded| of step 0's nll, and of its loss less
+#: the weighted load-balance term, the unsharded ``loss_fn`` of the same
+#: weights and rows run without grad after the ranks end: each data shard
+#: fills its own experts' capacity (1.25 x its row's share) and so drops
+#: other (token, expert) pairs than the global dispatch over both rows,
+#: and the sum over ``model`` rounds once where one rank's combine rounds
+#: add by add; a thousandth of a loss near ln(32,064) = 10.4.  The
+#: load-balance term itself differs by design (each data shard's over its
+#: own row, JAX's ``aux[None] / dsize``; rows that favour different
+#: experts raise it: 67.21 against 50.79 as measured on an H100 80GB
+#: HBM3) and is printed beside the unsharded one
+SHARDED_LOSS_TOL = 1e-2
+#: largest |sharded - unsharded| / unsharded of the global gradient norm
+#: of step 0's weights and rows without what differs by design: the
+#: load-balance term left out and every expert's capacity its rows'
+#: (no pair dropped), so only the roundings part the two (the sum over
+#: ``model`` rounds once, bf16 gradients summed over ``data`` in f32);
+#: with both kept the norms stand 0.119 apart (16.896 against 15.096 as
+#: measured on an H100 80GB HBM3), each data shard's load balance over
+#: its own row and its own drops
+SHARDED_GNORM_REL = 1e-2
+
+
+def _without_design_gaps(cfg):
+    """``cfg`` with the load-balance term out and each expert's capacity
+    all of its rows' choices (``num_experts / top_k``): what sharded and
+    unsharded steps compute alike."""
+    mc = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        mc, lb_loss_weight=0.0, capacity_factor=mc.num_experts / mc.top_k))
+
+
+def _loss_and_grad_norm(params, batch, cfg, rules=None):
+    """``loss_fn``'s loss, nll and aux at ``params`` on ``batch`` and the
+    global norm of its gradient, as ``train_step`` takes it (on a mesh:
+    this rank's shards, the gradients summed and the norm over the
+    shards), nothing updated."""
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss, m = M.loss_fn(params, batch, cfg, rules)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    if rules is None:
+        gnorm = _global_norm(tree_unflatten(params, grads))
+    else:
+        specs = _spec_leaves(M.param_specs(cfg, rules))
+        gnorm = _sharded_norm(_sync_grads(grads, specs, rules), specs, rules)
+    # on a mesh ``loss`` is this rank's share and ``m`` holds the sum
+    return dict(loss=float(m.get("loss", loss).detach()),
+                nll=float(m["nll"]), aux=float(m["aux"]),
+                grad_norm=float(gnorm))
+
+
+def _shard_reckoning(cfg, rules):
+    """(parameters a rank holds, its bytes of parameters, gradients and
+    AdamW moments) from ``abstract_params`` and ``param_specs``, nothing
+    allocated."""
+    ap = tree_leaves(M.abstract_params(cfg))
+    specs = _spec_leaves(M.param_specs(cfg, rules))
+    n = nbytes = 0
+    for t, spec in zip(ap, specs):
+        held = int(np.prod([rules.axis_size(ax) for ax in spec
+                            if ax is not None]))
+        k = t.numel() // held
+        n += k
+        nbytes += k * (2 * t.element_size() + 8)
+    return n, nbytes
+
+
+def _sharded_full_width(rules, rank, world):
+    """phi-tiny-moe at full width (``_sharded_cfg``) on this rank: its
+    shard drawn from the seed
+    (``init_params(..., rules)``), ``SHARDED_STEPS`` steps of the global
+    batch timed (the ranks start each together), the launch counts set to
+    0 just before them and read just after, the whole leaves checked
+    equal across the ranks after each step; then one step profiled on
+    every rank at once.  Returns its numbers."""
+    cfg = _sharded_cfg()
+    n_here, state = _shard_reckoning(cfg, rules)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    print(f"sharded training, rank {rank}: {before / 2 ** 30:.3f} GiB "
+          f"allocated before the weights", file=sys.stderr, flush=True)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(SEED), "cuda", rules=rules)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated()
+    specs = _spec_leaves(M.param_specs(cfg, rules))
+    batches = make_batches(SyntheticCorpus(vocab_size=cfg.vocab_size,
+                                           seed=SEED), SHARDED_ROWS,
+                           SHARDED_SEQ)
+
+    def next_batch():
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in next(batches).items()}
+
+    steps = [next_batch() for _ in range(SHARDED_STEPS)]
+    # step 0's weights and rows without the gaps by design, for the
+    # unsharded run the parent makes after the ranks end
+    t0 = time.perf_counter()
+    alike = _loss_and_grad_norm(params, steps[0], _without_design_gaps(cfg),
+                                rules)
+    print(f"sharded training, rank {rank}: step 0's gradient norm without "
+          f"the gaps by design {alike['grad_norm']:.6f}, "
+          f"{time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    walls, hist, coll = [], [], []
+    for step in range(SHARDED_STEPS):
+        b = steps[step]
+        cur_lr = cosine_lr(step, base=3e-4, warmup=100, total=1000)
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        collectives.reset_stats()
+        t0 = time.perf_counter()
+        params, opt, m = train_step(params, opt, b, cfg, rules, lr=cur_lr)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        coll.append((collectives.stats["calls"],
+                     collectives.stats["seconds"]))
+        vals = {k: float(v) for k, v in m.items()}
+        print(f"sharded training, rank {rank}: step {step} "
+              f"{walls[-1]:.1f} s, loss {vals['loss']:.5f}, peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB",
+              file=sys.stderr, flush=True)
+        assert all(np.isfinite(list(vals.values()))), vals
+        hist.append(vals)
+        _same_on_ranks([t for t, spec in zip(tree_leaves(params), specs)
+                        if not any(spec)], f"whole leaves after step {step}")
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    expect = expected_training_launches(cfg, SHARDED_STEPS)
+    problems = [] if launches == expect else \
+        [f"launches {launches}, predicted {expect}"]
+    peak = torch.cuda.max_memory_allocated()
+    b = next_batch()
+    torch.distributed.barrier()
+    prof = profiled(lambda: train_step(params, opt, b, cfg, rules,
+                                       lr=cur_lr), 1)
+    rows = device_rows(prof, 1)
+    busy = sum(ms for _, ms in rows)
+    if not busy:
+        problems.append("the profiled step's trace holds no device row")
+    split = {"k4_forward_ms": ("flash_prefill",), "k4_backward_ms":
+             ("flash_bwd",), "k7_forward_ms": ("moe_train_", "moe_pad_rows"),
+             "k7_backward_ms": ("moe_bwd_",)}
+    parts = {k: sum(ms for n, ms in rows if any(w in n for w in v))
+             for k, v in split.items()}
+    steady = float(np.mean(walls[1:]))
+    del params, opt, b, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(
+        seq_len=SHARDED_SEQ, rows=SHARDED_ROWS, steps=SHARDED_STEPS,
+        params_here=n_here, state_gb=state / 1e9, held_gib=held / 2 ** 30,
+        init_s=init_s, step_ms=[w * 1e3 for w in walls],
+        steady_step_ms=steady * 1e3,
+        tokens_per_s=SHARDED_ROWS * SHARDED_SEQ / steady,
+        peak_gib=peak / 2 ** 30, launches=launches,
+        collectives_per_step=[c for c, _ in coll],
+        collectives_ms=[sec * 1e3 for _, sec in coll],
+        collectives_share=[sec / w for (_, sec), w in zip(coll, walls)],
+        device_busy_ms=busy, busy_share=busy / (steady * 1e3), **parts,
+        top=[(n[:60], round(ms, 3)) for n, ms in rows[:6]],
+        losses=[h["loss"] for h in hist], nll=[h["nll"] for h in hist],
+        aux=[h["aux"] for h in hist],
+        grad_norms=[h["grad_norm"] for h in hist], step0_alike=alike,
+        problems=problems)
+
+
+#: the checkpoint check's model: phi-tiny-moe at full width and this many
+#: layers (a stack of layers to move in pieces), its moments made from its
+#: weights
+CKPT_LAYERS = 2
+
+
+def _sharded_checkpoint(rules, rank, path):
+    """``save_checkpoint`` of this rank's shards of phi-tiny-moe at full
+    width and ``CKPT_LAYERS`` layers (the weights drawn from the seed, mu
+    and nu made from them) to ``path``: every rank gathers, rank 0 writes,
+    and no rank's device may grow by half the whole tree's bytes (the old
+    gather kept every whole leaf on every rank); then every rank restores
+    it into its shards' templates, bit for bit what it saved.  Returns its
+    line."""
+    cfg = dataclasses.replace(get_config(PHI_TINY), num_layers=CKPT_LAYERS)
+    params = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(SEED + 1), "cuda", rules=rules)
+    leaves = tree_leaves(params)
+    opt = adamw_init(params)._replace(
+        mu=tree_unflatten(params, [t.float() * 0.5 for t in leaves]),
+        nu=tree_unflatten(params, [t.float() ** 2 for t in leaves]))
+    whole = sum(t.numel() * (t.element_size() + 8)
+                for t in tree_leaves(M.abstract_params(cfg)))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    save_checkpoint(path, params, opt, 1, cfg=cfg, rules=rules)
+    torch.distributed.barrier()
+    save_s = time.perf_counter() - t0
+    grew = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    got, got_opt, step = restore_checkpoint(path, params, opt, cfg=cfg,
+                                            rules=rules)
+    load_s = time.perf_counter() - t0
+    same = step == 1 and all(
+        torch.equal(a, b) for a, b in zip(
+            tree_leaves(got) + tree_leaves(got_opt.mu)
+            + tree_leaves(got_opt.nu),
+            leaves + tree_leaves(opt.mu) + tree_leaves(opt.nu)))
+    line = (f"{PHI_TINY} sharded checkpoint, rank {rank}: full width, "
+            f"{CKPT_LAYERS} layers, {whole / 1e9:.2f} GB whole (weights "
+            f"and moments); saved in {save_s:.1f} s (gathered in pieces, "
+            f"rank 0 writing) with this rank's device grown "
+            f"{grew / 2 ** 20:.1f} MiB at most; restored re-sharded in "
+            f"{load_s:.1f} s, bit for bit what it saved: {same}")
+    assert same, line
+    assert grew < whole / 2, line
+    del params, opt, got, got_opt, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def sharded_train_rank(rank, world, backend, ckpt_path):
+    """One rank of the sharded training phase (run by ``launch``): its card
+    (its own with NCCL, the one card with gloo), the mesh and rules; the
+    reduced models trained on the card and on the CPU over this mesh and
+    held to each other (``check_reduced_training``), then full-width
+    phi-tiny-moe, then a checkpoint of its shards at ``CKPT_LAYERS``
+    layers saved to ``ckpt_path`` and restored (``_sharded_checkpoint``).
+    Returns (the reduced checks' and the checkpoint's lines, the
+    full-width numbers).  The rank's allocator maps its blocks in expandable
+    segments: four ranks share the card's 80 GB, and each rank's cached
+    but unallocated blocks (2.60 GiB at full width in a run without)
+    would be the others' want."""
+    # read when the rank's allocator starts, at its first CUDA call
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.set_num_threads(2)
+    rules = make_rules(Mesh(*TRAIN_MESH))
+    lines = []
+    # reduced phi-tiny-moe (4 experts, 2 a rank) and yi-6b (dense: data
+    # parallel and FSDP only); f32 over two steps, bf16 an MoE model's step
+    # by step (its router's near ties)
+    t0 = time.perf_counter()
+    for arch in (PHI_TINY, "yi-6b"):
+        for dtype in (torch.float32, torch.bfloat16):
+            lines.append(check_reduced_training(arch, dtype, rules=rules))
+    print(f"sharded training, rank {rank}: the reduced models held, "
+          f"{time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
+    numbers = _sharded_full_width(rules, rank, world)
+    lines.append(_sharded_checkpoint(rules, rank, ckpt_path))
+    return lines, numbers
+
+
+def sharded_training_phase():
+    """Four ranks train phi-tiny-moe at full width (``_sharded_cfg``: its
+    depth and row cut to fit) on the mesh (data 2, model 2), after the
+    reduced models trained on the card and on the CPU over the same mesh,
+    and before a checkpoint of their shards saved and restored; then the
+    unsharded ``train_step`` of the same weights and step 0's rows against
+    step 0's sharded loss and grad_norm.  Prints
+    each rank's numbers; returns ({path: launches}, [each rank's
+    numbers])."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = TRAIN_MESH[0][0] * TRAIN_MESH[0][1]
+    backend = "nccl" if torch.cuda.device_count() >= n else "gloo"
+    where = f"{n} cards" if backend == "nccl" else \
+        "one card; gloo stages each collective's operands through the host"
+    cfg = _sharded_cfg()
+    print(f"sharded training: {n} ranks on the mesh (data 2, model 2) over "
+          f"{backend} ({where}); {PHI_TINY} at full width and "
+          f"{cfg.num_layers} layers "
+          f"({M.param_count(M.abstract_params(cfg)) / 1e9:.3f} B), "
+          f"{SHARDED_ROWS} x {SHARDED_SEQ} tokens a step "
+          f"({_sharded_cut(cfg)}); the parent holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+          f"GiB")
+    t0 = time.perf_counter()
+    ckpt_dir = tempfile.mkdtemp(prefix="sharded_ckpt_")
+    try:
+        ranks = launch(sharded_train_rank, n,
+                       (backend, os.path.join(ckpt_dir, "ckpt.npz")),
+                       backend=backend, timeout=600)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"sharded training: {time.perf_counter() - t0:.1f} s, the ranks' "
+          f"start included")
+    paths, numbers = {}, []
+    for rank, (lines, nums) in enumerate(ranks):
+        for line in lines:
+            print(line)
+        numbers.append(dict(nums, transport=backend))
+        paths[f"{PHI_TINY} sharded training, rank {rank}"] = nums["launches"]
+        per = {k: v // nums["steps"] for k, v in nums["launches"].items()
+               if v}
+        shares = nums["collectives_share"]
+        print(f"{PHI_TINY} sharded training, rank {rank}: "
+              f"{nums['params_here'] / 1e9:.3f} B parameters held, state "
+              f"reckoned {nums['state_gb']:.2f} GB before allocating "
+              f"({nums['held_gib']:.2f} GiB on the card after init, "
+              f"{nums['init_s']:.1f} s); {nums['rows']} x {nums['seq_len']} "
+              f"tokens a step, {cfg.num_layers} layers ({_sharded_cut(cfg)})"
+              f"; step walls "
+              f"{[round(w, 1) for w in nums['step_ms']]} ms, "
+              f"{nums['tokens_per_s']:.0f} tokens/s (global, steps 1-"
+              f"{nums['steps'] - 1}); peak memory {nums['peak_gib']:.2f} GiB; "
+              f"collectives a step {nums['collectives_per_step']}, host ms "
+              f"{[round(c, 1) for c in nums['collectives_ms']]} "
+              f"({', '.join(f'{100 * c:.1f}%' for c in shares)} of the "
+              f"wall); launches a step {per} (K4 "
+              f"{2 * cfg.num_layers} + {cfg.num_layers}, K7 "
+              f"{2 * cfg.num_moe_layers} + {cfg.num_moe_layers} predicted); "
+              f"one step profiled: "
+              f"{nums['device_busy_ms']:.1f} ms device-busy "
+              f"({100 * nums['busy_share']:.1f}% of the mean step wall), K4 "
+              f"forward {nums['k4_forward_ms']:.1f}, backward "
+              f"{nums['k4_backward_ms']:.1f}, K7 forward "
+              f"{nums['k7_forward_ms']:.1f}, backward "
+              f"{nums['k7_backward_ms']:.1f} ms; losses "
+              f"{[round(x, 5) for x in nums['losses']]}, nll "
+              f"{[round(x, 5) for x in nums['nll']]}, aux "
+              f"{[round(x, 5) for x in nums['aux']]}, grad_norm "
+              f"{[round(x, 5) for x in nums['grad_norms']]}; largest rows "
+              f"{nums['top']}")
+    problems = [(rank, p) for rank, n_ in enumerate(numbers)
+                for p in n_.pop("problems")]
+    assert not problems, problems
+    assert all(n_["losses"] == numbers[0]["losses"] for n_ in numbers)
+    # step 0 against the unsharded loss and gradient of the same weights
+    # and rows, as trained and without the gaps by design
+    params = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(SEED), "cuda")
+    b = {k: torch.from_numpy(v).cuda() for k, v in next(make_batches(
+        SyntheticCorpus(vocab_size=cfg.vocab_size, seed=SEED), SHARDED_ROWS,
+        SHARDED_SEQ)).items()}
+    ref = _loss_and_grad_norm(params, b, cfg)
+    ref_alike = _loss_and_grad_norm(params, b, _without_design_gaps(cfg))
+    got = dict(loss=numbers[0]["losses"][0], nll=numbers[0]["nll"][0],
+               aux=numbers[0]["aux"][0],
+               grad_norm=numbers[0]["grad_norms"][0])
+    alike = numbers[0]["step0_alike"]
+    assert all(n_["step0_alike"] == alike for n_ in numbers)
+    w = cfg.moe.lb_loss_weight
+    apart = dict(nll=abs(got["nll"] - ref["nll"]),
+                 loss_less_lb=abs((got["loss"] - w * got["aux"])
+                                  - (ref["loss"] - w * ref["aux"])),
+                 nll_alike=abs(alike["nll"] - ref_alike["nll"]))
+    gnorm_rel = abs(got["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    alike_rel = (abs(alike["grad_norm"] - ref_alike["grad_norm"])
+                 / ref_alike["grad_norm"])
+    print(f"{PHI_TINY} sharded training: step 0 sharded / unsharded (the "
+          f"same weights and rows; the unsharded on the card after the "
+          f"ranks end): loss {got['loss']:.5f} / {ref['loss']:.5f}, nll "
+          f"{got['nll']:.5f} / {ref['nll']:.5f}, aux {got['aux']:.5f} / "
+          f"{ref['aux']:.5f} (each data shard's, by design; weight {w}), "
+          f"grad_norm {got['grad_norm']:.6f} / {ref['grad_norm']:.6f} "
+          f"({gnorm_rel:.3g} apart: each shard's load balance and drops); "
+          f"without the load-balance term and at capacity factor "
+          f"{cfg.moe.num_experts / cfg.moe.top_k} (no drop): nll "
+          f"{alike['nll']:.5f} / {ref_alike['nll']:.5f}, grad_norm "
+          f"{alike['grad_norm']:.6f} / {ref_alike['grad_norm']:.6f}, "
+          f"{alike_rel:.3g} apart (tolerance {SHARDED_GNORM_REL}); apart "
+          f"{apart} (tolerance {SHARDED_LOSS_TOL})")
+    assert all(v <= SHARDED_LOSS_TOL for v in apart.values()), apart
+    assert alike_rel <= SHARDED_GNORM_REL, (alike, ref_alike)
+    for n_ in numbers:
+        n_["unsharded_step0"] = ref
+        n_["unsharded_step0_alike"] = ref_alike
+    del params, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, numbers
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3622,11 +4118,11 @@ def main() -> int:
     kernels[0]["by_shape"].append(two_pools)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     two_pools["max_abs_err"])
-    k4_bwd, k4_train_fwd = check_flash_bwd(danube, yi, llama4, zamba2)
+    phi = get_config("phi-tiny-moe")
+    k4_bwd, k4_train_fwd = check_flash_bwd(danube, yi, llama4, zamba2, phi)
     kernels.append(k4_bwd)
     next(k for k in kernels if k["name"] == "prefill_attention")[
         "training_forward_with_lse"] = k4_train_fwd
-    phi = get_config("phi-tiny-moe")
     kernels += check_moe_ffn_bwd(phi, moe, get_config(DBRX))
     tolerance = {"paged_decode_partials": "rtol 1e-4, atol 1e-4 (f32 sums "
                  "in another order)", "quantize_demote": "bit-identical",
@@ -3796,7 +4292,13 @@ def main() -> int:
     # forward and backward
     paths["phi-tiny-moe training"], training_moe = train_path("phi-tiny-moe")
     check_no_backward()
-    phase_done("the training paths", t_phase)
+    t_phase = phase_done("the training paths", t_phase)
+    # four ranks train phi-tiny-moe at full width on the mesh (data 2,
+    # model 2): FSDP over data, experts over model; each rank's launches a
+    # path of their own
+    sharded_train_paths, sharded_training = sharded_training_phase()
+    paths.update(sharded_train_paths)
+    phase_done("sharded training", t_phase)
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -3811,6 +4313,7 @@ def main() -> int:
             k["training"] = training
         if k["name"] == "moe_ffn_bwd":
             k["training"] = training_moe
+            k["sharded_training"] = sharded_training
         if k["name"] == "moe_ffn":
             k["by_shape"] += [k7_llama4, k7_dbrx, *k7_more.values()]
             k["max_abs_err"] = max(

@@ -15,7 +15,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.params import ParamDef, build_schema
-from repro_torch.models.sharding import kv_block_axes
+from repro_torch.models.sharding import kv_block_axes, shard_slices
 
 
 def _leaf(arr: np.ndarray, pd: ParamDef, path, dev) -> torch.Tensor:
@@ -133,3 +133,91 @@ def shard_decode(params, state, cfg: ModelConfig, rules):
                            slot_base=kv.slot_base[lo:hi].clone())
 
     return params, state._replace(kv=pools(state.kv), peer=pools(state.peer))
+
+
+def _map_with_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a parameter-shaped tree and its
+    ``param_specs``, nested as ``tree``."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, specs)
+    return {k: _map_with_specs(fn, v, specs[k]) for k, v in tree.items()}
+
+
+def shard_train(params, opt, cfg: ModelConfig, rules):
+    """This rank's shard, for ``train_step(..., rules=rules)``, of full
+    parameters and of their AdamW state ``opt`` (or None): each leaf's
+    block as ``param_specs`` splits it (``embed_fsdp`` over ``data``,
+    ``experts`` over ``model``), copied; a leaf left whole is shared.
+    Returns (params, opt)."""
+    from repro_torch.models.params import param_specs
+
+    specs = param_specs(cfg, rules)
+
+    def cut(tree):
+        return _map_with_specs(
+            lambda t, spec: t if not any(spec) else
+            t[shard_slices(rules, spec, t.shape)].clone(), tree, specs)
+
+    if opt is None:
+        return cut(params), None
+    return cut(params), opt._replace(step=opt.step.clone(), mu=cut(opt.mu),
+                                     nu=cut(opt.nu))
+
+
+#: the most bytes of a rank's shard that :func:`gather_train` gathers in one
+#: piece (the gathered piece is as many times larger as ranks split it)
+GATHER_PIECE_BYTES = 64 * 2 ** 20
+
+
+@torch.no_grad()
+def gather_train(params, opt, cfg: ModelConfig, rules, dst=0):
+    """The full parameters and AdamW state (or None) from every rank's
+    shard (:func:`shard_train`'s inverse), on the host: each split leaf
+    gathered over the ranks along each split dim, one leaf at a time and,
+    where no axis splits its first dim, in pieces along that dim of at
+    most ``GATHER_PIECE_BYTES`` of the shard (one layer of a stack, at
+    least), each piece copied to the host and freed before the next, so a
+    rank's device holds no more than its shard and one gathered piece.
+    Collective: every rank calls it.  Rank ``dst`` gets the full trees
+    (CPU tensors, copies) and every other rank (None, None), keeping
+    nothing; ``dst`` None: every rank gets them."""
+    from repro_torch.core.collectives import all_gather
+    from repro_torch.models.params import param_specs
+
+    specs = param_specs(cfg, rules)
+    mesh = rules.mesh
+    keep = dst is None or torch.distributed.get_rank() == dst
+
+    def gathered(t, spec):
+        for d, ax in enumerate(spec):
+            if ax is not None:
+                t = all_gather(t.movedim(d, 0), mesh.group(ax),
+                               mesh.group_order(ax)).movedim(0, d)
+        return t
+
+    def whole(t, spec):
+        if not any(spec):
+            return t.to("cpu", copy=True) if keep else None
+        if spec[0] is not None:
+            part = gathered(t, spec)            # collective on every rank
+            return part.to("cpu", copy=True) if keep else None
+        row = t[0].numel() * t.element_size()
+        step = max(GATHER_PIECE_BYTES // max(row, 1), 1)
+        out = None
+        for i in range(0, t.shape[0], step):
+            part = gathered(t[i:i + step], spec)
+            if keep:
+                if out is None:
+                    out = torch.empty((t.shape[0],) + part.shape[1:],
+                                      dtype=t.dtype, device="cpu")
+                out[i:i + step].copy_(part)
+            del part
+        return out
+
+    def full(tree):
+        return _map_with_specs(whole, tree, specs)
+
+    p = full(params)
+    o = None if opt is None else opt._replace(
+        step=opt.step.to("cpu", copy=True), mu=full(opt.mu), nu=full(opt.nu))
+    return (p, o) if keep else (None, None)

@@ -13,6 +13,9 @@ data parallelism (batch + KV pool blocks shard over it).
 :func:`launch` runs a function on N ranks of this host:
     launch(fn, 2)                         # gloo, on the CPU or one card
     launch(fn, 2, backend="nccl")         # one card per rank
+A command line started once per rank by another launcher (``torchrun``,
+a cluster's) joins its world with :func:`init_world` from the
+environment.
 """
 from __future__ import annotations
 
@@ -135,7 +138,9 @@ def make_rules(mesh: Mesh, *, kv_axes: Optional[tuple] = None
                ) -> ShardingRules:
     """Logical->physical rules for the given mesh (pod-aware).  On a mesh
     of ranks it creates the process groups of every set of axes that the
-    rules name, in the same order on every rank."""
+    rules name and of each axis alone (a training step sums gradients
+    over the batch's axes that a leaf is not split over), in the same
+    order on every rank."""
     rules = dict(DEFAULT_RULES)
     multi_pod = "pod" in mesh.shape
     if multi_pod:
@@ -143,13 +148,35 @@ def make_rules(mesh: Mesh, *, kv_axes: Optional[tuple] = None
         rules["kv_blocks"] = ("pod", "data", "model")
     if kv_axes is not None:
         rules["kv_blocks"] = kv_axes
-    for axes in sorted({_axes(v) for v in rules.values() if v is not None}):
+    for axes in sorted({_axes(v) for v in rules.values() if v is not None}
+                       | {(a,) for a in mesh.axis_names}):
         mesh.make_groups(axes)
     return ShardingRules(mesh=mesh, rules=rules)
 
 
 def total_shards(rules: ShardingRules, logical: str = "kv_blocks") -> int:
     return rules.axis_size(rules.axis(logical))
+
+
+def init_world(backend: Optional[str] = None) -> int:
+    """Join the default process group from the environment a launcher
+    sets (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) where
+    it names a world of more than one rank and none is joined yet; the
+    backend NCCL with cards (each rank on card ``LOCAL_RANK``, else
+    ``RANK`` modulo the cards), else gloo.  Returns the world's size (1
+    where there is none)."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        return 1
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
+        rank = int(os.environ.get("LOCAL_RANK", os.environ["RANK"]))
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method="env://")
+    return world
 
 
 # ---------------------------------------------------------------------------
@@ -236,4 +263,4 @@ def launch(fn, nprocs: int, args=(), *, backend: str = "gloo",
 
 
 __all__ = ["Mesh", "make_production_mesh", "make_rules", "total_shards",
-           "launch"]
+           "init_world", "launch"]

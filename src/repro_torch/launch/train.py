@@ -11,8 +11,16 @@ expert FFN's forward and backward (K7):
   PYTHONPATH=src python -m repro_torch.launch.train --arch phi-tiny-moe \
       --steps 5 --batch 1 --seq-len 8192
 
-The JAX launcher's flags, with ``--device`` (default ``cuda``) in place
-of ``--mesh``: multi-device training is not ported yet.
+The JAX launcher's flags, ``--mesh`` included, with ``--device``
+(default ``cuda``).  ``--mesh pod|multipod`` trains on the production
+mesh (data 16, model 16; or pod 2, data 16, model 16): one process per
+rank, started by a launcher that sets ``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR`` and ``MASTER_PORT`` (``torchrun``); each rank holds its
+shard of the parameters and moments (``embed_fsdp`` over ``data``,
+experts over ``model``), and outside a world of 256 or 512 ranks the mesh
+refuses.  Smaller meshes are driven from Python
+(``repro_torch.launch.mesh.launch``, ``make_rules``, ``train(...,
+rules=rules)``).
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--mesh", choices=["none", "pod", "multipod"],
+                    default="none")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU runs only when asked for")
     args = ap.parse_args(argv)
@@ -40,8 +50,15 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    rules = None
+    if args.mesh != "none":
+        from repro_torch.launch.mesh import (init_world, make_production_mesh,
+                                             make_rules)
+        init_world("gloo" if args.device == "cpu" else None)
+        mesh = make_production_mesh(multi_pod=args.mesh == "multipod")
+        rules = make_rules(mesh)
     train(cfg, steps=args.steps, batch=args.batch, seq_len=args.seq_len,
-          lr=args.lr, seed=args.seed, ckpt_dir=args.ckpt_dir,
+          lr=args.lr, seed=args.seed, rules=rules, ckpt_dir=args.ckpt_dir,
           device=args.device)
 
 

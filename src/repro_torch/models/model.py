@@ -11,8 +11,8 @@ family (Zamba2: Mamba2 layers with ONE shared attention block after every
 blocks and one sLSTM block, no attention).
 
 Entry points:
-  forward(params, batch, cfg, want_kv)      -> (logits, ForwardOut)
-  loss_fn(params, batch, cfg)               -> (loss, metrics)
+  forward(params, batch, cfg, rules, want_kv) -> (logits, ForwardOut)
+  loss_fn(params, batch, cfg, rules)        -> (loss, metrics)
   prefill(params, batch, cfg)               -> (logits_last, ForwardOut)
   serve_step(params, state, cfg, rules)     -> (logits, new_state)  1 token
 
@@ -44,9 +44,23 @@ and the step runs the JAX package's sharded decode: attention over the
 rank's own slots merged across the ``kv_blocks`` ranks, expert
 parallelism over ``act_batch`` and ``experts``; every other tensor is
 the same on every rank.
+
+``forward`` and ``loss_fn`` with ``rules`` are a training rank's share of
+the JAX package's sharded pass (dense, vlm, audio and MoE families): the
+parameters are the rank's shard (``bridge.shard_train``: d_model dims
+over ``data``, experts over ``model``), the batch the global one, of
+which the rank computes its rows (``_rank_rows``).  The embedding, head
+and final norm are gathered whole over ``data`` once a pass, each
+block's weights inside its ``torch.utils.checkpoint`` region (so the
+recompute gathers again and nothing gathered outlives the block), the
+MoE layers' inside the layer (``moe._moe_layer_train``); every gather's
+gradient is reduce-scattered back to the shard.  The ``model`` ranks of
+one data index compute the dense part alike (tensor parallelism is
+GSPMD's choice of layout there, not other math).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -54,14 +68,15 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import paged_attention as pa
+from repro_torch.core.collectives import all_reduce
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import xlstm as X
 from repro_torch.models.moe import load_balance_loss, moe_layer
 from repro_torch.models.params import (  # noqa: F401  (re-exported)
     abstract_params, build_schema, check_family, init_params, is_interleaved,
-    num_codebooks, param_count)
-from repro_torch.models.sharding import kv_block_axes
+    num_codebooks, param_count, param_specs)
+from repro_torch.models.sharding import gather_fsdp, kv_block_axes
 
 
 def _unbind(node):
@@ -159,7 +174,7 @@ def unembed(params, x, cfg: ModelConfig):
 
 
 def _block(x, s, lp, cfg: ModelConfig, attend, keep_sum: bool = False,
-           rules=None):
+           rules=None, local_rows: bool = False):
     """One pre-LN block on the residual ``x``: attention, then the MLP or
     the MoE FFN on the second norm, or (parallel blocks) the MLP on the
     attention's own normed input, ``x + a + mlp(u)`` rounded add by add as
@@ -171,15 +186,18 @@ def _block(x, s, lp, cfg: ModelConfig, attend, keep_sum: bool = False,
     package scans interleaved (dense, moe) pairs in one body, where XLA
     lets the MoE layer's first norm read the dense layer's sum before its
     rounding, as it does for the second norm (``layers.residual_norm``).
-    ``rules``: the MoE FFN's mesh (expert parallelism), or None.
-    Returns (x, s, kv, the MoE layer's (probs, ids) routing or None)."""
+    ``rules``: the MoE FFN's mesh (expert parallelism), or None;
+    ``local_rows``: ``x`` is a training rank's own rows
+    (``moe_layer``'s).  Returns (x, s, kv, the MoE layer's (probs, ids)
+    routing or None)."""
     u = L.rms_norm(x if s is None else s, lp["ln1"], cfg.norm_eps).to(x.dtype)
     a, kv = attend(u)
     if cfg.parallel_block:
         return x + a + L.mlp(u, lp["mlp"], cfg), None, kv, None
     x, u2 = L.residual_norm(x, a, lp["ln2"], cfg.norm_eps)
     if "moe" in lp:
-        y, probs, ids = moe_layer(u2, lp["moe"], cfg, rules=rules)
+        y, probs, ids = moe_layer(u2, lp["moe"], cfg, rules=rules,
+                                  local_rows=local_rows)
         return x + y, None, kv, (probs, ids)
     y = L.mlp(u2, lp["mlp"], cfg)
     if not keep_sum:
@@ -283,8 +301,13 @@ def init_states(cfg: ModelConfig, batch: int, device):
     return None
 
 
-def backbone(params, x, positions, cfg: ModelConfig, positions_3d=None,
-             want_kv: bool = True) -> ForwardOut:
+def backbone(params, x, positions, cfg: ModelConfig, rules=None,
+             positions_3d=None, want_kv: bool = True) -> ForwardOut:
+    """The blocks over the embedded input ``x``.  ``rules``: ``x`` holds a
+    training rank's rows and ``params`` its shard (``forward``'s); each
+    block gathers its weights inside its recompute region, and each MoE
+    layer's load-balance loss counts over the ranks that split the batch
+    (``act_batch``; one where every rank runs every row)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = _wants_grad(params)
     if cfg.family == "hybrid":
@@ -298,18 +321,29 @@ def backbone(params, x, positions, cfg: ModelConfig, positions_3d=None,
         x, states = _xlstm_layers(params, x, cfg, None, False, remat)
         return ForwardOut(x, None, states, aux)
 
+    if rules is not None:
+        specs = param_specs(cfg, rules)
+        lspecs = ([specs["blocks"][k] for k in ("dense", "moe")]
+                  if "blocks" in specs else [specs["layers"]])
+        lspecs = [_strip_layer(sp) for sp in lspecs]
+        shards = rules.axis_size(rules.axis("act_batch"))
+
     def block(x, s, lp, i):
+        if rules is not None:
+            lp = gather_fsdp(lp, lspecs[i % len(lspecs)], rules,
+                             skip=("moe",))
         return _block(x, s, lp, cfg,
                       lambda u: L.attention_layer(u, lp["attn"], cfg,
                                                   positions, positions_3d),
-                      _keeps_sum(cfg, i))
+                      _keeps_sum(cfg, i), rules, local_rows=rules is not None)
 
     ks, vs = [], []
     s = None
     for i, lp in enumerate(_layers(params)):
         x, s, (k, v), routing = _run(remat, block, x, s, lp, i)
         if routing is not None:
-            aux = aux + load_balance_loss(*routing, cfg.moe.num_experts)
+            lb = load_balance_loss(*routing, cfg.moe.num_experts)
+            aux = aux + (lb if rules is None else lb / shards)
         if want_kv:
             ks.append(k)
             vs.append(v)
@@ -317,23 +351,70 @@ def backbone(params, x, positions, cfg: ModelConfig, positions_3d=None,
     return ForwardOut(x, kv, None, aux)
 
 
-def forward(params, batch, cfg: ModelConfig, want_kv: bool = False):
+def _strip_layer(node):
+    """A stacked layer leaf's split with its layer dim (never split)
+    dropped: the split of one layer's slice."""
+    if isinstance(node, dict):
+        return {k: _strip_layer(v) for k, v in node.items()}
+    return node[1:]
+
+
+def _rank_rows(batch, rules):
+    """(the rows of the global ``batch`` this rank computes, the rules its
+    layers see): its share along ``act_batch`` where the batch's rows
+    divide over it, each rank's rows the same on every rank of one data
+    index; else every row, with ``act_batch`` cleared from the rules (the
+    JAX package takes its global MoE path there and GSPMD replicates:
+    every rank runs every row)."""
+    ax = rules.axis("act_batch")
+    n, b = rules.axis_size(ax), batch["tokens"].shape[0]
+    if b % n == 0:
+        k = b // n
+        i = rules.mesh.axis_index(ax)
+        return {key: v[i * k:(i + 1) * k] for key, v in batch.items()}, rules
+    return batch, dataclasses.replace(
+        rules, rules=dict(rules.rules, act_batch=None))
+
+
+def _gather_outer(params, cfg: ModelConfig, rules):
+    """``params`` with the embedding, the head and the final norm whole
+    (gathered over ``data``, differentiable); the layers' shards as they
+    are."""
+    specs = param_specs(cfg, rules)
+    outer = {k: v for k, v in params.items() if k in ("embed", "lm_head",
+                                                      "final_norm")}
+    return dict(params, **gather_fsdp(outer, {k: specs[k] for k in outer},
+                                      rules))
+
+
+def forward(params, batch, cfg: ModelConfig, rules=None,
+            want_kv: bool = False):
     """batch: dict(tokens (b, s) or (b, s, ncb), positions (b, npre + s)[,
     prefix_embeddings (b, npre, d), positions_3d (b, npre + s, 3)]).  A
     model with prefix embeddings (the vision frontend's patches, MusicGen's
     conditioning, precomputed) reads them ahead of the tokens; MusicGen's
-    sinusoidal positions are added over the prefix and the tokens alike."""
+    sinusoidal positions are added over the prefix and the tokens alike.
+    ``rules``: a training rank's pass (module docstring): ``params`` its
+    shard, ``batch`` the global batch; returns the logits of the rank's
+    rows (``_rank_rows``)."""
     check_family(cfg)
+    if rules is not None:
+        if cfg.family in ("hybrid", "ssm"):
+            raise NotImplementedError(
+                f"{cfg.name}: training on a mesh covers the dense, vlm, "
+                f"audio and MoE families (family {cfg.family!r})")
+        batch, rules = _rank_rows(batch, rules)
+        params = _gather_outer(params, cfg, rules)
     x = embed(params, batch["tokens"], cfg)
     if cfg.modality is not None and cfg.modality.num_prefix_embeddings:
         x = torch.cat([batch["prefix_embeddings"].to(x.dtype), x], dim=1)
     x = add_positions(x, batch["positions"], cfg)
-    out = backbone(params, x, batch["positions"], cfg,
+    out = backbone(params, x, batch["positions"], cfg, rules,
                    batch.get("positions_3d"), want_kv=want_kv)
     return unembed(params, out.hidden, cfg), out
 
 
-def loss_fn(params, batch, cfg: ModelConfig):
+def loss_fn(params, batch, cfg: ModelConfig, rules=None):
     """Mean next-token NLL over the labelled positions (``labels >= 0``;
     the prefix positions of a vlm model cut off) plus the MoE load-balance
     loss times ``lb_loss_weight``, as ``repro.models.model.loss_fn``:
@@ -341,9 +422,25 @@ def loss_fn(params, batch, cfg: ModelConfig):
     equal bit for bit to the JAX package's one-hot contraction, without a
     (b, s, V) one-hot).  batch: ``forward``'s and labels (b, s).  Returns
     (loss, {"nll", "aux"}), aux unweighted.  The audio family's labels are
-    (b, s, ncb), one per codebook, averaged alike."""
-    logits, out = forward(params, batch, cfg)
+    (b, s, ncb), one per codebook, averaged alike.
+
+    ``rules`` (a training rank on a mesh; ``params`` its shard, ``batch``
+    the global batch): the loss returned is the rank's share, whose
+    gradient summed over ``act_batch`` is the global loss's: its rows' NLL
+    summed over the global count of labels, plus its load-balance terms
+    (each MoE layer's over the rank's rows, over the number of ranks
+    that split the batch); where every rank runs every row, the whole
+    loss over that number.  The metrics hold the global "loss", "nll" and
+    "aux": the ranks' shares summed over ``act_batch``."""
+    logits, out = forward(params, batch, cfg, rules)
     labels = batch["labels"]
+    share, group = 1.0, None
+    if rules is not None:
+        rows, seen = _rank_rows(batch, rules)
+        labels = rows["labels"]
+        group = rules.mesh.group(rules.axis("act_batch"))
+        if seen is not rules:       # every rank ran every row
+            share = 1.0 / rules.axis_size(rules.axis("act_batch"))
     npre = cfg.modality.num_prefix_embeddings if cfg.modality else 0
     if npre:
         logits = logits[:, npre:]
@@ -354,9 +451,18 @@ def loss_fn(params, batch, cfg: ModelConfig):
     tgt = torch.gather(logits, -1,
                        labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
-    nll = torch.sum((lse - tgt) * mask) / torch.clamp(mask.sum(), min=1.0)
-    aux = out.aux * (cfg.moe.lb_loss_weight if cfg.moe else 0.0)
-    return nll + aux, {"nll": nll, "aux": out.aux}
+    count = mask.sum()
+    if group is not None and share == 1.0:
+        count = all_reduce(count, "sum", group)     # the global count
+    nll = torch.sum((lse - tgt) * mask) / torch.clamp(count, min=1.0)
+    aux = out.aux
+    if share != 1.0:
+        nll, aux = nll * share, aux * share
+    loss = nll + aux * (cfg.moe.lb_loss_weight if cfg.moe else 0.0)
+    if group is None:
+        return loss, {"nll": nll, "aux": aux}
+    total = all_reduce(torch.stack([loss, nll, aux]).detach(), "sum", group)
+    return loss, {"loss": total[0], "nll": total[1], "aux": total[2]}
 
 
 def prefill(params, batch, cfg: ModelConfig):

@@ -24,8 +24,12 @@ Expert parallelism (``rules`` naming a mesh of ranks, the JAX package's
 ``_moe_layer_local``): each rank routes its own share of the batch rows,
 fills the dispatch slots of the experts it holds, runs their FFN (K7 over
 the rank's experts alone), and the ranks' combined rows are summed over the
-expert axis and gathered back over the batch axis.  Decode only: no
-gradient crosses the collectives.
+expert axis (:func:`_expert_parallel`, one core for both passes).  Decode gathers the rows back over the batch axis; a training
+pass (``local_rows``) hands the layer its own rows and keeps them, gathers
+the FSDP shards of the weights over ``data`` inside the layer, and its
+gradient crosses the collectives (``core.collectives``' differentiable
+ones: the sum over ``model`` passes the gradient back whole, and the
+input's gradient is summed over ``model``).
 """
 from __future__ import annotations
 
@@ -34,9 +38,11 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.collectives import all_gather, all_reduce
+from repro_torch.core.collectives import all_gather, sum_grad_over, sum_over
 from repro_torch.kernels.moe_ffn.ops import moe_ffn
 from repro_torch.models.layers import mlp
+from repro_torch.models.params import moe_schema
+from repro_torch.models.sharding import gather_fsdp, train_spec
 
 
 def router_topk(logits, top_k: int):
@@ -239,7 +245,8 @@ def expert_parallel(batch: int, cfg: ModelConfig, rules) -> bool:
 
 
 def moe_layer(x, p, cfg: ModelConfig,
-              capacity_factor: Optional[float] = None, rules=None):
+              capacity_factor: Optional[float] = None, rules=None,
+              local_rows: bool = False):
     """MoE FFN sublayer.  x: (b, s, d) -> (y, probs, ids): the output and
     the routing that :func:`load_balance_loss` reads.  The loss is left to
     the caller that wants it, so a decode step launches none of its work.
@@ -247,10 +254,15 @@ def moe_layer(x, p, cfg: ModelConfig,
     The capacity comes from all b * s rows, so every row the caller
     passes (padding and idle batch rows included) takes its share of
     it, as in the JAX package.  Where :func:`expert_parallel` holds,
-    :func:`_moe_layer_local` runs instead."""
+    :func:`_moe_layer_local` runs instead; ``local_rows`` (a training
+    pass on a mesh: ``x`` holds this rank's rows, ``p`` its shard of the
+    layer) runs :func:`_moe_layer_train`.  Both run each rank's rows
+    through :func:`_expert_parallel`."""
     mc = cfg.moe
     if capacity_factor is None:
         capacity_factor = mc.capacity_factor
+    if local_rows:
+        return _moe_layer_train(x, p, cfg, rules, capacity_factor)
     if expert_parallel(x.shape[0], cfg, rules):
         return _moe_layer_local(x, p, cfg, rules, capacity_factor)
     b, s, d = x.shape
@@ -275,53 +287,114 @@ def moe_layer(x, p, cfg: ModelConfig,
     return y.view(b, s, d), probs, ids
 
 
-def _moe_layer_local(x, p, cfg: ModelConfig, rules, capacity_factor: float):
-    """Expert parallelism over a mesh of ranks, as the JAX package's
-    ``_moe_layer_local`` runs on each (data i, model j) device: route the
-    rank's own ``b / |act_batch|`` rows with the (replicated) router, the
-    capacity from those rows; keep the dispatch slots of the ``E /
-    |experts|`` experts the rank holds (``p``'s ``wi``, ``wg``, ``wo``:
-    this rank's experts alone, ``bridge.shard_decode``), run their FFN,
-    combine each row's own slots in ascending order, sum over the experts'
-    ranks (in f32, rounded once: XLA's bf16 add) and gather the rows back
-    over the batch's ranks.  The shared expert then runs on every row, as
-    there.  Returns (y, probs, ids), the routing of each batch shard
-    stacked (n, t / n, ...) where the batch is split (n > 1)."""
+def _expert_parallel(xt, p, cfg: ModelConfig, rules,
+                     capacity_factor: float):
+    """The core of the JAX package's ``_moe_layer_local`` on one (data i,
+    model j) rank, for decode and training alike: route the rank's own
+    (t, d) rows ``xt`` with the (replicated) router, the capacity from
+    those rows; keep the dispatch slots of the ``E / |experts|`` experts
+    the rank holds (``p``'s ``wi``, ``wg``, ``wo``: this rank's experts
+    alone, whole along d), run their FFN (K7), combine each row's own
+    slots in ascending order and sum over the experts' ranks (in f32,
+    rounded once: XLA's bf16 add).  Differentiable: the dispatch gather
+    and the combine are each other's gradient (:class:`_DispatchGather`,
+    :class:`_SumSlots`), the sum's gradient passes back whole, and the
+    rows and gate weights, which every rank of the group holds alike and
+    spends on its own experts, get their gradients summed over the group;
+    without grad each piece is the plain gather, sum and all-reduce, bit
+    for bit.  Returns (y, probs, ids) of the rank's rows."""
     mc = cfg.moe
-    b, s, d = x.shape
-    dax, eax = rules.axis("act_batch"), rules.axis("experts")
-    dsize, esize = rules.axis_size(dax), rules.axis_size(eax)
+    t, d = xt.shape
+    eax = rules.axis("experts")
+    esize = rules.axis_size(eax)
     e_loc = mc.num_experts // esize
     if p["wi"].shape[0] != e_loc:
         raise ValueError(f"expert parallelism over {esize} ranks wants this "
                          f"rank's {e_loc} experts, got {p['wi'].shape[0]} "
-                         f"(bridge.shard_decode)")
-    b_loc = b // dsize
-    t_loc = b_loc * s
-    i, j = rules.mesh.axis_index(dax), rules.mesh.axis_index(eax)
-    xt = x[i * b_loc:(i + 1) * b_loc].reshape(t_loc, d)
-
+                         f"(bridge.shard_decode, bridge.shard_train)")
+    group = rules.mesh.group(eax)
     probs, ids, capacity, (slot_token, slot_weight, order, slot) = _route(
         xt, p, cfg, capacity_factor)
     n_loc = e_loc * capacity
-    e0 = j * n_loc
+    e0 = rules.mesh.axis_index(eax) * n_loc
+    # the gate weights' gradient reaches each slot from its one rank
+    slot_weight = sum_grad_over(slot_weight, group)
     own_tok, own_w = slot_token[e0:e0 + n_loc], slot_weight[e0:e0 + n_loc]
-
-    xd = _gather_slots(xt, own_tok).view(e_loc, capacity, d)
-    out = expert_ffn(xd, p, cfg).view(n_loc, d)
     # each row's slots among this rank's, in ascending order; the others
     # (and a dropped choice) read the zero row n_loc
-    per_token = _slots_of_tokens(slot, order, t_loc, mc.top_k) - e0
+    per_token = _slots_of_tokens(slot, order, t, mc.top_k) - e0
     per_token = torch.where((per_token >= 0) & (per_token < n_loc),
                             per_token, torch.full_like(per_token, n_loc))
-    y = _sum_slots(out * own_w[:, None].to(out.dtype), per_token)
-    y = all_reduce(y.float(), "sum", rules.mesh.group(eax)).to(x.dtype)
+    xd = _DispatchGather.apply(sum_grad_over(xt, group), own_tok, per_token)
+    out = expert_ffn(xd.view(e_loc, capacity, d), p, cfg).view(n_loc, d)
+    y = _SumSlots.apply(out * own_w[:, None].to(out.dtype), per_token)
+    return sum_over(y, group), probs, ids
+
+
+def _moe_layer_local(x, p, cfg: ModelConfig, rules, capacity_factor: float):
+    """Expert parallelism in decode, as the JAX package's
+    ``_moe_layer_local`` runs on each (data i, model j) device: the rank's
+    own ``b / |act_batch|`` rows through :func:`_expert_parallel`, the
+    rows gathered back over the batch's ranks; the shared expert then runs
+    on every row, as there.  Returns (y, probs, ids), the routing of each
+    batch shard stacked (n, t / n, ...) where the batch is split (n >
+    1)."""
+    mc = cfg.moe
+    b, s, d = x.shape
+    dax = rules.axis("act_batch")
+    dsize = rules.axis_size(dax)
+    b_loc = b // dsize
+    i = rules.mesh.axis_index(dax)
+    y, probs, ids = _expert_parallel(
+        x[i * b_loc:(i + 1) * b_loc].reshape(b_loc * s, d), p, cfg, rules,
+        capacity_factor)
     y = y.view(b_loc, s, d)
     if dsize > 1:
         dgroup, dorder = rules.mesh.group(dax), rules.mesh.group_order(dax)
         y = all_gather(y, dgroup, dorder)
         probs = all_gather(probs[None], dgroup, dorder)
         ids = all_gather(ids[None], dgroup, dorder)
+    if mc.num_shared_experts:
+        y = y + mlp(x, p["shared"], cfg)
+    return y, probs, ids
+
+
+def _moe_specs(cfg: ModelConfig, rules) -> dict:
+    """One MoE layer's leaves' splits over a training rank's mesh."""
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict)
+                else train_spec(rules, v.axes, v.shape)
+                for k, v in node.items()}
+    return walk(moe_schema(cfg))
+
+
+def _moe_layer_train(x, p, cfg: ModelConfig, rules, capacity_factor: float):
+    """The JAX package's ``_moe_layer_local`` in a training pass: ``x``
+    holds this rank's own rows (the batch split over ``act_batch``, whose
+    size n the rules give; None: every rank runs every row) and ``p`` its
+    shard of the layer (``bridge.shard_train``: the ``E / |experts|``
+    experts it holds, d_model split over ``data`` where it divides).  The
+    FSDP shards are gathered over ``data`` here (``gather_fsdp``; backward:
+    reduce-scatter), then :func:`_expert_parallel` runs the rows (K7's
+    ``MoeFFN``: training forward and backward).  Returns (y, probs, ids) of
+    the rank's rows: the caller's loss over them is the shard's, which JAX
+    divides by n (``aux[None] / dsize``)."""
+    mc = cfg.moe
+    p = gather_fsdp(p, _moe_specs(cfg, rules), rules)
+    eax = rules.axis("experts")
+    if eax is None or mc.num_experts % rules.axis_size(eax):
+        # the experts stay whole on every rank: the global path, which
+        # JAX takes too, over rows that must be all of the batch's
+        if rules.axis_size(rules.axis("act_batch")) > 1:
+            raise NotImplementedError(
+                f"{mc.num_experts} experts over {rules.axis_size(eax)} "
+                f"ranks with the batch split: the global dispatch over "
+                f"every rank's rows is not ported")
+        return moe_layer(x, p, cfg, capacity_factor)
+    b, s, d = x.shape
+    y, probs, ids = _expert_parallel(x.reshape(b * s, d), p, cfg, rules,
+                                     capacity_factor)
+    y = y.view(b, s, d)
     if mc.num_shared_experts:
         y = y + mlp(x, p["shared"], cfg)
     return y, probs, ids

@@ -11,6 +11,7 @@ trees line up key by key and shape by shape.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -19,6 +20,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.sharding import (shard_shape, shard_slices,
+                                         train_spec)
 from repro_torch.models.ssm import ssm_dims
 from repro_torch.models.xlstm import xlstm_dims
 
@@ -33,6 +36,15 @@ class ParamDef:
     #: leading dims that stack weight matrices (layers, experts): init
     #: draws one matrix, ``shape[stacked:]``, at a time
     stacked: int = 0
+    #: each dim's logical sharding axis (``repro.models.params``'s); ()
+    #: for none on any dim; ``models.sharding.train_spec`` reads them
+    axes: Tuple[Optional[str], ...] = ()
+
+    def __post_init__(self):
+        if not self.axes:
+            object.__setattr__(self, "axes", (None,) * len(self.shape))
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} for shape {self.shape}")
 
 
 def _stack(defs: dict, n: int, extra: int = 0) -> dict:
@@ -41,7 +53,8 @@ def _stack(defs: dict, n: int, extra: int = 0) -> dict:
     lead = (n,) if not extra else (n, extra)
     return {k: _stack(v, n, extra) if isinstance(v, dict)
             else ParamDef(lead + v.shape, v.init, v.dtype,
-                          v.stacked + len(lead))
+                          v.stacked + len(lead),
+                          ("layers",) * len(lead) + v.axes)
             for k, v in defs.items()}
 
 
@@ -49,15 +62,15 @@ def attention_schema(cfg: ModelConfig) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     s = {
-        "wq": ParamDef((d, nq, hd)),
-        "wk": ParamDef((d, nkv, hd)),
-        "wv": ParamDef((d, nkv, hd)),
-        "wo": ParamDef((nq, hd, d)),
+        "wq": ParamDef((d, nq, hd), axes=("embed_fsdp", "heads", None)),
+        "wk": ParamDef((d, nkv, hd), axes=("embed_fsdp", "kv_heads", None)),
+        "wv": ParamDef((d, nkv, hd), axes=("embed_fsdp", "kv_heads", None)),
+        "wo": ParamDef((nq, hd, d), axes=("heads", None, "embed_fsdp")),
     }
     if cfg.attn_bias:
-        s["bq"] = ParamDef((nq, hd), "zeros")
-        s["bk"] = ParamDef((nkv, hd), "zeros")
-        s["bv"] = ParamDef((nkv, hd), "zeros")
+        s["bq"] = ParamDef((nq, hd), "zeros", axes=("heads", None))
+        s["bk"] = ParamDef((nkv, hd), "zeros", axes=("kv_heads", None))
+        s["bv"] = ParamDef((nkv, hd), "zeros", axes=("kv_heads", None))
     if cfg.qk_norm:
         s["q_norm"] = ParamDef((hd,), "ones")
         s["k_norm"] = ParamDef((hd,), "ones")
@@ -67,9 +80,10 @@ def attention_schema(cfg: ModelConfig) -> dict:
 def mlp_schema(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
     d = cfg.d_model
     f = d_ff if d_ff is not None else cfg.d_ff
-    s = {"wi": ParamDef((d, f)), "wo": ParamDef((f, d))}
+    s = {"wi": ParamDef((d, f), axes=("embed_fsdp", "ff")),
+         "wo": ParamDef((f, d), axes=("ff", "embed_fsdp"))}
     if cfg.gated_mlp:
-        s["wg"] = ParamDef((d, f))
+        s["wg"] = ParamDef((d, f), axes=("embed_fsdp", "ff"))
     return s
 
 
@@ -79,10 +93,14 @@ def moe_schema(cfg: ModelConfig) -> dict:
     mc = cfg.moe
     d, e, f = cfg.d_model, mc.num_experts, mc.d_ff_expert
     s = {
-        "router": ParamDef((d, e), dtype="float32"),
-        "wi": ParamDef((e, d, f), stacked=1),
-        "wg": ParamDef((e, d, f), stacked=1),
-        "wo": ParamDef((e, f, d), stacked=1),
+        "router": ParamDef((d, e), dtype="float32",
+                           axes=("embed_fsdp", None)),
+        "wi": ParamDef((e, d, f), stacked=1,
+                       axes=("experts", "embed_fsdp", None)),
+        "wg": ParamDef((e, d, f), stacked=1,
+                       axes=("experts", "embed_fsdp", None)),
+        "wo": ParamDef((e, f, d), stacked=1,
+                       axes=("experts", None, "embed_fsdp")),
     }
     if mc.num_shared_experts:
         s["shared"] = mlp_schema(cfg, mc.d_ff_shared * mc.num_shared_experts)
@@ -95,14 +113,14 @@ def mamba_schema(cfg: ModelConfig) -> dict:
     d_inner, nh, conv_dim = ssm_dims(cfg)
     in_dim = d_inner + conv_dim + nh               # z, xBC, dt
     return {
-        "in_proj": ParamDef((d, in_dim)),
-        "conv_w": ParamDef((sc.conv_width, conv_dim)),
-        "conv_b": ParamDef((conv_dim,), "zeros"),
+        "in_proj": ParamDef((d, in_dim), axes=("embed_fsdp", "ff")),
+        "conv_w": ParamDef((sc.conv_width, conv_dim), axes=(None, "ff")),
+        "conv_b": ParamDef((conv_dim,), "zeros", axes=("ff",)),
         "dt_bias": ParamDef((nh,), "const:-2.0", "float32"),
         "A_log": ParamDef((nh,), "const:0.5", "float32"),
         "D": ParamDef((nh,), "ones", "float32"),
-        "norm": ParamDef((d_inner,), "ones"),
-        "out_proj": ParamDef((d_inner, d)),
+        "norm": ParamDef((d_inner,), "ones", axes=("ff",)),
+        "out_proj": ParamDef((d_inner, d), axes=("ff", "embed_fsdp")),
     }
 
 
@@ -112,16 +130,16 @@ def mlstm_schema(cfg: ModelConfig) -> dict:
     W = cfg.xlstm.conv_width
     return {
         "ln": ParamDef((d,), "ones"),
-        "w_up": ParamDef((d, 2 * d_inner)),
-        "conv_w": ParamDef((W, d_inner)),
-        "conv_b": ParamDef((d_inner,), "zeros"),
-        "wq": ParamDef((nh, hd, hd)),
-        "wk": ParamDef((nh, hd, hd)),
-        "wv": ParamDef((nh, hd, hd)),
-        "w_gates": ParamDef((d_inner, 2 * nh)),
+        "w_up": ParamDef((d, 2 * d_inner), axes=("embed_fsdp", "ff")),
+        "conv_w": ParamDef((W, d_inner), axes=(None, "ff")),
+        "conv_b": ParamDef((d_inner,), "zeros", axes=("ff",)),
+        "wq": ParamDef((nh, hd, hd), axes=("state_heads", None, None)),
+        "wk": ParamDef((nh, hd, hd), axes=("state_heads", None, None)),
+        "wv": ParamDef((nh, hd, hd), axes=("state_heads", None, None)),
+        "w_gates": ParamDef((d_inner, 2 * nh), axes=("ff", None)),
         "b_gates": ParamDef((2 * nh,), "const:3.0"),
         "out_norm": ParamDef((hd,), "ones"),
-        "w_down": ParamDef((d_inner, d)),
+        "w_down": ParamDef((d_inner, d), axes=("ff", "embed_fsdp")),
     }
 
 
@@ -132,15 +150,19 @@ def slstm_schema(cfg: ModelConfig) -> dict:
     f2 = int(d * cfg.xlstm.proj_factor_slstm)
     return {
         "ln": ParamDef((d,), "ones"),
-        "w_in": ParamDef((d, nh, 4, hd)),
-        "b_in": ParamDef((nh, 4, hd), "zeros"),
-        "w_rec": ParamDef((nh, hd, 4, hd)),
+        "w_in": ParamDef((d, nh, 4, hd),
+                         axes=("embed_fsdp", "state_heads", None, None)),
+        "b_in": ParamDef((nh, 4, hd), "zeros",
+                         axes=("state_heads", None, None)),
+        "w_rec": ParamDef((nh, hd, 4, hd),
+                          axes=("state_heads", None, None, None)),
         "gn": ParamDef((hd,), "ones"),
-        "w_out": ParamDef((nh, hd, d)),
+        "w_out": ParamDef((nh, hd, d),
+                          axes=("state_heads", None, "embed_fsdp")),
         "ln2": ParamDef((d,), "ones"),
-        "mlp_wi": ParamDef((d, f2)),
-        "mlp_wg": ParamDef((d, f2)),
-        "mlp_wo": ParamDef((f2, d)),
+        "mlp_wi": ParamDef((d, f2), axes=("embed_fsdp", "ff")),
+        "mlp_wg": ParamDef((d, f2), axes=("embed_fsdp", "ff")),
+        "mlp_wo": ParamDef((f2, d), axes=("ff", "embed_fsdp")),
     }
 
 
@@ -197,14 +219,17 @@ def build_schema(cfg: ModelConfig) -> dict:
     ncb = num_codebooks(cfg)
     if ncb:
         # one embedding table and one head per codebook
-        schema: dict = {"embed": ParamDef((ncb, cfg.vocab_size, d),
-                                          stacked=1),
-                        "lm_head": ParamDef((ncb, d, cfg.vocab_size),
-                                            stacked=1)}
+        schema: dict = {
+            "embed": ParamDef((ncb, cfg.vocab_size, d), stacked=1,
+                              axes=(None, "vocab", "embed_fsdp")),
+            "lm_head": ParamDef((ncb, d, cfg.vocab_size), stacked=1,
+                                axes=(None, "embed_fsdp", "vocab"))}
     else:
-        schema = {"embed": ParamDef((cfg.vocab_size, d))}
+        schema = {"embed": ParamDef((cfg.vocab_size, d),
+                                    axes=("vocab", "embed_fsdp"))}
         if not cfg.tie_embeddings:
-            schema["lm_head"] = ParamDef((d, cfg.vocab_size))
+            schema["lm_head"] = ParamDef((d, cfg.vocab_size),
+                                         axes=("embed_fsdp", "vocab"))
     schema["final_norm"] = ParamDef((d,), "ones")
     if is_interleaved(cfg):
         # the JAX package scans (dense, moe) pairs: layer 2i is
@@ -251,7 +276,7 @@ def _walk(schema, fn, path=()):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda"):
+                device="cuda", rules=None):
     """Materialise parameters directly on ``device`` from ``generator``
     (which must live on that device).  A normal leaf is drawn in f32 one
     weight matrix at a time (the leaf past its stacked layer and expert
@@ -260,29 +285,55 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     never stages more than one matrix in f32: 168 MB for one of
     Llama-4's experts, where a layer's 128 experts would be 21.5 GB.  The
     draws differ from ``jax.random``: tests carry JAX weights across with
-    the bridge."""
+    the bridge.
+
+    ``rules`` (a training rank's mesh): every rank draws the same full
+    matrices in the same order and keeps only its block of each leaf
+    (:func:`param_specs`), so the ranks' blocks together are the
+    unsharded draw, and a rank holds no more than its shard and one
+    matrix."""
     dev = resolve_device(device)
 
     def make(path, pd: ParamDef):
         dtype = TORCH_DTYPES[pd.dtype]
+        spec = train_spec(rules, pd.axes, pd.shape)
+        shape = shard_shape(rules, spec, pd.shape) if rules else pd.shape
         if pd.init == "zeros":
-            return torch.zeros(pd.shape, dtype=dtype, device=dev)
+            return torch.zeros(shape, dtype=dtype, device=dev)
         if pd.init == "ones":
-            return torch.ones(pd.shape, dtype=dtype, device=dev)
+            return torch.ones(shape, dtype=dtype, device=dev)
         if pd.init.startswith("const:"):
-            return torch.full(pd.shape, float(pd.init.split(":")[1]),
+            return torch.full(shape, float(pd.init.split(":")[1]),
                               dtype=dtype, device=dev)
         fan_in = pd.shape[-2] if len(pd.shape) >= 2 else pd.shape[-1]
         scale = min(0.02, 1.0 / math.sqrt(max(fan_in, 1)))
-        out = torch.empty(pd.shape, dtype=dtype, device=dev)
+        out = torch.empty(shape, dtype=dtype, device=dev)
         mat = pd.shape[pd.stacked:]
         draw = (mat[0], math.prod(mat[1:])) if len(mat) > 1 else mat
-        for part in out.view((-1,) + mat):
+        if tuple(shape) == pd.shape:
+            for part in out.view((-1,) + mat):
+                r = torch.randn(draw, generator=generator, device=dev)
+                part.copy_(r.mul_(scale).view(mat))
+            return out
+        cut = shard_slices(rules, spec, pd.shape)
+        lead, inner = cut[:pd.stacked], cut[pd.stacked:]
+        for idx in itertools.product(*map(range, pd.shape[:pd.stacked])):
             r = torch.randn(draw, generator=generator, device=dev)
-            part.copy_(r.mul_(scale).view(mat))
+            if all(s.start is None or s.start <= i < s.stop
+                   for i, s in zip(idx, lead)):
+                at = tuple(i - (s.start or 0) for i, s in zip(idx, lead))
+                out[at].copy_(r.mul_(scale).view(mat)[inner])
         return out
 
     return _walk(build_schema(cfg), make)
+
+
+def param_specs(cfg: ModelConfig, rules):
+    """Each leaf's split over a training rank's mesh
+    (``sharding.train_spec``: ``embed_fsdp`` and ``experts`` where they
+    divide), the tree of the parameters; () everywhere without rules."""
+    return _walk(build_schema(cfg),
+                 lambda path, pd: train_spec(rules, pd.axes, pd.shape))
 
 
 def abstract_params(cfg: ModelConfig):

@@ -8,8 +8,9 @@ The JAX package hands the rules to GSPMD, which splits every annotated
 tensor and inserts the collectives.  Eager PyTorch has no such compiler:
 here the rules serve the explicit multi-rank paths alone (the decode step's
 KV pool sharded over ``kv_blocks``, expert parallelism over ``act_batch``
-and ``experts``), which split their tensors and call the collectives
-themselves (``repro_torch.core.collectives``).
+and ``experts``; in training also each parameter leaf and its AdamW
+moments split as :func:`train_spec` says), which split their tensors and
+call the collectives themselves (``repro_torch.core.collectives``).
 """
 from __future__ import annotations
 
@@ -94,3 +95,86 @@ def shard(x, rules: Optional[ShardingRules], *logical_axes):
     eager PyTorch, so each rank holds whole what the explicit paths do not
     split."""
     return x
+
+
+#: the logical axes whose splits a training rank holds: FSDP of weight
+#: matrices' d_model dims and expert parallelism.  Tensor parallelism
+#: (``heads``, ``ff``, ``vocab`` over ``model``) is GSPMD's choice of
+#: layout in the JAX package, not other math: the port keeps those dims
+#: whole, and the ``model`` ranks of one data index compute alike.
+TRAIN_SPLITS = ("embed_fsdp", "experts")
+
+
+def train_spec(rules: Optional[ShardingRules], axes, shape) -> tuple:
+    """The mesh axes of each dim of a parameter leaf (logical ``axes``,
+    () for none) in sharded training: ``logical_to_spec``'s, divisibility
+    checked against ``shape``, of the dims named in ``TRAIN_SPLITS``;
+    every other dim None.  Its AdamW moments split alike."""
+    if rules is None:
+        return ()
+    axes = tuple(axes) or (None,) * len(shape)
+    spec = logical_to_spec(rules, *axes, shape=shape)
+    return tuple(ax if name in TRAIN_SPLITS else None
+                 for ax, name in zip(spec, axes))
+
+
+def shard_slices(rules: ShardingRules, spec, shape) -> tuple:
+    """This rank's block of a leaf of ``shape`` split as ``spec``: one
+    slice per dim (chunk ``axis_index`` of ``axis_size`` along each split
+    dim)."""
+    out = []
+    for n, ax in zip(shape, spec or (None,) * len(shape)):
+        if ax is None:
+            out.append(slice(None))
+            continue
+        k = n // rules.axis_size(ax)
+        i = rules.mesh.axis_index(ax)
+        out.append(slice(i * k, (i + 1) * k))
+    return tuple(out)
+
+
+def shard_shape(rules: ShardingRules, spec, shape) -> tuple:
+    """The shape of this rank's block of a leaf of ``shape``."""
+    return tuple(n if ax is None else n // rules.axis_size(ax)
+                 for n, ax in zip(shape, spec or (None,) * len(shape)))
+
+
+def gather_fsdp(tree, specs, rules: ShardingRules, skip=()):
+    """``tree`` (a dict of parameter leaves, ``specs`` its
+    ``param_specs``) with every leaf that is split over ``embed_fsdp``'s
+    axis gathered whole along that dim, as the JAX package's FSDP gathers
+    its weights: differentiable (``collectives.gather_over``; the backward
+    reduce-scatters each gradient back to its shard), one collective per
+    dtype.  Splits over other axes (the experts over ``model``) stay;
+    the subtrees named in ``skip`` are returned as they are."""
+    from repro_torch.core.collectives import gather_over
+
+    axis = rules.axis("embed_fsdp")
+    found = []
+
+    def walk(node, spec, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                if not (path == () and k in skip):
+                    walk(v, spec[k], path + (k,))
+            return
+        for d, ax in enumerate(spec or ()):
+            if ax is not None and ax == axis:
+                found.append((path, node, d))
+
+    walk(tree, specs, ())
+    if not found:
+        return tree
+    whole = {}
+    for dtype in dict.fromkeys(t.dtype for _, t, _ in found):
+        part = [(p, t, d) for p, t, d in found if t.dtype == dtype]
+        got = gather_over([t for _, t, _ in part], [d for _, _, d in part],
+                          rules.mesh.group(axis))
+        whole.update(zip((p for p, _, _ in part), got))
+
+    def build(node, path):
+        if not isinstance(node, dict):
+            return whole.get(path, node)
+        return {k: build(v, path + (k,)) for k, v in node.items()}
+
+    return build(tree, ())

@@ -9,13 +9,22 @@ those of one expression per leaf, while the f32 temporaries stay the size
 of a piece.  The JAX form would hold about five f32 temporaries of a whole
 leaf: 3.8 GB each for h2o-danube-3-4b's stacked ``wi`` of 943.7 M
 elements.
+
+On a mesh of ranks (``train_step(..., rules)``) the parameters and the
+moments are the rank's shards (``bridge.shard_train``) and AdamW runs on
+them as they are; the gradients are first made whole sums over the ranks
+that split the batch, and the clip reads the global norm of the sharded
+gradients (``_sync_grads``, ``_sharded_norm``).
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import math
+
 import torch
 
+from repro_torch.core.collectives import all_reduce
 from repro_torch.models import model as M
 
 #: elements of a leaf updated at once (64 MB of f32 per temporary)
@@ -80,14 +89,68 @@ def _global_norm(grads) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _spec_leaves(specs) -> list:
+    """``param_specs``' tuples in ``tree_leaves`` order."""
+    if not isinstance(specs, dict):
+        return [specs]
+    return [t for k in sorted(specs) for t in _spec_leaves(specs[k])]
+
+
+def _held_axes(spec) -> set:
+    return {a for ax in spec if ax is not None
+            for a in ((ax,) if isinstance(ax, str) else ax)}
+
+
+@torch.no_grad()
+def _sync_grads(grads, specs, rules) -> list:
+    """Each rank's gradients made the global ones: a leaf's gradient is
+    summed over the mesh axes that split the batch (``act_batch``) and do
+    not split the leaf (a leaf split over ``data`` had its sum from the
+    reduce-scatter of its gather), in f32 and rounded once to its dtype;
+    one collective for each set of axes."""
+    batch_axes = rules.axis("act_batch")
+    batch_axes = (batch_axes,) if isinstance(batch_axes, str) else \
+        tuple(batch_axes or ())
+    buckets = {}
+    for i, spec in enumerate(specs):
+        need = tuple(a for a in batch_axes if a not in _held_axes(spec))
+        if need and rules.axis_size(need) > 1:
+            buckets.setdefault(need, []).append(i)
+    grads = list(grads)
+    for axes, idx in buckets.items():
+        flat = torch.cat([grads[i].float().reshape(-1) for i in idx])
+        all_reduce(flat, "sum", rules.mesh.group(axes))
+        for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
+            grads[i] = part.view(grads[i].shape).to(grads[i].dtype)
+    return grads
+
+
+@torch.no_grad()
+def _sharded_norm(grads, specs, rules) -> torch.Tensor:
+    """The global norm of the whole gradients from the ranks' shards:
+    each distinct shard counted once (a leaf's sum of squares over the
+    number of ranks that hold the same block), summed over the world."""
+    world = rules.mesh.size
+    total = None
+    for g, spec in zip(grads, specs):
+        held = math.prod(rules.axis_size(ax) for ax in spec if ax is not None)
+        s = sum(torch.sum(torch.square(piece.float()))
+                for piece in _pieces(g)) * (held / world)
+        total = s if total is None else total + s
+    return torch.sqrt(all_reduce(total, "sum", None))
+
+
 @torch.no_grad()
 def adamw_update(params, grads, state: AdamWState, *, lr: float = 3e-4,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, grad_clip: float = 1.0):
+                 weight_decay: float = 0.1, grad_clip: float = 1.0,
+                 gnorm=None):
     """One AdamW step with global-norm clipping, in place on ``params``
-    and ``state``'s moments.  Returns (params, AdamWState with the new
-    step, the gradients' global norm)."""
-    gnorm = _global_norm(grads)
+    and ``state``'s moments.  ``gnorm``: the gradients' global norm where
+    the caller has it (sharded gradients), else taken here.  Returns
+    (params, AdamWState with the new step, the gradients' global norm)."""
+    if gnorm is None:
+        gnorm = _global_norm(grads)
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     step = state.step + 1
     c1 = 1.0 - b1 ** step.float()
@@ -106,27 +169,37 @@ def adamw_update(params, grads, state: AdamWState, *, lr: float = 3e-4,
     return params, AdamWState(step, state.mu, state.nu), gnorm
 
 
-def train_step(params, opt_state: AdamWState, batch, cfg, lr: float = 3e-4):
+def train_step(params, opt_state: AdamWState, batch, cfg, rules=None,
+               lr: float = 3e-4):
     """One fused loss + grad + AdamW step, as the JAX package's
     ``train_step``.  The parameters require grad only inside the step:
     ``torch.autograd.grad`` returns the gradients without storing them on
     the leaves.  ``batch``: tensors on the parameters' device (tokens,
-    labels, positions).  Returns (params, opt_state, metrics: loss, nll,
-    aux, grad_norm as 0-dim tensors); params and opt_state are updated in
-    place."""
+    labels, positions).  ``rules``: a rank of a mesh, ``params`` and
+    ``opt_state`` its shards, ``batch`` the global batch (every rank the
+    same; ``loss_fn`` takes the rank's rows).  Returns (params, opt_state,
+    metrics: loss, nll, aux, grad_norm as 0-dim tensors, global on a mesh
+    too); params and opt_state are updated in place."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     try:
-        loss, metrics = M.loss_fn(params, batch, cfg)
+        loss, metrics = M.loss_fn(params, batch, cfg, rules)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     finally:
         for p in leaves:
             p.requires_grad_(False)
-    grads = tree_unflatten(params, [torch.zeros_like(p) if g is None else g
-                                    for p, g in zip(leaves, grads)])
-    params, opt_state, gnorm = adamw_update(params, grads, opt_state,
-                                            lr=float(lr))
-    metrics = {k: t.detach() for k, t in metrics.items()}
-    metrics.update(loss=loss.detach(), grad_norm=gnorm)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    gnorm = None
+    if rules is not None:
+        specs = _spec_leaves(M.param_specs(cfg, rules))
+        grads = _sync_grads(grads, specs, rules)
+        gnorm = _sharded_norm(grads, specs, rules)
+    params, opt_state, gnorm = adamw_update(
+        params, tree_unflatten(params, grads), opt_state, lr=float(lr),
+        gnorm=gnorm)
+    metrics = {"loss": loss.detach(),
+               **{k: t.detach() for k, t in metrics.items()},
+               "grad_norm": gnorm}
     return params, opt_state, metrics
