@@ -181,6 +181,15 @@ Phases (any failure raises and the script exits non-zero):
      growing by half the whole tree) and restored re-sharded bit for bit;
      step 0's loss and grad_norm held against the unsharded ``train_step``
      of the same weights and rows after the ranks end;
+ 16. the dry run of the steps just measured (``launch.specs``,
+     ``launch.op_analysis``: the same steps on ``meta`` tensors, nothing
+     allocated, no kernel launched): each kernel's launches a step equal
+     to the counters' in the two training paths and yi-6b's decode step
+     (K1 32 fetch, 64 in place), the collectives a step of the sharded
+     rank's program (rank 0 in a fake world of four) equal to every
+     rank's every step, each predicted peak within ``DRYRUN_PEAK_REL`` of
+     the measured one, the three roofline terms of the H100 model printed
+     beside each step's wall and device-busy ms; one JSON line of them;
 then the card's name and power limit, one JSON line of per-kernel
 numbers (``launches_by_path`` over the served paths, the two in-place
 steps, each rank of the sharded cases, musicgen-medium, the two
@@ -223,7 +232,12 @@ from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.harvest_copy import ops as hops  # noqa: E402
 from repro_torch.kernels.moe_ffn import ops as mops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pops  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.launch.dryrun import fake_world  # noqa: E402
+from repro_torch.launch.dryrun import roofline as dry_roofline  # noqa: E402
 from repro_torch.launch.mesh import Mesh, launch, make_rules  # noqa: E402
+from repro_torch.launch.op_analysis import count as op_count  # noqa: E402
+from repro_torch.launch.specs import build_step  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.sharding import kv_block_axes  # noqa: E402
@@ -492,6 +506,15 @@ def bound(nbytes: float, flops: float, peak_flops: float = F32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def cost_bound(cost):
+    """``bound`` of a kernel's cost function's numbers (its wrapper's
+    ``*_cost`` in ``repro_torch.kernels``), at the peak rate of the dtype
+    it computes in: bf16 on the tensor cores, f32 on the CUDA cores."""
+    peak = BF16_FLOPS if cost.dtype in (torch.bfloat16, torch.float16) \
+        else F32_FLOPS
+    return bound(cost.nbytes, cost.flops, peak)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -522,24 +545,12 @@ def paged_scenario(rng, b, n_slots, bs, nkv, nq, hd, q_pos, empty_row=None,
 
 
 def k1_bound(q_pos, n_slots, nq, nkv, hd, window=None, chunk=None):
-    """The least time of one K1 call on these inputs: each position the
-    masks keep (the window, and the attention chunk that holds the row)
-    reads its k and v row of each kv head once, q is read, (m, l, acc)
-    written; 4 flops per q row per position per hd column (score and
-    weighted sum)."""
-    def kept(p):
-        lo = max(p - (window or 10 ** 9) + 1, 0)
-        if chunk:
-            lo = max(lo, p // chunk * chunk)
-        return p - lo + 1
-
-    positions = sum(kept(int(p)) for p in q_pos)
-    b = len(q_pos)
-    nbytes = 4 * (2 * positions * nkv * hd          # k and v rows
-                  + b * nq * hd                     # q
-                  + 2 * n_slots + b                 # slot_req/base, q_pos
-                  + b * nq * (2 + hd))              # m, l, acc
-    return bound(nbytes, 4 * positions * nq * hd)
+    """The least time of one K1 call over f32 pools with rows at ``q_pos``
+    (``paged_decode_partials_cost``; the slot size enters only where the
+    positions are not given)."""
+    return cost_bound(pops.paged_decode_partials_cost(
+        len(q_pos), nq, nkv, hd, n_slots, 0, q_pos=q_pos,
+        sliding_window=window, attention_chunk=chunk))
 
 
 def check_paged_decode(full_cfg, bs, more=(), chunked=()):
@@ -975,17 +986,19 @@ def check_quant(paths):
         print(f"  dequantize_reload at {cfg.name}: kernel {k3_own:.5f} ms "
               f"device + ids host-to-device {k3_h2d:.5f} = "
               f"{sum(t for _, t in rows):.5f} per call as _degrade makes it")
-        for fn_k, fn_p, nbytes, name in (
+        for fn_k, fn_p, cost, name in (
             (quant, lambda: hops.quantize_blocks_plain(pool, ids()[0],
                                                        "int8"),
-             4 * elems + elems + 4, "quantize_demote"),
+             hops.quantize_blocks_cost(1, elems, elems, 4),
+             "quantize_demote"),
             (dequant, lambda: hops.dequantize_blocks_plain(dst, vals, scales,
                                                   ids()[0], "int8"),
-             elems + 4 + 4 * elems, "dequantize_reload"),
+             hops.dequantize_blocks_cost(1, elems, elems, 4),
+             "dequantize_reload"),
         ):
             (ms, ms_wall), (plain_ms, _) = time_ms(fn_k, 200), \
                 time_ms(fn_p, 50)
-            bound_ms, bound_by = bound(nbytes, 3 * elems)
+            bound_ms, bound_by = cost_bound(cost)
             print(f"  {name} at {cfg.name} ({elems} f32): {ms:.5f} ms "
                   f"device ({ms_wall:.5f} between events), plain "
                   f"{plain_ms:.5f}, bound {bound_ms:.6f} ({bound_by})")
@@ -1112,7 +1125,7 @@ def check_movers(configs):
 
         row_bytes = 4 * elems
         # (name, Pallas line, its kernel's name, kernel, plain version,
-        # library call, it with device ids, it with host ids, bytes): the
+        # library call, it with device ids, it with host ids, cost): the
         # kernels and the plain versions take host ids, as the engine's
         # evict and reload pass them
         cases = (
@@ -1122,7 +1135,7 @@ def check_movers(configs):
              "index_select",
              lambda: torch.index_select(pool, 0, dev_ids[slot()]),
              lambda: torch.index_select(pool, 0, host(layer_rows + slot())),
-             2 * L * row_bytes + 4 * L),
+             hops.gather_blocks_cost(L, row_bytes)),
             ("copy_blocks", 96, "copy_rows_kernel",
              lambda: hops.copy_blocks(staging, pool, k_rows,
                                       layer_rows + slot()),
@@ -1134,7 +1147,7 @@ def check_movers(configs):
              lambda: pool.index_copy_(
                  0, host(layer_rows + slot(), torch.long),
                  torch.index_select(staging, 0, host(k_rows))),
-             2 * L * row_bytes + 8 * L),
+             hops.copy_blocks_cost(L, row_bytes)),
         )
         for s in (0, 1, n_slots - 1):
             got = hops.gather_blocks(pool, layer_rows + s, out=half)
@@ -1150,7 +1163,7 @@ def check_movers(configs):
             err["copy_blocks"] = max(err["copy_blocks"], _max_err(got, ref))
             del got, ref
         torch.cuda.synchronize()
-        for name, line, kname, fn_k, fn_p, lib, fn_dev, fn_host, nbytes \
+        for name, line, kname, fn_k, fn_p, lib, fn_dev, fn_host, cost \
                 in cases:
             # the wrapper as the engine calls it: its kernel's own rows of
             # the trace, and any host-to-device copy of its ids
@@ -1164,7 +1177,7 @@ def check_movers(configs):
             plain_ms, _ = time_ms(fn_p, 100)
             library_ms, _ = time_ms(fn_dev, 200)
             library_host_ms, _ = time_ms(fn_host, 200)
-            bound_ms, bound_by = bound(nbytes, 0)
+            bound_ms, bound_by = cost_bound(cost)
             print(f"  {name} at {cfg.name} ({L} rows of {row_bytes} B): "
                   f"kernel {own:.5f} ms device + ids host-to-device "
                   f"{h2d:.5f} = {call_ms:.5f} per call as the engine makes "
@@ -1279,8 +1292,8 @@ def check_moe_ffn(cfg, odd_cfg):
             silu(torch.bmm(xd, w[1])) * torch.bmm(xd, w[0]), w[2]), 50)
         rows = int((st < t).sum())
         w_bytes = 3 * d * f * 2
-        nbytes = used * w_bytes + 2 * xd.numel() * 2
-        bound_ms, bound_by = bound(nbytes, rows * 2 * 3 * d * f, BF16_FLOPS)
+        bound_ms, bound_by = cost_bound(mops.moe_ffn_cost(
+            e, xd.shape[1], d, f, 2, rows=rows, experts=used))
         all_ms = (e * w_bytes + 2 * xd.numel() * 2) / HBM_BYTES_PER_S * 1e3
         print(f"  moe_ffn {'decode' if t == 4 else 'prefill'} shape ({t} "
               f"rows: E {e}, C {xd.shape[1]}, d {d}, f {f}): {ms:.5f} ms "
@@ -1348,8 +1361,8 @@ def check_moe_ffn_experts(cfg, params, rows=None):
     library_ms, _ = time_ms(lambda: torch.bmm(
         silu(torch.bmm(xd, w[1])) * torch.bmm(xd, w[0]), w[2]), 10)
     w_bytes = 3 * d * f * 2
-    bound_ms, bound_by = bound(filled * w_bytes + 2 * xd.numel() * 2,
-                               tokens * 2 * 3 * d * f, BF16_FLOPS)
+    bound_ms, bound_by = cost_bound(mops.moe_ffn_cost(
+        e, xd.shape[1], d, f, 2, rows=tokens, experts=filled))
     print(f"  moe_ffn at {cfg.name}'s decode shape (E {e}, C {cap}, d {d}, "
           f"f {f}; {tokens} dispatched rows, {filled} experts hold a token, "
           f"the kernel skipped {e - filled}): {ms:.5f} ms device, "
@@ -1393,20 +1406,6 @@ def library_moe(xd, w, activation):
     """The bmm composition of the expert FFN (bmm, act, bmm, bmm)."""
     act = _LIB_ACT[activation]
     return torch.bmm(act(torch.bmm(xd, w[1])) * torch.bmm(xd, w[0]), w[2])
-
-
-def moe_bwd_bound(xd, f, rows, filled):
-    """K7's backward at least: 12 flops a dispatched row per (d, f) pair
-    (dA, dX's two products, dWi, dWg, dWo), and the bytes of xd, dout and
-    dX, in bf16 the training forward's A, h and g that it reads, the
-    weights of the experts holding a token read once and every expert's
-    three weight gradients written once."""
-    e, c, d = xd.shape
-    elem = xd.element_size()
-    saved = 3 * e * c * f if xd.dtype == torch.bfloat16 else 0
-    nbytes = elem * (3 * xd.numel() + saved + 3 * d * f * (filled + e))
-    peak = BF16_FLOPS if xd.dtype == torch.bfloat16 else F32_FLOPS
-    return bound(nbytes, 12 * rows * d * f, peak)
 
 
 def moe_train_fwd_case(label, xd, w, activation, time=True):
@@ -1457,8 +1456,8 @@ def moe_train_fwd_case(label, xd, w, activation, time=True):
                               3, warmup=1)
         library_ms, _ = time_ms(lambda: library_moe(xd, w, activation), 5,
                                 warmup=2)
-        nbytes = 2 * (2 * xd.numel() + 3 * e * c * f + filled * 3 * d * f)
-        bound_ms, bound_by = bound(nbytes, rows * 2 * 3 * d * f, BF16_FLOPS)
+        bound_ms, bound_by = cost_bound(mops.moe_ffn_train_cost(
+            e, c, d, f, 2, rows=rows, experts=filled))
         traced = [(n, ms_) for n, ms_ in trace_rows(
             lambda: mops.moe_ffn_train(xd, *w, activation=activation), 1)]
         row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -1541,7 +1540,10 @@ def moe_bwd_case(label, xd, w, dout, activation, time=True):
         library_ms, _ = time_ms(lambda: torch.autograd.grad(
             out, leaves, dout, retain_graph=True), 3, warmup=1)
         del out, leaves
-        bound_ms, bound_by = moe_bwd_bound(xd, f, rows, filled)
+        # in bf16 the backward reads the training forward's A, h and g
+        bound_ms, bound_by = cost_bound(mops.moe_ffn_bwd_cost(
+            e, c, d, f, xd.element_size(), saved=bf16, rows=rows,
+            experts=filled))
         row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by,
                    kernels_ms={n[:60]: t for n, t in traced})
@@ -1767,10 +1769,8 @@ def check_flash_prefill(yi, moe, danube, more=()):
             pairs = int(fops.band_mask(
                 pos, pos, masks.get("sliding_window"),
                 masks.get("attention_chunk")).sum())
-            nbytes = q.element_size() * n * hd * (2 * nq + 2 * nkv) + 8 * n
-            bound_ms, bound_by = bound(
-                nbytes, 4 * hd * nq * pairs,
-                BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+            bound_ms, bound_by = cost_bound(fops.prefill_attention_cost(
+                q.shape[0], n, n, nq, nkv, hd, q.element_size(), pairs=pairs))
             print(f"  prefill_attention {label} ({n} tokens, {nq}/{nkv} "
                   f"heads, hd {hd}, {str(dtype)[6:]}, {route[1]}): "
                   f"{ms:.5f} ms device, "
@@ -1794,14 +1794,6 @@ def check_flash_prefill(yi, moe, danube, more=()):
                 library_ms=main["library_ms"],
                 library_backend=main["library_backend"], shape=main["shape"],
                 by_shape=rows)
-
-
-def attention_flops(pairs, nq, hd):
-    """(forward, backward) flops of attention over ``pairs`` (q, k) pairs
-    per head: QK^T and PV in the forward (4 hd a pair), those two again
-    with dP = dO V^T, dV = P^T dO, dK = dS^T Q and dQ = dS K in the
-    backward (10 hd a pair: five products)."""
-    return 4 * hd * nq * pairs, 10 * hd * nq * pairs
 
 
 #: K4's backward kernels for each dtype, as the trace names them
@@ -1908,10 +1900,12 @@ def check_flash_bwd(danube, yi, llama4, zamba2, phi):
         row = dict(shape=label, tokens=n, dtype=str(dtype)[6:],
                    pairs_per_head=pairs, max_abs_err=max(errs))
         if not rows:
-            elem = q.element_size()
-            fwd_flops, bwd_flops = attention_flops(pairs, nq, hd)
-            fwd_bytes = elem * n * hd * (2 * nq + 2 * nkv) + 4 * n * nq
-            bwd_bytes = elem * n * hd * (4 * nq + 4 * nkv) + 4 * n * nq
+            fwd_cost = fops.prefill_attention_cost(
+                q.shape[0], n, n, nq, nkv, hd, q.element_size(), pairs=pairs,
+                lse=True)
+            bwd_cost = fops.prefill_attention_bwd_cost(
+                q.shape[0], n, n, nq, nkv, hd, q.element_size(), pairs=pairs)
+            fwd_flops, bwd_flops = fwd_cost.flops, bwd_cost.flops
             f_ms, _ = time_ms(lambda: fops._launch_forward(
                 q, k, v, pos, pos, want_lse=True, **masks), 5)
             f_plain, _ = time_ms(lambda: fops.prefill_attention_plain(
@@ -1946,8 +1940,8 @@ def check_flash_bwd(danube, yi, llama4, zamba2, phi):
             lbo_ms, _ = time_ms(lib_bwd, 3, warmup=1)
             backend = top_kernel(lib_fwd_bwd)
             del qt, kt, vt, dot, band, lib_out
-            fb, fb_by = bound(fwd_bytes, fwd_flops, BF16_FLOPS)
-            bb, bb_by = bound(bwd_bytes, bwd_flops, BF16_FLOPS)
+            fb, fb_by = cost_bound(fwd_cost)
+            bb, bb_by = cost_bound(bwd_cost)
             print(f"  prefill_attention forward with LSE, {label}: {f_ms:.4f} "
                   f"ms device; plain {f_plain:.4f}; library (forward) "
                   f"{lf_ms:.4f}; bound {fb:.4f} ({fb_by}, "
@@ -2492,7 +2486,11 @@ def _model_flops(cfg, params, tokens, pairs):
     experts = _expert_params(params)
     share = cfg.moe.top_k / cfg.moe.num_experts if cfg.moe else 1.0
     active = n_params - embed - experts * (1 - share)
-    fwd, bwd = attention_flops(pairs, cfg.num_heads, cfg.resolved_head_dim)
+    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    fwd = fops.prefill_attention_cost(1, 1, 1, nq, nkv, hd, 2,
+                                      pairs=pairs).flops
+    bwd = fops.prefill_attention_bwd_cost(1, 1, 1, nq, nkv, hd, 2,
+                                          pairs=pairs).flops
     attn = cfg.num_layers * (2 * fwd + bwd)
     text = (f"8 x ({n_params / 1e9:.3f} B - {embed / 1e9:.3f} B embedding"
             + (f" - {experts / 1e9:.3f} B experts x (1 - {cfg.moe.top_k}/"
@@ -3242,7 +3240,8 @@ def inplace_step(label, bs, pos, peer_of):
               f"near ties {ties} ({decided} of {b} decided)")
         assert err <= INPLACE_LOGIT_TOL, err
         numbers = dict(positions=list(pos), blocks_on_peer=on_peer,
-                       max_abs_err=err, near_ties=ties)
+                       max_abs_err=err, near_ties=ties, k1_fetch=k1_fetch,
+                       k1_inplace=k1_inplace, bs=bs)
         for mode, st in (("fetch", fetch), ("inplace", inplace)):
             def step():
                 lg, _ = M.serve_step(params, st, cfg,
@@ -4038,6 +4037,152 @@ def sharded_training_phase():
     return paths, numbers
 
 
+# ---------------------------------------------------------------------------
+# the dry run held to the card
+# ---------------------------------------------------------------------------
+
+#: largest |predicted - measured| / measured peak memory of a training
+#: run: the dry run's peak of live storages (``launch.op_analysis`` over
+#: ``meta`` tensors, nothing allocated) against the card's
+#: ``torch.cuda.max_memory_allocated()`` over the run (the weights' draw
+#: and every step); the card's allocator adds its 512-byte rounding and
+#: the kernels' own workspaces, which the meta branches do not allocate.
+#: Measured on an H100 80GB HBM3: -0.16% (danube), -0.17% (phi-tiny-moe),
+#: -0.56% (a sharded rank), each well inside this
+DRYRUN_PEAK_REL = 0.02
+
+
+def _terms(c) -> str:
+    r = dry_roofline(c)
+    return (f"predicted terms compute {r['compute_term_s'] * 1e3:.2f} ms, "
+            f"memory {r['memory_term_s'] * 1e3:.2f} ms, collective "
+            f"{r['collective_term_s'] * 1e3:.2f} ms ({r['bottleneck']}; "
+            f"{r['hardware']} model)")
+
+
+def _meta_pools(L, n, bs, nkv, hd, b):
+    """f32 pools of ``n`` slots on ``meta``, as the card's paths hold
+    them."""
+    pool = (L, n, bs, nkv, hd)
+    i32 = torch.int32
+    return M.KVPools(*(torch.empty(pool, device="meta") for _ in range(2)),
+                     *(torch.empty((k,), dtype=i32, device="meta")
+                       for k in (n, n, b, b)))
+
+
+def dry_run_phase(trained, yi_step, sharded):
+    """The dry run of what the card just ran (``launch.specs.build_step``
+    or the same step's ``meta`` arguments, counted by
+    ``launch.op_analysis``; no kernel launched, nothing allocated) held to
+    it: each kernel's launches a step equal to the counters' over the
+    training runs of ``trained`` ({arch: (launches over the run, its
+    numbers)}, ``train_path``'s) and the predicted peak within
+    ``DRYRUN_PEAK_REL`` of ``max_memory_allocated``, a sharded rank's
+    too; K1's launches a step
+    equal to yi-6b's full-width step in fetch mode and in place
+    (``yi_step``, ``inplace_step``'s numbers); and the collective calls a
+    step of the sharded training phase's rank 0 program (a fake world of
+    four ranks) equal to each rank's each step (``sharded``).  The three
+    roofline terms are printed beside each measured step's wall and
+    device-busy ms.  Returns the numbers kept."""
+    card = card_line()
+    out = {}
+    for arch, (launches, nums) in trained.items():
+        cfg = get_config(arch)
+        steps = nums["steps"]
+        fn, args = build_step(cfg, InputShape(
+            "train_path", nums["tokens_per_step"], 1, "train"), None)
+        _, c = op_count(fn, args)
+        measured = {k: v // steps for k, v in launches.items() if v}
+        assert all(v % steps == 0 for v in launches.values()), launches
+        predicted = c.launches()
+        peak = nums["peak_gib"] * 2 ** 30
+        pred = c.mem["total_bytes"]
+        rel = (pred - peak) / peak
+        print(f"dry run [{card}]: {arch} training step (1 x "
+              f"{nums['tokens_per_step']} tokens, one card): launches a step "
+              f"predicted {predicted}, measured {measured}; peak predicted "
+              f"{pred / 2 ** 30:.3f} GiB (arguments "
+              f"{c.mem['argument_bytes'] / 2 ** 30:.3f}, temporaries "
+              f"{c.mem['temp_bytes'] / 2 ** 30:.3f}), measured "
+              f"{peak / 2 ** 30:.3f} GiB, {100 * rel:+.2f}% (tolerance "
+              f"{100 * DRYRUN_PEAK_REL:.0f}%); {_terms(c)}; measured step "
+              f"wall {nums['steady_step_ms']:.1f} ms, device-busy "
+              f"{nums['device_busy_ms']:.1f} ms")
+        assert predicted == measured, (arch, predicted, measured)
+        assert abs(rel) <= DRYRUN_PEAK_REL, (arch, pred, peak)
+        out[f"{arch} training"] = dict(
+            launches_per_step=predicted, peak_bytes=pred,
+            measured_peak_bytes=peak, peak_rel=rel, **dry_roofline(c),
+            step_ms=nums["steady_step_ms"],
+            device_busy_ms=nums["device_busy_ms"])
+
+    cfg = get_config("yi-6b")
+    pos, bs = yi_step["positions"], yi_step["bs"]
+    L, b, n = M.num_kv_layers(cfg), len(pos), sum(p // bs + 1 for p in pos)
+    pools = lambda: _meta_pools(L, n, bs, cfg.num_kv_heads,  # noqa: E731
+                                cfg.resolved_head_dim, b)
+    fetch = M.DecodeState(
+        tokens=torch.empty((b,), dtype=torch.int32, device="meta"),
+        pos=torch.empty((b,), dtype=torch.int32, device="meta"),
+        kv=pools(), peer=None)
+    params = M.abstract_params(cfg)
+    for mode, st, key in (("fetch", fetch, "k1_fetch"),
+                          ("inplace", fetch._replace(peer=pools()),
+                           "k1_inplace")):
+        _, c = op_count(lambda p, s: M.serve_step(
+            p, s, cfg, harvest_inplace=s.peer is not None), (params, st))
+        k1 = c.launches().get("paged_decode_partials", 0)
+        print(f"dry run [{card}]: yi-6b decode step {mode} (rows at {pos}, "
+              f"f32 pools of {n} slots of {bs}): K1 launches predicted {k1}, "
+              f"measured {yi_step[key]}; {_terms(c)}; measured step wall "
+              f"{yi_step[mode]['wall_ms']:.2f} ms, device-busy "
+              f"{yi_step[mode]['busy_ms']:.3f} ms")
+        assert k1 == yi_step[key], (mode, k1, yi_step[key])
+        out[f"yi-6b decode {mode}"] = dict(
+            k1_launches=k1, **dry_roofline(c),
+            step_ms=yi_step[mode]["wall_ms"],
+            device_busy_ms=yi_step[mode]["busy_ms"])
+
+    n_ranks = TRAIN_MESH[0][0] * TRAIN_MESH[0][1]
+    fake_world(n_ranks)
+    try:
+        cfg = _sharded_cfg()
+        fn, args = build_step(cfg, InputShape(
+            "sharded", SHARDED_SEQ, SHARDED_ROWS, "train"),
+            make_rules(Mesh(*TRAIN_MESH)))
+        _, c = op_count(fn, args)
+    finally:
+        torch.distributed.destroy_process_group()
+    calls = c.collective_calls
+    print(f"dry run [{card}]: {PHI_TINY} sharded training step, rank 0 of "
+          f"{n_ranks} (mesh {TRAIN_MESH[0]}, {cfg.num_layers} layers, "
+          f"{SHARDED_ROWS} x {SHARDED_SEQ} tokens): collectives predicted "
+          f"{calls} a step ({c.collectives}, bytes on the ring model), "
+          f"measured {[n_['collectives_per_step'] for n_ in sharded]} (each "
+          f"rank's steps); launches a step predicted {c.launches()}; peak "
+          f"predicted {c.mem['total_bytes'] / 2 ** 30:.3f} GiB a rank, "
+          f"measured {[round(n_['peak_gib'], 3) for n_ in sharded]} GiB "
+          f"(each rank's, over its run; tolerance "
+          f"{100 * DRYRUN_PEAK_REL:.0f}%); {_terms(c)}; measured step wall "
+          f"{[round(n_['steady_step_ms'], 1) for n_ in sharded]} ms, "
+          f"device-busy {[round(n_['device_busy_ms'], 1) for n_ in sharded]}"
+          f" ms")
+    for rank, n_ in enumerate(sharded):
+        assert all(k == calls for k in n_["collectives_per_step"]), \
+            (rank, calls, n_["collectives_per_step"])
+        peak = n_["peak_gib"] * 2 ** 30
+        assert abs(c.mem["total_bytes"] - peak) <= DRYRUN_PEAK_REL * peak, \
+            (rank, c.mem["total_bytes"], peak)
+        per = {k: v // n_["steps"] for k, v in n_["launches"].items() if v}
+        assert per == c.launches(), (rank, per, c.launches())
+    out[f"{PHI_TINY} sharded training"] = dict(
+        collective_calls=calls, collectives=c.collectives,
+        launches_per_step=c.launches(), peak_bytes=c.mem["total_bytes"],
+        **dry_roofline(c))
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4298,7 +4443,13 @@ def main() -> int:
     # path of their own
     sharded_train_paths, sharded_training = sharded_training_phase()
     paths.update(sharded_train_paths)
-    phase_done("sharded training", t_phase)
+    t_phase = phase_done("sharded training", t_phase)
+    # the dry run of the steps just measured, held to them
+    dry = dry_run_phase(
+        {"h2o-danube-3-4b": (paths["h2o-danube-3-4b training"], training),
+         PHI_TINY: (paths["phi-tiny-moe training"], training_moe)},
+        inplace_yi, sharded_training)
+    phase_done("the dry run held to the card", t_phase)
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -4321,6 +4472,7 @@ def main() -> int:
                  k7_dbrx["max_abs_err"]]
                 + [r["max_abs_err"] for r in k7_more.values()])
             k["sharded"] = {PHI_TINY: sharded[PHI_TINY]}
+    print(f"dry run: {json.dumps(dry)}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

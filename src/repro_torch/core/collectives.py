@@ -32,7 +32,13 @@ collective: the helpers return their operand.
 
 ``stats`` holds the calls made and the host seconds spent inside them
 since the caller last reset it; a call returns once its result is there
-(gloo), or once it is queued on the stream (NCCL).
+(gloo), or once it is queued on the stream (NCCL).  It also holds each
+kind's calls (``calls_by_kind``) and the bytes a rank moves through its
+links for them (``bytes``) on the ring model of the JAX package's dry
+run: an all-gather or a reduce-scatter moves (g - 1) / g of the whole
+buffer, an all-reduce twice that, over a group of g ranks.  The dry run
+(``launch.op_analysis``) reads the same numbers from a rank's program run
+on ``meta`` tensors under a fake process group.
 """
 from __future__ import annotations
 
@@ -42,11 +48,15 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_reduce", "all_gather", "sum_over", "sum_grad_over",
-           "gather_over", "reduce_scatter", "stats", "reset_stats"]
+           "gather_over", "reduce_scatter", "stats", "reset_stats", "KINDS"]
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
-stats = {"calls": 0, "seconds": 0.0}
+#: the collectives' kinds, by the names of the JAX package's HLO
+KINDS = ("all-reduce", "all-gather", "reduce-scatter")
+
+stats = {"calls": 0, "seconds": 0.0, "calls_by_kind": dict.fromkeys(KINDS, 0),
+         "bytes": dict.fromkeys(KINDS, 0.0)}
 
 # one reduce-scatter into one tensor: ``reduce_scatter_tensor`` was renamed
 # ``reduce_scatter_single`` (the old name warns in newer torch builds)
@@ -55,11 +65,20 @@ _reduce_scatter_single = getattr(dist, "reduce_scatter_single",
 
 
 def reset_stats() -> None:
-    stats.update(calls=0, seconds=0.0)
+    stats.update(calls=0, seconds=0.0,
+                 calls_by_kind=dict.fromkeys(KINDS, 0),
+                 bytes=dict.fromkeys(KINDS, 0.0))
 
 
 class _Timed:
-    """Counts one collective call and the host seconds inside it."""
+    """Counts one collective call of ``kind`` over ``group`` on a buffer
+    of ``whole`` bytes (the whole one: the gathered result, the scattered
+    operand), the bytes it moves and the host seconds inside it."""
+
+    def __init__(self, kind: str, whole: int, group):
+        g = _size(group)
+        self.kind = kind
+        self.moved = whole * (g - 1) / g * (2 if kind == "all-reduce" else 1)
 
     def __enter__(self):
         self.t0 = time.perf_counter()
@@ -67,6 +86,12 @@ class _Timed:
     def __exit__(self, *exc):
         stats["calls"] += 1
         stats["seconds"] += time.perf_counter() - self.t0
+        stats["calls_by_kind"][self.kind] += 1
+        stats["bytes"][self.kind] += self.moved
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _refuse_grad(what: str, t: torch.Tensor) -> None:
@@ -85,7 +110,7 @@ def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
     """``t`` reduced (``op``: "sum" or "max") over the ranks of ``group``
     (None: all of them), in place; returns ``t``."""
     _refuse_grad("all_reduce", t)
-    with _Timed():
+    with _Timed("all-reduce", _nbytes(t), group):
         dist.all_reduce(t, _OPS[op], group=group)
     return t
 
@@ -94,7 +119,7 @@ def all_gather(t: torch.Tensor, group, order) -> torch.Tensor:
     """Every rank's ``t`` of ``group`` concatenated along dim 0, the rank
     at ``order[i]`` (a global rank) i-th."""
     _refuse_grad("all_gather", t)
-    with _Timed():
+    with _Timed("all-gather", _nbytes(t) * _size(group), group):
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(_size(group))]
         dist.all_gather(parts, t, group=group)
@@ -107,9 +132,9 @@ def all_gather(t: torch.Tensor, group, order) -> torch.Tensor:
 def _sum_f32(t: torch.Tensor, group) -> torch.Tensor:
     """``t`` summed over ``group`` in f32, rounded once to its dtype."""
     f = t.float().contiguous()
-    if f.data_ptr() == t.data_ptr():
+    if f is t:
         f = f.clone()                      # never sum into the operand
-    with _Timed():
+    with _Timed("all-reduce", _nbytes(f), group):
         dist.all_reduce(f, dist.ReduceOp.SUM, group=group)
     return f.to(t.dtype)
 
@@ -163,7 +188,7 @@ def _gather(tensors, dims, group):
     each result contiguous."""
     n = _size(group)
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    with _Timed():
+    with _Timed("all-gather", _nbytes(flat) * n, group):
         parts = [torch.empty_like(flat) for _ in range(n)]
         dist.all_gather(parts, flat, group=group)
     out, at = [], 0
@@ -186,7 +211,7 @@ def _reduce_scatter(tensors, dims, group):
                       for r in range(n) for t, d in zip(tensors, dims)])
     out = torch.empty((flat.numel() // n,), dtype=torch.float32,
                       device=flat.device)
-    with _Timed():
+    with _Timed("reduce-scatter", _nbytes(flat), group):
         _reduce_scatter_single(out, flat, dist.ReduceOp.SUM, group=group)
     res, at = [], 0
     for t, d in zip(tensors, dims):

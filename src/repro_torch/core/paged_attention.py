@@ -86,7 +86,16 @@ def append_kv(pool_k, pool_v, k_new, v_new, local_slot, offset):
     k_new/v_new: (b, nkv, hd);  local_slot/offset: (b,) int.  Rows whose
     slot is ``n_slots`` (their block lives elsewhere) are dropped, as the
     JAX scatter's drop mode does.  Returns the pools.
+
+    On ``meta`` tensors (a dry run) the rows kept depend on slot values
+    it cannot read (a boolean mask needs ``nonzero``, which has no meta
+    kernel): every row is written, the most a step writes.
     """
+    if pool_k.device.type == "meta":
+        slot, off = local_slot.long(), offset.long()
+        pool_k[slot, off] = k_new.to(pool_k.dtype)
+        pool_v[slot, off] = v_new.to(pool_v.dtype)
+        return pool_k, pool_v
     keep = (local_slot >= 0) & (local_slot < pool_k.shape[0])
     slot, off = local_slot[keep].long(), offset[keep].long()
     pool_k[slot, off] = k_new[keep].to(pool_k.dtype)

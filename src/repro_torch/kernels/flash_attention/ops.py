@@ -17,6 +17,10 @@ forward also writes each row's log-sum-exp, and its backward is
 ``prefill_attention_bwd_plain`` on the CPU.  The JAX package has no
 backward kernel (XLA differentiates ``chunked_attention``); this one
 computes that gradient.
+
+On a ``meta`` tensor the forward and the backward return outputs of the
+kernels' shapes and report ``prefill_attention_cost`` and
+``prefill_attention_bwd_cost`` (``kernels.kernel_call``).
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import KernelCost, build, kernel_call
 
 NEG_INF = -1e30
 #: position given to the keys that pad the last chunk: after every query,
@@ -296,12 +300,16 @@ class PrefillAttention(torch.autograd.Function):
         masks = dict(sliding_window=sliding_window,
                      attention_chunk=attention_chunk,
                      logit_softcap=logit_softcap)
-        if q.device.type == "cpu":
-            out, lse = prefill_attention_plain(
-                q, k, v, q_positions, k_positions, return_lse=True, **masks)
-        else:
-            out, lse = _launch_forward(q, k, v, q_positions, k_positions,
-                                       want_lse=True, **masks)
+        with kernel_call("prefill_attention", _cost(q, k, masks, True)):
+            if q.device.type == "cpu":
+                out, lse = prefill_attention_plain(
+                    q, k, v, q_positions, k_positions, return_lse=True,
+                    **masks)
+            elif q.device.type == "meta":
+                out, lse = torch.empty_like(q), _meta_lse(q)
+            else:
+                out, lse = _launch_forward(q, k, v, q_positions, k_positions,
+                                           want_lse=True, **masks)
         ctx.save_for_backward(q, k, v, out, lse, q_positions, k_positions)
         ctx.masks = masks
         return out
@@ -328,14 +336,16 @@ def prefill_attention(q, k, v, q_positions, k_positions, *,
         return PrefillAttention.apply(q, k, v, q_positions, k_positions,
                                       sliding_window, attention_chunk,
                                       logit_softcap)
-    if q.device.type == "cpu":
-        return prefill_attention_plain(
-            q, k, v, q_positions, k_positions, sliding_window=sliding_window,
-            attention_chunk=attention_chunk, logit_softcap=logit_softcap)
-    return _launch_forward(q, k, v, q_positions, k_positions,
-                           sliding_window=sliding_window,
-                           attention_chunk=attention_chunk,
-                           logit_softcap=logit_softcap)[0]
+    masks = dict(sliding_window=sliding_window,
+                 attention_chunk=attention_chunk, logit_softcap=logit_softcap)
+    with kernel_call("prefill_attention", _cost(q, k, masks, False)):
+        if q.device.type == "cpu":
+            return prefill_attention_plain(q, k, v, q_positions, k_positions,
+                                           **masks)
+        if q.device.type == "meta":
+            return torch.empty_like(q)
+        return _launch_forward(q, k, v, q_positions, k_positions,
+                               **masks)[0]
 
 
 #: kernel launches since the count was last set to 0
@@ -363,9 +373,26 @@ def prefill_attention_bwd(q, k, v, o, lse, do, q_positions, k_positions, *,
                          f"{tuple(lse.shape)}")
     masks = dict(sliding_window=sliding_window,
                  attention_chunk=attention_chunk, logit_softcap=logit_softcap)
-    if q.device.type == "cpu":
-        return prefill_attention_bwd_plain(q, k, v, o, lse, do, q_positions,
-                                           k_positions, **masks)
+    cost = prefill_attention_bwd_cost(
+        b, sq, sk, nq, nkv, hd, q.element_size(),
+        sliding_window=sliding_window, attention_chunk=attention_chunk)
+    with kernel_call("prefill_attention_bwd", cost):
+        if q.device.type == "cpu":
+            return prefill_attention_bwd_plain(q, k, v, o, lse, do,
+                                               q_positions, k_positions,
+                                               **masks)
+        if q.device.type == "meta":
+            return torch.empty_like(q), torch.empty_like(k), \
+                torch.empty_like(v)
+        return _launch_backward(q, k, v, o, lse, do, q_positions,
+                                k_positions, **masks)
+
+
+def _launch_backward(q, k, v, o, lse, do, q_positions, k_positions, *,
+                     sliding_window, attention_chunk, logit_softcap):
+    """Launch K4's backward on CUDA operands; returns (dq, dk, dv)."""
+    b, sq, nq, hd = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
     _check_kernel_operands("prefill_attention_bwd", q, k, v, q_positions,
                            k_positions, o, do)
     if lse.dtype != torch.float32 or lse.device != q.device \
@@ -402,3 +429,67 @@ def prefill_attention_bwd(q, k, v, o, lse, do, q_positions, k_positions, *,
 
 #: backward calls (three kernels each) since the count was last set to 0
 prefill_attention_bwd.launches = 0
+
+
+def _pairs_bound(b, sq, sk, sliding_window, attention_chunk) -> int:
+    """The (q, k) pairs of one head that a batch's masks keep, at most:
+    each query keeps no more keys than there are, nor than the window or
+    the chunk holds (the causal cut depends on the positions)."""
+    keys = sk
+    for span in (sliding_window, attention_chunk):
+        if span:
+            keys = min(keys, span)
+    return b * sq * keys
+
+
+def prefill_attention_cost(b: int, sq: int, sk: int, nq: int, nkv: int,
+                           hd: int, itemsize: int, *, pairs=None,
+                           sliding_window: Optional[int] = None,
+                           attention_chunk: Optional[int] = None,
+                           lse: bool = False) -> KernelCost:
+    """One K4 forward's least work: q, k and v read once, the output
+    written once, the positions (int32) read, and with ``lse`` each row's
+    f32 log-sum-exp written; 4 flops a kept (q, k) pair a head a hd column
+    (QK^T and PV).  ``pairs``: the kept pairs of one head summed over the
+    batch (``band_mask(...).sum()`` of the positions); without it (a dry
+    run cannot read the positions) ``_pairs_bound``'s upper bound, which
+    counts a causal batch's pairs about twice.  The itemsize (2: bf16,
+    4: f32) picks the peak rate."""
+    if pairs is None:
+        pairs = _pairs_bound(b, sq, sk, sliding_window, attention_chunk)
+    nbytes = (itemsize * hd * (2 * b * sq * nq + 2 * b * sk * nkv)
+              + 4 * b * (sq + sk) + (4 * b * nq * sq if lse else 0))
+    return KernelCost(4 * hd * nq * pairs, nbytes, _itemsize_dtype(itemsize))
+
+
+def prefill_attention_bwd_cost(b: int, sq: int, sk: int, nq: int, nkv: int,
+                               hd: int, itemsize: int, *, pairs=None,
+                               sliding_window: Optional[int] = None,
+                               attention_chunk: Optional[int] = None
+                               ) -> KernelCost:
+    """One K4 backward's least work: q, k, v, the output, its cotangent
+    and the f32 LSE read once, dq, dk and dv written once, the positions
+    read; 10 flops a kept pair a head a hd column (QK^T and PV again, dP,
+    dV, dK and dQ).  ``pairs`` as ``prefill_attention_cost``'s."""
+    if pairs is None:
+        pairs = _pairs_bound(b, sq, sk, sliding_window, attention_chunk)
+    nbytes = (itemsize * hd * (4 * b * sq * nq + 4 * b * sk * nkv)
+              + 4 * b * nq * sq + 4 * b * (sq + sk))
+    return KernelCost(10 * hd * nq * pairs, nbytes, _itemsize_dtype(itemsize))
+
+
+def _itemsize_dtype(itemsize: int) -> torch.dtype:
+    return torch.float32 if itemsize == 4 else torch.bfloat16
+
+
+def _cost(q, k, masks, lse: bool) -> KernelCost:
+    b, sq, nq, hd = q.shape
+    return prefill_attention_cost(
+        b, sq, k.shape[1], nq, k.shape[2], hd, q.element_size(),
+        sliding_window=masks["sliding_window"],
+        attention_chunk=masks["attention_chunk"], lse=lse)
+
+
+def _meta_lse(q):
+    b, sq, nq, _ = q.shape
+    return torch.empty((b, nq, sq), dtype=torch.float32, device=q.device)

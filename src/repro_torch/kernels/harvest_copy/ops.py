@@ -16,6 +16,10 @@ unless the caller also passes ``host_ids``, a host mirror of them that the
 checks read instead.  Every kernel here takes the ids of up to
 ``IDS_BY_VALUE`` rows in the launch itself, from the host copy: no id copy
 to the card.  ``scatter_blocks`` is plain PyTorch on any device.
+
+On ``meta`` tensors (ids on the host, or a ``host_ids`` mirror) each
+wrapper returns outputs of its kernel's shapes and reports its cost
+function's numbers (``kernels.kernel_call``).
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels import (KernelCost, build, kernel_call,
+                               refuse_grad)
 from repro_torch.kernels.paged_attention.ops import sm_count
 
 #: symmetric quantization range per wire fidelity (e4m3's largest finite
@@ -110,6 +115,15 @@ def _ids_tensor(slot_ids, device) -> torch.Tensor:
     ids = slot_ids if isinstance(slot_ids, torch.Tensor) \
         else torch.as_tensor(np.asarray(slot_ids))
     return ids.to(device=device, dtype=torch.int32).contiguous()
+
+
+def _same_start(a, b) -> bool:
+    """``a`` and ``b`` start at one address (on ``meta``, where every
+    address is 0: in one storage at one offset)."""
+    if a.device.type == "meta":
+        return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+                and a.storage_offset() == b.storage_offset())
+    return a.data_ptr() == b.data_ptr()
 
 
 def _check_device_operands(what: str, device, *tensors) -> None:
@@ -204,8 +218,21 @@ def quantize_blocks(src_pool, slot_ids, *, fidelity: str = "int8",
     _check_pool(src_pool, "quantize_blocks")
     host = _checked_ids(slot_ids, host_ids, src_pool.shape[0],
                         "quantize_blocks")
-    if src_pool.device.type == "cpu":
-        return quantize_blocks_plain(src_pool, slot_ids, fidelity)
+    m, elems = host.size, src_pool.shape[1]
+    width = _packed_width(elems, fidelity)
+    with kernel_call("quantize_blocks", quantize_blocks_cost(
+            m, elems, width, src_pool.element_size())):
+        if src_pool.device.type == "cpu":
+            return quantize_blocks_plain(src_pool, slot_ids, fidelity)
+        if src_pool.device.type == "meta":
+            return (torch.empty((m, width), dtype=FIDELITY_QDTYPE[fidelity],
+                                device="meta"),
+                    torch.empty((m, 1), dtype=torch.float32, device="meta"))
+        return _quantize_launch(src_pool, slot_ids, host, fidelity)
+
+
+def _quantize_launch(src_pool, slot_ids, host, fidelity):
+    """K2 on a CUDA pool (one counted launch)."""
     refuse_grad("quantize_blocks", src_pool)
     m, elems = host.size, src_pool.shape[1]
     # the ids ride in the launch: no id copy to the card, and no load
@@ -283,9 +310,21 @@ def dequantize_blocks(dst_pool, values, scales, slot_ids, *,
     if np.unique(host_ids).size != m:
         raise ValueError("dequantize_blocks: slot ids must be unique — two "
                          "reloads landing in one slot is a plan bug")
-    if dst_pool.device.type == "cpu":
-        return dequantize_blocks_plain(dst_pool, values, scales, slot_ids,
-                                       fidelity)
+    with kernel_call("dequantize_blocks", dequantize_blocks_cost(
+            m, elems, width, dst_pool.element_size())):
+        if dst_pool.device.type == "cpu":
+            return dequantize_blocks_plain(dst_pool, values, scales,
+                                           slot_ids, fidelity)
+        if dst_pool.device.type == "meta":
+            return dst_pool
+        return _dequantize_launch(dst_pool, values, scales, slot_ids,
+                                  host_ids, fidelity, width)
+
+
+def _dequantize_launch(dst_pool, values, scales, slot_ids, host_ids,
+                       fidelity, width):
+    """K3 into a CUDA pool (one counted launch)."""
+    m, elems = host_ids.shape[0], dst_pool.shape[1]
     refuse_grad("dequantize_blocks", dst_pool, values, scales)
     dev = dst_pool.device
     # the ids ride in the launch: no id copy to the card, and no load
@@ -316,6 +355,24 @@ def dequantize_blocks(dst_pool, values, scales, slot_ids, *,
 #: kernel launches since the count was last set to 0
 quantize_blocks.launches = 0
 dequantize_blocks.launches = 0
+
+
+def quantize_blocks_cost(m: int, elems: int, width: int,
+                         itemsize: int) -> KernelCost:
+    """One K2 call's least work: ``m`` rows of ``elems`` values read once,
+    their packed ``width`` bytes and f32 scale written once; 3 f32 flops
+    a value (the absmax, the scaling, the rounding)."""
+    return KernelCost(3 * elems * m, m * (elems * itemsize + width + 4),
+                      torch.float32)
+
+
+def dequantize_blocks_cost(m: int, elems: int, width: int,
+                           itemsize: int) -> KernelCost:
+    """One K3 call's least work: ``m`` rows of ``width`` packed bytes and
+    their f32 scale read once, their ``elems`` values written once; 3 f32
+    flops a value (unpack, convert, scale)."""
+    return KernelCost(3 * elems * m, m * (width + 4 + elems * itemsize),
+                      torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -377,8 +434,19 @@ def gather_blocks(src_pool, slot_ids, out=None, *, host_ids=None):
         if not _rows_contiguous(out):
             raise ValueError("gather_blocks: out's rows must be contiguous "
                              "and must not overlap")
-    if src_pool.device.type == "cpu":
-        return gather_blocks_plain(src_pool, slot_ids, out)
+    row_bytes = src_pool.shape[1] * src_pool.element_size()
+    with kernel_call("gather_blocks", gather_blocks_cost(m, row_bytes)):
+        if src_pool.device.type == "cpu":
+            return gather_blocks_plain(src_pool, slot_ids, out)
+        if src_pool.device.type == "meta":
+            return out if out is not None else torch.empty(
+                (m, src_pool.shape[1]), dtype=src_pool.dtype, device="meta")
+        return _gather_launch(src_pool, slot_ids, out, host)
+
+
+def _gather_launch(src_pool, slot_ids, out, host):
+    """K6 from a CUDA pool (one counted launch)."""
+    m = host.size
     refuse_grad("gather_blocks", src_pool, out)
     dev = src_pool.device
     # the ids ride in the launch: no id copy to the card, and no load
@@ -440,12 +508,20 @@ def copy_blocks(src_pool, dst_pool, src_ids, dst_ids):
                          f"vs {dh.shape}")
     if np.unique(dh).size != dh.size:
         raise ValueError("copy_blocks: destination ids must be unique")
-    if src_pool.data_ptr() == dst_pool.data_ptr() \
-            and np.intersect1d(sh, dh).size:
+    if _same_start(src_pool, dst_pool) and np.intersect1d(sh, dh).size:
         raise ValueError("copy_blocks: a row is both read and written in "
                          "one pool; the copy would race")
-    if dst_pool.device.type == "cpu":
-        return copy_blocks_plain(src_pool, dst_pool, src_ids, dst_ids)
+    with kernel_call("copy_blocks", copy_blocks_cost(
+            dh.size, src_pool.shape[1] * src_pool.element_size())):
+        if dst_pool.device.type == "cpu":
+            return copy_blocks_plain(src_pool, dst_pool, src_ids, dst_ids)
+        if dst_pool.device.type == "meta":
+            return dst_pool
+        return _copy_launch(src_pool, dst_pool, sh, dh)
+
+
+def _copy_launch(src_pool, dst_pool, sh, dh):
+    """K5 between CUDA pools (one counted launch)."""
     refuse_grad("copy_blocks", src_pool, dst_pool)
     if dh.size == 0 or dst_pool.shape[1] == 0:
         return dst_pool
@@ -473,6 +549,18 @@ def copy_blocks(src_pool, dst_pool, src_ids, dst_ids):
 
 gather_blocks.launches = 0
 copy_blocks.launches = 0
+
+
+def gather_blocks_cost(m: int, row_bytes: int) -> KernelCost:
+    """One K6 call's least work: ``m`` rows of ``row_bytes`` read and
+    written once, their int32 ids read; no arithmetic."""
+    return KernelCost(0, 2 * m * row_bytes + 4 * m, torch.float32)
+
+
+def copy_blocks_cost(m: int, row_bytes: int) -> KernelCost:
+    """One K5 call's least work: ``m`` rows of ``row_bytes`` read and
+    written once, their (src, dst) int32 id pairs read; no arithmetic."""
+    return KernelCost(0, 2 * m * row_bytes + 8 * m, torch.float32)
 
 
 # ---------------------------------------------------------------------------

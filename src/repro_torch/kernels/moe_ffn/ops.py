@@ -18,6 +18,10 @@ kernels' and the backward ``moe_ffn_bwd`` recomputes h and g.  On the CPU
 the plain forward returns (A, h, g) beside its output and the plain
 backward consumes them.  The JAX package has no backward kernel (XLA
 differentiates ``expert_ffn``); these compute that gradient.
+
+On a ``meta`` tensor every wrapper returns outputs of its kernels' shapes
+(and ``moe_ffn_train`` what the card's forward saves) and reports its cost
+function's numbers (``kernels.kernel_call``).
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import KernelCost, build, kernel_call
 from repro_torch.models.layers import _activation
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -246,15 +250,33 @@ def moe_ffn_train(xd, wi, wg, wo, *, activation: str = "silu",
     wg, wo, A, h, g).  f32 on the card trains on ``moe_ffn``'s kernels."""
     _check(xd, wi, wg, wo, activation)
     _check_skipped(skipped, xd)
-    if xd.device.type == "cpu":
-        out, res = moe_ffn_plain(xd, wi, wg, wo, activation, residuals=True)
-        return out, (xd, wi, wg, wo, *res)
-    if xd.dtype != torch.bfloat16:
-        raise ValueError("moe_ffn_train: takes bf16 on the card; got "
-                         f"{xd.dtype}")
-    out, saved = _train_launch(xd, wi, wg, wo, activation, skipped)
-    moe_ffn_train.launches += 1
-    return out, saved
+    with kernel_call("moe_ffn_train", moe_ffn_train_cost(*_dims(xd, wi),
+                                                         xd.element_size())):
+        if xd.device.type == "cpu":
+            out, res = moe_ffn_plain(xd, wi, wg, wo, activation,
+                                     residuals=True)
+            return out, (xd, wi, wg, wo, *res)
+        if xd.device.type == "meta":
+            return _meta_train(xd, wi, wg, wo)
+        if xd.dtype != torch.bfloat16:
+            raise ValueError("moe_ffn_train: takes bf16 on the card; got "
+                             f"{xd.dtype}")
+        out, saved = _train_launch(xd, wi, wg, wo, activation, skipped)
+        moe_ffn_train.launches += 1
+        return out, saved
+
+
+def _meta_train(xd, wi, wg, wo):
+    """``_train_launch``'s outputs on ``meta``: the output, and what the
+    card's forward saves (the operands as they are, A, h and g of rows
+    padded to 8 values, the 128-row tiles' flags)."""
+    e, c, _ = xd.shape
+    fp = -(-wi.shape[-1] // 8) * 8
+    aw, hw, gw = (torch.empty((e, c, fp), dtype=xd.dtype, device="meta")
+                  for _ in range(3))
+    flags = torch.empty((e, -(-c // TRAIN_TILE)), dtype=torch.int32,
+                        device="meta")
+    return torch.empty_like(xd), (xd, wi, wg, wo, aw, hw, gw, flags)
 
 
 #: kernel launches since the count was last set to 0
@@ -270,9 +292,29 @@ def moe_ffn_bwd_saved(saved, dout, *, activation: str = "silu",
     ``moe_ffn_bwd`` launch; ``skipped`` counts the (expert, 128-row tile)
     pairs without a token.  On the CPU ``moe_ffn_bwd_plain`` on the saved
     A, h and g."""
-    if dout.device.type == "cpu":
-        xd, wi, wg, wo, *res = saved
-        return moe_ffn_bwd_plain(xd, wi, wg, wo, dout, activation, saved=res)
+    e, c, d = dout.shape
+    f = saved[3].shape[1]           # wo's rows: the unpadded width
+    with kernel_call("moe_ffn_bwd", moe_ffn_bwd_cost(
+            e, c, d, f, dout.element_size(), saved=True)):
+        if dout.device.type == "cpu":
+            xd, wi, wg, wo, *res = saved
+            return moe_ffn_bwd_plain(xd, wi, wg, wo, dout, activation,
+                                     saved=res)
+        if dout.device.type == "meta":
+            return _meta_grads(dout, f)
+        return _bwd_saved_launch(saved, dout, activation, skipped)
+
+
+def _meta_grads(xd, f):
+    """(dxd, dwi, dwg, dwo) of xd's experts and width ``f`` on ``meta``."""
+    e, c, d = xd.shape
+    return (torch.empty((e, c, d), dtype=xd.dtype, device="meta"),
+            *(torch.empty(shape, dtype=xd.dtype, device="meta")
+              for shape in ((e, d, f), (e, d, f), (e, f, d))))
+
+
+def _bwd_saved_launch(saved, dout, activation, skipped):
+    """``moe_ffn_bwd_saved``'s launch on CUDA tensors (one counted)."""
     xp, wip, wgp, wop, aw, hw, gw, flags = saved
     e, c, _ = xp.shape
     d, fp = wip.shape[1:]
@@ -331,7 +373,9 @@ class MoeFFN(torch.autograd.Function):
                                        skipped=skipped)
             ctx.save_for_backward(*saved)
         else:
-            out = _launch(xd, wi, wg, wo, activation, skipped)
+            with kernel_call("moe_ffn", _ffn_cost(xd, wi)):
+                out = torch.empty_like(xd) if xd.device.type == "meta" \
+                    else _launch(xd, wi, wg, wo, activation, skipped)
             ctx.save_for_backward(xd, wi, wg, wo)
         return out
 
@@ -362,9 +406,12 @@ def moe_ffn(xd, wi, wg, wo, *, activation: str = "silu", skipped=None):
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (xd, wi, wg, wo)):
         return MoeFFN.apply(xd, wi, wg, wo, activation, skipped)
-    if xd.device.type == "cpu":
-        return moe_ffn_plain(xd, wi, wg, wo, activation)
-    return _launch(xd, wi, wg, wo, activation, skipped)
+    with kernel_call("moe_ffn", _ffn_cost(xd, wi)):
+        if xd.device.type == "cpu":
+            return moe_ffn_plain(xd, wi, wg, wo, activation)
+        if xd.device.type == "meta":
+            return torch.empty_like(xd)
+        return _launch(xd, wi, wg, wo, activation, skipped)
 
 
 #: kernel launches since the count was last set to 0
@@ -392,14 +439,29 @@ def moe_ffn_bwd(xd, wi, wg, wo, dout, *, activation: str = "silu",
                          f"{xd.dtype} on {xd.device}; got "
                          f"{tuple(dout.shape)} {dout.dtype} on "
                          f"{dout.device}")
-    if xd.device.type == "cpu":
-        return moe_ffn_bwd_plain(xd, wi, wg, wo, dout, activation)
-    if not all(t.is_contiguous() for t in (xd, wi, wg, wo, dout)):
-        raise ValueError("moe_ffn_bwd: operands must be contiguous")
-    if xd.dtype == torch.bfloat16:
+    e, c, d = xd.shape
+    f = wi.shape[-1]
+    if xd.device.type == "cuda" and xd.dtype == torch.bfloat16:
+        if not all(t.is_contiguous() for t in (xd, wi, wg, wo, dout)):
+            raise ValueError("moe_ffn_bwd: operands must be contiguous")
+        # the training forward (uncounted), then the backward that reads
+        # it, which counts and reports itself
         _, saved = _train_launch(xd, wi, wg, wo, activation, None)
         return moe_ffn_bwd_saved(saved, dout, activation=activation,
                                  skipped=skipped)
+    with kernel_call("moe_ffn_bwd", moe_ffn_bwd_cost(
+            e, c, d, f, xd.element_size(), saved=False)):
+        if xd.device.type == "cpu":
+            return moe_ffn_bwd_plain(xd, wi, wg, wo, dout, activation)
+        if xd.device.type == "meta":
+            return _meta_grads(xd, f)
+        return _bwd_launch_f32(xd, wi, wg, wo, dout, activation, skipped)
+
+
+def _bwd_launch_f32(xd, wi, wg, wo, dout, activation, skipped):
+    """``moe_ffn_bwd``'s f32 kernels on CUDA tensors (one counted)."""
+    if not all(t.is_contiguous() for t in (xd, wi, wg, wo, dout)):
+        raise ValueError("moe_ffn_bwd: operands must be contiguous")
     e, c, d = xd.shape
     f = wi.shape[-1]
     dx, dwi, dwg, dwo = (torch.empty_like(t) for t in (xd, wi, wg, wo))
@@ -428,3 +490,59 @@ def moe_ffn_bwd(xd, wi, wg, wo, dout, *, activation: str = "silu",
 
 #: backward calls (four kernels each) since the count was last set to 0
 moe_ffn_bwd.launches = 0
+
+
+def _dims(xd, wi):
+    """(E, C, d, f) of a call."""
+    return (*xd.shape, wi.shape[-1])
+
+
+def _ffn_cost(xd, wi) -> KernelCost:
+    return moe_ffn_cost(*_dims(xd, wi), xd.element_size())
+
+
+def _dtype_of(itemsize: int):
+    """The dtype whose peak rate a call of operands of ``itemsize`` bytes
+    takes: f32 on the CUDA cores, else bf16 on the tensor cores."""
+    return torch.float32 if itemsize == 4 else torch.bfloat16
+
+
+# The counts that depend on the data (the dispatched rows, the experts that
+# hold a token) are the caller's to give; without them (a dry run cannot
+# read the dispatch buffer) each cost function takes their upper bound:
+# every one of the E x C rows dispatched, every expert holding a token.
+
+
+def moe_ffn_cost(e: int, c: int, d: int, f: int, itemsize: int, *,
+                 rows=None, experts=None) -> KernelCost:
+    """One K7 decode-kernel call's least work: xd read and the output
+    written once, the three weights of each expert holding a token read
+    once; 6 flops a dispatched row a (d, f) pair (gate, up and down)."""
+    rows = e * c if rows is None else rows
+    experts = e if experts is None else experts
+    nbytes = itemsize * (experts * 3 * d * f + 2 * e * c * d)
+    return KernelCost(6 * rows * d * f, nbytes, _dtype_of(itemsize))
+
+
+def moe_ffn_train_cost(e: int, c: int, d: int, f: int, itemsize: int, *,
+                       rows=None, experts=None) -> KernelCost:
+    """One training-forward call's least work: ``moe_ffn_cost``'s, and the
+    A, h and g (E, C, f) it writes for the backward."""
+    rows = e * c if rows is None else rows
+    experts = e if experts is None else experts
+    nbytes = itemsize * (2 * e * c * d + 3 * e * c * f + experts * 3 * d * f)
+    return KernelCost(6 * rows * d * f, nbytes, _dtype_of(itemsize))
+
+
+def moe_ffn_bwd_cost(e: int, c: int, d: int, f: int, itemsize: int, *,
+                     saved: bool, rows=None, experts=None) -> KernelCost:
+    """One backward call's least work: 12 flops a dispatched row a (d, f)
+    pair (dA, dX's two products, dWi, dWg, dWo); xd, dout and dX, with
+    ``saved`` (``moe_ffn_bwd_saved``) the training forward's A, h and g
+    that it reads, the weights of the experts holding a token read once
+    and every expert's three weight gradients written once."""
+    rows = e * c if rows is None else rows
+    experts = e if experts is None else experts
+    nbytes = itemsize * (3 * e * c * d + (3 * e * c * f if saved else 0)
+                         + 3 * d * f * (experts + e))
+    return KernelCost(12 * rows * d * f, nbytes, _dtype_of(itemsize))

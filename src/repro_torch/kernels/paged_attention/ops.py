@@ -7,7 +7,9 @@ On a CUDA tensor it launches the kernel; on the CPU it runs
 ``paged_decode_partials_plain``, the same function in PyTorch.  The kernel
 takes any GQA group from 1 to 16 query heads per kv head and head dims that
 are a multiple of 4 up to 128; it splits each request's slots over
-``num_splits`` blocks and merges the splits by LSE.
+``num_splits`` blocks and merges the splits by LSE.  On a ``meta``
+tensor it returns empty partials and reports ``paged_decode_partials_cost``
+(``kernels.kernel_call``).
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels import (KernelCost, build, kernel_call,
+                               refuse_grad)
 
 NEG_INF = -1e30
 MAX_GQ = 16
@@ -155,14 +158,35 @@ def paged_decode_partials(q, pool_k, pool_v, slot_req, slot_base, q_pos, *,
     (n_slots, bs, nkv, hd); slot_req/slot_base: (n_slots,) int32 (-1 = free
     slot); q_pos: (b,) int32.  Returns f32 ``Partials``."""
     _check(q, pool_k, pool_v, slot_req, slot_base, q_pos)
+    b, nq, hd = q.shape
+    n_slots, bs, nkv, _ = pool_k.shape
+    cost = paged_decode_partials_cost(
+        b, nq, nkv, hd, n_slots, bs, pool_itemsize=pool_k.element_size(),
+        sliding_window=sliding_window, attention_chunk=attention_chunk)
+    with kernel_call("paged_decode_partials", cost):
+        return _paged_decode_partials(
+            q, pool_k, pool_v, slot_req, slot_base, q_pos, scale=scale,
+            sliding_window=sliding_window, attention_chunk=attention_chunk,
+            logit_softcap=logit_softcap)
+
+
+def _paged_decode_partials(q, pool_k, pool_v, slot_req, slot_base, q_pos, *,
+                           scale, sliding_window, attention_chunk,
+                           logit_softcap) -> Partials:
+    b, nq, hd = q.shape
+    n_slots, bs, nkv, _ = pool_k.shape
+    if q.device.type == "meta":
+        gq = nq // nkv
+        m = torch.empty((b, nkv, gq), dtype=torch.float32, device="meta")
+        return Partials(m, torch.empty_like(m),
+                        torch.empty((b, nkv, gq, hd), dtype=torch.float32,
+                                    device="meta"))
     if q.device.type == "cpu":
         return paged_decode_partials_plain(
             q, pool_k, pool_v, slot_req, slot_base, q_pos, scale=scale,
             sliding_window=sliding_window, attention_chunk=attention_chunk,
             logit_softcap=logit_softcap)
     refuse_grad("paged_decode_partials", q, pool_k, pool_v)
-    b, nq, hd = q.shape
-    n_slots, bs, nkv, _ = pool_k.shape
     tensors = (q, pool_k, pool_v, slot_req, slot_base, q_pos)
     if any(t.device != q.device for t in tensors):
         raise ValueError("paged_decode_partials: every operand must be on "
@@ -217,3 +241,39 @@ def paged_decode_partials(q, pool_k, pool_v, slot_req, slot_base, q_pos, *,
 
 #: kernel launches since the count was last set to 0
 paged_decode_partials.launches = 0
+
+
+def paged_decode_partials_cost(b: int, nq: int, nkv: int, hd: int,
+                               n_slots: int, bs: int, *,
+                               pool_itemsize: int = 4, q_pos=None,
+                               sliding_window: Optional[int] = None,
+                               attention_chunk: Optional[int] = None
+                               ) -> KernelCost:
+    """One K1 call's least work: each position the masks keep (the
+    window, and the attention chunk that holds the row) reads its k and v
+    row of each kv head once, q (f32) is read, the slot table and q_pos
+    read, (m, l, acc) written in f32; 4 flops a q row a position a hd
+    column (the score and the weighted sum), in f32.
+
+    ``q_pos`` (the rows' positions, on the host) gives the kept positions
+    exactly; without it (a dry run cannot read them) the count is its
+    upper bound: every slot's ``bs`` positions, and no more than the
+    window or the chunk a row.  The split count (``num_splits``: 132 SMs
+    on an H100) does not enter: the splits' partials are the kernel's own
+    traffic, not the function's."""
+    if q_pos is not None:
+        def kept(p):
+            lo = max(p - (sliding_window or 10 ** 9) + 1, 0)
+            if attention_chunk:
+                lo = max(lo, p // attention_chunk * attention_chunk)
+            return p - lo + 1
+
+        positions = sum(kept(int(p)) for p in q_pos)
+    else:
+        positions = n_slots * bs
+        for span in (sliding_window, attention_chunk):
+            if span:
+                positions = min(positions, b * span)
+    nbytes = (pool_itemsize * 2 * positions * nkv * hd
+              + 4 * (b * nq * hd + 2 * n_slots + b + b * nq * (2 + hd)))
+    return KernelCost(4 * positions * nq * hd, nbytes, torch.float32)

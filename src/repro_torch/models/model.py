@@ -13,7 +13,7 @@ blocks and one sLSTM block, no attention).
 Entry points:
   forward(params, batch, cfg, rules, want_kv) -> (logits, ForwardOut)
   loss_fn(params, batch, cfg, rules)        -> (loss, metrics)
-  prefill(params, batch, cfg)               -> (logits_last, ForwardOut)
+  prefill(params, batch, cfg, rules)        -> (logits_last, ForwardOut)
   serve_step(params, state, cfg, rules)     -> (logits, new_state)  1 token
 
 The audio family's tokens carry a trailing codebook dim: (b, s, ncb) into
@@ -45,8 +45,9 @@ rank's own slots merged across the ``kv_blocks`` ranks, expert
 parallelism over ``act_batch`` and ``experts``; every other tensor is
 the same on every rank.
 
-``forward`` and ``loss_fn`` with ``rules`` are a training rank's share of
-the JAX package's sharded pass (dense, vlm, audio and MoE families): the
+``forward``, ``loss_fn`` and ``prefill`` with ``rules`` are a rank's
+share of the JAX package's sharded pass (dense, vlm, audio and MoE
+families): the
 parameters are the rank's shard (``bridge.shard_train``: d_model dims
 over ``data``, experts over ``model``), the batch the global one, of
 which the rank computes its rows (``_rank_rows``).  The embedding, head
@@ -401,8 +402,9 @@ def forward(params, batch, cfg: ModelConfig, rules=None,
     if rules is not None:
         if cfg.family in ("hybrid", "ssm"):
             raise NotImplementedError(
-                f"{cfg.name}: training on a mesh covers the dense, vlm, "
-                f"audio and MoE families (family {cfg.family!r})")
+                f"{cfg.name}: a pass on a mesh (training, prefill) covers "
+                f"the dense, vlm, audio and MoE families (family "
+                f"{cfg.family!r})")
         batch, rules = _rank_rows(batch, rules)
         params = _gather_outer(params, cfg, rules)
     x = embed(params, batch["tokens"], cfg)
@@ -465,9 +467,20 @@ def loss_fn(params, batch, cfg: ModelConfig, rules=None):
     return loss, {"loss": total[0], "nll": total[1], "aux": total[2]}
 
 
-def prefill(params, batch, cfg: ModelConfig):
-    """Full-sequence pass returning last-token logits + cache material."""
-    logits, out = forward(params, batch, cfg, want_kv=True)
+def prefill(params, batch, cfg: ModelConfig, rules=None):
+    """Full-sequence pass returning last-token logits + cache material.
+    ``rules``: a rank's pass over a mesh, as the JAX package's sharded
+    ``prefill``, under ``torch.no_grad()``: ``params`` the rank's shard
+    (``bridge.shard_train``), ``batch`` the global batch; it returns the
+    logits and the KV of the rank's rows (``_rank_rows``), its blocks
+    gathering their weights over ``data`` and the MoE layers taking the
+    expert-parallel path.  The hybrid and ssm families raise, as
+    ``forward(rules)`` does."""
+    if rules is None:
+        logits, out = forward(params, batch, cfg, want_kv=True)
+        return logits[:, -1], out
+    with torch.no_grad():
+        logits, out = forward(params, batch, cfg, rules, want_kv=True)
     return logits[:, -1], out
 
 

@@ -336,12 +336,19 @@ def param_specs(cfg: ModelConfig, rules):
                  lambda path, pd: train_spec(rules, pd.axes, pd.shape))
 
 
-def abstract_params(cfg: ModelConfig):
+def abstract_params(cfg: ModelConfig, rules=None):
     """The parameter tree as tensors on the ``meta`` device, the schema's
     shapes and dtypes without storage: what a run will hold, reckoned
-    before it allocates (the JAX package's ``ShapeDtypeStruct`` tree)."""
-    return _walk(build_schema(cfg), lambda path, pd: torch.empty(
-        pd.shape, dtype=TORCH_DTYPES[pd.dtype], device="meta"))
+    before it allocates (the JAX package's ``ShapeDtypeStruct`` tree).
+    ``rules`` (a training rank's mesh): each leaf the rank's block
+    (:func:`param_specs`), as ``init_params(..., rules)`` draws it."""
+    def leaf(path, pd: ParamDef):
+        shape = pd.shape if rules is None else shard_shape(
+            rules, train_spec(rules, pd.axes, pd.shape), pd.shape)
+        return torch.empty(shape, dtype=TORCH_DTYPES[pd.dtype],
+                           device="meta")
+
+    return _walk(build_schema(cfg), leaf)
 
 
 def param_count(params) -> int:

@@ -151,18 +151,7 @@ def gather_fsdp(tree, specs, rules: ShardingRules, skip=()):
 
     axis = rules.axis("embed_fsdp")
     found = []
-
-    def walk(node, spec, path):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                if not (path == () and k in skip):
-                    walk(v, spec[k], path + (k,))
-            return
-        for d, ax in enumerate(spec or ()):
-            if ax is not None and ax == axis:
-                found.append((path, node, d))
-
-    walk(tree, specs, ())
+    _split_leaves(tree, specs, (), axis, skip, found)
     if not found:
         return tree
     whole = {}
@@ -171,10 +160,29 @@ def gather_fsdp(tree, specs, rules: ShardingRules, skip=()):
         got = gather_over([t for _, t, _ in part], [d for _, _, d in part],
                           rules.mesh.group(axis))
         whole.update(zip((p for p, _, _ in part), got))
+    return _replaced(tree, (), whole)
 
-    def build(node, path):
-        if not isinstance(node, dict):
-            return whole.get(path, node)
-        return {k: build(v, path + (k,)) for k, v in node.items()}
 
-    return build(tree, ())
+# module-level, not closures: a recursive closure is a reference cycle,
+# which would keep the leaves it reaches (the gathered weights) alive
+# until the cyclic collector runs
+
+
+def _split_leaves(node, spec, path, axis, skip, found) -> None:
+    """Append (path, leaf, dim) to ``found`` for each leaf of ``node``
+    split over ``axis`` (the top-level keys in ``skip`` left out)."""
+    if isinstance(node, dict):
+        for k, v in node.items():
+            if not (path == () and k in skip):
+                _split_leaves(v, spec[k], path + (k,), axis, skip, found)
+        return
+    for d, ax in enumerate(spec or ()):
+        if ax is not None and ax == axis:
+            found.append((path, node, d))
+
+
+def _replaced(node, path, whole):
+    """``node`` with each leaf whose path is in ``whole`` replaced."""
+    if not isinstance(node, dict):
+        return whole.get(path, node)
+    return {k: _replaced(v, path + (k,), whole) for k, v in node.items()}

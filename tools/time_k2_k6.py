@@ -84,7 +84,8 @@ def main() -> int:
         for _ in range(5):
             quant()
         own, copies, names = split_rows(cs, quant, 200)
-        bound_ms, _ = cs.bound(4 * elems + elems + 4, 0)
+        bound_ms, _ = cs.cost_bound(hops.quantize_blocks_cost(1, elems, elems,
+                                                          4))
         out[f"k2_{arch}"] = dict(elems=elems, ms=own, ids_copy_ms=copies,
                                  rows=names, bound_ms=bound_ms)
         del pool
@@ -128,7 +129,7 @@ def main() -> int:
                 fn()
         own, copies, names = split_rows(cs, gather, 200)
         lib, _, _ = split_rows(cs, library, 200)
-        bound_ms, _ = cs.bound(2 * L * 4 * row, 0)
+        bound_ms, _ = cs.cost_bound(hops.gather_blocks_cost(L, 4 * row))
         out[f"k6_{arch}"] = dict(rows_moved=L, row_bytes=4 * row, ms=own,
                                  ids_copy_ms=copies, rows=names,
                                  index_select_ms=lib, bound_ms=bound_ms)

@@ -100,7 +100,8 @@ def main() -> int:
             got = hops.dequantize_blocks(dst.clone(), vals, scales, dev[i],
                                          fidelity="int8", host_ids=host[i])
             assert torch.equal(got, ref), f"K3 at {arch}"
-        bound_ms, _ = cs.bound(elems + 4 + 4 * elems, 0)
+        bound_ms, _ = cs.cost_bound(hops.dequantize_blocks_cost(1, elems, elems,
+                                                            4))
         out[f"k3_{arch}"] = dict(
             elems=elems, bound_ms=bound_ms,
             **split(whole_trace(dequant, ITERS, "dequantize_kernel"),
@@ -138,7 +139,7 @@ def main() -> int:
             assert torch.equal(got, ref), f"K5 at {arch}"
             del got, ref
         lib = whole_trace(library, ITERS)
-        bound_ms, _ = cs.bound(2 * L * 4 * row + 8 * L, 0)
+        bound_ms, _ = cs.cost_bound(hops.copy_blocks_cost(L, 4 * row))
         out[f"k5_{arch}"] = dict(
             rows_moved=L, row_bytes=4 * row, bound_ms=bound_ms,
             library_ms=sum(t for _, _, t in lib),

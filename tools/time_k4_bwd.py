@@ -81,9 +81,10 @@ def main() -> int:
         del got, ref
         pairs = int(fops.band_mask(pos, pos, masks.get("sliding_window"),
                                    masks.get("attention_chunk")).sum())
-        _, flops = cs.attention_flops(pairs, nq, hd)
-        nbytes = 2 * n * hd * (4 * nq + 4 * nkv) + 4 * n * nq
-        bound_ms, bound_by = cs.bound(nbytes, flops, cs.BF16_FLOPS)
+        cost = fops.prefill_attention_bwd_cost(1, n, n, nq, nkv, hd, 2,
+                                               pairs=pairs)
+        flops = cost.flops
+        bound_ms, bound_by = cs.cost_bound(cost)
         rows = cs.whole_trace(  # some row must be the backward's
             bwd, ITERS, want=lambda r: any("flash_bwd" in n for n, _, _ in r))
         kernels = [(name[:70], c, t) for name, c, t in rows

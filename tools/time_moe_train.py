@@ -106,13 +106,10 @@ def main() -> int:
         f = w[0].shape[-1]
         empty = (xd == 0).all(-1)
         rows, filled = int((~empty).sum()), int((~empty).any(1).sum())
-        saved_bytes = 3 * e * c * f
-        fwd_bound = cs.bound(
-            2 * (2 * xd.numel() + saved_bytes + filled * 3 * d * f),
-            6 * rows * d * f, cs.BF16_FLOPS)
-        bwd_bound = cs.bound(
-            2 * (3 * xd.numel() + saved_bytes + 3 * d * f * (filled + e)),
-            12 * rows * d * f, cs.BF16_FLOPS)
+        fwd_bound = cs.cost_bound(mops.moe_ffn_train_cost(
+            e, c, d, f, 2, rows=rows, experts=filled))
+        bwd_bound = cs.cost_bound(mops.moe_ffn_bwd_cost(
+            e, c, d, f, 2, saved=True, rows=rows, experts=filled))
         entry = dict(E=e, C=c, d=d, f=f, rows=rows, experts_with_token=filled)
         for name, fn, err, (bound_ms, bound_by) in (
                 ("forward", fwd, fwd_err, fwd_bound),
