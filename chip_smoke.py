@@ -170,8 +170,9 @@ Phases (any failure raises and the script exits non-zero):
      a rank) and reduced yi-6b trained two AdamW steps on the card and on
      the CPU over that mesh, f32 and bf16 (held as phase 4 holds one rank,
      every tree gathered whole); then phi-tiny-moe at full width (its row
-     and depth cut to fit four ranks on one card, the cut printed), each
-     rank drawing its shard of the seed's weights, 3 steps of the global
+     and depth cut to fit four ranks on one card, its depth then for the
+     run's time, the cuts printed), each
+     rank drawing its shard of the seed's weights, 2 steps of the global
      batch timed and one profiled on every rank at once; per rank the step
      walls, global tokens/s, peak memory, the collectives' calls, host ms
      and share of the wall, K4's and K7's launches a step (asserted), the
@@ -181,7 +182,19 @@ Phases (any failure raises and the script exits non-zero):
      growing by half the whole tree) and restored re-sharded bit for bit;
      step 0's loss and grad_norm held against the unsharded ``train_step``
      of the same weights and rows after the ranks end;
- 16. the dry run of the steps just measured (``launch.specs``,
+ 16. the recurrent families on the same four ranks: zamba2-7b (all 81
+     layers) and xlstm-1.3b (all 48) decode 8 steps sharded (each rank its
+     rows of the recurrent states, zamba2's KV slots over both axes, K1
+     at its 13 KV layers) against 8 unsharded steps, from the states and
+     KV of each row's own prefill: the rank's rows' logits, states and
+     appended KV held, the tokens whole; zamba2-7b at 15 layers prefills
+     4 x 1,024 tokens from its FSDP shards against the unsharded prefill
+     of the same rows (K4 2 launches); zamba2-7b at 15 layers (2 x 4,096
+     tokens) and xlstm-1.3b at 8 (2 x 256) trained one step, timed and
+     profiled at once (the cuts printed), step 0 held against the unsharded
+     ``loss_fn``; the dry run of these steps counted on the host
+     meanwhile;
+ 17. the dry run of the steps just measured (``launch.specs``,
      ``launch.op_analysis``: the same steps on ``meta`` tensors, nothing
      allocated, no kernel launched): each kernel's launches a step equal
      to the counters' in the two training paths and yi-6b's decode step
@@ -189,11 +202,14 @@ Phases (any failure raises and the script exits non-zero):
      rank's program (rank 0 in a fake world of four) equal to every
      rank's every step, each predicted peak within ``DRYRUN_PEAK_REL`` of
      the measured one, the three roofline terms of the H100 model printed
-     beside each step's wall and device-busy ms; one JSON line of them;
+     beside each step's wall and device-busy ms, and the recurrent
+     families' steps (launches and collectives exact, training and
+     prefill peaks within ``DRYRUN_PEAK_REL``); one JSON line of them;
 then the card's name and power limit, one JSON line of per-kernel
 numbers (``launches_by_path`` over the served paths, the two in-place
 steps, each rank of the sharded cases, musicgen-medium, the two
-training paths and each rank of the sharded training path), and the JSON
+training paths, each rank of the sharded training path and of the
+recurrent families' decode, prefill and training), and the JSON
 result line.  Each phase prints its
 seconds.  The launch counts are set to 0 just before each path and read
 just after it.  It imports neither JAX nor the
@@ -211,6 +227,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -236,11 +253,13 @@ from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.launch.dryrun import fake_world  # noqa: E402
 from repro_torch.launch.dryrun import roofline as dry_roofline  # noqa: E402
 from repro_torch.launch.mesh import Mesh, launch, make_rules  # noqa: E402
-from repro_torch.launch.op_analysis import count as op_count  # noqa: E402
+from repro_torch.launch.op_analysis import (  # noqa: E402
+    _warm_lazy_imports, count as op_count)
 from repro_torch.launch.specs import build_step  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
-from repro_torch.models.sharding import kv_block_axes  # noqa: E402
+from repro_torch.models.sharding import (  # noqa: E402
+    batch_rows, kv_block_axes)
 from repro_torch.serving import TenantSpec, Workload  # noqa: E402
 from repro_torch.train.checkpoint import (  # noqa: E402
     restore_checkpoint, save_checkpoint)
@@ -3302,9 +3321,9 @@ SHARD_CASES = {
 
 
 def _same_on_ranks(tensors, what):
-    """Every rank holds the same ``tensors`` (each one's sum, compared
-    over the world)."""
-    fp = torch.stack([t.float().sum() for t in tensors])
+    """Every rank holds the same ``tensors`` (each one's sum, taken in
+    f32 without a widened copy, compared over the world)."""
+    fp = torch.stack([t.sum(dtype=torch.float32) for t in tensors])
     hi, lo = fp.clone(), -fp
     collectives.all_reduce(hi, "max", None)
     collectives.all_reduce(lo, "max", None)
@@ -3625,9 +3644,17 @@ TRAIN_MESH = ((2, 2), ("data", "model"))
 #: rank's backward stopped at 16.41 GiB allocated (1.47 GiB more reserved),
 #: and at 2 x 4,096 at 16.39 (1.48), the four ranks then holding 78.66 of
 #: the card's 79.18 GiB (expandable segments on; measured on an H100
-#: 80GB HBM3); a rank's state is 13.16 GB at 32 layers, 10.09 at 24
-SHARDED_ROWS, SHARDED_SEQ, SHARDED_STEPS = 2, 4096, 3
-SHARDED_LAYERS = 24
+#: 80GB HBM3); a rank's state is 13.16 GB at 32 layers, 10.09 at 24.
+#: Then cut to 12 layers for the run's time: the ranks talk over gloo on
+#: the one card, 92-97% of a step in its collectives (24 layers 17-25 s a
+#: step, 12 layers 12.1-16.6 s), and the whole run must end within
+#: 1,200 s on machines that ran the same work up to 1.4x slower from one
+#: call to the next (an H100 80GB HBM3, 700 W).  Not 6: there step 0's
+#: nll read 0.0109 from the unsharded one, past ``SHARDED_LOSS_TOL``, for
+#: the drops each data shard makes by design (0.0039 at 24 layers, 0.0064
+#: at 12).  Its timed steps cut from 3 to 2 for the same reason
+SHARDED_ROWS, SHARDED_SEQ, SHARDED_STEPS = 2, 4096, 2
+SHARDED_LAYERS = 12
 #: the row and the depth that the cuts left
 SHARDED_SEQ_FULL = 8192
 
@@ -3642,8 +3669,9 @@ def _sharded_cut(cfg) -> str:
     """The cuts of the sharded training path, as its lines name them."""
     full = get_config(PHI_TINY)
     return (f"cut: the row {SHARDED_SEQ_FULL} -> {SHARDED_SEQ} tokens and "
-            f"the depth {full.num_layers} -> {cfg.num_layers} layers, "
-            f"four ranks did not fit the card uncut")
+            f"the depth {full.num_layers} -> 24 layers, four ranks did not "
+            f"fit the card uncut; then the depth 24 -> {cfg.num_layers} "
+            f"layers for the run's time")
 
 
 #: largest |sharded - unsharded| of step 0's nll, and of its loss less
@@ -3887,9 +3915,10 @@ def sharded_train_rank(rank, world, backend, ckpt_path):
     reduced models trained on the card and on the CPU over this mesh and
     held to each other (``check_reduced_training``), then full-width
     phi-tiny-moe, then a checkpoint of its shards at ``CKPT_LAYERS``
-    layers saved to ``ckpt_path`` and restored (``_sharded_checkpoint``).
+    layers saved to ``ckpt_path`` and restored (``_sharded_checkpoint``),
+    then the recurrent families on the same mesh (``_recurrent_parts``).
     Returns (the reduced checks' and the checkpoint's lines, the
-    full-width numbers).  The rank's allocator maps its blocks in expandable
+    full-width numbers, the recurrent families' numbers).  The rank's allocator maps its blocks in expandable
     segments: four ranks share the card's 80 GB, and each rank's cached
     but unallocated blocks (2.60 GiB at full width in a run without)
     would be the others' want."""
@@ -3914,18 +3943,24 @@ def sharded_train_rank(rank, world, backend, ckpt_path):
           f"{time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
     numbers = _sharded_full_width(rules, rank, world)
     lines.append(_sharded_checkpoint(rules, rank, ckpt_path))
-    return lines, numbers
+    t0 = time.perf_counter()
+    recurrent = _recurrent_parts(rules, rank, world)
+    print(f"sharded training, rank {rank}: the recurrent families "
+          f"{time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
+    return lines, numbers, recurrent
 
 
 def sharded_training_phase():
     """Four ranks train phi-tiny-moe at full width (``_sharded_cfg``: its
     depth and row cut to fit) on the mesh (data 2, model 2), after the
     reduced models trained on the card and on the CPU over the same mesh,
-    and before a checkpoint of their shards saved and restored; then the
-    unsharded ``train_step`` of the same weights and step 0's rows against
-    step 0's sharded loss and grad_norm.  Prints
-    each rank's numbers; returns ({path: launches}, [each rank's
-    numbers])."""
+    and before a checkpoint of their shards saved and restored and the
+    recurrent families' part (``_recurrent_parts``, its dry run counted on
+    the host meanwhile); then the unsharded ``train_step`` of the same
+    weights and step 0's rows against step 0's sharded loss and
+    grad_norm.  Prints each rank's numbers; returns ({path: launches},
+    [each rank's numbers], [each rank's recurrent numbers], the recurrent
+    dry run's counts)."""
     gc.collect()
     torch.cuda.empty_cache()
     n = TRAIN_MESH[0][0] * TRAIN_MESH[0][1]
@@ -3941,17 +3976,33 @@ def sharded_training_phase():
           f"({_sharded_cut(cfg)}); the parent holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
           f"GiB")
     t0 = time.perf_counter()
+    # the dry run of the recurrent families' steps, counted on the host
+    # while the ranks run
+    dry = {}
+
+    def count():
+        try:
+            dry["counted"] = _count_recurrent()
+        except BaseException as e:     # noqa: BLE001 -- re-raised below
+            dry["error"] = e
+
+    counting = threading.Thread(target=count)
+    counting.start()
     ckpt_dir = tempfile.mkdtemp(prefix="sharded_ckpt_")
     try:
         ranks = launch(sharded_train_rank, n,
                        (backend, os.path.join(ckpt_dir, "ckpt.npz")),
-                       backend=backend, timeout=600)
+                       backend=backend, timeout=1000)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+        counting.join()
     print(f"sharded training: {time.perf_counter() - t0:.1f} s, the ranks' "
-          f"start included")
+          f"start and the recurrent families included; the dry run of the "
+          f"latter counted meanwhile")
+    if "error" in dry:
+        raise dry["error"]
     paths, numbers = {}, []
-    for rank, (lines, nums) in enumerate(ranks):
+    for rank, (lines, nums, _) in enumerate(ranks):
         for line in lines:
             print(line)
         numbers.append(dict(nums, transport=backend))
@@ -4034,7 +4085,857 @@ def sharded_training_phase():
     del params, b
     gc.collect()
     torch.cuda.empty_cache()
-    return paths, numbers
+    return paths, numbers, [r[2] for r in ranks], dry["counted"]
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families on a mesh: four ranks on (data 2, model 2)
+# ---------------------------------------------------------------------------
+
+#: the recurrent families' mesh: the batch and its states over ``data``,
+#: FSDP over ``data`` in training and prefill, zamba2's KV slots over both
+#: axes; four ranks share the one card over gloo, or take a card each
+RECURRENT_MESH = TRAIN_MESH
+#: decode: SHARD_CASES' rows (positions 41, 24, 33, 17; two a data index)
+#: over zamba2's 24 slots of 8, from the states and KV of an unsharded
+#: prefill of each row alone, SHARD_STEPS steps sharded and unsharded
+RECURRENT_POS, RECURRENT_BS, RECURRENT_SLOTS = (41, 24, 33, 17), 8, 24
+#: largest |sharded - unsharded| entry of a rank's recurrent states after
+#: the steps, over that leaf's largest entry.  The sharded step multiplies
+#: two rows where the unsharded one multiplies four, cuBLAS picks another
+#: algorithm for each, and the bf16 roundings that differ carry through
+#: the layers and the steps.  Measured on an H100 80GB HBM3 (700 W), the
+#: same in six runs: zamba2-7b 0.02927 (rows 0-1) and 0.04683 (rows 2-3),
+#: xlstm-1.3b 0 and 0.04885; the bound is the power of two above the
+#: largest.  A rank holding another data index's rows reads far above it
+#: (``wrong_cut_rel``, printed beside it and held above the bound)
+RECURRENT_STATE_REL = 2.0 ** -4
+#: zamba2-7b's prefill on the mesh: 4 rows of 1,024 tokens (two a data
+#: index), held to the unsharded prefill of the same weights and rows:
+#: each rank's rows of the last logits, the KV and the final states.  Its
+#: depth cut from 81 to the training path's 15 layers (two super-blocks
+#: and a tail of three, as at 81) for the run's time: at 81 layers its 83
+#: all-gathers over gloo took 14.3-14.7 s of a 15.7-16.1 s prefill (an
+#: H100 80GB HBM3, 700 W), and the weights' bytes follow the depth
+RECURRENT_PREFILL_ROWS, RECURRENT_PREFILL_SEQ = 4, 1024
+RECURRENT_PREFILL_LAYERS = 15
+#: largest |sharded - unsharded| of those, over each tensor's largest
+#: entry: 2 to 4 bf16 ulps of it (an ulp of a bf16 x is 2^-8 to 2^-7 of
+#: |x|).  Measured on an H100 80GB HBM3 (700 W): 0 for every tensor in
+#: six runs (each rank multiplies its two rows of 1,024 tokens as the
+#: unsharded prefill multiplies four, with the same algorithms); another
+#: data index's rows read far above it (``wrong_cut_rel``)
+RECURRENT_PREFILL_REL = 2.0 ** -6
+#: training on the mesh: 2 rows a step (one a data index), the steps
+#: timed and one profiled; arch -> (layers, tokens a row).  Cuts, in the
+#: order the sequence, then the depth, each reckoned with the dry run of
+#: this mesh (rank 0 of four): zamba2-7b at 15 of its 81 layers (two
+#: super-blocks of six Mamba2 layers and the shared block, and a tail of
+#: three, as at 81 layers; 1.60 B parameters, 12.78 GiB a rank);
+#: xlstm-1.3b's rows cut from 4,096 to 256 tokens: its sLSTM blocks run a
+#: token at a time, some 120 ops a token and block forward and backward,
+#: so the step's ops, and its host time over gloo, grow with the row (a
+#: 16-layer step of 2 x 256 tokens took 13.9 s on an H100 80GB HBM3, 76%
+#: of it in the host's side of the collectives), and the dry run counts
+#: those ops on the host beside the ranks; then its depth from 48 to 40
+#: layers (five of its six super-blocks of eight): at 48 a rank's peak is
+#: 20.96 GiB, four 83.85 of the card's 79.18; at 40 15.76 GiB a rank;
+#: then from 40 to 8 (one super-block: seven mLSTM blocks and the sLSTM
+#: block) for the run's time: a 40-layer step took 18.7-22.1 s, 68-73% of
+#: it in gloo's collectives, a 16-layer step 13.2-19.9 s (an H100 80GB
+#: HBM3, 700 W).  For the same reason each family trains one step, timed
+#: and profiled at once, not two timed and a third profiled: zamba2-7b's
+#: second step took 14.4-24.8 s
+RECURRENT_TRAIN = {XLSTM: (8, 256), ZAMBA2: (15, 4096)}
+#: why each recurrent training path's depth was cut
+RECURRENT_DEPTH_WHY = {
+    XLSTM: "48 -> 40 layers: four ranks reckoned past the card uncut; 40 "
+           "-> 8 for the run's time",
+    ZAMBA2: "four ranks reckoned past the card uncut"}
+RECURRENT_TRAIN_ROWS, RECURRENT_TRAIN_STEPS = 2, 1
+RECURRENT_TRAIN_SEQ_FULL = 4096
+
+
+def _recurrent_prefill_cfg():
+    return dataclasses.replace(get_config(ZAMBA2),
+                               num_layers=RECURRENT_PREFILL_LAYERS)
+
+
+def _recurrent_train_cfg(arch):
+    return dataclasses.replace(get_config(arch),
+                               num_layers=RECURRENT_TRAIN[arch][0])
+
+
+def _recurrent_cut(arch) -> str:
+    """The cuts of a recurrent family's training path, as its lines name
+    them."""
+    layers, seq = RECURRENT_TRAIN[arch]
+    full = get_config(arch).num_layers
+    cuts = []
+    if seq < RECURRENT_TRAIN_SEQ_FULL:
+        cuts.append(f"the row {RECURRENT_TRAIN_SEQ_FULL} -> {seq} tokens "
+                    f"(its sLSTM blocks run a token at a time)")
+    if layers < full:
+        cuts.append(f"the depth {full} -> {layers} layers "
+                    f"({RECURRENT_DEPTH_WHY[arch]})")
+    return "cut: " + ("; ".join(cuts) if cuts else "none")
+
+
+def _cat_rows(cfg, parts):
+    """Per-row recurrent states (each of one row, the model's layout)
+    joined along the batch dim, which follows two stack dims for the
+    mLSTM states and one for the others."""
+    if cfg.family == "hybrid":
+        return type(parts[0])(*(torch.cat(t, dim=1) for t in zip(*parts)))
+    m, s = zip(*parts)
+    return (type(m[0])(*(torch.cat(t, dim=2) for t in zip(*m))),
+            type(s[0])(*(torch.cat(t, dim=1) for t in zip(*s))))
+
+
+def _state_leaves(cfg, states):
+    """[(leaf, its batch dim)] of the model's recurrent states."""
+    if cfg.family == "hybrid":
+        return [(t, 1) for t in states]
+    return [(t, 2) for t in states[0]] + [(t, 1) for t in states[1]]
+
+
+def _rel(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def _other_rows(rows, b):
+    """The rows of the next data index after ``rows`` (a slice of ``b``):
+    what a rank whose cut went wrong would hold; None where ``rows`` is
+    every row."""
+    k = rows.stop - rows.start
+    return None if k == b else slice((rows.start + k) % b,
+                                     (rows.start + k) % b + k)
+
+
+def _recurrent_decode(arch, cfg, params, rules, rank, world):
+    """One recurrent family's decode on this rank: each row of
+    ``RECURRENT_POS`` prefilled alone (unsharded, a prompt of random
+    tokens) for its states and, for zamba2, its KV (written into a pool of
+    ``RECURRENT_SLOTS`` slots dealt from a seed, the same on every rank);
+    ``SHARD_STEPS`` unsharded steps from the prefills' argmax, each fed the
+    last step's, then the same steps sharded (``bridge.shard_decode``: the
+    rank's slots and its rows of the states), fed the unsharded tokens,
+    the launch counts set to 0 just before them and read just after.
+    Held: the rank's rows' logits within ``SHARD_LOGIT_TOL``, argmax equal
+    but for near ties, the tokens returned whole, the appended KV within
+    ``SHARD_KV_TOL`` (the rest bit for bit), the rank's states within
+    ``RECURRENT_STATE_REL``, K1 once a KV layer a step.  Then two sharded
+    steps timed and one profiled on every rank at once.  Returns its
+    numbers."""
+    pos, bs = RECURRENT_POS, RECURRENT_BS
+    b, L = len(pos), M.num_kv_layers(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    prompt = torch.randint(3, cfg.vocab_size, (b, max(pos)), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    firsts, parts, kvs = [], [], []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for r, p in enumerate(pos):
+            last, out = M.prefill(params, {
+                "tokens": prompt[r:r + 1, :p],
+                "positions": torch.arange(p, device="cuda",
+                                          dtype=torch.int32)[None]}, cfg)
+            firsts.append(torch.argmax(last, -1).to(torch.int32))
+            parts.append(out.states)
+            kvs.append(out.kv)
+    states = _cat_rows(cfg, parts)
+    del parts
+    print(f"{arch} sharded decode, rank {rank}: the rows' prefills "
+          f"{time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
+    q0 = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    kv = where = None
+    if L:
+        def fill(pk, pv, where):
+            for r, p in enumerate(pos):
+                for j in range(-(-p // bs)):
+                    n, s = min(bs, p - j * bs), where[(r, j)]
+                    pk[:, s, :n] = kvs[r][0][:, 0, j * bs:j * bs + n].float()
+                    pv[:, s, :n] = kvs[r][1][:, 0, j * bs:j * bs + n].float()
+
+        kv, _, _, where = deal_pools(
+            L, pos, bs, cfg.num_kv_heads, cfg.resolved_head_dim,
+            lambda r, j: False, SEED + 17, steps=SHARD_STEPS, device="cuda",
+            fill=fill, slots=RECURRENT_SLOTS)
+        _same_on_ranks([kv.pool_k], "pools")
+    del kvs
+    full = M.DecodeState(tokens=torch.cat(firsts), pos=q0, kv=kv, peer=None,
+                         states=states)
+    p_r, st_r = shard_decode(params, full, cfg, rules)
+    rows = batch_rows(rules, b)
+    held = sum(t.numel() * t.element_size() for t in _tensors(st_r.states))
+    whole = sum(t.numel() * t.element_size() for t in _tensors(states))
+
+    def at(st, t, toks):
+        st = st._replace(tokens=toks, pos=q0 + t)
+        if L:
+            p = [q + t for q in pos]
+            st = st._replace(kv=st.kv._replace(
+                append_slot=torch.tensor([where[(r, q // bs)] for r, q in
+                                          enumerate(p)], dtype=torch.int32,
+                                         device="cuda"),
+                append_off=torch.tensor([q % bs for q in p],
+                                        dtype=torch.int32, device="cuda")))
+        return st
+
+    st, ref, feed = full, [], [full.tokens]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(SHARD_STEPS):
+        lg, st = M.serve_step(params, at(st, t, feed[-1]), cfg)
+        ref.append(lg.float())
+        feed.append(st.tokens)
+    torch.cuda.synchronize()
+    unsharded_ms = (time.perf_counter() - t0) * 1e3 / SHARD_STEPS
+    ref_states = st.states
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    collectives.reset_stats()
+    st, got, whole_tokens = st_r, [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(SHARD_STEPS):
+        lg, st = M.serve_step(p_r, at(st, t, feed[t]), cfg, rules=rules)
+        got.append(lg.float())
+        whole_tokens.append(st.tokens)
+    torch.cuda.synchronize()
+    sharded_ms = (time.perf_counter() - t0) * 1e3 / SHARD_STEPS
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    coll_calls = collectives.stats["calls"] // SHARD_STEPS
+    problems = []
+    want_k1 = L * SHARD_STEPS
+    if launches["paged_decode_partials"] != want_k1 or any(
+            n for k, n in launches.items() if k != "paged_decode_partials"):
+        problems.append(f"launches {launches}, K1 predicted {want_k1}")
+    ref, got = torch.stack(ref)[:, rows], torch.stack(got)
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        problems.append(f"logits {tuple(got.shape)} against "
+                        f"{tuple(ref.shape)}, or not finite")
+    step_err = (ref - got).abs().amax(dim=(1, 2)).tolist()
+    err = max(step_err)
+    if err > SHARD_LOGIT_TOL:
+        problems.append(f"logits {err} apart")
+    d = (ref - got).abs().amax(-1)
+    top = torch.topk(ref, 2, dim=-1).values
+    gap = top[..., 0] - top[..., 1]
+    decided = int((gap > 2 * d).sum())
+    ties = [(tuple(ix), round(float(gap[tuple(ix)]), 5),
+             round(float(d[tuple(ix)]), 5)) for ix in torch.nonzero(
+                 torch.argmax(ref, -1) != torch.argmax(got, -1)).tolist()]
+    if any(g > 2 * dd for _, g, dd in ties):
+        problems.append(f"tokens differ past near ties: {ties}")
+    # the tokens come back whole: the rank's rows its own argmax
+    for t, toks in enumerate(whole_tokens):
+        if toks.shape != (b,) or not torch.equal(
+                toks[rows], torch.argmax(got[t], -1).to(torch.int32)):
+            problems.append(f"step {t}'s tokens {toks.tolist()}")
+    def state_gap(at):
+        return max(_rel(g, w.narrow(dim, at.start, at.stop - at.start))
+                   for (g, _), (w, dim) in zip(
+                       _state_leaves(cfg, st.states),
+                       _state_leaves(cfg, ref_states)))
+
+    state_err = state_gap(rows)
+    if state_err > RECURRENT_STATE_REL:
+        problems.append(f"states {state_err} apart")
+    other = _other_rows(rows, b)
+    wrong = None if other is None else state_gap(other)
+    if wrong is not None and wrong <= RECURRENT_STATE_REL:
+        problems.append(f"another data index's rows read {wrong}: the "
+                        f"bound cannot tell a wrong row cut")
+    kv_err = 0.0
+    if L:
+        n_loc = st.kv.slot_req.shape[0]
+        lo = rules.mesh.axis_index(kv_block_axes(rules)) * n_loc
+        appended = torch.zeros((n_loc, bs), dtype=torch.bool, device="cuda")
+        for t in range(SHARD_STEPS):
+            for r, q in enumerate(pos):
+                s = where[(r, (q + t) // bs)] - lo
+                if 0 <= s < n_loc:
+                    appended[s, (q + t) % bs] = True
+        for mine, whole_pool in ((st.kv.pool_k, full.kv.pool_k),
+                                 (st.kv.pool_v, full.kv.pool_v)):
+            whole_pool = whole_pool[:, lo:lo + n_loc]
+            if not torch.equal(mine[:, ~appended], whole_pool[:, ~appended]):
+                problems.append("a pool entry the steps did not write "
+                                "differs")
+            if appended.any():
+                kv_err = max(kv_err, (mine[:, appended]
+                                      - whole_pool[:, appended]).abs()
+                             .max().item())
+        if kv_err > SHARD_KV_TOL:
+            problems.append(f"appended kv {kv_err} apart")
+    last = at(st, SHARD_STEPS - 1, feed[SHARD_STEPS - 1])
+
+    def step():
+        lg, _ = M.serve_step(p_r, last, cfg, rules=rules)
+        lg.float().cpu()        # the engine samples on the host
+
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    collectives.reset_stats()
+    t1 = time.perf_counter()
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t1) * 1e3 / 2
+    coll_ms = collectives.stats["seconds"] * 1e3 / 2
+    torch.distributed.barrier()
+    prof_rows = device_rows(profiled(step, 1), 1)   # every rank at once
+    if not any(ms > 0 for _, ms in prof_rows):
+        problems.append("the profiled step's trace holds no device row")
+    print(f"{arch} sharded decode, rank {rank}: step loops "
+          f"{unsharded_ms:.1f} / {sharded_ms:.1f} ms a step unsharded / "
+          f"sharded, the timed and profiled steps "
+          f"{time.perf_counter() - t0:.1f} s",
+          file=sys.stderr, flush=True)
+    busy = sum(ms for _, ms in prof_rows)
+    k1 = sum(ms for n, ms in prof_rows if any(k in n for k in K1_KERNELS))
+    return dict(positions=list(pos), rows=[rows.start, rows.stop],
+                steps=SHARD_STEPS, launches=launches,
+                states_mib_here=held / 2 ** 20,
+                states_mib_whole=whole / 2 ** 20, max_abs_err=err,
+                step_max_abs_err=[round(e, 5) for e in step_err],
+                near_ties=ties, decided=decided, vectors=ref[..., 0].numel(),
+                state_rel_err=state_err, wrong_cut_rel=wrong,
+                kv_max_abs_err=kv_err,
+                problems=problems, sharded_loop_ms=sharded_ms,
+                unsharded_loop_ms=unsharded_ms,
+                collectives_per_step=coll_calls, wall_ms=wall, busy_ms=busy,
+                k1_ms=k1, collectives_ms=coll_ms,
+                collectives_share=coll_ms / wall,
+                top=[(n[:50], round(ms, 4)) for n, ms in prof_rows[:4]])
+
+
+def _recurrent_prefill(cfg, box, rules, rank):
+    """zamba2-7b's prefill on the mesh: ``RECURRENT_PREFILL_ROWS`` rows of
+    ``RECURRENT_PREFILL_SEQ`` random tokens, first unsharded over the whole
+    weights that ``box`` holds alone (every row), then, the whole weights
+    taken from it and freed, the
+    rank's shard drawn from the same seed (``init_params(..., rules)``:
+    its block of the same draws), ``prefill(..., rules)``, the launch
+    counts set to 0 just before it and read just after, its peak taken
+    from there.  Held: the rank's rows of the last logits, the KV and the
+    final states within ``RECURRENT_PREFILL_REL`` of each tensor's largest
+    entry; K4 once a KV layer.  The peak is the prefill's over what the
+    rank held besides its arguments (the earlier parts' leftovers, the
+    kernels' cached workspaces), as the dry run counts it.  Returns its
+    numbers."""
+    params = box.pop()
+    b, s = RECURRENT_PREFILL_ROWS, RECURRENT_PREFILL_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    batch = {"tokens": torch.randint(3, cfg.vocab_size, (b, s),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32),
+             "positions": torch.arange(s, device="cuda", dtype=torch.int32)
+             .expand(b, s).contiguous()}
+    rows = batch_rows(rules, b)
+    other = _other_rows(rows, b)
+    # one rank at a time: four ranks' whole weights and one unsharded
+    # prefill's temporaries (8-9 GiB over the four rows) fit the card, four
+    # prefills at once do not
+    for who in range(torch.distributed.get_world_size()):
+        if who == rank:
+            with torch.no_grad():
+                ref_last, ref_out = M.prefill(params, batch, cfg)
+            def cut(at):
+                # nothing of it on the card
+                return [t.cpu() for t in [ref_last[at]] + [
+                    t[:, at] for t in ref_out.kv] + [
+                    t.narrow(d, at.start, at.stop - at.start)
+                    for t, d in _state_leaves(cfg, ref_out.states)]]
+
+            ref = cut(rows)
+            ref_wrong = None if other is None else cut(other)
+            del ref_last, ref_out
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() - sum(
+        t.numel() * t.element_size() for t in batch.values())
+    shards = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(SEED), "cuda", rules=rules)
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    collectives.reset_stats()
+    t0 = time.perf_counter()
+    last, out = M.prefill(shards, batch, cfg, rules)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    coll = (collectives.stats["calls"], collectives.stats["seconds"] * 1e3)
+    got = [last] + list(out.kv) + [t for t, _ in
+                                   _state_leaves(cfg, out.states)]
+    problems = []
+    errs = [_rel(g.cpu(), w) if g.shape == w.shape else float("inf")
+            for g, w in zip(got, ref)]
+    if max(errs) > RECURRENT_PREFILL_REL:
+        problems.append(f"prefill {errs} apart")
+    # another data index's rows: the least of the tensors' readings, so
+    # that each tensor's check could tell a wrong cut
+    wrong = None if other is None else min(
+        _rel(g.cpu(), w) for g, w in zip(got, ref_wrong))
+    if wrong is not None and wrong <= RECURRENT_PREFILL_REL:
+        problems.append(f"another data index's rows read {wrong}: the "
+                        f"bound cannot tell a wrong row cut")
+    want_k4 = M.num_kv_layers(cfg)
+    if launches["prefill_attention"] != want_k4 or any(
+            n for k, n in launches.items() if k != "prefill_attention"):
+        problems.append(f"launches {launches}, K4 predicted {want_k4}")
+    del shards, last, out, got, ref, ref_wrong
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rows=RECURRENT_PREFILL_ROWS, seq=RECURRENT_PREFILL_SEQ,
+                layers=cfg.num_layers, rows_here=[rows.start, rows.stop], wall_ms=wall,
+                launches=launches, peak_gib=peak / 2 ** 30,
+                collectives=coll[0], collectives_ms=coll[1],
+                rel_errs=[round(e, 6) for e in errs], wrong_cut_rel=wrong,
+                problems=problems)
+
+
+def _differing_leaves(params, specs):
+    """The paths of the leaves no axis splits whose bits differ across the
+    ranks (each one's f32 sum and its largest |entry|, compared over the
+    world), with the spread of their sums."""
+    names = [k for k, spec in zip(_leaf_paths(params), specs)
+             if not any(spec)]
+    leaves = [t for t, spec in zip(tree_leaves(params), specs)
+              if not any(spec)]
+    fp = torch.stack([torch.stack([t.sum(dtype=torch.float32),
+                                   t.abs().max().float()]) for t in leaves])
+    hi, lo = fp.clone(), -fp
+    collectives.all_reduce(hi, "max", None)
+    collectives.all_reduce(lo, "max", None)
+    off = ((hi != fp) | (-lo != fp)).any(-1)
+    spread = (hi + lo)[:, 0]
+    return [(names[i], float(spread[i])) for i in
+            torch.nonzero(off).flatten().tolist()]
+
+
+def _leaf_paths(tree, prefix=""):
+    """``tree_leaves``' order of the leaves' paths."""
+    if isinstance(tree, torch.Tensor):
+        return [prefix]
+    return [p for k in sorted(tree)
+            for p in _leaf_paths(tree[k], f"{prefix}/{k}" if prefix else k)]
+
+
+def _recurrent_training(arch, rules, rank):
+    """``arch`` trained on this rank (``_recurrent_train_cfg``: its cut
+    depth; 2 rows of its cut sequence a step, one a data index): its shard
+    drawn from the seed (``init_params(..., rules)``), the peak counted
+    from there over what the rank held before (the earlier parts'
+    leftovers, the kernels' cached workspaces, which the dry run does not
+    count), ``RECURRENT_TRAIN_STEPS`` steps timed (the ranks start
+    each together), the launch counts set to 0 just before them and read
+    just after, the whole leaves checked equal across the ranks after
+    each step, the last step run under the profiler on every rank at once
+    (its wall then holds the profiler's cost).  Returns its numbers; step
+    0's loss and grad_norm are held in the parent."""
+    cfg = _recurrent_train_cfg(arch)
+    seq = RECURRENT_TRAIN[arch][1]
+    n_here, state = _shard_reckoning(cfg, rules)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(SEED), "cuda", rules=rules)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - base
+    specs = _spec_leaves(M.param_specs(cfg, rules))
+    batches = make_batches(SyntheticCorpus(vocab_size=cfg.vocab_size,
+                                           seed=SEED),
+                           RECURRENT_TRAIN_ROWS, seq)
+    steps = [{k: torch.from_numpy(v).cuda() for k, v in next(batches)
+              .items()} for _ in range(RECURRENT_TRAIN_STEPS)]
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    walls, hist, coll, problems = [], [], [], []
+    prof = None
+    for step in range(RECURRENT_TRAIN_STEPS):
+        cur_lr = cosine_lr(step, base=3e-4, warmup=100, total=1000)
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        collectives.reset_stats()
+        out = []
+
+        def one(step=step, lr=cur_lr):
+            t0 = time.perf_counter()
+            out.append(train_step(params, opt, steps[step], cfg, rules,
+                                  lr=lr))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+
+        # the last step runs under the profiler on every rank at once
+        if step == RECURRENT_TRAIN_STEPS - 1:
+            prof = profiled(one, 1)
+        else:
+            one()
+        params, opt, m = out[0]
+        coll.append((collectives.stats["calls"],
+                     collectives.stats["seconds"]))
+        vals = {k: float(v) for k, v in m.items()}
+        print(f"{arch} sharded training, rank {rank}: step {step} "
+              f"{walls[-1]:.1f} s, loss {vals['loss']:.5f}, peak "
+              f"{(torch.cuda.max_memory_allocated() - base) / 2 ** 30:.3f} "
+              f"GiB over the {base / 2 ** 30:.3f} held before",
+              file=sys.stderr, flush=True)
+        hist.append(vals)
+        differ = _differing_leaves(params, specs)
+        if differ:
+            problems.append(f"whole leaves after step {step} differ across "
+                            f"the ranks: {differ}")
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    L = M.num_kv_layers(cfg) * RECURRENT_TRAIN_STEPS
+    expect = dict({n: 0 for n in COUNTERS}, prefill_attention=2 * L,
+                  prefill_attention_bwd=L)
+    if launches != expect:
+        problems.append(f"launches {launches}, predicted {expect}")
+    if not all(np.isfinite(list(h.values())).all() for h in hist):
+        problems.append(f"non-finite metrics {hist}")
+    peak = torch.cuda.max_memory_allocated() - base
+    rows = device_rows(prof, 1)
+    busy = sum(ms for _, ms in rows)
+    if not busy:
+        problems.append("the profiled step's trace holds no device row")
+    parts = {k: sum(ms for n, ms in rows if v in n) for k, v in (
+        ("k4_forward_ms", "flash_prefill"), ("k4_backward_ms", "flash_bwd"),
+        ("nccl_ms", "nccl"))}
+    steady = float(np.mean(walls))
+    del params, opt, steps, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(
+        layers=cfg.num_layers, seq_len=seq, rows=RECURRENT_TRAIN_ROWS,
+        steps=RECURRENT_TRAIN_STEPS, params_here=n_here,
+        state_gb=state / 1e9, held_gib=held / 2 ** 30, init_s=init_s,
+        step_ms=[w * 1e3 for w in walls], steady_step_ms=steady * 1e3,
+        tokens_per_s=RECURRENT_TRAIN_ROWS * seq / steady,
+        peak_gib=peak / 2 ** 30, held_before_gib=base / 2 ** 30,
+        launches=launches, collectives_per_step=[c for c, _ in coll],
+        collectives_ms=[sec * 1e3 for _, sec in coll],
+        collectives_share=[sec / w for (_, sec), w in zip(coll, walls)],
+        device_busy_ms=busy, busy_share=busy / (steady * 1e3), **parts,
+        top=[(n[:60], round(ms, 3)) for n, ms in rows[:6]],
+        losses=[h["loss"] for h in hist], nll=[h["nll"] for h in hist],
+        grad_norms=[h["grad_norm"] for h in hist], problems=problems)
+
+
+def _recurrent_parts(rules, rank, world):
+    """The recurrent families' part of a rank of the sharded training
+    phase (``sharded_train_rank``; its card, mesh (data 2, model 2) and
+    rules): zamba2-7b whole drawn from the seed (the same weights on
+    every rank, checked): its decode, then its prefill on the mesh at
+    ``RECURRENT_PREFILL_LAYERS``; xlstm-1.3b whole: its decode; then each
+    family trained at its cut.
+    Returns {part: numbers}."""
+    # the first checkpointed backward's lazy imports hold the caller's
+    # frames in reference cycles: made before any peak is read
+    _warm_lazy_imports()
+    out = {}
+    for arch in (ZAMBA2, XLSTM):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        params = M.init_params(cfg, torch.Generator(device="cuda")
+                               .manual_seed(SEED), "cuda")
+        _same_on_ranks(tree_leaves(params), f"{arch} weights")
+        print(f"{arch}, rank {rank}: weights drawn and checked in "
+              f"{time.perf_counter() - t0:.1f} s", file=sys.stderr,
+              flush=True)
+        out[f"{arch} decode"] = _recurrent_decode(arch, cfg, params, rules,
+                                                  rank, world)
+        print(f"{arch} sharded decode, rank {rank}: "
+              f"{time.perf_counter() - t0:.1f} s", file=sys.stderr,
+              flush=True)
+        del params
+        if arch == ZAMBA2:
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            cfg = _recurrent_prefill_cfg()
+            box = [M.init_params(cfg, torch.Generator(device="cuda")
+                                 .manual_seed(SEED), "cuda")]
+            out[f"{arch} prefill"] = _recurrent_prefill(cfg, box, rules,
+                                                        rank)
+            print(f"{arch} sharded prefill, rank {rank}: "
+                  f"{time.perf_counter() - t0:.1f} s", file=sys.stderr,
+                  flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in RECURRENT_TRAIN:
+        t0 = time.perf_counter()
+        out[f"{arch} training"] = _recurrent_training(arch, rules, rank)
+        print(f"{arch} sharded training, rank {rank}: "
+              f"{time.perf_counter() - t0:.1f} s", file=sys.stderr,
+              flush=True)
+    return out
+
+
+def recurrent_mesh_phase(ranks, counted):
+    """The hybrid and ssm families on the mesh (data 2, model 2), as the
+    sharded training phase's four ranks ran them (``ranks``: each rank's
+    ``_recurrent_parts`` numbers): zamba2-7b (81 layers) and xlstm-1.3b
+    (48) decoding with the states split over the batch, zamba2-7b's
+    prefill (``RECURRENT_PREFILL_LAYERS``), both trained (``RECURRENT_TRAIN``'s cuts); then the unsharded
+    ``loss_fn`` of the same weights and step 0's rows against each
+    training's step 0.  Prints each rank's numbers; returns ({path:
+    launches}, {part: [each rank's numbers]}, the dry run's counts
+    ``counted``)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    backend = "nccl" if torch.cuda.device_count() >= len(ranks) else "gloo"
+    card = card_line()
+    print(f"recurrent families on a mesh [{card}]: {len(ranks)} ranks on "
+          f"(data 2, model 2) over {backend}, the sharded training phase's")
+    paths, numbers = {}, {}
+    for part in ranks[0]:
+        numbers[part] = [dict(r[part], transport=backend) for r in ranks]
+    for arch in (ZAMBA2, XLSTM):
+        for rank, d in enumerate(numbers[f"{arch} decode"]):
+            paths[f"{arch} sharded decode, rank {rank}"] = d["launches"]
+            print(f"{arch} sharded decode [{card}], rank {rank}: rows "
+                  f"{d['rows']} of {d['positions']} (states "
+                  f"{d['states_mib_here']:.2f} of {d['states_mib_whole']:.2f}"
+                  f" MiB here); {d['steps']} steps: K1 "
+                  f"{d['launches']['paged_decode_partials']} launches; "
+                  f"logits max |sharded - unsharded| {d['max_abs_err']:.4g} "
+                  f"(tolerance {SHARD_LOGIT_TOL}), by step "
+                  f"{d['step_max_abs_err']}; argmax differs at near ties "
+                  f"{d['near_ties']} ({d['decided']} of {d['vectors']} "
+                  f"decided); states {d['state_rel_err']:.4g} of each "
+                  f"leaf's largest entry (tolerance {RECURRENT_STATE_REL};"
+                  f" another data index's rows read {d['wrong_cut_rel']})"
+                  f"; appended kv {d['kv_max_abs_err']:.4g} (tolerance "
+                  f"{SHARD_KV_TOL}); step loop {d['sharded_loop_ms']:.2f} ms "
+                  f"sharded, {d['unsharded_loop_ms']:.2f} unsharded; "
+                  f"profiled step {d['wall_ms']:.2f} ms wall, "
+                  f"{d['busy_ms']:.3f} ms device-busy (K1 {d['k1_ms']:.3f})"
+                  f"; {d['collectives_per_step']} collectives a step, "
+                  f"{d['collectives_ms']:.2f} ms host "
+                  f"({100 * d['collectives_share']:.1f}% of the wall); "
+                  f"largest rows {d['top']}")
+    for rank, d in enumerate(numbers[f"{ZAMBA2} prefill"]):
+        paths[f"{ZAMBA2} sharded prefill, rank {rank}"] = d["launches"]
+        print(f"{ZAMBA2} sharded prefill [{card}], rank {rank}: "
+              f"{d['layers']} layers (cut: the depth "
+              f"{get_config(ZAMBA2).num_layers} -> {d['layers']} for the "
+              f"run's time), {d['rows']} x {d['seq']} tokens, rows {d['rows_here']} here; K4 "
+              f"{d['launches']['prefill_attention']} launches; wall "
+              f"{d['wall_ms']:.1f} ms; {d['collectives']} collectives "
+              f"({d['collectives_ms']:.1f} ms host); peak "
+              f"{d['peak_gib']:.3f} GiB over what the rank held besides "
+              f"its arguments; logits, k, v and states apart "
+              f"from the unsharded prefill by {d['rel_errs']} of each "
+              f"tensor's largest entry (tolerance {RECURRENT_PREFILL_REL};"
+              f" another data index's rows read at least "
+              f"{d['wrong_cut_rel']})")
+    for arch in RECURRENT_TRAIN:
+        cfg = _recurrent_train_cfg(arch)
+        for rank, d in enumerate(numbers[f"{arch} training"]):
+            paths[f"{arch} sharded training, rank {rank}"] = d["launches"]
+            per = {k: v // d["steps"] for k, v in d["launches"].items() if v}
+            print(f"{arch} sharded training [{card}], rank {rank}: "
+                  f"{d['layers']} layers, {d['rows']} x {d['seq_len']} "
+                  f"tokens a step ({_recurrent_cut(arch)}); "
+                  f"{d['params_here'] / 1e9:.3f} B parameters held, state "
+                  f"reckoned {d['state_gb']:.2f} GB ({d['held_gib']:.2f} GiB"
+                  f" on the card after init, {d['init_s']:.1f} s); step "
+                  f"walls {[round(w, 1) for w in d['step_ms']]} ms, "
+                  f"{d['tokens_per_s']:.0f} tokens/s (global); peak "
+                  f"{d['peak_gib']:.3f} GiB over the "
+                  f"{d['held_before_gib']:.3f} the rank held before; "
+                  f"collectives a step "
+                  f"{d['collectives_per_step']}, host ms "
+                  f"{[round(c, 1) for c in d['collectives_ms']]} ("
+                  f"{', '.join(f'{100 * c:.1f}%' for c in d['collectives_share'])}"
+                  f" of the wall); launches a step {per} (K4 "
+                  f"{2 * M.num_kv_layers(cfg)} + {M.num_kv_layers(cfg)} "
+                  f"predicted); one step profiled: "
+                  f"{d['device_busy_ms']:.1f} ms device-busy "
+                  f"({100 * d['busy_share']:.1f}% of the mean wall), K4 "
+                  f"forward {d['k4_forward_ms']:.1f}, backward "
+                  f"{d['k4_backward_ms']:.1f} ms; losses "
+                  f"{[round(x, 5) for x in d['losses']]}, grad_norm "
+                  f"{[round(x, 5) for x in d['grad_norms']]}; largest rows "
+                  f"{d['top']}")
+    problems = [(part, rank, p) for part, ns in numbers.items()
+                for rank, n_ in enumerate(ns) for p in n_.pop("problems")]
+    assert not problems, problems
+    # step 0 against the unsharded loss and gradient norm of the same
+    # weights and rows (no design gap: neither family routes experts)
+    for arch in RECURRENT_TRAIN:
+        ns = numbers[f"{arch} training"]
+        assert all(n_["losses"] == ns[0]["losses"] for n_ in ns)
+        cfg = _recurrent_train_cfg(arch)
+        params = M.init_params(cfg, torch.Generator(device="cuda")
+                               .manual_seed(SEED), "cuda")
+        b = {k: torch.from_numpy(v).cuda() for k, v in next(make_batches(
+            SyntheticCorpus(vocab_size=cfg.vocab_size, seed=SEED),
+            RECURRENT_TRAIN_ROWS, RECURRENT_TRAIN[arch][1])).items()}
+        ref = _loss_and_grad_norm(params, b, cfg)
+        by_row = _grad_norm_by_row(params, b, cfg)
+        nll_gap = abs(ns[0]["nll"][0] - ref["nll"])
+        got = ns[0]["grad_norms"][0]
+        gnorm_rel = abs(got - by_row) / by_row
+        whole_rel = abs(got - ref["grad_norm"]) / ref["grad_norm"]
+        print(f"{arch} sharded training [{card}]: step 0 sharded / "
+              f"unsharded (the same weights and rows, the unsharded on the "
+              f"card after the ranks end): nll {ns[0]['nll'][0]:.6f} / "
+              f"{ref['nll']:.6f} ({nll_gap:.3g} apart, tolerance "
+              f"{SHARDED_LOSS_TOL}); grad_norm {got:.6f} / {by_row:.6f} with "
+              f"the rows taken one a pass, as a data index takes them "
+              f"({gnorm_rel:.3g} apart, tolerance {SHARDED_GNORM_REL}), / "
+              f"{ref['grad_norm']:.6f} with both rows in one pass "
+              f"({whole_rel:.3g} apart: the bf16 gradient's sensitivity to "
+              f"how the rows are grouped in a product)")
+        assert nll_gap <= SHARDED_LOSS_TOL, (arch, ns[0]["nll"], ref)
+        assert gnorm_rel <= SHARDED_GNORM_REL, (arch, got, by_row)
+        for n_ in ns:
+            n_["unsharded_step0"] = dict(ref, grad_norm_by_row=by_row)
+        del params, b
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths, numbers, counted
+
+
+def _grad_norm_by_row(params, batch, cfg):
+    """The global norm of ``loss_fn``'s gradient at ``params`` over
+    ``batch``, its rows taken one a pass (each row's NLL over the batch's
+    count of labels, the passes' bf16 gradients summed in f32), as the
+    ranks of a mesh whose ``data`` axis gives each index one row take
+    them: xLSTM's bf16 gradient moves by percents with how the rows are
+    grouped in a product (its norm 2.4% apart, one pass against two, as
+    measured on a CPU at 16 layers and full width; 2.4e-6 in f32)."""
+    leaves = tree_leaves(params)
+    count = float((batch["labels"] >= 0).sum())
+    total = None
+    for r in range(batch["tokens"].shape[0]):
+        row = {k: v[r:r + 1] for k, v in batch.items()}
+        scale = float((row["labels"] >= 0).sum()) / count
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            loss, _ = M.loss_fn(params, row, cfg)
+            grads = torch.autograd.grad(loss * scale, leaves)
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+        grads = [g.float() for g in grads]
+        total = grads if total is None else [a + g for a, g in
+                                             zip(total, grads)]
+        del grads
+    return float(torch.sqrt(sum(torch.sum(g * g) for g in total)))
+
+
+def _count_recurrent():
+    """The dry run of the recurrent families' steps that
+    ``recurrent_mesh_phase`` runs: rank 0's program in a fake world of
+    four ranks on ``RECURRENT_MESH`` on ``meta`` tensors, counted
+    (``launch.op_analysis``).  Returns {part: its count}."""
+    n_ranks = RECURRENT_MESH[0][0] * RECURRENT_MESH[0][1]
+    fake_world(n_ranks)
+    try:
+        rules = make_rules(Mesh(*RECURRENT_MESH))
+        steps = {}
+        for arch in RECURRENT_TRAIN:
+            cfg = _recurrent_train_cfg(arch)
+            steps[f"{arch} training"] = (cfg, build_step(cfg, InputShape(
+                "recurrent", RECURRENT_TRAIN[arch][1], RECURRENT_TRAIN_ROWS,
+                "train"), rules))
+        cfg = _recurrent_prefill_cfg()
+        steps[f"{ZAMBA2} prefill"] = (cfg, build_step(cfg, InputShape(
+            "recurrent", RECURRENT_PREFILL_SEQ, RECURRENT_PREFILL_ROWS,
+            "prefill"), rules))
+        for arch in (ZAMBA2, XLSTM):
+            cfg = get_config(arch)
+            b, L = len(RECURRENT_POS), M.num_kv_layers(cfg)
+            meta_i32 = lambda n: torch.empty(  # noqa: E731
+                (n,), dtype=torch.int32, device="meta")
+            st = M.DecodeState(
+                tokens=meta_i32(b), pos=meta_i32(b),
+                kv=_meta_pools(L, RECURRENT_SLOTS, RECURRENT_BS,
+                               cfg.num_kv_heads, cfg.resolved_head_dim, b)
+                if L else None, peer=None,
+                states=M.init_states(cfg, b, "meta"))
+            p_r, st_r = shard_decode(M.abstract_params(cfg), st, cfg, rules)
+            steps[f"{arch} decode"] = (cfg, (
+                lambda p, s, cfg=cfg: M.serve_step(p, s, cfg, rules=rules),
+                (p_r, st_r)))
+        counted = {}
+        for part, (cfg, (fn, args)) in steps.items():
+            _, counted[part] = op_count(fn, args, gloo=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    return counted
+
+
+def _dry_recurrent(card, recurrent, counted):
+    """``_count_recurrent``'s counts (``counted``) held to what every rank
+    measured (``recurrent``, ``recurrent_mesh_phase``'s numbers): each
+    training step's and the prefill's launches and collective calls
+    exactly and their peaks within ``DRYRUN_PEAK_REL``; each decode step's
+    K1 launches and collective calls exactly.  Returns the numbers
+    kept."""
+    out = {}
+    n_ranks = RECURRENT_MESH[0][0] * RECURRENT_MESH[0][1]
+    for part, c in counted.items():
+        ns = recurrent[part]
+        calls, launches = c.collective_calls, c.launches()
+        pred_peak = c.mem["total_bytes"]
+        if part.endswith("decode"):
+            measured = [(n_["collectives_per_step"],
+                         {k: v // n_["steps"] for k, v in
+                          n_["launches"].items() if v}) for n_ in ns]
+            peaks = None
+        elif part.endswith("prefill"):
+            measured = [(n_["collectives"], {k: v for k, v in
+                                             n_["launches"].items() if v})
+                        for n_ in ns]
+            peaks = [n_["peak_gib"] * 2 ** 30 for n_ in ns]
+        else:
+            measured = [(n_["collectives_per_step"], {
+                k: v // n_["steps"] for k, v in n_["launches"].items() if v})
+                for n_ in ns]
+            peaks = [n_["peak_gib"] * 2 ** 30 for n_ in ns]
+        print(f"dry run [{card}]: {part} on the mesh, rank 0 of {n_ranks} "
+              f"(mesh {RECURRENT_MESH[0]}): collectives predicted {calls} "
+              f"({c.collectives}, bytes on the ring model), launches "
+              f"predicted {launches}; measured (collectives, launches) "
+              f"{measured} (each rank's; a step's, the training's each "
+              f"step's); peak predicted {pred_peak / 2 ** 30:.3f} GiB a rank"
+              + ("" if peaks is None else
+                 f", measured {[round(x / 2 ** 30, 3) for x in peaks]} GiB "
+                 f"(tolerance {100 * DRYRUN_PEAK_REL:.0f}%)")
+              + f"; {_terms(c)}")
+        for rank, (coll, lau) in enumerate(measured):
+            want = coll if isinstance(coll, list) else [coll]
+            assert all(k == calls for k in want), (part, rank, calls, coll)
+            assert lau == launches, (part, rank, lau, launches)
+        for rank, peak in enumerate(peaks or []):
+            assert abs(pred_peak - peak) <= DRYRUN_PEAK_REL * peak, \
+                (part, rank, pred_peak, peak)
+        out[part] = dict(collective_calls=calls, collectives=c.collectives,
+                         launches_per_step=launches, peak_bytes=pred_peak,
+                         **dry_roofline(c))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4048,7 +4949,12 @@ def sharded_training_phase():
 #: and every step); the card's allocator adds its 512-byte rounding and
 #: the kernels' own workspaces, which the meta branches do not allocate.
 #: Measured on an H100 80GB HBM3: -0.16% (danube), -0.17% (phi-tiny-moe),
-#: -0.56% (a sharded rank), each well inside this
+#: -0.56% (a sharded rank), each well inside this.  The ranks that share
+#: the one card talk over gloo, whose reduce-scatter holds a copy of its
+#: operand on the card while it runs, so their steps are counted with
+#: that copy (``count(..., gloo=True)``): xlstm-1.3b's rank at 16 layers
+#: read 5.2% over the count without it, its peak inside the reduce-scatter
+#: of a 412 MB f32 gradient of the vocabulary's width
 DRYRUN_PEAK_REL = 0.02
 
 
@@ -4070,7 +4976,7 @@ def _meta_pools(L, n, bs, nkv, hd, b):
                        for k in (n, n, b, b)))
 
 
-def dry_run_phase(trained, yi_step, sharded):
+def dry_run_phase(trained, yi_step, sharded, recurrent, counted):
     """The dry run of what the card just ran (``launch.specs.build_step``
     or the same step's ``meta`` arguments, counted by
     ``launch.op_analysis``; no kernel launched, nothing allocated) held to
@@ -4084,7 +4990,9 @@ def dry_run_phase(trained, yi_step, sharded):
     step of the sharded training phase's rank 0 program (a fake world of
     four ranks) equal to each rank's each step (``sharded``).  The three
     roofline terms are printed beside each measured step's wall and
-    device-busy ms.  Returns the numbers kept."""
+    device-busy ms; then the recurrent families' steps on the mesh
+    (``recurrent``, held to their counts ``counted`` by
+    ``_dry_recurrent``).  Returns the numbers kept."""
     card = card_line()
     out = {}
     for arch, (launches, nums) in trained.items():
@@ -4151,7 +5059,7 @@ def dry_run_phase(trained, yi_step, sharded):
         fn, args = build_step(cfg, InputShape(
             "sharded", SHARDED_SEQ, SHARDED_ROWS, "train"),
             make_rules(Mesh(*TRAIN_MESH)))
-        _, c = op_count(fn, args)
+        _, c = op_count(fn, args, gloo=True)
     finally:
         torch.distributed.destroy_process_group()
     calls = c.collective_calls
@@ -4180,6 +5088,7 @@ def dry_run_phase(trained, yi_step, sharded):
         collective_calls=calls, collectives=c.collectives,
         launches_per_step=c.launches(), peak_bytes=c.mem["total_bytes"],
         **dry_roofline(c))
+    out.update(_dry_recurrent(card, recurrent, counted))
     return out
 
 
@@ -4441,14 +5350,24 @@ def main() -> int:
     # four ranks train phi-tiny-moe at full width on the mesh (data 2,
     # model 2): FSDP over data, experts over model; each rank's launches a
     # path of their own
-    sharded_train_paths, sharded_training = sharded_training_phase()
+    # then, in the same ranks, the hybrid and ssm families: zamba2-7b and
+    # xlstm-1.3b whole decode with their states split over the batch,
+    # zamba2-7b's prefill on the mesh, both trained at their cuts; each
+    # rank's launches a path of their own
+    sharded_train_paths, sharded_training, recurrent_ranks, dry_counts = \
+        sharded_training_phase()
     paths.update(sharded_train_paths)
-    t_phase = phase_done("sharded training", t_phase)
+    t_phase = phase_done("sharded training and the recurrent families' "
+                         "ranks", t_phase)
+    recurrent_paths, recurrent, recurrent_counted = recurrent_mesh_phase(
+        recurrent_ranks, dry_counts)
+    paths.update(recurrent_paths)
+    t_phase = phase_done("the recurrent families on a mesh", t_phase)
     # the dry run of the steps just measured, held to them
     dry = dry_run_phase(
         {"h2o-danube-3-4b": (paths["h2o-danube-3-4b training"], training),
          PHI_TINY: (paths["phi-tiny-moe training"], training_moe)},
-        inplace_yi, sharded_training)
+        inplace_yi, sharded_training, recurrent, recurrent_counted)
     phase_done("the dry run held to the card", t_phase)
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
@@ -4460,6 +5379,11 @@ def main() -> int:
                                   "h2o-danube-3-4b": inplace_danube,
                                   MUSICGEN: audio}
             k["sharded"] = sharded
+            k["recurrent_mesh"] = recurrent[f"{ZAMBA2} decode"]
+        if k["name"] == "prefill_attention":
+            k["recurrent_mesh"] = {
+                "prefill": recurrent[f"{ZAMBA2} prefill"],
+                "training": recurrent[f"{ZAMBA2} training"]}
         if k["name"] == "prefill_attention_bwd":
             k["training"] = training
         if k["name"] == "moe_ffn_bwd":

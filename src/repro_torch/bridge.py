@@ -15,7 +15,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.params import ParamDef, build_schema
-from repro_torch.models.sharding import kv_block_axes, shard_slices
+from repro_torch.models.sharding import (batch_rows, kv_block_axes,
+                                         shard_slices)
 
 
 def _leaf(arr: np.ndarray, pd: ParamDef, path, dev) -> torch.Tensor:
@@ -95,8 +96,12 @@ def shard_decode(params, state, cfg: ModelConfig, rules):
     ``kv_blocks``: shard ``idx`` takes slots ``idx * n / shards`` on).
     Every other tensor is the same on every rank and is shared, not
     copied; the shards are copies, so the step's appends leave the full
-    pools as they were.  The experts' weights over ``data`` (FSDP) stay
-    whole: GSPMD's gathers of them are not ported."""
+    pools as they were.  The hybrid and ssm families' recurrent states
+    keep the rank's rows alone where the batch divides over
+    ``act_batch`` (``sharding.batch_rows``), as ``serve_step(rules)``
+    runs them.  The experts' weights over ``data`` (FSDP) stay whole:
+    GSPMD's gathers of them are not ported."""
+    from repro_torch.models.model import states_rows
     from repro_torch.models.moe import expert_parallel
 
     if cfg.moe is not None and expert_parallel(state.tokens.shape[0], cfg,
@@ -132,7 +137,12 @@ def shard_decode(params, state, cfg: ModelConfig, rules):
                            slot_req=kv.slot_req[lo:hi].clone(),
                            slot_base=kv.slot_base[lo:hi].clone())
 
-    return params, state._replace(kv=pools(state.kv), peer=pools(state.peer))
+    states = state.states
+    rows = batch_rows(rules, state.tokens.shape[0])
+    if states is not None and rows is not None:
+        states = states_rows(cfg, states, rows)
+    return params, state._replace(kv=pools(state.kv), peer=pools(state.peer),
+                                  states=states)
 
 
 def _map_with_specs(fn, tree, specs):

@@ -5,8 +5,8 @@ program: the port's counterpart of the JAX package's
 It runs one (arch x shape x mesh) as ``launch.dryrun`` does (rank 0 on
 ``meta`` tensors in a fake world) and prints the memory split, the
 totals, and the top rows by HBM bytes, each keyed by its ``aten`` op and
-the port function that issued it (``backward:`` and the autograd node
-where autograd's engine issued it),
+the port function that issued it (``backward`` where autograd's engine
+issued it),
 beside the hand-written kernels' calls and cost and the collectives by
 the function that called them.  Every number is a count of the program
 or a prediction of the hardware model, not a measurement.

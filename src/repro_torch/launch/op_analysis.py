@@ -42,6 +42,7 @@ from dataclasses import dataclass, field
 from typing import Dict, Tuple
 
 import torch
+import torch.utils.checkpoint
 import torch.utils.flop_counter as _flop_counter
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -100,9 +101,13 @@ def _nbytes(t: torch.Tensor) -> int:
 
 def _site() -> str:
     """The innermost function of the port on the Python stack (module and
-    name); where autograd's engine issued the op for a node of the graph
-    (no port function on the stack above the engine's entry),
-    ``backward:`` and the node's name; ``_INSIDE_COLLECTIVE`` where
+    name); ``backward`` where autograd's engine issued the op for a node
+    of the graph (no port function on the stack above the engine's
+    entry; the node's name is not read: reading it makes the node's
+    Python wrapper, which the node then holds, a reference cycle for each
+    node read, and a long graph's chain of them, freed by the cyclic
+    collector, is freed one node inside the next, past the stack's
+    depth); ``_INSIDE_COLLECTIVE`` where
     ``torch.distributed`` issued it inside a collective (a backend's own
     staging, gloo's reduce-scatter, say: link traffic, not counted as an
     ``aten`` op's)."""
@@ -112,8 +117,7 @@ def _site() -> str:
         if path.endswith(_C10D):
             return _INSIDE_COLLECTIVE
         if path.endswith(_ENGINE):
-            node = torch._C._current_autograd_node()
-            return "backward:" + (node.name() if node is not None else "?")
+            return "backward"
         if "repro_torch" in path and path != _HERE:
             mod = f.f_globals.get("__name__", "?").replace("repro_torch.", "")
             return f"{mod}.{f.f_code.co_name}"
@@ -202,10 +206,15 @@ class OpCount:
 class OpCounter(TorchDispatchMode):
     """Counts the ops of the code run under it into ``self.result`` (an
     :class:`OpCount`), and tracks the live storages: those of the
-    arguments given to :meth:`hold` and of every op's results."""
+    arguments given to :meth:`hold` and of every op's results.  With
+    ``gloo``, a reduce-scatter also holds a copy of its operand on the
+    operand's device while it runs, as ``ProcessGroupGloo`` does (it
+    all-reduces a clone and keeps its chunk of it); NCCL, whose ranks the
+    dry run models, holds none."""
 
-    def __init__(self):
+    def __init__(self, gloo: bool = False):
         super().__init__()
+        self.gloo = gloo
         self.result = OpCount()
         self._ops = defaultdict(lambda: [0, 0.0, 0.0])
         self._colls = defaultdict(lambda: [0, 0.0])
@@ -286,6 +295,9 @@ class OpCounter(TorchDispatchMode):
             row = self._colls[(func._overloadpacket.__name__, _site())]
             row[0] += 1
             row[1] += sum(map(_nbytes, _tensors(args)))
+            if self.gloo and "reduce_scatter" in func.__name__:
+                self.peak_bytes = max(self.peak_bytes, self.live_bytes + max(
+                    map(_nbytes, _tensors(args))))
             return out
         if self._inside:
             return out
@@ -317,13 +329,38 @@ def _collective_snapshot() -> Dict[str, dict]:
             for k in collectives.KINDS}
 
 
-def count(fn, args=()) -> Tuple[object, OpCount]:
-    """Run ``fn(*args)`` once under an :class:`OpCounter`, the storages of
-    ``args`` held as the arguments.  Returns (its result, the counts).
-    The cyclic garbage collector is off meanwhile, so that the peak does
-    not depend on when it runs: a storage lives until its last reference
-    goes (the port's step leaves no reference cycle holding a tensor)."""
-    counter = OpCounter()
+_warmed = False
+
+
+def _warm_lazy_imports() -> None:
+    """One tiny checkpointed backward, once a process: the first such call
+    imports modules lazily (``torch._dynamo``), and exceptions caught on
+    the way keep their tracebacks, whose frames reach back into the caller
+    and hold its tensors in reference cycles; counted, with the collector
+    off, they would stay live to the run's end (a training step's peak
+    too high where its first checkpointed block came inside the count)."""
+    global _warmed
+    if _warmed:
+        return
+    with torch.enable_grad():       # a count may start under no_grad
+        x = torch.ones(2, requires_grad=True)
+        torch.utils.checkpoint.checkpoint(
+            torch.sin, x, use_reentrant=False,
+            preserve_rng_state=False).sum().backward()
+    gc.collect()
+    _warmed = True
+
+
+def count(fn, args=(), gloo: bool = False) -> Tuple[object, OpCount]:
+    """Run ``fn(*args)`` once under an :class:`OpCounter` (``gloo``: its
+    peak as a rank of a gloo group holds it), the storages of ``args``
+    held as the arguments.  Returns (its result, the counts).  The cyclic
+    garbage collector is off meanwhile, so that the peak does not depend
+    on when it runs: a storage lives until its last reference goes (the
+    port's step leaves no reference cycle holding a tensor, once
+    ``_warm_lazy_imports`` has run)."""
+    _warm_lazy_imports()
+    counter = OpCounter(gloo)
     counter.hold(args)
     before = _collective_snapshot()
     was_on = gc.isenabled()

@@ -16,16 +16,21 @@ its own share, which ``args`` is:
   decode   -> ``serve_step(..., rules)``: every weight whole but the
               experts (``bridge.shard_decode``: E / |experts| a rank where
               the batch takes the expert-parallel path), the rank's slots
-              of the KV pools, the rest of the decode state whole
+              of the KV pools, the hybrid and ssm families' recurrent
+              states of the rank's rows (the batch over ``act_batch``,
+              where it divides), the rest of the decode state whole
 
 Global shapes and dtypes are the JAX package's, pool slot counts
 included (``shards * ceil(n / shards)``).  The JAX package's dry run
 replicates the decode batch (``act_batch`` cleared) for the families
 whose per-request state is paged KV, and keeps it split for the hybrid
 and ssm families, whose recurrent states grow with the batch.  The
-port's decode step holds the batch, and those states, whole on every
-rank for every family, so the first is its layout already; its MoE
-layers keep ``act_batch`` for their dispatch, the expert parallelism
+port's decode step keeps tokens, positions and the pools' bookkeeping
+whole on every rank for every family, and for the recurrent families
+splits the states and the layers that read them over ``act_batch`` (the
+JAX package also splits their heads over ``model``, ``state_heads``:
+tensor parallelism, which the port leaves out); its MoE layers keep
+``act_batch`` for their dispatch, the expert parallelism
 ``serve_step(rules)`` runs.  The JAX package's uncarried-pool baseline
 (an environment switch there) has no counterpart: the port's pools are
 written in place.
@@ -104,8 +109,9 @@ def abstract_decode_state(cfg: ModelConfig, shape: InputShape,
                           peer_fraction: float = 0.0) -> M.DecodeState:
     """The global ``DecodeState`` of ``shape`` on ``meta``: bf16 pools of
     ``shards * ceil(n / shards)`` slots (a peer pool of ``peer_fraction``
-    of them where it is above 0), the recurrent states stacked as the
-    model returns them, tokens, positions and M-RoPE ids."""
+    of them where it is above 0), the recurrent states of every row
+    stacked as the model returns them (``build_step`` keeps a rank's
+    rows), tokens, positions and M-RoPE ids."""
     b, seq = shape.global_batch, shape.seq_len
     nkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     L_kv = M.num_kv_layers(cfg)

@@ -42,22 +42,23 @@ ranks, ``repro_torch.launch.mesh``) each rank holds its shard of the
 pools' slots (``bridge.shard_decode``) and of the MoE layers' experts,
 and the step runs the JAX package's sharded decode: attention over the
 rank's own slots merged across the ``kv_blocks`` ranks, expert
-parallelism over ``act_batch`` and ``experts``; every other tensor is
-the same on every rank.
+parallelism over ``act_batch`` and ``experts``; the hybrid and ssm
+families' recurrent states and layers over the rank's rows
+(``act_batch``); every other tensor is the same on every rank.
 
 ``forward``, ``loss_fn`` and ``prefill`` with ``rules`` are a rank's
-share of the JAX package's sharded pass (dense, vlm, audio and MoE
-families): the
+share of the JAX package's sharded pass (every family): the
 parameters are the rank's shard (``bridge.shard_train``: d_model dims
 over ``data``, experts over ``model``), the batch the global one, of
 which the rank computes its rows (``_rank_rows``).  The embedding, head
 and final norm are gathered whole over ``data`` once a pass, each
-block's weights inside its ``torch.utils.checkpoint`` region (so the
-recompute gathers again and nothing gathered outlives the block), the
-MoE layers' inside the layer (``moe._moe_layer_train``); every gather's
-gradient is reduce-scattered back to the shard.  The ``model`` ranks of
-one data index compute the dense part alike (tensor parallelism is
-GSPMD's choice of layout there, not other math).
+block's weights (a Mamba2 layer's, an mLSTM or sLSTM block's) inside its
+``torch.utils.checkpoint`` region (so the recompute gathers again and
+nothing gathered outlives the block), Zamba2's shared block's once a
+pass, the MoE layers' inside the layer (``moe._moe_layer_train``); every
+gather's gradient is reduce-scattered back to the shard.  The ``model``
+ranks of one data index compute alike (tensor parallelism is GSPMD's
+choice of layout there, not other math).
 """
 from __future__ import annotations
 
@@ -69,7 +70,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import paged_attention as pa
-from repro_torch.core.collectives import all_reduce
+from repro_torch.core.collectives import all_gather, all_reduce
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import xlstm as X
@@ -77,7 +78,8 @@ from repro_torch.models.moe import load_balance_loss, moe_layer
 from repro_torch.models.params import (  # noqa: F401  (re-exported)
     abstract_params, build_schema, check_family, init_params, is_interleaved,
     num_codebooks, param_count, param_specs)
-from repro_torch.models.sharding import gather_fsdp, kv_block_axes
+from repro_torch.models.sharding import (batch_rows, gather_fsdp, kv_block_axes,
+                                         strip_stacked)
 
 
 def _unbind(node):
@@ -220,26 +222,39 @@ class ForwardOut(NamedTuple):
 
 
 def _hybrid_layers(params, x, cfg: ModelConfig, states, single_token,
-                   attend, remat: bool = False):
+                   attend, remat: bool = False, fsdp=None):
     """Zamba2: the Mamba2 stack with ONE shared attention block after every
     ``attn_period`` Mamba2 layers (none after the tail's).  ``states``: the
     stacked ``SSMState`` of every layer, or None (zero states);
-    ``attend(j, u)`` -> (a, kv) for the shared block at super-block j.
-    ``remat``: each Mamba2 layer and each shared block under
-    ``torch.utils.checkpoint``.  Returns (x, the super-blocks' kv, the new
-    stacked states)."""
+    ``attend(j, u, lp)`` -> (a, kv) for the shared block ``lp`` at
+    super-block j.  ``remat``: each Mamba2 layer and each shared block
+    under ``torch.utils.checkpoint``.  ``fsdp``: the rules of a training
+    rank's pass, whose weights split over ``data`` are gathered: each
+    Mamba2 layer's inside its recompute region, the shared block's once a
+    pass, ahead of its first use (it serves every super-block: 13 at 81
+    layers; one gather and one reduce-scatter a step where a gather
+    inside each use's region would make 26 and 13, for one block's
+    weights and their gradient held whole through the pass).  Returns (x,
+    the super-blocks' kv, the new stacked states)."""
     per = cfg.hybrid.attn_period
     shared = params["shared_attn"]
+    mspec = None
+    if fsdp is not None:
+        specs = param_specs(cfg, fsdp)
+        mspec = strip_stacked(specs["mamba_layers"], 1)
+        shared = gather_fsdp(shared, specs["shared_attn"], fsdp)
     if states is None:
         st0 = S.init_ssm_state(cfg, x.shape[0], x.device)
 
     def mamba(x, lp, st):
+        if mspec is not None:
+            lp = gather_fsdp(lp, mspec, fsdp)
         u = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         y, st = S.mamba2_layer(u, lp["mamba"], cfg, st, single_token)
         return x + y, st
 
     def shared_block(x, j):
-        return _block(x, None, shared, cfg, lambda u: attend(j, u))
+        return _block(x, None, shared, cfg, lambda u: attend(j, u, shared))
 
     new, kvs = [], []
     for i, lp in enumerate(_unbind(params["mamba_layers"])):
@@ -253,15 +268,33 @@ def _hybrid_layers(params, x, cfg: ModelConfig, states, single_token,
 
 
 def _xlstm_layers(params, x, cfg: ModelConfig, states, single_token,
-                  remat: bool = False):
+                  remat: bool = False, fsdp=None):
     """xLSTM: super-blocks of (slstm_every - 1) mLSTM blocks and one sLSTM
     block.  ``states``: (stacked ``MLSTMState`` over (super-block, block),
     stacked ``SLSTMState`` over super-blocks), or None (zero states).
-    ``remat``: each block under ``torch.utils.checkpoint``.  Returns (x,
-    the new states in that layout)."""
+    ``remat``: each block under ``torch.utils.checkpoint``.  ``fsdp``: the
+    rules of a training rank's pass; each block gathers its weights split
+    over ``data`` inside its recompute region.  Returns (x, the new
+    states in that layout)."""
     per = cfg.xlstm.slstm_every
     supers = params["supers"]
     b = x.shape[0]
+    mspec = sspec = None
+    if fsdp is not None:
+        specs = param_specs(cfg, fsdp)["supers"]
+        mspec = strip_stacked(specs["mlstm"], 2)
+        sspec = strip_stacked(specs["slstm"], 1)
+
+    def mblock(x, lp, st):
+        if mspec is not None:
+            lp = gather_fsdp(lp, mspec, fsdp)
+        return X.mlstm_block(x, lp, cfg, st, single_token)
+
+    def sblock(x, lp, st):
+        if sspec is not None:
+            lp = gather_fsdp(lp, sspec, fsdp)
+        return X.slstm_block(x, lp, cfg, st, single_token)
+
     mlstm = [_unbind(row) for row in _unbind(supers["mlstm"])]
     slstm = _unbind(supers["slstm"])
     m_new, s_new = [], []
@@ -270,14 +303,12 @@ def _xlstm_layers(params, x, cfg: ModelConfig, states, single_token,
         for i in range(per - 1):
             st = X.init_mlstm_state(cfg, b, x.device) if states is None \
                 else X.MLSTMState(*(t[j, i] for t in states[0]))
-            x, st = _run(remat, X.mlstm_block, x, mlstm[j][i], cfg, st,
-                         single_token)
+            x, st = _run(remat, mblock, x, mlstm[j][i], st)
             row.append(st)
         m_new.append(X.MLSTMState(*(torch.stack(t) for t in zip(*row))))
         st = X.init_slstm_state(cfg, b, x.device) if states is None \
             else X.SLSTMState(*(t[j] for t in states[1]))
-        x, st = _run(remat, X.slstm_block, x, slstm[j], cfg, st,
-                     single_token)
+        x, st = _run(remat, sblock, x, slstm[j], st)
         s_new.append(st)
     return x, (X.MLSTMState(*(torch.stack(t) for t in zip(*m_new))),
                X.SLSTMState(*(torch.stack(t) for t in zip(*s_new))))
@@ -302,6 +333,19 @@ def init_states(cfg: ModelConfig, batch: int, device):
     return None
 
 
+def states_rows(cfg: ModelConfig, states, rows: slice):
+    """``init_states``' layout cut to the batch rows ``rows`` (copies):
+    the batch dim follows the stack dims, one for the hybrid family's
+    and the sLSTM states, two for the mLSTM states."""
+    def cut(st, lead):
+        return type(st)(*(t[(slice(None),) * lead + (rows,)].clone()
+                          for t in st))
+
+    if cfg.family == "hybrid":
+        return cut(states, 1)
+    return cut(states[0], 2), cut(states[1], 1)
+
+
 def backbone(params, x, positions, cfg: ModelConfig, rules=None,
              positions_3d=None, want_kv: bool = True) -> ForwardOut:
     """The blocks over the embedded input ``x``.  ``rules``: ``x`` holds a
@@ -314,19 +358,19 @@ def backbone(params, x, positions, cfg: ModelConfig, rules=None,
     if cfg.family == "hybrid":
         x, kvs, states = _hybrid_layers(
             params, x, cfg, None, False,
-            lambda j, u: L.attention_layer(u, params["shared_attn"]["attn"],
-                                           cfg, positions), remat)
+            lambda j, u, lp: L.attention_layer(u, lp["attn"], cfg,
+                                               positions), remat, rules)
         kv = tuple(torch.stack(t) for t in zip(*kvs)) if want_kv else None
         return ForwardOut(x, kv, states, aux)
     if cfg.family == "ssm":
-        x, states = _xlstm_layers(params, x, cfg, None, False, remat)
+        x, states = _xlstm_layers(params, x, cfg, None, False, remat, rules)
         return ForwardOut(x, None, states, aux)
 
     if rules is not None:
         specs = param_specs(cfg, rules)
         lspecs = ([specs["blocks"][k] for k in ("dense", "moe")]
                   if "blocks" in specs else [specs["layers"]])
-        lspecs = [_strip_layer(sp) for sp in lspecs]
+        lspecs = [strip_stacked(sp, 1) for sp in lspecs]
         shards = rules.axis_size(rules.axis("act_batch"))
 
     def block(x, s, lp, i):
@@ -352,27 +396,15 @@ def backbone(params, x, positions, cfg: ModelConfig, rules=None,
     return ForwardOut(x, kv, None, aux)
 
 
-def _strip_layer(node):
-    """A stacked layer leaf's split with its layer dim (never split)
-    dropped: the split of one layer's slice."""
-    if isinstance(node, dict):
-        return {k: _strip_layer(v) for k, v in node.items()}
-    return node[1:]
-
-
 def _rank_rows(batch, rules):
     """(the rows of the global ``batch`` this rank computes, the rules its
     layers see): its share along ``act_batch`` where the batch's rows
-    divide over it, each rank's rows the same on every rank of one data
-    index; else every row, with ``act_batch`` cleared from the rules (the
-    JAX package takes its global MoE path there and GSPMD replicates:
-    every rank runs every row)."""
-    ax = rules.axis("act_batch")
-    n, b = rules.axis_size(ax), batch["tokens"].shape[0]
-    if b % n == 0:
-        k = b // n
-        i = rules.mesh.axis_index(ax)
-        return {key: v[i * k:(i + 1) * k] for key, v in batch.items()}, rules
+    divide over it (``sharding.batch_rows``); else every row, with
+    ``act_batch`` cleared from the rules (the JAX package takes its global
+    MoE path there and GSPMD replicates: every rank runs every row)."""
+    rows = batch_rows(rules, batch["tokens"].shape[0])
+    if rows is not None:
+        return {key: v[rows] for key, v in batch.items()}, rules
     return batch, dataclasses.replace(
         rules, rules=dict(rules.rules, act_batch=None))
 
@@ -400,11 +432,6 @@ def forward(params, batch, cfg: ModelConfig, rules=None,
     rows (``_rank_rows``)."""
     check_family(cfg)
     if rules is not None:
-        if cfg.family in ("hybrid", "ssm"):
-            raise NotImplementedError(
-                f"{cfg.name}: a pass on a mesh (training, prefill) covers "
-                f"the dense, vlm, audio and MoE families (family "
-                f"{cfg.family!r})")
         batch, rules = _rank_rows(batch, rules)
         params = _gather_outer(params, cfg, rules)
     x = embed(params, batch["tokens"], cfg)
@@ -472,10 +499,9 @@ def prefill(params, batch, cfg: ModelConfig, rules=None):
     ``rules``: a rank's pass over a mesh, as the JAX package's sharded
     ``prefill``, under ``torch.no_grad()``: ``params`` the rank's shard
     (``bridge.shard_train``), ``batch`` the global batch; it returns the
-    logits and the KV of the rank's rows (``_rank_rows``), its blocks
-    gathering their weights over ``data`` and the MoE layers taking the
-    expert-parallel path.  The hybrid and ssm families raise, as
-    ``forward(rules)`` does."""
+    logits, the KV and the final recurrent states of the rank's rows
+    (``_rank_rows``), its blocks gathering their weights over ``data``
+    and the MoE layers taking the expert-parallel path."""
     if rules is None:
         logits, out = forward(params, batch, cfg, want_kv=True)
         return logits[:, -1], out
@@ -551,6 +577,20 @@ def _decode_attn_sublayer(u, lp, cfg, state: DecodeState, layer: int,
     return y[:, None]
 
 
+def _state_rows(cfg: ModelConfig, state: DecodeState, rules):
+    """(this rank's rows of the batch, the process group and order of the
+    ranks that split it) where ``rules`` split a recurrent family's
+    decode batch over ``act_batch`` (more than one rank, the rows
+    dividing over them); else None: every rank runs every row."""
+    if rules is None or cfg.family not in ("hybrid", "ssm"):
+        return None
+    rows = batch_rows(rules, state.tokens.shape[0])
+    ax = rules.axis("act_batch")
+    if rows is None or rules.axis_size(ax) == 1:
+        return None
+    return rows, rules.mesh.group(ax), rules.mesh.group_order(ax)
+
+
 def serve_step(params, state: DecodeState, cfg: ModelConfig,
                harvest_inplace: bool = False, rules=None):
     """Decode ONE token for every active request. Returns (logits, state):
@@ -559,18 +599,34 @@ def serve_step(params, state: DecodeState, cfg: ModelConfig,
     set: the harvested peer pool joins each layer's softmax where it lies
     (K1 over each pool, the partials merged by log-sum-exp); the step's k
     and v go to the local pool alone.  ``rules``: this rank's place on a
-    mesh of ranks (module docstring); None runs on one device."""
+    mesh of ranks (module docstring); None runs on one device.
+
+    The hybrid and ssm families on a mesh whose ``act_batch`` splits the
+    rows (``_state_rows``): ``state.states`` holds the rank's rows alone
+    (``bridge.shard_decode``) and the recurrent layers run over them;
+    tokens, positions and the pools' bookkeeping stay global.  Zamba2's
+    shared attention block gathers its normed input over ``act_batch``,
+    serves every row against the rank's slots (K1, merged over
+    ``kv_blocks``) and keeps its rows of the output.  The logits returned
+    are the rank's rows'; ``tokens`` comes back gathered whole, so the
+    next step's input is global again."""
     check_family(cfg)
-    x = add_positions(embed(params, state.tokens[:, None], cfg),
-                      state.pos[:, None], cfg)
+    split = _state_rows(cfg, state, rules)
+    tokens = state.tokens if split is None else state.tokens[split[0]]
+    pos = state.pos if split is None else state.pos[split[0]]
+    x = add_positions(embed(params, tokens[:, None], cfg), pos[:, None], cfg)
     use_peer = harvest_inplace and state.peer is not None
     states = state.states
+
+    def shared_attend(j, u, lp):
+        if split is not None:
+            u = all_gather(u, split[1], split[2])
+        a = _decode_attn_sublayer(u, lp, cfg, state, j, use_peer, rules)
+        return (a if split is None else a[split[0]]), None
+
     if cfg.family == "hybrid":
-        x, _, states = _hybrid_layers(
-            params, x, cfg, state.states, True,
-            lambda j, u: (_decode_attn_sublayer(
-                u, params["shared_attn"], cfg, state, j, use_peer, rules),
-                None))
+        x, _, states = _hybrid_layers(params, x, cfg, state.states, True,
+                                      shared_attend)
     elif cfg.family == "ssm":
         x, states = _xlstm_layers(params, x, cfg, state.states, True)
     else:
@@ -582,5 +638,7 @@ def serve_step(params, state: DecodeState, cfg: ModelConfig,
                 _keeps_sum(cfg, i), rules)
     logits = unembed(params, x, cfg)[:, 0]
     new_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+    if split is not None:
+        new_tokens = all_gather(new_tokens, split[1], split[2])
     return logits, state._replace(tokens=new_tokens, pos=state.pos + 1,
                                   states=states)

@@ -8,9 +8,11 @@ The JAX package hands the rules to GSPMD, which splits every annotated
 tensor and inserts the collectives.  Eager PyTorch has no such compiler:
 here the rules serve the explicit multi-rank paths alone (the decode step's
 KV pool sharded over ``kv_blocks``, expert parallelism over ``act_batch``
-and ``experts``; in training also each parameter leaf and its AdamW
-moments split as :func:`train_spec` says), which split their tensors and
-call the collectives themselves (``repro_torch.core.collectives``).
+and ``experts``, the recurrent states' rows over ``act_batch``; in
+training and prefill also each rank's rows (:func:`batch_rows`) and each
+parameter leaf and its AdamW moments split as :func:`train_spec` says),
+which split their tensors and call the collectives themselves
+(``repro_torch.core.collectives``).
 """
 from __future__ import annotations
 
@@ -116,6 +118,30 @@ def train_spec(rules: Optional[ShardingRules], axes, shape) -> tuple:
     spec = logical_to_spec(rules, *axes, shape=shape)
     return tuple(ax if name in TRAIN_SPLITS else None
                  for ax, name in zip(spec, axes))
+
+
+def batch_rows(rules: ShardingRules, b: int) -> Optional[slice]:
+    """The rows of a global batch of ``b`` that this rank computes: its
+    share along ``act_batch`` (the same on every rank of one data index),
+    or None where the rows do not divide over that axis, as
+    ``logical_to_spec`` drops an axis that does not divide: every rank
+    then runs every row."""
+    ax = rules.axis("act_batch")
+    n = rules.axis_size(ax)
+    if b % n:
+        return None
+    k = b // n
+    i = rules.mesh.axis_index(ax)
+    return slice(i * k, (i + 1) * k)
+
+
+def strip_stacked(node, n: int):
+    """A spec tree of stacked leaves with their ``n`` leading stack dims
+    (never split) dropped: the split of one slice of the stack (one
+    layer; one (super-block, block) of xLSTM's mLSTM stack)."""
+    if isinstance(node, dict):
+        return {k: strip_stacked(v, n) for k, v in node.items()}
+    return node[n:]
 
 
 def shard_slices(rules: ShardingRules, spec, shape) -> tuple:

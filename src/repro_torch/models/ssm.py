@@ -84,9 +84,14 @@ def _ssd_chunked(xh, dt, A, B, C, chunk: int, s0=None):
     for c in range(nchunks):
         xq, dtq, Bq, Cq = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c]
         cum = torch.cumsum(dtq * A, dim=1)                 # (b,q,nh) log-decay
-        # intra-chunk: L[i,j] = exp(cum_i - cum_j), j <= i
+        # intra-chunk: L[i,j] = exp(cum_i - cum_j), j <= i.  The masked
+        # (j > i) differences are set to -inf before the exp, not after:
+        # they grow with the chunk past exp's range, and an inf there,
+        # selected away, would still give a NaN gradient (0 * inf); the
+        # values are the JAX package's ``where(mask, exp(diff), 0)``
         diff = cum[:, :, None, :] - cum[:, None, :, :]     # (b,i,j,nh)
-        Lm = torch.where(mask[None, :, :, None], torch.exp(diff), 0.0)
+        Lm = torch.exp(torch.where(mask[None, :, :, None], diff,
+                                   float("-inf")))
         CB = torch.einsum("bin,bjn->bij", Cq, Bq)
         w = Lm * CB[..., None] * dtq[:, None]              # (b,i,j,nh)
         y_intra = torch.einsum("bijh,bjhd->bihd", w, xq)

@@ -5,10 +5,13 @@ unsharded path of ``repro.models.xlstm``.
 mLSTM uses the stabilized chunkwise form (log-space gate accumulation with a
 running max ``m``), carrying only chunk-boundary states.  The single-step
 recurrence (``mlstm_step``) is the decode path and the oracle the chunkwise
-form is tested against.  The JAX package's scans are loops here, and its
-sLSTM ``shard_map`` branch (the multi-device path) is not ported.  There is
-no Pallas kernel for these blocks in the JAX package: they are plain
-PyTorch on every device.
+form is tested against.  The JAX package's scans are loops here.  On a
+mesh each rank runs these blocks over its own rows (``models.model``),
+which is what the JAX package's sLSTM ``shard_map`` over the batch does;
+the gradient of ``w_rec``, reduced once at that region's exit there, is
+summed over the batch's ranks once a step with the other leaves no axis
+splits (``train.optim._sync_grads``).  There is no Pallas kernel for
+these blocks in the JAX package: they are plain PyTorch on every device.
 
 Recurrent state is Harvest's "lossy + reconstructible" durability class.
 """
