@@ -125,8 +125,10 @@ Phases (any failure raises and the script exits non-zero):
      printed); a decode step from zero states and a 40-token prefill
      profiled;
  12. sharded decode: two ranks (``launch``; NCCL where there are two
-     cards, else gloo on the one) on the mesh (data 1, model 2) decode
-     full-width yi-6b (4 rows over 24 slots of 8, 12 a rank; in fetch
+     cards, else gloo on the one) on the mesh (data 1, model 2), tensor
+     parallel over model, decode full-width yi-6b, h2o-danube-3-4b and
+     phi-tiny-moe at 4 layers each (``SHARD_LAYERS``, cut for the run's
+     time) (yi-6b 4 rows over 24 slots of 8, 12 a rank; in fetch
      mode, and in place with each row's first block on a peer pool split
      the same way), h2o-danube-3-4b (rows at 5,999 and 4,700 over 800
      slots of 16, 400 a rank) and phi-tiny-moe (8 of 16 experts a rank) 8
@@ -138,7 +140,8 @@ Phases (any failure raises and the script exits non-zero):
      phi-tiny-moe's rows its router sent elsewhere by itself named, its
      steps then held replayed under the unsharded routing; per rank the
      step's wall, one profiled step's device-busy ms and the collectives'
-     host ms and share;
+     host ms and share, the rank's parameter GiB against the whole
+     model's and tensor parallelism's collectives a step;
  13. musicgen-medium whole (48 layers, 1.38 B parameters, bf16) at model
      level: 4 rows of 64 conditioning embeddings and 250-1,500 audio
      frames, each prefilled alone through K4 and placed into 16-token
@@ -166,30 +169,34 @@ Phases (any failure raises and the script exits non-zero):
      handed a tensor that requires grad, and K7's gradient must arrive;
  15. sharded training: four ranks (``launch``; NCCL where there are four
      cards, else gloo on the one) on the mesh (data 2, model 2), FSDP over
-     data and the experts over model: reduced phi-tiny-moe (2 of 4 experts
+     data, the experts and tensor parallelism over model (the rank's
+     parameter GiB against the whole model's and tensor parallelism's
+     collectives printed): reduced phi-tiny-moe (2 of 4 experts
      a rank) and reduced yi-6b trained two AdamW steps on the card and on
      the CPU over that mesh, f32 and bf16 (held as phase 4 holds one rank,
      every tree gathered whole); then phi-tiny-moe at full width (its row
      and depth cut to fit four ranks on one card, its depth then for the
      run's time, the cuts printed), each
-     rank drawing its shard of the seed's weights, 2 steps of the global
-     batch timed and one profiled on every rank at once; per rank the step
+     rank drawing its shard of the seed's weights, one step of the global
+     batch timed and profiled on every rank at once; per rank the step
      walls, global tokens/s, peak memory, the collectives' calls, host ms
      and share of the wall, K4's and K7's launches a step (asserted), the
      whole leaves equal across ranks after each step, the device-busy ms
-     of the profiled step; a checkpoint of the ranks' shards at two
-     layers saved (gathered in pieces, rank 0 writing, no rank's device
+     of the profiled step; a checkpoint of the ranks' shards at one
+     layer saved (gathered in pieces, rank 0 writing, no rank's device
      growing by half the whole tree) and restored re-sharded bit for bit;
      step 0's loss and grad_norm held against the unsharded ``train_step``
      of the same weights and rows after the ranks end;
- 16. the recurrent families on the same four ranks: zamba2-7b (all 81
-     layers) and xlstm-1.3b (all 48) decode 8 steps sharded (each rank its
+ 16. the recurrent families on the same four ranks, zamba2-7b's shared
+     block tensor-parallel: zamba2-7b at 21 layers and xlstm-1.3b at 24
+     (``RECURRENT_DECODE_LAYERS``) decode 8 steps sharded (each rank its
      rows of the recurrent states, zamba2's KV slots over both axes, K1
-     at its 13 KV layers) against 8 unsharded steps, from the states and
+     at its KV layers) against 8 unsharded steps, from the states and
      KV of each row's own prefill: the rank's rows' logits, states and
      appended KV held, the tokens whole; zamba2-7b at 15 layers prefills
-     4 x 1,024 tokens from its FSDP shards against the unsharded prefill
-     of the same rows (K4 2 launches); zamba2-7b at 15 layers (2 x 4,096
+     4 x 1,024 tokens from its FSDP shards, tensor-parallel, against the
+     unsharded prefill of the same rows (K4 2 launches); zamba2-7b at 8
+     layers (2 x 4,096
      tokens) and xlstm-1.3b at 8 (2 x 256) trained one step, timed and
      profiled at once (the cuts printed), step 0 held against the unsharded
      ``loss_fn``; the dry run of these steps counted on the host
@@ -256,6 +263,7 @@ from repro_torch.launch.mesh import Mesh, launch, make_rules  # noqa: E402
 from repro_torch.launch.op_analysis import (  # noqa: E402
     _warm_lazy_imports, count as op_count)
 from repro_torch.launch.specs import build_step  # noqa: E402
+from repro_torch.models import layers as LAYERS  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.sharding import (  # noqa: E402
@@ -1575,6 +1583,69 @@ def moe_bwd_case(label, xd, w, dout, activation, time=True):
                  f"{12 * rows * d * f / 1e9:.1f} GFLOP)")
     print(line)
     return row, fwd_row
+
+
+#: tensor parallelism's row-parallel products at zamba2-7b's prefill
+#: shape on one of two ``model`` ranks (2 x 1,024 rows): case -> (rows,
+#: the rank's share of the contraction, out)
+ROW_PARALLEL_CASES = {"attention out": (2048, 16 * 112, 3584),
+                      "MLP down": (2048, 7168, 3584)}
+
+
+def check_row_parallel():
+    """``layers.row_parallel`` on the card (bf16 operands, an f32
+    output: ``torch.mm(..., out_dtype=)`` and its backward in bf16)
+    against the operands widened, as the CPU computes it: the output
+    within 1e-5 of its largest entry (f32 sums in another order), each
+    operand's gradient within one bf16 step of its largest entry (a
+    bf16-valued upstream gradient, each rounded once); both timed,
+    forward and forward with backward, beside the unsplit bf16 product.
+    Returns the numbers; raises if a reading is off."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    out = {}
+    for case, (m, k, n) in ROW_PARALLEL_CASES.items():
+        a = (torch.randn((m, k), generator=gen, device="cuda") * 0.5).to(
+            torch.bfloat16).requires_grad_(True)
+        w = (torch.randn((k, n), generator=gen, device="cuda") * 0.02).to(
+            torch.bfloat16).requires_grad_(True)
+        g = torch.randn((m, n), generator=gen, device="cuda").to(
+            torch.bfloat16).float()
+
+        def card():
+            return LAYERS.row_parallel(a, w, 1)
+
+        def widened():
+            return a.float() @ w.float()
+
+        def both(fn):
+            y = fn()
+            return (y, *torch.autograd.grad(y, (a, w), g))
+
+        got, want = both(card), both(widened)
+        errs = [_rel(x.float(), y.float()) for x, y in zip(got, want)]
+        assert got[0].dtype == torch.float32, got[0].dtype
+        assert errs[0] <= 1e-5 and max(errs[1:]) <= 2.0 ** -7, (case, errs)
+        with torch.no_grad():
+            ms = dict(ms=time_ms(card, iters=20, warmup=3)[0],
+                      widened_ms=time_ms(widened, iters=20, warmup=3)[0],
+                      unsplit_ms=time_ms(lambda: torch.cat(
+                          [a, a], 1) @ torch.cat([w, w], 0), iters=20,
+                          warmup=3)[0])
+        ms["with_backward_ms"] = time_ms(lambda: both(card), iters=10,
+                                         warmup=2)[0]
+        ms["widened_with_backward_ms"] = time_ms(lambda: both(widened),
+                                                 iters=10, warmup=2)[0]
+        out[case] = dict(shape=[m, k, n], rel_errs=errs, **ms)
+        print(f"row-parallel product, {case} ({m} x {k} x {n}, bf16, f32 "
+              f"out): output, dA, dW apart from the widened product by "
+              f"{[f'{e:.2e}' for e in errs]} of each largest entry "
+              f"(tolerance 1e-5, 2^-7); {ms['ms']:.4f} ms (widened "
+              f"{ms['widened_ms']:.4f}, the unsplit bf16 product of twice "
+              f"the contraction {ms['unsplit_ms']:.4f}); with its backward "
+              f"{ms['with_backward_ms']:.4f} ms (widened "
+              f"{ms['widened_with_backward_ms']:.4f})")
+        del a, w, g, got, want
+    return out
 
 
 def check_moe_ffn_bwd(phi, qwen, dbrx):
@@ -3320,6 +3391,27 @@ SHARD_CASES = {
 }
 
 
+def _tp_tagged():
+    """(calls, host ms) of tensor parallelism's collectives since the
+    stats were last reset (``collectives.tagged``)."""
+    calls, sec = collectives.stats["tagged"].get(
+        collectives.TENSOR_PARALLEL, (0, 0.0))
+    return calls, sec * 1e3
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+#: the sharded decode cases' depth, cut for the run's time: tensor
+#: parallelism's collectives doubled a step's wall over gloo (yi-6b 232-365
+#: ms at 32 layers before, 647-696 ms with them, an H100 80GB HBM3, 700 W);
+#: then from 8 to 4 layers, to pay for the served paths' and
+#: musicgen-medium's whole depths (a whole run at 8 took 805 s, the
+#: phase 59.4 s, against 820)
+SHARD_LAYERS = {"yi-6b": 4, "h2o-danube-3-4b": 4, PHI_TINY: 4}
+
+
 def _same_on_ranks(tensors, what):
     """Every rank holds the same ``tensors`` (each one's sum, taken in
     f32 without a widened copy, compared over the world)."""
@@ -3331,7 +3423,7 @@ def _same_on_ranks(tensors, what):
         f"the ranks' {what} differ"
 
 
-def _lockstep_profile(step, rank, world, iters=3, warmup=2):
+def _lockstep_profile(step, rank, world, iters=2, warmup=2):
     """(wall ms per step, device rows per step, the collectives' host ms
     per step) of ``step``, which every rank calls in lockstep (it holds
     collectives): the wall and the time inside the collectives over
@@ -3443,6 +3535,7 @@ def _sharded_case(case, cfg, params, rules, rank, world):
     sharded_ms = (time.perf_counter() - t0) * 1e3 / SHARD_STEPS
     launches = {name: fn.launches for name, fn in COUNTERS.items()}
     coll_calls = collectives.stats["calls"] // SHARD_STEPS
+    tp_calls, tp_ms = _tp_tagged()
     # an MoE model's rows that the sharded run routed otherwise: each in
     # the first step a near tie the runs' roundings explain; then the
     # sharded steps again under the unsharded routing, and these are held
@@ -3526,7 +3619,8 @@ def _sharded_case(case, cfg, params, rules, rank, world):
     nccl = sum(ms for n, ms in rows if "nccl" in n.lower())
     copies = sum(ms for n, ms in rows if "Memcpy" in n)
     owned = int((st_r.kv.slot_req >= 0).sum())
-    return dict(positions=list(pos), vectors=SHARD_STEPS * b, slots=slots,
+    return dict(layers=cfg.num_layers, positions=list(pos),
+                vectors=SHARD_STEPS * b, slots=slots,
                 slots_here=n_loc,
                 owned_here=owned, steps=SHARD_STEPS, launches=launches,
                 experts_here=experts, max_abs_err=err,
@@ -3536,7 +3630,12 @@ def _sharded_case(case, cfg, params, rules, rank, world):
                            r, round(g, 6)) for i, r, g in rerouted],
                 max_abs_err_own_routing=routed_err, problems=problems,
                 sharded_loop_ms=sharded_ms, unsharded_loop_ms=unsharded_ms,
-                collectives_per_step=coll_calls, wall_ms=wall, busy_ms=busy,
+                collectives_per_step=coll_calls,
+                tp_collectives_per_step=tp_calls // SHARD_STEPS,
+                tp_collectives_ms=tp_ms / SHARD_STEPS,
+                param_bytes_here=_tree_bytes(p_r),
+                param_bytes_whole=_tree_bytes(params),
+                wall_ms=wall, busy_ms=busy,
                 k1_ms=k1, k7_ms=k7, collectives_ms=coll_ms,
                 collectives_share=coll_ms / wall, nccl_ms=nccl,
                 memcpy_ms=copies, top=[(n[:50], round(ms, 4))
@@ -3555,7 +3654,8 @@ def sharded_rank(rank, world, backend):
     rules = make_rules(Mesh(*SHARD_MESH))
     out = {}
     for arch in dict.fromkeys(a for a, *_ in SHARD_CASES.values()):
-        cfg = get_config(arch)
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=SHARD_LAYERS[arch])
         params = M.init_params(cfg, torch.Generator(device="cuda")
                                .manual_seed(SEED), "cuda")
         _same_on_ranks(tree_leaves(params), f"{arch} weights")
@@ -3598,7 +3698,10 @@ def sharded_phase():
         numbers[case] = [dict(r[case], transport=backend) for r in ranks]
         for rank, n in enumerate(numbers[case]):
             paths[f"{case} sharded, rank {rank}"] = n["launches"]
-            print(f"{case} sharded, rank {rank}: {n['slots_here']} of "
+            print(f"{case} sharded, rank {rank}: {n['layers']} of "
+                  f"{get_config(SHARD_CASES[case][0]).num_layers} layers "
+                  f"(cut for the run's time, SHARD_LAYERS); "
+                  f"{n['slots_here']} of "
                   f"{n['slots']} slots ({n['owned_here']} owned), rows at "
                   f"{n['positions']}; {n['steps']} steps: K1 "
                   f"{n['launches']['paged_decode_partials']}, K7 "
@@ -3627,6 +3730,13 @@ def sharded_phase():
                   f"collectives a step, {n['collectives_ms']:.2f} ms host "
                   f"({100 * n['collectives_share']:.1f}% of the wall); "
                   f"largest rows {n['top']}")
+            print(f"{case} sharded, rank {rank}: tensor parallelism over "
+                  f"model: {n['param_bytes_here'] / 2 ** 30:.3f} GiB of "
+                  f"parameters held against the whole model's "
+                  f"{n['param_bytes_whole'] / 2 ** 30:.3f}; its "
+                  f"collectives {n['tp_collectives_per_step']} a step, "
+                  f"{n['tp_collectives_ms']:.2f} ms host a step (the step "
+                  f"loop's)")
     problems = [(case, rank, p) for case, ns in numbers.items()
                 for rank, n in enumerate(ns) for p in n.pop("problems")]
     assert not problems, problems
@@ -3652,9 +3762,15 @@ TRAIN_MESH = ((2, 2), ("data", "model"))
 #: call to the next (an H100 80GB HBM3, 700 W).  Not 6: there step 0's
 #: nll read 0.0109 from the unsharded one, past ``SHARDED_LOSS_TOL``, for
 #: the drops each data shard makes by design (0.0039 at 24 layers, 0.0064
-#: at 12).  Its timed steps cut from 3 to 2 for the same reason
-SHARDED_ROWS, SHARDED_SEQ, SHARDED_STEPS = 2, 4096, 2
-SHARDED_LAYERS = 12
+#: at 12).  Its timed steps cut from 3 to 2 for the same reason.  Then,
+#: to pay for tensor parallelism's collectives, from 12 to 10 layers and
+#: to one step, timed and profiled at once: a whole run took 883 s against
+#: 820, its four gloo ranks' phase 247.1 s, phi-tiny-moe's 12-layer steps
+#: 22.0 and 26.9 s beside a 20.9 s lossless pass (an H100 80GB HBM3,
+#: 700 W); step 0's nll gap, about 0.0016 + 0.056 / layers over the
+#: depths above, reads about 0.0072 at 10
+SHARDED_ROWS, SHARDED_SEQ, SHARDED_STEPS = 2, 4096, 1
+SHARDED_LAYERS = 10
 #: the row and the depth that the cuts left
 SHARDED_SEQ_FULL = 8192
 
@@ -3753,10 +3869,10 @@ def _sharded_full_width(rules, rank, world):
     """phi-tiny-moe at full width (``_sharded_cfg``) on this rank: its
     shard drawn from the seed
     (``init_params(..., rules)``), ``SHARDED_STEPS`` steps of the global
-    batch timed (the ranks start each together), the launch counts set to
-    0 just before them and read just after, the whole leaves checked
-    equal across the ranks after each step; then one step profiled on
-    every rank at once.  Returns its numbers."""
+    batch timed (the ranks start each together), the last of them under
+    the profiler on every rank at once, the launch counts set to 0 just
+    before them and read just after, the whole leaves checked equal
+    across the ranks after each step.  Returns its numbers."""
     cfg = _sharded_cfg()
     n_here, state = _shard_reckoning(cfg, rules)
     gc.collect()
@@ -3772,6 +3888,7 @@ def _sharded_full_width(rules, rank, world):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     held = torch.cuda.memory_allocated()
+    held_params = _tree_bytes(params)
     specs = _spec_leaves(M.param_specs(cfg, rules))
     batches = make_batches(SyntheticCorpus(vocab_size=cfg.vocab_size,
                                            seed=SEED), SHARDED_ROWS,
@@ -3790,21 +3907,35 @@ def _sharded_full_width(rules, rank, world):
     print(f"sharded training, rank {rank}: step 0's gradient norm without "
           f"the gaps by design {alike['grad_norm']:.6f}, "
           f"{time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
+    # the peak the dry run predicts is the step's: taken from here (that
+    # pass's lossless capacity dispatches more rows than a step's)
+    torch.cuda.reset_peak_memory_stats()
     for fn in COUNTERS.values():
         fn.launches = 0
     walls, hist, coll = [], [], []
+    prof = None
     for step in range(SHARDED_STEPS):
         b = steps[step]
         cur_lr = cosine_lr(step, base=3e-4, warmup=100, total=1000)
         torch.cuda.synchronize()
         torch.distributed.barrier()
         collectives.reset_stats()
-        t0 = time.perf_counter()
-        params, opt, m = train_step(params, opt, b, cfg, rules, lr=cur_lr)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+        out = []
+
+        def one(b=b, lr=cur_lr):
+            t0 = time.perf_counter()
+            out.append(train_step(params, opt, b, cfg, rules, lr=lr))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+
+        # the last step runs under the profiler on every rank at once
+        if step == SHARDED_STEPS - 1:
+            prof = profiled(one, 1)
+        else:
+            one()
+        params, opt, m = out[0]
         coll.append((collectives.stats["calls"],
-                     collectives.stats["seconds"]))
+                     collectives.stats["seconds"], *_tp_tagged()))
         vals = {k: float(v) for k, v in m.items()}
         print(f"sharded training, rank {rank}: step {step} "
               f"{walls[-1]:.1f} s, loss {vals['loss']:.5f}, peak "
@@ -3819,10 +3950,6 @@ def _sharded_full_width(rules, rank, world):
     problems = [] if launches == expect else \
         [f"launches {launches}, predicted {expect}"]
     peak = torch.cuda.max_memory_allocated()
-    b = next_batch()
-    torch.distributed.barrier()
-    prof = profiled(lambda: train_step(params, opt, b, cfg, rules,
-                                       lr=cur_lr), 1)
     rows = device_rows(prof, 1)
     busy = sum(ms for _, ms in rows)
     if not busy:
@@ -3832,8 +3959,8 @@ def _sharded_full_width(rules, rank, world):
              "k7_backward_ms": ("moe_bwd_",)}
     parts = {k: sum(ms for n, ms in rows if any(w in n for w in v))
              for k, v in split.items()}
-    steady = float(np.mean(walls[1:]))
-    del params, opt, b, steps
+    steady = float(np.mean(walls[1:] or walls))
+    del params, opt, steps, prof
     gc.collect()
     torch.cuda.empty_cache()
     return dict(
@@ -3843,9 +3970,13 @@ def _sharded_full_width(rules, rank, world):
         steady_step_ms=steady * 1e3,
         tokens_per_s=SHARDED_ROWS * SHARDED_SEQ / steady,
         peak_gib=peak / 2 ** 30, launches=launches,
-        collectives_per_step=[c for c, _ in coll],
-        collectives_ms=[sec * 1e3 for _, sec in coll],
-        collectives_share=[sec / w for (_, sec), w in zip(coll, walls)],
+        collectives_per_step=[c[0] for c in coll],
+        collectives_ms=[c[1] * 1e3 for c in coll],
+        collectives_share=[c[1] / w for c, w in zip(coll, walls)],
+        tp_collectives_per_step=[c[2] for c in coll],
+        tp_collectives_ms=[c[3] for c in coll],
+        param_bytes_here=held_params,
+        param_bytes_whole=_tree_bytes(M.abstract_params(cfg)),
         device_busy_ms=busy, busy_share=busy / (steady * 1e3), **parts,
         top=[(n[:60], round(ms, 3)) for n, ms in rows[:6]],
         losses=[h["loss"] for h in hist], nll=[h["nll"] for h in hist],
@@ -3856,8 +3987,9 @@ def _sharded_full_width(rules, rank, world):
 
 #: the checkpoint check's model: phi-tiny-moe at full width and this many
 #: layers (a stack of layers to move in pieces), its moments made from its
-#: weights
-CKPT_LAYERS = 2
+#: weights; cut from 2 to 1 for the run's time (saved in 18.3 s and
+#: restored in 21.6 s at 2 in a run of 883 s, an H100 80GB HBM3, 700 W)
+CKPT_LAYERS = 1
 
 
 def _sharded_checkpoint(rules, rank, path):
@@ -4018,8 +4150,8 @@ def sharded_training_phase():
               f"tokens a step, {cfg.num_layers} layers ({_sharded_cut(cfg)})"
               f"; step walls "
               f"{[round(w, 1) for w in nums['step_ms']]} ms, "
-              f"{nums['tokens_per_s']:.0f} tokens/s (global, steps 1-"
-              f"{nums['steps'] - 1}); peak memory {nums['peak_gib']:.2f} GiB; "
+              f"{nums['tokens_per_s']:.0f} tokens/s (global, steps "
+              f"{min(1, nums['steps'] - 1)}-{nums['steps'] - 1}); peak memory {nums['peak_gib']:.2f} GiB; "
               f"collectives a step {nums['collectives_per_step']}, host ms "
               f"{[round(c, 1) for c in nums['collectives_ms']]} "
               f"({', '.join(f'{100 * c:.1f}%' for c in shares)} of the "
@@ -4032,7 +4164,12 @@ def sharded_training_phase():
               f"forward {nums['k4_forward_ms']:.1f}, backward "
               f"{nums['k4_backward_ms']:.1f}, K7 forward "
               f"{nums['k7_forward_ms']:.1f}, backward "
-              f"{nums['k7_backward_ms']:.1f} ms; losses "
+              f"{nums['k7_backward_ms']:.1f} ms; tensor parallelism over "
+              f"model: {nums['param_bytes_here'] / 2 ** 30:.3f} GiB of "
+              f"parameters held against the whole model's "
+              f"{nums['param_bytes_whole'] / 2 ** 30:.3f}, its collectives "
+              f"{nums['tp_collectives_per_step']} a step, host ms "
+              f"{[round(c, 1) for c in nums['tp_collectives_ms']]}; losses "
               f"{[round(x, 5) for x in nums['losses']]}, nll "
               f"{[round(x, 5) for x in nums['nll']]}, aux "
               f"{[round(x, 5) for x in nums['aux']]}, grad_norm "
@@ -4113,19 +4250,22 @@ RECURRENT_STATE_REL = 2.0 ** -4
 #: zamba2-7b's prefill on the mesh: 4 rows of 1,024 tokens (two a data
 #: index), held to the unsharded prefill of the same weights and rows:
 #: each rank's rows of the last logits, the KV and the final states.  Its
-#: depth cut from 81 to the training path's 15 layers (two super-blocks
-#: and a tail of three, as at 81) for the run's time: at 81 layers its 83
-#: all-gathers over gloo took 14.3-14.7 s of a 15.7-16.1 s prefill (an
-#: H100 80GB HBM3, 700 W), and the weights' bytes follow the depth
+#: depth cut from 81 to 15 layers (two super-blocks and a tail of three,
+#: as at 81) for the run's time: at 81 layers its 83 all-gathers over gloo
+#: took 14.3-14.7 s of a 15.7-16.1 s prefill (an H100 80GB HBM3, 700 W),
+#: and the weights' bytes follow the depth
 RECURRENT_PREFILL_ROWS, RECURRENT_PREFILL_SEQ = 4, 1024
 RECURRENT_PREFILL_LAYERS = 15
 #: largest |sharded - unsharded| of those, over each tensor's largest
-#: entry: 2 to 4 bf16 ulps of it (an ulp of a bf16 x is 2^-8 to 2^-7 of
-#: |x|).  Measured on an H100 80GB HBM3 (700 W): 0 for every tensor in
-#: six runs (each rank multiplies its two rows of 1,024 tokens as the
-#: unsharded prefill multiplies four, with the same algorithms); another
-#: data index's rows read far above it (``wrong_cut_rel``)
-RECURRENT_PREFILL_REL = 2.0 ** -6
+#: entry, with tensor parallelism over ``model`` (the default rules), as
+#: the recurrent states of decode are held (``RECURRENT_STATE_REL``): the
+#: shared block's row-parallel products are summed over the ranks in
+#: another order than one product's, so a few of their bf16 roundings
+#: fall the other way, and the Mamba2 layers after carry them (measured
+#: at 15 layers on an H100 80GB HBM3, 700 W: 0.0089-0.0204 of a tensor's
+#: largest entry, the conv state's the largest; without tensor
+#: parallelism the prefill came bit for bit and was held at 2^-6)
+RECURRENT_PREFILL_TP_REL = 2.0 ** -4
 #: training on the mesh: 2 rows a step (one a data index), the steps
 #: timed and one profiled; arch -> (layers, tokens a row).  Cuts, in the
 #: order the sequence, then the depth, each reckoned with the dry run of
@@ -4146,12 +4286,21 @@ RECURRENT_PREFILL_REL = 2.0 ** -6
 #: HBM3, 700 W).  For the same reason each family trains one step, timed
 #: and profiled at once, not two timed and a third profiled: zamba2-7b's
 #: second step took 14.4-24.8 s
-RECURRENT_TRAIN = {XLSTM: (8, 256), ZAMBA2: (15, 4096)}
+#: zamba2-7b then from 15 to 8 layers for the run's time (one shared
+#: block, tensor-parallel, at layer 6): its 15-layer step took 31.6 s with
+#: tensor parallelism's collectives (an H100 80GB HBM3, 700 W)
+RECURRENT_TRAIN = {XLSTM: (8, 256), ZAMBA2: (8, 4096)}
 #: why each recurrent training path's depth was cut
 RECURRENT_DEPTH_WHY = {
     XLSTM: "48 -> 40 layers: four ranks reckoned past the card uncut; 40 "
            "-> 8 for the run's time",
-    ZAMBA2: "four ranks reckoned past the card uncut"}
+    ZAMBA2: "81 -> 15 layers: four ranks reckoned past the card uncut; "
+            "15 -> 8 for the run's time"}
+#: the recurrent families' decode on the mesh, cut for the run's time
+#: (tensor parallelism's collectives: zamba2-7b's sharded step 824-866 ms
+#: at 81 layers, an H100 80GB HBM3, 700 W): zamba2-7b to 21 layers (3 of
+#: its 13 shared-block uses), xlstm-1.3b to 24 (3 of its 6 super-blocks)
+RECURRENT_DECODE_LAYERS = {ZAMBA2: 21, XLSTM: 24}
 RECURRENT_TRAIN_ROWS, RECURRENT_TRAIN_STEPS = 2, 1
 RECURRENT_TRAIN_SEQ_FULL = 4096
 
@@ -4159,6 +4308,11 @@ RECURRENT_TRAIN_SEQ_FULL = 4096
 def _recurrent_prefill_cfg():
     return dataclasses.replace(get_config(ZAMBA2),
                                num_layers=RECURRENT_PREFILL_LAYERS)
+
+
+def _recurrent_decode_cfg(arch):
+    return dataclasses.replace(get_config(arch),
+                               num_layers=RECURRENT_DECODE_LAYERS[arch])
 
 
 def _recurrent_train_cfg(arch):
@@ -4307,6 +4461,13 @@ def _recurrent_decode(arch, cfg, params, rules, rank, world):
     sharded_ms = (time.perf_counter() - t0) * 1e3 / SHARD_STEPS
     launches = {name: fn.launches for name, fn in COUNTERS.items()}
     coll_calls = collectives.stats["calls"] // SHARD_STEPS
+    tp_calls, tp_ms = _tp_tagged()
+    print(f"{arch} sharded decode, rank {rank}: tensor parallelism over "
+          f"model: {_tree_bytes(p_r) / 2 ** 30:.3f} GiB of parameters held "
+          f"against the whole model's {_tree_bytes(params) / 2 ** 30:.3f}; "
+          f"its collectives {tp_calls // SHARD_STEPS} a step, "
+          f"{tp_ms / SHARD_STEPS:.2f} ms host a step", file=sys.stderr,
+          flush=True)
     problems = []
     want_k1 = L * SHARD_STEPS
     if launches["paged_decode_partials"] != want_k1 or any(
@@ -4423,8 +4584,10 @@ def _recurrent_prefill(cfg, box, rules, rank):
     its block of the same draws), ``prefill(..., rules)``, the launch
     counts set to 0 just before it and read just after, its peak taken
     from there.  Held: the rank's rows of the last logits, the KV and the
-    final states within ``RECURRENT_PREFILL_REL`` of each tensor's largest
-    entry; K4 once a KV layer.  The peak is the prefill's over what the
+    final states within ``RECURRENT_PREFILL_TP_REL`` of each tensor's
+    largest entry (the default rules, tensor-parallel over ``model``,
+    whose launches, collectives and peak the dry run predicts); K4 once a
+    KV layer.  The peak is the prefill's over what the
     rank held besides its arguments (the earlier parts' leftovers, the
     kernels' cached workspaces), as the dry run counts it.  Returns its
     numbers."""
@@ -4463,6 +4626,8 @@ def _recurrent_prefill(cfg, box, rules, rank):
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated() - sum(
         t.numel() * t.element_size() for t in batch.values())
+    problems = []
+    bound = RECURRENT_PREFILL_TP_REL
     shards = M.init_params(cfg, torch.Generator(device="cuda")
                            .manual_seed(SEED), "cuda", rules=rules)
     torch.cuda.synchronize()
@@ -4477,34 +4642,36 @@ def _recurrent_prefill(cfg, box, rules, rank):
     wall = (time.perf_counter() - t0) * 1e3
     launches = {name: fn.launches for name, fn in COUNTERS.items()}
     peak = torch.cuda.max_memory_allocated() - base
-    coll = (collectives.stats["calls"], collectives.stats["seconds"] * 1e3)
+    coll = (collectives.stats["calls"], collectives.stats["seconds"] * 1e3,
+            *_tp_tagged())
     got = [last] + list(out.kv) + [t for t, _ in
                                    _state_leaves(cfg, out.states)]
-    problems = []
     errs = [_rel(g.cpu(), w) if g.shape == w.shape else float("inf")
             for g, w in zip(got, ref)]
-    if max(errs) > RECURRENT_PREFILL_REL:
-        problems.append(f"prefill {errs} apart")
+    if max(errs) > bound:
+        problems.append(f"prefill: {errs} apart")
     # another data index's rows: the least of the tensors' readings, so
     # that each tensor's check could tell a wrong cut
     wrong = None if other is None else min(
         _rel(g.cpu(), w) for g, w in zip(got, ref_wrong))
-    if wrong is not None and wrong <= RECURRENT_PREFILL_REL:
-        problems.append(f"another data index's rows read {wrong}: the "
-                        f"bound cannot tell a wrong row cut")
+    if wrong is not None and wrong <= bound:
+        problems.append(f"prefill: another data index's rows read {wrong}: "
+                        f"the bound cannot tell a wrong row cut")
     want_k4 = M.num_kv_layers(cfg)
     if launches["prefill_attention"] != want_k4 or any(
             n for k, n in launches.items() if k != "prefill_attention"):
-        problems.append(f"launches {launches}, K4 predicted {want_k4}")
+        problems.append(f"prefill: launches {launches}, K4 predicted "
+                        f"{want_k4}")
     del shards, last, out, got, ref, ref_wrong
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(rows=RECURRENT_PREFILL_ROWS, seq=RECURRENT_PREFILL_SEQ,
-                layers=cfg.num_layers, rows_here=[rows.start, rows.stop], wall_ms=wall,
-                launches=launches, peak_gib=peak / 2 ** 30,
+    return dict(wall_ms=wall, launches=launches, peak_gib=peak / 2 ** 30,
                 collectives=coll[0], collectives_ms=coll[1],
-                rel_errs=[round(e, 6) for e in errs], wrong_cut_rel=wrong,
-                problems=problems)
+                tp_collectives=coll[2], tp_collectives_ms=coll[3],
+                bound=bound, rel_errs=[round(e, 6) for e in errs],
+                wrong_cut_rel=wrong, rows=RECURRENT_PREFILL_ROWS,
+                seq=RECURRENT_PREFILL_SEQ, layers=cfg.num_layers,
+                rows_here=[rows.start, rows.stop], problems=problems)
 
 
 def _differing_leaves(params, specs):
@@ -4592,9 +4759,14 @@ def _recurrent_training(arch, rules, rank):
         params, opt, m = out[0]
         coll.append((collectives.stats["calls"],
                      collectives.stats["seconds"]))
+        tp_calls, tp_ms = _tp_tagged()
         vals = {k: float(v) for k, v in m.items()}
         print(f"{arch} sharded training, rank {rank}: step {step} "
-              f"{walls[-1]:.1f} s, loss {vals['loss']:.5f}, peak "
+              f"{walls[-1]:.1f} s, tensor parallelism's collectives "
+              f"{tp_calls} ({tp_ms:.0f} ms host), parameters held "
+              f"{_tree_bytes(params) / 2 ** 30:.3f} GiB against the whole "
+              f"model's {_tree_bytes(M.abstract_params(cfg)) / 2 ** 30:.3f}"
+              f", loss {vals['loss']:.5f}, peak "
               f"{(torch.cuda.max_memory_allocated() - base) / 2 ** 30:.3f} "
               f"GiB over the {base / 2 ** 30:.3f} held before",
               file=sys.stderr, flush=True)
@@ -4653,7 +4825,7 @@ def _recurrent_parts(rules, rank, world):
     out = {}
     for arch in (ZAMBA2, XLSTM):
         t0 = time.perf_counter()
-        cfg = get_config(arch)
+        cfg = _recurrent_decode_cfg(arch)
         params = M.init_params(cfg, torch.Generator(device="cuda")
                                .manual_seed(SEED), "cuda")
         _same_on_ranks(tree_leaves(params), f"{arch} weights")
@@ -4742,9 +4914,11 @@ def recurrent_mesh_phase(ranks, counted):
               f"{d['wall_ms']:.1f} ms; {d['collectives']} collectives "
               f"({d['collectives_ms']:.1f} ms host); peak "
               f"{d['peak_gib']:.3f} GiB over what the rank held besides "
-              f"its arguments; logits, k, v and states apart "
+              f"its arguments; tensor parallelism's collectives "
+              f"{d['tp_collectives']} ({d['tp_collectives_ms']:.1f} ms "
+              f"host); logits, k, v and states apart "
               f"from the unsharded prefill by {d['rel_errs']} of each "
-              f"tensor's largest entry (tolerance {RECURRENT_PREFILL_REL};"
+              f"tensor's largest entry (tolerance {d['bound']};"
               f" another data index's rows read at least "
               f"{d['wrong_cut_rel']})")
     for arch in RECURRENT_TRAIN:
@@ -4865,7 +5039,7 @@ def _count_recurrent():
             "recurrent", RECURRENT_PREFILL_SEQ, RECURRENT_PREFILL_ROWS,
             "prefill"), rules))
         for arch in (ZAMBA2, XLSTM):
-            cfg = get_config(arch)
+            cfg = _recurrent_decode_cfg(arch)
             b, L = len(RECURRENT_POS), M.num_kv_layers(cfg)
             meta_i32 = lambda n: torch.empty(  # noqa: E731
                 (n,), dtype=torch.int32, device="meta")
@@ -5071,7 +5245,7 @@ def dry_run_phase(trained, yi_step, sharded, recurrent, counted):
           f"rank's steps); launches a step predicted {c.launches()}; peak "
           f"predicted {c.mem['total_bytes'] / 2 ** 30:.3f} GiB a rank, "
           f"measured {[round(n_['peak_gib'], 3) for n_ in sharded]} GiB "
-          f"(each rank's, over its run; tolerance "
+          f"(each rank's, over its timed steps; tolerance "
           f"{100 * DRYRUN_PEAK_REL:.0f}%); {_terms(c)}; measured step wall "
           f"{[round(n_['steady_step_ms'], 1) for n_ in sharded]} ms, "
           f"device-busy {[round(n_['device_busy_ms'], 1) for n_ in sharded]}"
@@ -5178,6 +5352,7 @@ def main() -> int:
     next(k for k in kernels if k["name"] == "prefill_attention")[
         "training_forward_with_lse"] = k4_train_fwd
     kernels += check_moe_ffn_bwd(phi, moe, get_config(DBRX))
+    check_row_parallel()
     tolerance = {"paged_decode_partials": "rtol 1e-4, atol 1e-4 (f32 sums "
                  "in another order)", "quantize_demote": "bit-identical",
                  "dequantize_reload": "bit-identical",

@@ -93,10 +93,14 @@ def shard_decode(params, state, cfg: ModelConfig, rules):
     |experts| of each MoE layer's ``wi``, ``wg``, ``wo``, where the batch
     takes the expert-parallel path) and its slots of the local and peer
     pools (the pools, ``slot_req`` and ``slot_base`` split over
-    ``kv_blocks``: shard ``idx`` takes slots ``idx * n / shards`` on).
-    Every other tensor is the same on every rank and is shared, not
-    copied; the shards are copies, so the step's appends leave the full
-    pools as they were.  The hybrid and ssm families' recurrent states
+    ``kv_blocks``: shard ``idx`` takes slots ``idx * n / shards`` on), and
+    its block of every attention, MLP (the shared expert's too) and
+    vocabulary weight that tensor parallelism splits over ``model``
+    (``params.decode_specs``: q heads, kv heads where they divide, hidden
+    columns, vocabulary rows; the router, the norms and the recurrent
+    layers' leaves stay whole).  Every other tensor is the same on every
+    rank and is shared, not copied; the shards are copies, so the step's
+    appends leave the full pools as they were.  The hybrid and ssm families' recurrent states
     keep the rank's rows alone where the batch divides over
     ``act_batch`` (``sharding.batch_rows``), as ``serve_step(rules)``
     runs them.  The experts' weights over ``data`` (FSDP) stay whole:
@@ -137,6 +141,11 @@ def shard_decode(params, state, cfg: ModelConfig, rules):
                            slot_req=kv.slot_req[lo:hi].clone(),
                            slot_base=kv.slot_base[lo:hi].clone())
 
+    from repro_torch.models.params import decode_specs
+    params = _map_with_specs(
+        lambda t, spec: t if not any(spec) else
+        t[shard_slices(rules, spec, t.shape)].clone(), params,
+        decode_specs(cfg, rules))
     states = state.states
     rows = batch_rows(rules, state.tokens.shape[0])
     if states is not None and rows is not None:
@@ -156,8 +165,9 @@ def _map_with_specs(fn, tree, specs):
 def shard_train(params, opt, cfg: ModelConfig, rules):
     """This rank's shard, for ``train_step(..., rules=rules)``, of full
     parameters and of their AdamW state ``opt`` (or None): each leaf's
-    block as ``param_specs`` splits it (``embed_fsdp`` over ``data``,
-    ``experts`` over ``model``), copied; a leaf left whole is shared.
+    block as ``param_specs`` splits it (``embed_fsdp`` over ``data``;
+    ``experts``, ``heads``, ``kv_heads``, ``ff`` and ``vocab`` over
+    ``model``), copied; a leaf left whole is shared.
     Returns (params, opt)."""
     from repro_torch.models.params import param_specs
 

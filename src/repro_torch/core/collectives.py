@@ -31,7 +31,8 @@ sorted), which is the index along the mesh axis for every group
 collective: the helpers return their operand.
 
 ``stats`` holds the calls made and the host seconds spent inside them
-since the caller last reset it; a call returns once its result is there
+since the caller last reset it (and, under :func:`tagged`, those of one
+tag apart: tensor parallelism's, ``"tensor-parallel"``); a call returns once its result is there
 (gloo), or once it is queued on the stream (NCCL).  It also holds each
 kind's calls (``calls_by_kind``) and the bytes a rank moves through its
 links for them (``bytes``) on the ring model of the JAX package's dry
@@ -42,13 +43,18 @@ on ``meta`` tensors under a fake process group.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["all_reduce", "all_gather", "sum_over", "sum_grad_over",
-           "gather_over", "reduce_scatter", "stats", "reset_stats", "KINDS"]
+           "gather_over", "reduce_scatter", "stats", "reset_stats", "tagged",
+           "KINDS", "TENSOR_PARALLEL"]
+
+#: the tag of tensor parallelism's collectives
+TENSOR_PARALLEL = "tensor-parallel"
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
@@ -56,7 +62,10 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 KINDS = ("all-reduce", "all-gather", "reduce-scatter")
 
 stats = {"calls": 0, "seconds": 0.0, "calls_by_kind": dict.fromkeys(KINDS, 0),
-         "bytes": dict.fromkeys(KINDS, 0.0)}
+         "bytes": dict.fromkeys(KINDS, 0.0), "tagged": {}}
+
+#: the tag that the collectives called now count under (``tagged``)
+_tag = [None]
 
 # one reduce-scatter into one tensor: ``reduce_scatter_tensor`` was renamed
 # ``reduce_scatter_single`` (the old name warns in newer torch builds)
@@ -67,7 +76,19 @@ _reduce_scatter_single = getattr(dist, "reduce_scatter_single",
 def reset_stats() -> None:
     stats.update(calls=0, seconds=0.0,
                  calls_by_kind=dict.fromkeys(KINDS, 0),
-                 bytes=dict.fromkeys(KINDS, 0.0))
+                 bytes=dict.fromkeys(KINDS, 0.0), tagged={})
+
+
+@contextlib.contextmanager
+def tagged(tag: str):
+    """Inside: each collective called (and the backward of each
+    differentiable one called here) counts its call and host seconds
+    under ``stats["tagged"][tag]`` too, as [calls, seconds]."""
+    prev, _tag[0] = _tag[0], tag
+    try:
+        yield
+    finally:
+        _tag[0] = prev
 
 
 class _Timed:
@@ -84,10 +105,15 @@ class _Timed:
         self.t0 = time.perf_counter()
 
     def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
         stats["calls"] += 1
-        stats["seconds"] += time.perf_counter() - self.t0
+        stats["seconds"] += dt
         stats["calls_by_kind"][self.kind] += 1
         stats["bytes"][self.kind] += self.moved
+        if _tag[0] is not None:
+            got = stats["tagged"].setdefault(_tag[0], [0, 0.0])
+            got[0] += 1
+            got[1] += dt
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -152,12 +178,13 @@ class _SumOver(torch.autograd.Function):
 class _SumGradOver(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group):
-        ctx.group = group
+        ctx.group, ctx.tag = group, _tag[0]
         return t.view_as(t)
 
     @staticmethod
     def backward(ctx, g):
-        return _sum_f32(g, ctx.group), None
+        with tagged(ctx.tag):
+            return _sum_f32(g, ctx.group), None
 
 
 def sum_over(t: torch.Tensor, group) -> torch.Tensor:
@@ -231,23 +258,25 @@ def _check_one_dtype(tensors):
 class _GatherOver(torch.autograd.Function):
     @staticmethod
     def forward(ctx, group, dims, *tensors):
-        ctx.group, ctx.dims = group, dims
+        ctx.group, ctx.dims, ctx.tag = group, dims, _tag[0]
         return tuple(_gather(tensors, dims, group))
 
     @staticmethod
     def backward(ctx, *gs):
-        return (None, None, *_reduce_scatter(gs, ctx.dims, ctx.group))
+        with tagged(ctx.tag):
+            return (None, None, *_reduce_scatter(gs, ctx.dims, ctx.group))
 
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, group, dims, *tensors):
-        ctx.group, ctx.dims = group, dims
+        ctx.group, ctx.dims, ctx.tag = group, dims, _tag[0]
         return tuple(_reduce_scatter(tensors, dims, group))
 
     @staticmethod
     def backward(ctx, *gs):
-        return (None, None, *_gather(gs, ctx.dims, ctx.group))
+        with tagged(ctx.tag):
+            return (None, None, *_gather(gs, ctx.dims, ctx.group))
 
 
 def gather_over(tensors, dims, group) -> list:

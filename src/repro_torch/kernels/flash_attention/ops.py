@@ -323,6 +323,29 @@ class PrefillAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+def kv_for_heads(k, v, h0: int, nql: int, gq: int, local: bool = False):
+    """The keys and values that q heads ``h0 .. h0 + nql - 1`` of a GQA
+    layer (``gq`` q heads a kv head) read, for a rank of tensor
+    parallelism that computes those heads alone.  ``local``: k and v (b,
+    s, nkv / ranks, hd) are the rank's own kv heads, already the groups
+    of its q heads, and come back as they are.  Else k and v hold every kv
+    head (the kv heads do not divide over the ranks): where one group
+    holds all the q heads (yi-6b's 32 / 4 heads over 16 ranks: 2 q heads
+    of one group) its kv head alone, and K4 folds the group; where they
+    straddle a group (phi-tiny-moe's 36 / 9 heads over 2 ranks: 18 q
+    heads, kv head 4 shared) each q head's own kv head (gq 1), as the JAX
+    package expands kv to q heads in its "heads" layout.  Contiguous, as
+    the kernels take them."""
+    if local:
+        return k, v
+    first = h0 // gq
+    if (h0 + nql - 1) // gq == first:
+        return (k[:, :, first:first + 1].contiguous(),
+                v[:, :, first:first + 1].contiguous())
+    idx = torch.arange(h0, h0 + nql, device=k.device) // gq
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def prefill_attention(q, k, v, q_positions, k_positions, *,
                       sliding_window: Optional[int] = None,
                       attention_chunk: Optional[int] = None,

@@ -19,6 +19,7 @@ environment.
 """
 from __future__ import annotations
 
+import itertools
 import math
 import os
 import queue as queue_mod
@@ -138,9 +139,9 @@ def make_rules(mesh: Mesh, *, kv_axes: Optional[tuple] = None
                ) -> ShardingRules:
     """Logical->physical rules for the given mesh (pod-aware).  On a mesh
     of ranks it creates the process groups of every set of axes that the
-    rules name and of each axis alone (a training step sums gradients
-    over the batch's axes that a leaf is not split over), in the same
-    order on every rank."""
+    rules name and of every set of mesh axes in mesh order (a training
+    step sums a leaf's gradient over the batch's and tensor parallelism's
+    axes that do not split it), in the same order on every rank."""
     rules = dict(DEFAULT_RULES)
     multi_pod = "pod" in mesh.shape
     if multi_pod:
@@ -148,8 +149,10 @@ def make_rules(mesh: Mesh, *, kv_axes: Optional[tuple] = None
         rules["kv_blocks"] = ("pod", "data", "model")
     if kv_axes is not None:
         rules["kv_blocks"] = kv_axes
+    every = {c for n in range(1, len(mesh.axis_names) + 1)
+             for c in itertools.combinations(mesh.axis_names, n)}
     for axes in sorted({_axes(v) for v in rules.values() if v is not None}
-                       | {(a,) for a in mesh.axis_names}):
+                       | every):
         mesh.make_groups(axes)
     return ShardingRules(mesh=mesh, rules=rules)
 
@@ -190,6 +193,10 @@ def _rank_main(fn, rank, nprocs, backend, rendezvous, args, results):
             torch.cuda.set_device(rank % torch.cuda.device_count())
         dist.init_process_group(backend, init_method=f"file://{rendezvous}",
                                 world_size=nprocs, rank=rank)
+        # every rank's connections up before any rank may run ahead, return
+        # and close its own: gloo's peers are otherwise left mid-handshake
+        # ("Connection closed by peer") when one rank's ``fn`` is quick
+        dist.barrier()
         try:
             out = fn(rank, nprocs, *args)
         finally:

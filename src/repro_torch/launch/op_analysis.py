@@ -301,9 +301,20 @@ class OpCounter(TorchDispatchMode):
             return out
         if self._inside:
             return out
-        site = _site()
+        self._count(func, args, kwargs, out, _site())
+        return out
+
+    def count_as(self, func, args, kwargs, out) -> None:
+        """Count ``func`` on ``args`` with output ``out`` as though it had
+        been dispatched here: a device's stand-in for an op it lacks (the
+        CPU's for a bf16 product with an f32 output), whose own ops ran
+        inside :meth:`inside_kernel`."""
+        if not self._inside:
+            self._count(func, args, kwargs, out, _site())
+
+    def _count(self, func, args, kwargs, out, site) -> None:
         if site == _INSIDE_COLLECTIVE:
-            return out
+            return
         flops = _flops(func, args, kwargs, out)
         nbytes = _traffic(func, args, kwargs, out)
         self.result.dot_flops += flops
@@ -313,7 +324,6 @@ class OpCounter(TorchDispatchMode):
         row[0] += 1
         row[1] += flops
         row[2] += nbytes
-        return out
 
     def finish(self, result) -> OpCount:
         self.result.ops = {k: list(v) for k, v in self._ops.items()}

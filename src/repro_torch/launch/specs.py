@@ -10,15 +10,18 @@ GSPMD the global arguments and their shardings; a rank of the port holds
 its own share, which ``args`` is:
 
   train    -> ``train_step(..., rules)``: the rank's parameter shards
-              (``sharding.train_spec``: d_model over ``data``, experts
-              over ``model``), their AdamW moments, the global batch
+              (``sharding.train_spec``: d_model over ``data``; experts,
+              heads, kv heads, ``ff`` and the vocabulary over ``model``),
+              their AdamW moments, the global batch
   prefill  -> ``prefill(..., rules)``: the shards, the global batch
-  decode   -> ``serve_step(..., rules)``: every weight whole but the
-              experts (``bridge.shard_decode``: E / |experts| a rank where
-              the batch takes the expert-parallel path), the rank's slots
-              of the KV pools, the hybrid and ssm families' recurrent
-              states of the rank's rows (the batch over ``act_batch``,
-              where it divides), the rest of the decode state whole
+  decode   -> ``serve_step(..., rules)``: the rank's block of every
+              weight that tensor parallelism splits over ``model`` and of
+              the experts (``bridge.shard_decode``: E / |experts| a rank
+              where the batch takes the expert-parallel path), the rest
+              whole, the rank's slots of the KV pools, the hybrid and ssm
+              families' recurrent states of the rank's rows (the batch
+              over ``act_batch``, where it divides), the rest of the
+              decode state whole
 
 Global shapes and dtypes are the JAX package's, pool slot counts
 included (``shards * ceil(n / shards)``).  The JAX package's dry run
@@ -28,8 +31,8 @@ and ssm families, whose recurrent states grow with the batch.  The
 port's decode step keeps tokens, positions and the pools' bookkeeping
 whole on every rank for every family, and for the recurrent families
 splits the states and the layers that read them over ``act_batch`` (the
-JAX package also splits their heads over ``model``, ``state_heads``:
-tensor parallelism, which the port leaves out); its MoE layers keep
+JAX package also splits their heads over ``model``, ``state_heads``,
+which the port leaves to a later slice); its MoE layers keep
 ``act_batch`` for their dispatch, the expert parallelism
 ``serve_step(rules)`` runs.  The JAX package's uncarried-pool baseline
 (an environment switch there) has no counterpart: the port's pools are

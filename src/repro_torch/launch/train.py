@@ -16,8 +16,9 @@ The JAX launcher's flags, ``--mesh`` included, with ``--device``
 mesh (data 16, model 16; or pod 2, data 16, model 16): one process per
 rank, started by a launcher that sets ``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR`` and ``MASTER_PORT`` (``torchrun``); each rank holds its
-shard of the parameters and moments (``embed_fsdp`` over ``data``,
-experts over ``model``) and trains its rows, for every family (the
+shard of the parameters and moments (``embed_fsdp`` over ``data``;
+experts and, tensor-parallel, heads, kv heads, ``ff`` and the vocabulary
+over ``model``) and trains its rows, for every family (the
 hybrid zamba2-7b and the ssm xlstm-1.3b too), and outside a world of 256
 or 512 ranks the mesh refuses.  Smaller meshes are driven from Python
 (``repro_torch.launch.mesh.launch``, ``make_rules``, ``train(...,

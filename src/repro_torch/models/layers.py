@@ -12,9 +12,11 @@ single-token decode against the paged KV pool lives in
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash
@@ -123,21 +125,29 @@ def chunked_attention(q, k, v, q_positions, k_positions, cfg: ModelConfig,
         kv_chunk=kv_chunk)
 
 
+def _project(x, p, cfg: ModelConfig, name: str):
+    """One of q, k, v (``name``) of x with its bias and QK-norm: q + bq and
+    k + bk stay in f32, not rounded to x's dtype (``rotary_qkv`` rotates
+    them and rounds once)."""
+    t = torch.einsum("bsd,dnh->bsnh", x, p["w" + name])
+    if cfg.attn_bias:
+        t = t + p["bv"] if name == "v" else t.float() + p["b" + name].float()
+    if cfg.qk_norm and name != "v":
+        t = rms_norm(t, p[name + "_norm"], cfg.norm_eps)
+    return t
+
+
 def attention_qkv(x, p, cfg: ModelConfig):
     """Project x -> (q, k, v) with GQA head layout and optional QK-norm.
     With a qkv bias, q + bq and k + bk come back in f32, not rounded to
-    x's dtype: ``rotary_qkv`` rotates them and rounds once."""
-    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
-    k = torch.einsum("bsd,dnh->bsnh", x, p["wk"])
-    v = torch.einsum("bsd,dnh->bsnh", x, p["wv"])
-    if cfg.attn_bias:
-        q = q.float() + p["bq"].float()
-        k = k.float() + p["bk"].float()
-        v = v + p["bv"]
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    return q, k, v
+    x's dtype: ``rotary_qkv`` rotates them and rounds once.  A rank of
+    tensor parallelism passes its block of the weights and gets its
+    heads."""
+    return tuple(_project(x, p, cfg, n) for n in "qkv")
+
+
+def _rotated(t, dtype, positions, cfg, positions_3d):
+    return position_embedding(t, positions, cfg, positions_3d).to(dtype)
 
 
 def rotary_qkv(x, p, cfg: ModelConfig, positions, positions_3d=None):
@@ -146,20 +156,59 @@ def rotary_qkv(x, p, cfg: ModelConfig, positions, positions_3d=None):
     before their rounding (it folds the bf16 round trip between the add
     and the rotary's upcast away), so they round once, after it."""
     q, k, v = attention_qkv(x, p, cfg)
-    q = position_embedding(q, positions, cfg, positions_3d).to(x.dtype)
-    k = position_embedding(k, positions, cfg, positions_3d).to(x.dtype)
-    return q, k, v
+    return (_rotated(q, x.dtype, positions, cfg, positions_3d),
+            _rotated(k, x.dtype, positions, cfg, positions_3d), v)
 
 
-def attention_layer(x, p, cfg: ModelConfig, positions, positions_3d=None):
-    """Full-sequence attention sublayer (prefill). Returns (y, (k, v))."""
-    q, k, v = rotary_qkv(x, p, cfg, positions, positions_3d)
-    o = flash.prefill_attention(
-        q, k, v, positions, positions,
-        sliding_window=cfg.sliding_window,
-        attention_chunk=cfg.attention_chunk, logit_softcap=cfg.logit_softcap)
-    y = torch.einsum("bsnh,nhd->bsd", o, p["wo"])
-    return y, (k, v)
+def _masks(cfg: ModelConfig) -> dict:
+    return dict(sliding_window=cfg.sliding_window,
+                attention_chunk=cfg.attention_chunk,
+                logit_softcap=cfg.logit_softcap)
+
+
+def attention_layer(x, p, cfg: ModelConfig, positions, positions_3d=None,
+                    tp=None):
+    """Full-sequence attention sublayer (prefill). Returns (y, (k, v)).
+
+    ``tp`` (a rank of tensor parallelism, ``sharding.TensorParallel``;
+    ``x`` whole along d_model) picks the JAX package's layout
+    (``repro.models.layers._attn_layout``): "heads" where the q heads
+    divide over the axis (column-parallel ``wq``/``wk``/``wv`` and their
+    biases, K4 over the rank's q heads and the kv heads they read, a
+    row-parallel ``wo`` whose f32 partial sums ``tp.out`` reduces); else
+    "seq" where the sequence divides (whole weights, the rank's block of
+    q rows against every key, the rows gathered back); else every rank
+    computes the whole sublayer.  y comes back in the residual's layout;
+    k and v are the rank's kv heads where they split, else whole."""
+    if tp is None:
+        q, k, v = rotary_qkv(x, p, cfg, positions, positions_3d)
+        o = flash.prefill_attention(q, k, v, positions, positions,
+                                    **_masks(cfg))
+        return torch.einsum("bsnh,nhd->bsd", o, p["wo"]), (k, v)
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    if tp.splits("heads", nq):
+        q, k, v = rotary_qkv(x, p, cfg, positions, positions_3d)
+        nql = q.shape[2]
+        kq, vq = flash.kv_for_heads(k, v, tp.index * nql, nql, nq // nkv,
+                                    local=tp.splits("kv_heads", nkv))
+        o = flash.prefill_attention(q, kq, vq, positions, positions,
+                                    **_masks(cfg))
+        y = row_parallel(o, p["wo"], 2)
+        return tp.out(y, "partial", dtype=x.dtype), (k, v)
+    s = x.shape[1]
+    if s % tp.size:
+        y, kv = attention_layer(x, p, cfg, positions, positions_3d)
+        return tp.out(y, "whole"), kv
+    rows = tp.block(s)
+    p3 = None if positions_3d is None else positions_3d[:, rows]
+    q = _rotated(_project(x[:, rows], p, cfg, "q"), x.dtype,
+                 positions[:, rows], cfg, p3)
+    k = _rotated(_project(x, p, cfg, "k"), x.dtype, positions, cfg,
+                 positions_3d)
+    v = _project(x, p, cfg, "v")
+    o = flash.prefill_attention(q, k, v, positions[:, rows], positions,
+                                **_masks(cfg))
+    return tp.out(torch.einsum("bsnh,nhd->bsd", o, p["wo"]), "rows"), (k, v)
 
 
 def _sigmoid(u):
@@ -196,17 +245,83 @@ def _activation(name: str):
     return acts[name]
 
 
-def mlp(x, p, cfg: ModelConfig):
+def _mlp_hidden(x, p, cfg: ModelConfig):
     act = _activation(cfg.activation)
     h = torch.einsum("bsd,df->bsf", x, p["wi"])
     if cfg.mlp_bias:
         h = h + p["bi"]
     if cfg.gated_mlp:
         g = torch.einsum("bsd,df->bsf", x, p["wg"])
-        h = act(g) * h
+        return act(g) * h
+    return act(h)
+
+
+class _F32Product(torch.autograd.Function):
+    """``a @ w`` of bf16 operands with f32 accumulation and an f32 output
+    (``torch.mm(..., out_dtype=)``: cuBLAS's bf16 product on the card, its
+    shape on ``meta``), which has no derivative of its own.  The CPU has
+    no such product: there the operands are widened (the same sums), and
+    an op counter on the dispatch-mode stack counts the card's product in
+    their place.  The backward multiplies in the operands' dtype: the
+    gradient that reaches it is the widened gradient of the sum's rounding
+    to that dtype (``TensorParallel.out``), so narrowing it is exact."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        if a.device.type != "cpu":
+            return torch.mm(a, w, out_dtype=torch.float32)
+        counters = [m for m in _get_current_dispatch_mode_stack()
+                    if hasattr(m, "count_as")]
+        with contextlib.ExitStack() as stack:
+            for c in counters:
+                stack.enter_context(c.inside_kernel())
+            y = a.float() @ w.float()
+        for c in counters:
+            c.count_as(torch.ops.aten.mm.dtype, (a, w),
+                       {"out_dtype": torch.float32}, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return (g @ w.t() if ctx.needs_input_grad[0] else None,
+                a.t() @ g if ctx.needs_input_grad[1] else None)
+
+
+def row_parallel(a, w, k: int):
+    """One rank's share of a row-parallel product, in f32: ``a``'s last
+    ``k`` dims contracted with ``w``'s first ``k`` (``bsnh,nhd->bsd``,
+    ``bsf,fd->bsd``), so that the ranks' shares are summed unrounded and
+    the sum rounds once to its dtype, as the unsplit product's f32
+    accumulation does (and as the JAX package's sharded program sums its
+    f32 partials).  A bf16 model's product runs in bf16 with an f32
+    output (``_F32Product``), counted alike on every device."""
+    lead, inner = a.shape[:a.dim() - k], w.shape[k:]
+    a2 = a.reshape(math.prod(lead), -1)
+    w2 = w.reshape(a2.shape[1], -1)
+    if a2.dtype == torch.float32:
+        y = a2 @ w2
     else:
-        h = act(h)
-    y = torch.einsum("bsf,fd->bsd", h, p["wo"])
+        y = _F32Product.apply(a2, w2)
+    return y.view(*lead, *inner)
+
+
+def mlp(x, p, cfg: ModelConfig, tp=None, d_ff=None):
+    """The MLP.  ``tp`` (a rank of tensor parallelism; ``x`` whole along
+    d_model): where the hidden dim (``d_ff``, the config's unless given)
+    splits, column-parallel ``wi``/``wg``/``bi`` and a row-parallel
+    ``wo`` whose partial sums ``tp.out`` reduces, ``bo`` added once after
+    the sum; else every rank computes it whole.  The output comes back in
+    the residual's layout."""
+    if tp is not None:
+        if tp.splits("ff", cfg.d_ff if d_ff is None else d_ff):
+            y = row_parallel(_mlp_hidden(x, p, cfg), p["wo"], 1)
+            return tp.out(y, "partial", p["bo"] if cfg.mlp_bias else None,
+                          dtype=x.dtype)
+        return tp.out(mlp(x, p, cfg), "whole")
+    y = torch.einsum("bsf,fd->bsd", _mlp_hidden(x, p, cfg), p["wo"])
     if cfg.mlp_bias:
         y = y + p["bo"]
     return y

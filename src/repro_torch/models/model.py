@@ -39,26 +39,37 @@ and v into the pools IN PLACE (the JAX code carries the pools through its
 scan and rebuilds them with ``.at[].set``); the returned state holds the
 same pool tensors, and new recurrent states.  With ``rules`` (a mesh of
 ranks, ``repro_torch.launch.mesh``) each rank holds its shard of the
-pools' slots (``bridge.shard_decode``) and of the MoE layers' experts,
-and the step runs the JAX package's sharded decode: attention over the
-rank's own slots merged across the ``kv_blocks`` ranks, expert
-parallelism over ``act_batch`` and ``experts``; the hybrid and ssm
+pools' slots (``bridge.shard_decode``), of the MoE layers' experts and
+of the weights that tensor parallelism splits, and the step runs the
+JAX package's sharded decode: attention over the rank's own slots for
+every head, merged across the ``kv_blocks`` ranks, expert parallelism
+over ``act_batch`` and ``experts``, tensor parallelism over ``model``
+(``sharding.TensorParallel``: the rank's q heads, and kv heads where
+they divide, gathered whole before K1; its heads' block of the output
+times its rows of ``wo``, the MLPs' hidden columns and the vocabulary's
+rows, each partial product summed over ``model``); the hybrid and ssm
 families' recurrent states and layers over the rank's rows
-(``act_batch``); every other tensor is the same on every rank.
+(``act_batch``).
 
 ``forward``, ``loss_fn`` and ``prefill`` with ``rules`` are a rank's
 share of the JAX package's sharded pass (every family): the
 parameters are the rank's shard (``bridge.shard_train``: d_model dims
-over ``data``, experts over ``model``), the batch the global one, of
-which the rank computes its rows (``_rank_rows``).  The embedding, head
-and final norm are gathered whole over ``data`` once a pass, each
-block's weights (a Mamba2 layer's, an mLSTM or sLSTM block's) inside its
-``torch.utils.checkpoint`` region (so the recompute gathers again and
-nothing gathered outlives the block), Zamba2's shared block's once a
-pass, the MoE layers' inside the layer (``moe._moe_layer_train``); every
-gather's gradient is reduce-scattered back to the shard.  The ``model``
-ranks of one data index compute alike (tensor parallelism is GSPMD's
-choice of layout there, not other math).
+over ``data``; experts, heads, kv heads, ``ff`` and the vocabulary over
+``model``), the batch the global one, of which the rank computes its
+rows (``_rank_rows``).  The embedding, head and final norm are gathered
+whole over ``data`` once a pass, each block's weights (a Mamba2 layer's,
+an mLSTM or sLSTM block's) inside its ``torch.utils.checkpoint`` region
+(so the recompute gathers again and nothing gathered outlives the
+block), Zamba2's shared block's once a pass, the MoE layers' inside the
+layer (``moe._moe_layer_train``); every gather's gradient is
+reduce-scattered back to the shard.  Over ``model`` the pass is tensor
+parallel as the JAX package's rules lay it out: the residual holds the
+rank's block of d_model (``act_embed``), gathered before each norm;
+attention, the MLPs and the shared experts compute the rank's heads or
+hidden columns, their row-parallel outputs reduce-scattered back into
+the residual's layout; the embedding and the head are
+vocabulary-parallel (``loss_fn`` reduces the log-sum-exp and the target
+over the ranks); the recurrent layers compute alike on every rank.
 """
 from __future__ import annotations
 
@@ -70,7 +81,9 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import paged_attention as pa
-from repro_torch.core.collectives import all_gather, all_reduce
+from repro_torch.core.collectives import (TENSOR_PARALLEL, all_gather,
+                                          all_reduce, gather_over, sum_over,
+                                          tagged)
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import xlstm as X
@@ -79,7 +92,7 @@ from repro_torch.models.params import (  # noqa: F401  (re-exported)
     abstract_params, build_schema, check_family, init_params, is_interleaved,
     num_codebooks, param_count, param_specs)
 from repro_torch.models.sharding import (batch_rows, gather_fsdp, kv_block_axes,
-                                         strip_stacked)
+                                         strip_stacked, tensor_parallel)
 
 
 def _unbind(node):
@@ -137,32 +150,61 @@ def _run(remat: bool, fn, *args):
 # ---------------------------------------------------------------------------
 
 
-def embed(params, tokens, cfg: ModelConfig):
+def _lookup(table, ids, tp, vocab: int):
+    """Rows ``ids`` of an embedding table; with ``tp`` splitting the
+    vocabulary, the rank's block of rows answers the ids in its range and
+    the others read zero (a partial sum over the ranks)."""
+    if tp is None or not tp.splits("vocab", vocab):
+        return table[ids]
+    local = ids - tp.block(vocab).start
+    inr = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    return torch.where(inr[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                         device=rows.device))
+
+
+def embed(params, tokens, cfg: ModelConfig, tp=None):
     """tokens (b, s) -> (b, s, d); the audio family's (b, s, ncb) -> the
     sum of the codebooks' embeddings, added one at a time in codebook
     order, each add rounded in the table's dtype (the jitted JAX ``sum``
-    rounds so; one f32 sum rounded once would not match it)."""
+    rounds so; one f32 sum rounded once would not match it).  ``tp`` (a
+    rank of tensor parallelism): a vocabulary-parallel lookup where the
+    vocabulary splits (each rank's rows answer the ids in its range, per
+    codebook, and the ranks' partial sums are summed in f32, exact for one
+    codebook), in the residual's layout."""
     ncb = num_codebooks(cfg)
-    if not ncb:
-        return params["embed"][tokens.long()]
     table, tokens = params["embed"], tokens.long()
-    x = table[0][tokens[..., 0]]
-    for c in range(1, ncb):
-        x = x + table[c][tokens[..., c]]
-    return x
+    V = cfg.vocab_size
+    if not ncb:
+        x = _lookup(table, tokens, tp, V)
+    else:
+        x = _lookup(table[0], tokens[..., 0], tp, V)
+        for c in range(1, ncb):
+            x = x + _lookup(table[c], tokens[..., c], tp, V)
+    if tp is None:
+        return x
+    return tp.out(x, "partial" if tp.splits("vocab", V) else "whole")
 
 
-def add_positions(x, positions, cfg: ModelConfig):
+def add_positions(x, positions, cfg: ModelConfig, tp=None):
     """The audio family's sinusoidal positions added to the input stream
-    (``positions`` (b, s) for ``x`` (b, s, d)): the f32 table rounded to
-    x's dtype first and then added, as the jitted JAX model adds it; other
+    (``positions`` (b, s) for ``x`` (b, s, d), or the rank's block of d
+    with ``tp`` splitting the residual): the f32 table rounded to x's
+    dtype first and then added, as the jitted JAX model adds it; other
     models take their positions in attention and get ``x`` back."""
     if cfg.family != "audio" or cfg.rope_style != "none":
         return x
-    return x + L.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
+    table = L.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
+    return x + (table if tp is None else tp.shard(table))
 
 
-def unembed(params, x, cfg: ModelConfig):
+def unembed(params, x, cfg: ModelConfig, tp=None):
+    """The final norm and the head: (b, s, V) logits, (b, s, ncb, V) for
+    the audio family.  ``tp``: ``x`` in the residual's layout (gathered
+    whole first); where the vocabulary splits, the rank's block of it
+    (the tied table's rows, the head's columns, per codebook)."""
+    if tp is not None:
+        x = tp.whole(x)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if num_codebooks(cfg):
         return torch.einsum("bsd,cdv->bscv", x, params["lm_head"])
@@ -171,13 +213,22 @@ def unembed(params, x, cfg: ModelConfig):
     return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
 
 
+def _whole_vocab(logits, cfg: ModelConfig, tp):
+    """Logits whole along the vocabulary: a rank's block gathered over
+    the ranks where ``tp`` splits it."""
+    if tp is None or not tp.splits("vocab", cfg.vocab_size):
+        return logits
+    with tagged(TENSOR_PARALLEL):
+        return gather_over([logits], [logits.dim() - 1], tp.group)[0]
+
+
 # ---------------------------------------------------------------------------
 # Full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
 
 
 def _block(x, s, lp, cfg: ModelConfig, attend, keep_sum: bool = False,
-           rules=None, local_rows: bool = False):
+           rules=None, local_rows: bool = False, tp=None):
     """One pre-LN block on the residual ``x``: attention, then the MLP or
     the MoE FFN on the second norm, or (parallel blocks) the MLP on the
     attention's own normed input, ``x + a + mlp(u)`` rounded add by add as
@@ -191,18 +242,28 @@ def _block(x, s, lp, cfg: ModelConfig, attend, keep_sum: bool = False,
     rounding, as it does for the second norm (``layers.residual_norm``).
     ``rules``: the MoE FFN's mesh (expert parallelism), or None;
     ``local_rows``: ``x`` is a training rank's own rows
-    (``moe_layer``'s).  Returns (x, s, kv, the MoE layer's (probs, ids)
+    (``moe_layer``'s).  ``tp``: a rank of tensor parallelism; where it
+    splits the residual (training, prefill), ``x`` (and ``s``) are the
+    rank's block of d_model, gathered whole before each norm (the
+    unrounded f32 sum where the norm reads it).  Returns (x, s, kv, the MoE layer's (probs, ids)
     routing or None)."""
-    u = L.rms_norm(x if s is None else s, lp["ln1"], cfg.norm_eps).to(x.dtype)
+    whole = (lambda t: t) if tp is None else tp.whole
+    u = L.rms_norm(whole(x if s is None else s), lp["ln1"],
+                   cfg.norm_eps).to(x.dtype)
     a, kv = attend(u)
     if cfg.parallel_block:
-        return x + a + L.mlp(u, lp["mlp"], cfg), None, kv, None
-    x, u2 = L.residual_norm(x, a, lp["ln2"], cfg.norm_eps)
+        return x + a + L.mlp(u, lp["mlp"], cfg, tp), None, kv, None
+    if tp is not None and tp.split_residual:
+        s2 = x.float() + a.float()
+        x = s2.to(x.dtype)
+        u2 = L.rms_norm(tp.whole(s2), lp["ln2"], cfg.norm_eps).to(x.dtype)
+    else:
+        x, u2 = L.residual_norm(x, a, lp["ln2"], cfg.norm_eps)
     if "moe" in lp:
         y, probs, ids = moe_layer(u2, lp["moe"], cfg, rules=rules,
-                                  local_rows=local_rows)
+                                  local_rows=local_rows, tp=tp)
         return x + y, None, kv, (probs, ids)
-    y = L.mlp(u2, lp["mlp"], cfg)
+    y = L.mlp(u2, lp["mlp"], cfg, tp)
     if not keep_sum:
         return x + y, None, kv, None
     s = x.float() + y.float()
@@ -222,7 +283,7 @@ class ForwardOut(NamedTuple):
 
 
 def _hybrid_layers(params, x, cfg: ModelConfig, states, single_token,
-                   attend, remat: bool = False, fsdp=None):
+                   attend, remat: bool = False, fsdp=None, tp=None):
     """Zamba2: the Mamba2 stack with ONE shared attention block after every
     ``attn_period`` Mamba2 layers (none after the tail's).  ``states``: the
     stacked ``SSMState`` of every layer, or None (zero states);
@@ -234,8 +295,11 @@ def _hybrid_layers(params, x, cfg: ModelConfig, states, single_token,
     pass, ahead of its first use (it serves every super-block: 13 at 81
     layers; one gather and one reduce-scatter a step where a gather
     inside each use's region would make 26 and 13, for one block's
-    weights and their gradient held whole through the pass).  Returns (x,
-    the super-blocks' kv, the new stacked states)."""
+    weights and their gradient held whole through the pass).  ``tp``: a
+    rank of tensor parallelism: the shared block runs tensor-parallel,
+    every Mamba2 layer alike on every rank (on the gathered stream, its
+    output cut to the residual's layout).  Returns (x, the super-blocks'
+    kv, the new stacked states)."""
     per = cfg.hybrid.attn_period
     shared = params["shared_attn"]
     mspec = None
@@ -249,12 +313,14 @@ def _hybrid_layers(params, x, cfg: ModelConfig, states, single_token,
     def mamba(x, lp, st):
         if mspec is not None:
             lp = gather_fsdp(lp, mspec, fsdp)
-        u = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        u = L.rms_norm(x if tp is None else tp.whole(x), lp["ln1"],
+                       cfg.norm_eps)
         y, st = S.mamba2_layer(u, lp["mamba"], cfg, st, single_token)
-        return x + y, st
+        return x + (y if tp is None else tp.shard(y)), st
 
     def shared_block(x, j):
-        return _block(x, None, shared, cfg, lambda u: attend(j, u, shared))
+        return _block(x, None, shared, cfg, lambda u: attend(j, u, shared),
+                      tp=tp)
 
     new, kvs = [], []
     for i, lp in enumerate(_unbind(params["mamba_layers"])):
@@ -268,13 +334,15 @@ def _hybrid_layers(params, x, cfg: ModelConfig, states, single_token,
 
 
 def _xlstm_layers(params, x, cfg: ModelConfig, states, single_token,
-                  remat: bool = False, fsdp=None):
+                  remat: bool = False, fsdp=None, tp=None):
     """xLSTM: super-blocks of (slstm_every - 1) mLSTM blocks and one sLSTM
     block.  ``states``: (stacked ``MLSTMState`` over (super-block, block),
     stacked ``SLSTMState`` over super-blocks), or None (zero states).
     ``remat``: each block under ``torch.utils.checkpoint``.  ``fsdp``: the
     rules of a training rank's pass; each block gathers its weights split
-    over ``data`` inside its recompute region.  Returns (x, the new
+    over ``data`` inside its recompute region.  ``tp``: a rank of tensor
+    parallelism; every block runs alike on every rank, on the gathered
+    stream, its output cut to the residual's layout.  Returns (x, the new
     states in that layout)."""
     per = cfg.xlstm.slstm_every
     supers = params["supers"]
@@ -285,15 +353,21 @@ def _xlstm_layers(params, x, cfg: ModelConfig, states, single_token,
         mspec = strip_stacked(specs["mlstm"], 2)
         sspec = strip_stacked(specs["slstm"], 1)
 
+    def alike(block, x, lp, st):
+        if tp is None:
+            return block(x, lp, cfg, st, single_token)
+        x, st = block(tp.whole(x), lp, cfg, st, single_token)
+        return tp.shard(x), st
+
     def mblock(x, lp, st):
         if mspec is not None:
             lp = gather_fsdp(lp, mspec, fsdp)
-        return X.mlstm_block(x, lp, cfg, st, single_token)
+        return alike(X.mlstm_block, x, lp, st)
 
     def sblock(x, lp, st):
         if sspec is not None:
             lp = gather_fsdp(lp, sspec, fsdp)
-        return X.slstm_block(x, lp, cfg, st, single_token)
+        return alike(X.slstm_block, x, lp, st)
 
     mlstm = [_unbind(row) for row in _unbind(supers["mlstm"])]
     slstm = _unbind(supers["slstm"])
@@ -347,23 +421,28 @@ def states_rows(cfg: ModelConfig, states, rows: slice):
 
 
 def backbone(params, x, positions, cfg: ModelConfig, rules=None,
-             positions_3d=None, want_kv: bool = True) -> ForwardOut:
+             positions_3d=None, want_kv: bool = True, tp=None) -> ForwardOut:
     """The blocks over the embedded input ``x``.  ``rules``: ``x`` holds a
     training rank's rows and ``params`` its shard (``forward``'s); each
     block gathers its weights inside its recompute region, and each MoE
     layer's load-balance loss counts over the ranks that split the batch
-    (``act_batch``; one where every rank runs every row)."""
+    (``act_batch``; one where every rank runs every row).  ``tp``: the
+    rank's tensor parallelism (``x`` its block of d_model); the KV comes
+    back whole, each stack's kv heads gathered once where they split."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = _wants_grad(params)
     if cfg.family == "hybrid":
         x, kvs, states = _hybrid_layers(
             params, x, cfg, None, False,
             lambda j, u, lp: L.attention_layer(u, lp["attn"], cfg,
-                                               positions), remat, rules)
-        kv = tuple(torch.stack(t) for t in zip(*kvs)) if want_kv else None
+                                               positions, tp=tp),
+            remat, rules, tp)
+        kv = _whole_kv([torch.stack(t) for t in zip(*kvs)], cfg, tp) \
+            if want_kv else None
         return ForwardOut(x, kv, states, aux)
     if cfg.family == "ssm":
-        x, states = _xlstm_layers(params, x, cfg, None, False, remat, rules)
+        x, states = _xlstm_layers(params, x, cfg, None, False, remat, rules,
+                                  tp)
         return ForwardOut(x, None, states, aux)
 
     if rules is not None:
@@ -379,8 +458,10 @@ def backbone(params, x, positions, cfg: ModelConfig, rules=None,
                              skip=("moe",))
         return _block(x, s, lp, cfg,
                       lambda u: L.attention_layer(u, lp["attn"], cfg,
-                                                  positions, positions_3d),
-                      _keeps_sum(cfg, i), rules, local_rows=rules is not None)
+                                                  positions, positions_3d,
+                                                  tp),
+                      _keeps_sum(cfg, i), rules, local_rows=rules is not None,
+                      tp=tp)
 
     ks, vs = [], []
     s = None
@@ -392,8 +473,19 @@ def backbone(params, x, positions, cfg: ModelConfig, rules=None,
         if want_kv:
             ks.append(k)
             vs.append(v)
-    kv = (torch.stack(ks), torch.stack(vs)) if want_kv else None
+    kv = _whole_kv([torch.stack(ks), torch.stack(vs)], cfg, tp) \
+        if want_kv else None
     return ForwardOut(x, kv, None, aux)
+
+
+def _whole_kv(stacks, cfg: ModelConfig, tp):
+    """The stacked (L_kv, b, s, nkv, hd) k and v with every kv head: a
+    rank's heads gathered over ``tp``'s axis where they split (one
+    collective for both)."""
+    if tp is not None and tp.splits("kv_heads", cfg.num_kv_heads):
+        with tagged(TENSOR_PARALLEL):
+            stacks = gather_over(stacks, [3, 3], tp.group)
+    return tuple(stacks)
 
 
 def _rank_rows(batch, rules):
@@ -429,18 +521,43 @@ def forward(params, batch, cfg: ModelConfig, rules=None,
     sinusoidal positions are added over the prefix and the tokens alike.
     ``rules``: a training rank's pass (module docstring): ``params`` its
     shard, ``batch`` the global batch; returns the logits of the rank's
-    rows (``_rank_rows``)."""
+    rows (``_rank_rows``), the rank's block of the vocabulary where the
+    rules split it (``sharding.TensorParallel``), and a ``ForwardOut``
+    whose hidden state is the rank's block of d_model."""
     check_family(cfg)
+    tp = None
     if rules is not None:
         batch, rules = _rank_rows(batch, rules)
         params = _gather_outer(params, cfg, rules)
-    x = embed(params, batch["tokens"], cfg)
+        tp = tensor_parallel(rules, cfg.d_model)
+    x = embed(params, batch["tokens"], cfg, tp)
     if cfg.modality is not None and cfg.modality.num_prefix_embeddings:
-        x = torch.cat([batch["prefix_embeddings"].to(x.dtype), x], dim=1)
-    x = add_positions(x, batch["positions"], cfg)
+        pre = batch["prefix_embeddings"].to(x.dtype)
+        x = torch.cat([pre if tp is None else tp.shard(pre), x], dim=1)
+    x = add_positions(x, batch["positions"], cfg, tp)
     out = backbone(params, x, batch["positions"], cfg, rules,
-                   batch.get("positions_3d"), want_kv=want_kv)
-    return unembed(params, out.hidden, cfg), out
+                   batch.get("positions_3d"), want_kv=want_kv, tp=tp)
+    return unembed(params, out.hidden, cfg, tp), out
+
+
+def _split_vocab_nll_terms(logits, labels, cfg: ModelConfig, tp):
+    """(log-sum-exp, the target's logit) over logits (f32) whose last dim
+    is the rank's block of the vocabulary, as the JAX package's one-hot
+    contraction reduces over a split vocabulary: the rows' maximum over
+    the ranks (no gradient), each rank's sum of exponentials and its pick
+    of the targets in its range (zero elsewhere), both summed over the
+    ranks in one f32 collective whose gradient passes back whole."""
+    vl = logits.shape[-1]
+    with tagged(TENSOR_PARALLEL):
+        mx = all_reduce(logits.detach().amax(dim=-1), "max", tp.group)
+    se = torch.exp(logits - mx[..., None]).sum(dim=-1)
+    local = labels.clamp(min=0).long() - tp.block(cfg.vocab_size).start
+    inr = (local >= 0) & (local < vl)
+    pick = torch.gather(logits, -1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    pick = torch.where(inr, pick, torch.zeros((), device=pick.device))
+    with tagged(TENSOR_PARALLEL):
+        both = sum_over(torch.stack([se, pick], dim=-1), tp.group)
+    return mx + torch.log(both[..., 0]), both[..., 1]
 
 
 def loss_fn(params, batch, cfg: ModelConfig, rules=None):
@@ -455,30 +572,40 @@ def loss_fn(params, batch, cfg: ModelConfig, rules=None):
 
     ``rules`` (a training rank on a mesh; ``params`` its shard, ``batch``
     the global batch): the loss returned is the rank's share, whose
-    gradient summed over ``act_batch`` is the global loss's: its rows' NLL
-    summed over the global count of labels, plus its load-balance terms
-    (each MoE layer's over the rank's rows, over the number of ranks
-    that split the batch); where every rank runs every row, the whole
-    loss over that number.  The metrics hold the global "loss", "nll" and
-    "aux": the ranks' shares summed over ``act_batch``."""
+    gradient summed over ``act_batch`` and the tensor-parallel axis is the
+    global loss's: its rows' NLL summed over the global count of labels,
+    plus its load-balance terms (each MoE layer's over the rank's rows,
+    over the number of ranks that split the batch); where every rank runs
+    every row, the whole loss over that number.  Over a split vocabulary
+    each rank's NLL reads its block of the logits
+    (``_split_vocab_nll_terms``); a term that every tensor-parallel rank
+    computes alike (the NLL of whole logits, the load-balance loss) counts
+    over their number, since each whole leaf's gradient is summed over
+    them.  The metrics hold the global "loss", "nll" and "aux": the
+    ranks' shares summed over ``act_batch``."""
     logits, out = forward(params, batch, cfg, rules)
     labels = batch["labels"]
-    share, group = 1.0, None
+    share, group, tp = 1.0, None, None
     if rules is not None:
         rows, seen = _rank_rows(batch, rules)
         labels = rows["labels"]
         group = rules.mesh.group(rules.axis("act_batch"))
         if seen is not rules:       # every rank ran every row
             share = 1.0 / rules.axis_size(rules.axis("act_batch"))
+        tp = tensor_parallel(rules)
     npre = cfg.modality.num_prefix_embeddings if cfg.modality else 0
     if npre:
         logits = logits[:, npre:]
     if labels.dim() != logits.dim() - 1:
         raise ValueError("labels must be one rank below logits")
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1,
-                       labels.clamp(min=0).long()[..., None])[..., 0]
+    split = tp is not None and tp.splits("vocab", cfg.vocab_size)
+    if split:
+        lse, tgt = _split_vocab_nll_terms(logits, labels, cfg, tp)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1,
+                           labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
     count = mask.sum()
     if group is not None and share == 1.0:
@@ -487,10 +614,13 @@ def loss_fn(params, batch, cfg: ModelConfig, rules=None):
     aux = out.aux
     if share != 1.0:
         nll, aux = nll * share, aux * share
-    loss = nll + aux * (cfg.moe.lb_loss_weight if cfg.moe else 0.0)
+    weight = cfg.moe.lb_loss_weight if cfg.moe else 0.0
+    loss = nll + aux * weight
     if group is None:
         return loss, {"nll": nll, "aux": aux}
     total = all_reduce(torch.stack([loss, nll, aux]).detach(), "sum", group)
+    if tp is not None:
+        loss = (nll if split else nll / tp.size) + aux * (weight / tp.size)
     return loss, {"loss": total[0], "nll": total[1], "aux": total[2]}
 
 
@@ -499,15 +629,17 @@ def prefill(params, batch, cfg: ModelConfig, rules=None):
     ``rules``: a rank's pass over a mesh, as the JAX package's sharded
     ``prefill``, under ``torch.no_grad()``: ``params`` the rank's shard
     (``bridge.shard_train``), ``batch`` the global batch; it returns the
-    logits, the KV and the final recurrent states of the rank's rows
-    (``_rank_rows``), its blocks gathering their weights over ``data``
-    and the MoE layers taking the expert-parallel path."""
+    logits (whole along the vocabulary), the KV (every kv head) and the
+    final recurrent states of the rank's rows (``_rank_rows``), its blocks
+    gathering their weights over ``data``, running tensor-parallel over
+    ``model`` and the MoE layers taking the expert-parallel path."""
     if rules is None:
         logits, out = forward(params, batch, cfg, want_kv=True)
         return logits[:, -1], out
     with torch.no_grad():
         logits, out = forward(params, batch, cfg, rules, want_kv=True)
-    return logits[:, -1], out
+        logits = _whole_vocab(logits[:, -1], cfg, tensor_parallel(rules))
+    return logits, out
 
 
 # ---------------------------------------------------------------------------
@@ -552,15 +684,27 @@ def _kv_shard(rules):
 
 
 def _decode_attn_sublayer(u, lp, cfg, state: DecodeState, layer: int,
-                          use_peer: bool, rules=None):
+                          use_peer: bool, rules=None, tp=None):
     """u: (b, 1, d), the normed residual. Appends this step's k/v to layer
     ``layer`` of the pools in place and returns the attention output (b,
     1, d).  With ``rules`` the pools are this rank's shard of the slots
     (shard ``idx`` holds global slots ``idx * n_slots`` on): a row's k and
     v land here only where its append slot does, K1 runs over the rank's
-    slots, and the ranks' partials merge in ``finalize``."""
+    slots, and the ranks' partials merge in ``finalize``.  ``tp`` (tensor
+    parallelism; the pools keep every head on every rank, as the JAX
+    package's decode does): q, and k and v where their heads split, are
+    the rank's heads and are gathered whole first; after the merge each
+    rank multiplies its heads' block of the output by its block of ``wo``
+    and the products are summed over the axis."""
     p3 = None if state.positions_3d is None else state.positions_3d[:, None]
-    q, k, v = L.rotary_qkv(u, lp["attn"], cfg, state.pos[:, None], p3)
+    p = lp["attn"]
+    q, k, v = L.rotary_qkv(u, p, cfg, state.pos[:, None], p3)
+    heads = tp is not None and tp.splits("heads", cfg.num_heads)
+    if heads:
+        split = [q, k, v] if tp.splits("kv_heads", cfg.num_kv_heads) else [q]
+        with tagged(TENSOR_PARALLEL):
+            got = gather_over(split, [2] * len(split), tp.group)
+        q, k, v = got if len(got) == 3 else (got[0], k, v)
     kvp = state.kv
     pk, pv = kvp.pool_k[layer], kvp.pool_v[layer]
     group, idx = _kv_shard(rules)
@@ -573,8 +717,11 @@ def _decode_attn_sublayer(u, lp, cfg, state: DecodeState, layer: int,
         pools.append((pp.pool_k[layer], pp.pool_v[layer], pp.slot_req,
                       pp.slot_base))
     o = pa.paged_decode_attention(q[:, 0], pools, state.pos, cfg, group)
-    y = torch.einsum("bnh,nhd->bd", o.to(u.dtype), lp["attn"]["wo"])
-    return y[:, None]
+    if not heads:
+        return torch.einsum("bnh,nhd->bd", o.to(u.dtype), p["wo"])[:, None]
+    o = o[:, tp.block(cfg.num_heads)].to(u.dtype)
+    y = L.row_parallel(o, p["wo"], 2)[:, None]
+    return tp.out(y, "partial", dtype=u.dtype)
 
 
 def _state_rows(cfg: ModelConfig, state: DecodeState, rules):
@@ -611,22 +758,24 @@ def serve_step(params, state: DecodeState, cfg: ModelConfig,
     are the rank's rows'; ``tokens`` comes back gathered whole, so the
     next step's input is global again."""
     check_family(cfg)
+    tp = tensor_parallel(rules)
     split = _state_rows(cfg, state, rules)
     tokens = state.tokens if split is None else state.tokens[split[0]]
     pos = state.pos if split is None else state.pos[split[0]]
-    x = add_positions(embed(params, tokens[:, None], cfg), pos[:, None], cfg)
+    x = add_positions(embed(params, tokens[:, None], cfg, tp), pos[:, None],
+                      cfg)
     use_peer = harvest_inplace and state.peer is not None
     states = state.states
 
     def shared_attend(j, u, lp):
         if split is not None:
             u = all_gather(u, split[1], split[2])
-        a = _decode_attn_sublayer(u, lp, cfg, state, j, use_peer, rules)
+        a = _decode_attn_sublayer(u, lp, cfg, state, j, use_peer, rules, tp)
         return (a if split is None else a[split[0]]), None
 
     if cfg.family == "hybrid":
         x, _, states = _hybrid_layers(params, x, cfg, state.states, True,
-                                      shared_attend)
+                                      shared_attend, tp=tp)
     elif cfg.family == "ssm":
         x, states = _xlstm_layers(params, x, cfg, state.states, True)
     else:
@@ -634,9 +783,9 @@ def serve_step(params, state: DecodeState, cfg: ModelConfig,
         for i, lp in enumerate(_layers(params)):
             x, s, _, _ = _block(
                 x, s, lp, cfg, lambda u: (_decode_attn_sublayer(
-                    u, lp, cfg, state, i, use_peer, rules), None),
-                _keeps_sum(cfg, i), rules)
-    logits = unembed(params, x, cfg)[:, 0]
+                    u, lp, cfg, state, i, use_peer, rules, tp), None),
+                _keeps_sum(cfg, i), rules, tp=tp)
+    logits = _whole_vocab(unembed(params, x, cfg, tp)[:, 0], cfg, tp)
     new_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
     if split is not None:
         new_tokens = all_gather(new_tokens, split[1], split[2])

@@ -28,8 +28,11 @@ expert axis (:func:`_expert_parallel`, one core for both passes).  Decode gather
 pass (``local_rows``) hands the layer its own rows and keeps them, gathers
 the FSDP shards of the weights over ``data`` inside the layer, and its
 gradient crosses the collectives (``core.collectives``' differentiable
-ones: the sum over ``model`` passes the gradient back whole, and the
-input's gradient is summed over ``model``).
+ones).  Under tensor parallelism over the experts' axis (the default
+rules) a training pass hands the experts' partial sums to the residual's
+reduce-scatter (``sharding.TensorParallel.out``) and leaves the rows' and
+the gate weights' gradients each rank's share; the shared expert runs
+tensor-parallel, the router whole.
 """
 from __future__ import annotations
 
@@ -246,7 +249,7 @@ def expert_parallel(batch: int, cfg: ModelConfig, rules) -> bool:
 
 def moe_layer(x, p, cfg: ModelConfig,
               capacity_factor: Optional[float] = None, rules=None,
-              local_rows: bool = False):
+              local_rows: bool = False, tp=None):
     """MoE FFN sublayer.  x: (b, s, d) -> (y, probs, ids): the output and
     the routing that :func:`load_balance_loss` reads.  The loss is left to
     the caller that wants it, so a decode step launches none of its work.
@@ -257,14 +260,17 @@ def moe_layer(x, p, cfg: ModelConfig,
     :func:`_moe_layer_local` runs instead; ``local_rows`` (a training
     pass on a mesh: ``x`` holds this rank's rows, ``p`` its shard of the
     layer) runs :func:`_moe_layer_train`.  Both run each rank's rows
-    through :func:`_expert_parallel`."""
+    through :func:`_expert_parallel`.  ``tp`` (a rank of tensor
+    parallelism): the shared expert runs tensor-parallel
+    (:func:`_plus_shared`), the router whole; the output comes back in
+    the residual's layout."""
     mc = cfg.moe
     if capacity_factor is None:
         capacity_factor = mc.capacity_factor
     if local_rows:
-        return _moe_layer_train(x, p, cfg, rules, capacity_factor)
+        return _moe_layer_train(x, p, cfg, rules, capacity_factor, tp)
     if expert_parallel(x.shape[0], cfg, rules):
-        return _moe_layer_local(x, p, cfg, rules, capacity_factor)
+        return _moe_layer_local(x, p, cfg, rules, capacity_factor, tp)
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
@@ -280,15 +286,26 @@ def moe_layer(x, p, cfg: ModelConfig,
         xd = _gather_slots(xt, slot_token)
     xd = xd.view(mc.num_experts, capacity, d)
     out = expert_ffn(xd, p, cfg).view(mc.num_experts * capacity, d)
-    y = _combine(out, slot_weight, slot, order, t, mc.top_k)
+    y = _combine(out, slot_weight, slot, order, t, mc.top_k).view(b, s, d)
+    if tp is not None:
+        y = tp.out(y, "whole")
+    return _plus_shared(y, x, p, cfg, tp), probs, ids
 
-    if mc.num_shared_experts:
-        y = y + mlp(xt[None], p["shared"], cfg)[0]
-    return y.view(b, s, d), probs, ids
+
+def _shared_ff(cfg: ModelConfig) -> int:
+    return cfg.moe.d_ff_shared * cfg.moe.num_shared_experts
+
+
+def _plus_shared(y, x, p, cfg: ModelConfig, tp):
+    """``y`` plus the shared expert's output on ``x`` (tensor-parallel
+    with ``tp``), where the layer has one."""
+    if not cfg.moe.num_shared_experts:
+        return y
+    return y + mlp(x, p["shared"], cfg, tp, _shared_ff(cfg))
 
 
 def _expert_parallel(xt, p, cfg: ModelConfig, rules,
-                     capacity_factor: float):
+                     capacity_factor: float, partial: bool = False):
     """The core of the JAX package's ``_moe_layer_local`` on one (data i,
     model j) rank, for decode and training alike: route the rank's own
     (t, d) rows ``xt`` with the (replicated) router, the capacity from
@@ -302,7 +319,11 @@ def _expert_parallel(xt, p, cfg: ModelConfig, rules,
     rows and gate weights, which every rank of the group holds alike and
     spends on its own experts, get their gradients summed over the group;
     without grad each piece is the plain gather, sum and all-reduce, bit
-    for bit.  Returns (y, probs, ids) of the rank's rows."""
+    for bit.  ``partial`` (a training pass under tensor parallelism over
+    the experts' axis): the rank's experts' share of the output comes
+    back unsummed, and the rows' and gate weights' gradients stay each
+    rank's share (``sharding.TensorParallel``: the caller's collectives
+    sum them).  Returns (y, probs, ids) of the rank's rows."""
     mc = cfg.moe
     t, d = xt.shape
     eax = rules.axis("experts")
@@ -317,29 +338,31 @@ def _expert_parallel(xt, p, cfg: ModelConfig, rules,
         xt, p, cfg, capacity_factor)
     n_loc = e_loc * capacity
     e0 = rules.mesh.axis_index(eax) * n_loc
-    # the gate weights' gradient reaches each slot from its one rank
-    slot_weight = sum_grad_over(slot_weight, group)
+    if not partial:
+        # the gate weights' gradient reaches each slot from its one rank
+        slot_weight = sum_grad_over(slot_weight, group)
+        xt = sum_grad_over(xt, group)
     own_tok, own_w = slot_token[e0:e0 + n_loc], slot_weight[e0:e0 + n_loc]
     # each row's slots among this rank's, in ascending order; the others
     # (and a dropped choice) read the zero row n_loc
     per_token = _slots_of_tokens(slot, order, t, mc.top_k) - e0
     per_token = torch.where((per_token >= 0) & (per_token < n_loc),
                             per_token, torch.full_like(per_token, n_loc))
-    xd = _DispatchGather.apply(sum_grad_over(xt, group), own_tok, per_token)
+    xd = _DispatchGather.apply(xt, own_tok, per_token)
     out = expert_ffn(xd.view(e_loc, capacity, d), p, cfg).view(n_loc, d)
     y = _SumSlots.apply(out * own_w[:, None].to(out.dtype), per_token)
-    return sum_over(y, group), probs, ids
+    return (y if partial else sum_over(y, group)), probs, ids
 
 
-def _moe_layer_local(x, p, cfg: ModelConfig, rules, capacity_factor: float):
+def _moe_layer_local(x, p, cfg: ModelConfig, rules, capacity_factor: float,
+                     tp=None):
     """Expert parallelism in decode, as the JAX package's
     ``_moe_layer_local`` runs on each (data i, model j) device: the rank's
     own ``b / |act_batch|`` rows through :func:`_expert_parallel`, the
     rows gathered back over the batch's ranks; the shared expert then runs
-    on every row, as there.  Returns (y, probs, ids), the routing of each
-    batch shard stacked (n, t / n, ...) where the batch is split (n >
-    1)."""
-    mc = cfg.moe
+    on every row, as there (tensor-parallel with ``tp``).  Returns (y,
+    probs, ids), the routing of each batch shard stacked (n, t / n, ...)
+    where the batch is split (n > 1)."""
     b, s, d = x.shape
     dax = rules.axis("act_batch")
     dsize = rules.axis_size(dax)
@@ -354,9 +377,7 @@ def _moe_layer_local(x, p, cfg: ModelConfig, rules, capacity_factor: float):
         y = all_gather(y, dgroup, dorder)
         probs = all_gather(probs[None], dgroup, dorder)
         ids = all_gather(ids[None], dgroup, dorder)
-    if mc.num_shared_experts:
-        y = y + mlp(x, p["shared"], cfg)
-    return y, probs, ids
+    return _plus_shared(y, x, p, cfg, tp), probs, ids
 
 
 def _moe_specs(cfg: ModelConfig, rules) -> dict:
@@ -368,17 +389,21 @@ def _moe_specs(cfg: ModelConfig, rules) -> dict:
     return walk(moe_schema(cfg))
 
 
-def _moe_layer_train(x, p, cfg: ModelConfig, rules, capacity_factor: float):
+def _moe_layer_train(x, p, cfg: ModelConfig, rules, capacity_factor: float,
+                     tp=None):
     """The JAX package's ``_moe_layer_local`` in a training pass: ``x``
     holds this rank's own rows (the batch split over ``act_batch``, whose
     size n the rules give; None: every rank runs every row) and ``p`` its
     shard of the layer (``bridge.shard_train``: the ``E / |experts|``
-    experts it holds, d_model split over ``data`` where it divides).  The
-    FSDP shards are gathered over ``data`` here (``gather_fsdp``; backward:
+    experts it holds, d_model split over ``data`` where it divides, the
+    shared expert's hidden dim over ``model``).  The FSDP shards are
+    gathered over ``data`` here (``gather_fsdp``; backward:
     reduce-scatter), then :func:`_expert_parallel` runs the rows (K7's
-    ``MoeFFN``: training forward and backward).  Returns (y, probs, ids) of
-    the rank's rows: the caller's loss over them is the shard's, which JAX
-    divides by n (``aux[None] / dsize``)."""
+    ``MoeFFN``: training forward and backward).  With ``tp`` over the
+    experts' axis the experts' partial sums and a split shared expert's
+    go out in one collective (``tp.out``), in the residual's layout.
+    Returns (y, probs, ids) of the rank's rows: the caller's loss over
+    them is the shard's, which JAX divides by n (``aux[None] / dsize``)."""
     mc = cfg.moe
     p = gather_fsdp(p, _moe_specs(cfg, rules), rules)
     eax = rules.axis("experts")
@@ -390,11 +415,12 @@ def _moe_layer_train(x, p, cfg: ModelConfig, rules, capacity_factor: float):
                 f"{mc.num_experts} experts over {rules.axis_size(eax)} "
                 f"ranks with the batch split: the global dispatch over "
                 f"every rank's rows is not ported")
-        return moe_layer(x, p, cfg, capacity_factor)
+        return moe_layer(x, p, cfg, capacity_factor, tp=tp)
     b, s, d = x.shape
+    partial = tp is not None and eax == tp.axis
     y, probs, ids = _expert_parallel(x.reshape(b * s, d), p, cfg, rules,
-                                     capacity_factor)
+                                     capacity_factor, partial)
     y = y.view(b, s, d)
-    if mc.num_shared_experts:
-        y = y + mlp(x, p["shared"], cfg)
-    return y, probs, ids
+    if tp is not None:
+        y = tp.out(y, "partial" if partial else "whole")
+    return _plus_shared(y, x, p, cfg, tp), probs, ids

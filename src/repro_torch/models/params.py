@@ -20,8 +20,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.sharding import (shard_shape, shard_slices,
-                                         train_spec)
+from repro_torch.models.sharding import (DECODE_SPLITS, RECURRENT_SPLITS,
+                                         TRAIN_SPLITS, shard_shape,
+                                         shard_slices, train_spec)
 from repro_torch.models.ssm import ssm_dims
 from repro_torch.models.xlstm import xlstm_dims
 
@@ -269,6 +270,21 @@ def build_schema(cfg: ModelConfig) -> dict:
     return schema
 
 
+def _recurrent(path) -> bool:
+    """The leaf at ``path`` is a recurrent layer's own (Mamba2's, an mLSTM
+    or sLSTM block's)."""
+    return path[:1] == ("supers",) or path[:2] == ("mamba_layers", "mamba")
+
+
+def leaf_spec(rules, path, pd: ParamDef) -> tuple:
+    """The split of the leaf at ``path`` over a training rank's mesh:
+    ``train_spec`` with ``TRAIN_SPLITS``, a recurrent layer's leaf with
+    ``RECURRENT_SPLITS`` (their ``ff`` and ``state_heads`` over ``model``
+    are ROADMAP A8b)."""
+    return train_spec(rules, pd.axes, pd.shape,
+                      RECURRENT_SPLITS if _recurrent(path) else TRAIN_SPLITS)
+
+
 def _walk(schema, fn, path=()):
     if isinstance(schema, ParamDef):
         return fn(path, schema)
@@ -296,7 +312,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
     def make(path, pd: ParamDef):
         dtype = TORCH_DTYPES[pd.dtype]
-        spec = train_spec(rules, pd.axes, pd.shape)
+        spec = leaf_spec(rules, path, pd)
         shape = shard_shape(rules, spec, pd.shape) if rules else pd.shape
         if pd.init == "zeros":
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -329,11 +345,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def param_specs(cfg: ModelConfig, rules):
-    """Each leaf's split over a training rank's mesh
-    (``sharding.train_spec``: ``embed_fsdp`` and ``experts`` where they
-    divide), the tree of the parameters; () everywhere without rules."""
+    """Each leaf's split over a training rank's mesh (:func:`leaf_spec`:
+    ``embed_fsdp`` over ``data``; ``experts``, ``heads``, ``kv_heads``,
+    ``ff`` and ``vocab`` over ``model``; each where it divides), the tree
+    of the parameters; () everywhere without rules."""
     return _walk(build_schema(cfg),
-                 lambda path, pd: train_spec(rules, pd.axes, pd.shape))
+                 lambda path, pd: leaf_spec(rules, path, pd))
+
+
+def decode_specs(cfg: ModelConfig, rules):
+    """Each leaf's split on a decode rank (``bridge.shard_decode``):
+    tensor parallelism alone (``DECODE_SPLITS`` where they divide; the
+    recurrent layers' leaves whole)."""
+    return _walk(build_schema(cfg), lambda path, pd: train_spec(
+        rules, pd.axes, pd.shape, () if _recurrent(path) else DECODE_SPLITS))
 
 
 def abstract_params(cfg: ModelConfig, rules=None):
@@ -344,7 +369,7 @@ def abstract_params(cfg: ModelConfig, rules=None):
     (:func:`param_specs`), as ``init_params(..., rules)`` draws it."""
     def leaf(path, pd: ParamDef):
         shape = pd.shape if rules is None else shard_shape(
-            rules, train_spec(rules, pd.axes, pd.shape), pd.shape)
+            rules, leaf_spec(rules, path, pd), pd.shape)
         return torch.empty(shape, dtype=TORCH_DTYPES[pd.dtype],
                            device="meta")
 

@@ -6,13 +6,16 @@ maps those to the axes of a :class:`repro_torch.launch.mesh.Mesh`.  With
 
 The JAX package hands the rules to GSPMD, which splits every annotated
 tensor and inserts the collectives.  Eager PyTorch has no such compiler:
-here the rules serve the explicit multi-rank paths alone (the decode step's
-KV pool sharded over ``kv_blocks``, expert parallelism over ``act_batch``
-and ``experts``, the recurrent states' rows over ``act_batch``; in
-training and prefill also each rank's rows (:func:`batch_rows`) and each
-parameter leaf and its AdamW moments split as :func:`train_spec` says),
-which split their tensors and call the collectives themselves
-(``repro_torch.core.collectives``).
+here the rules drive explicit multi-rank paths, which split their tensors
+and call the collectives themselves (``repro_torch.core.collectives``):
+the decode step's KV pool sharded over ``kv_blocks``, expert parallelism
+over ``act_batch`` and ``experts``, the recurrent states' rows over
+``act_batch``; in training and prefill each rank's rows
+(:func:`batch_rows`) and each parameter leaf and its AdamW moments split
+as :func:`train_spec` says; and tensor parallelism over ``model``
+(:class:`TensorParallel`): attention's heads, the MLPs' ``ff``, the
+vocabulary and, in training and prefill, the residual's d_model
+(``act_embed``), as ``DEFAULT_RULES`` split them in the JAX package.
 """
 from __future__ import annotations
 
@@ -94,29 +97,42 @@ def logical_to_spec(rules: Optional[ShardingRules], *logical_axes,
 
 def shard(x, rules: Optional[ShardingRules], *logical_axes):
     """The identity: GSPMD's sharding constraints have no counterpart in
-    eager PyTorch, so each rank holds whole what the explicit paths do not
-    split."""
+    eager PyTorch; the explicit paths split what they split themselves."""
     return x
 
 
 #: the logical axes whose splits a training rank holds: FSDP of weight
-#: matrices' d_model dims and expert parallelism.  Tensor parallelism
-#: (``heads``, ``ff``, ``vocab`` over ``model``) is GSPMD's choice of
-#: layout in the JAX package, not other math: the port keeps those dims
-#: whole, and the ``model`` ranks of one data index compute alike.
-TRAIN_SPLITS = ("embed_fsdp", "experts")
+#: matrices' d_model dims, expert parallelism, and tensor parallelism of
+#: attention's q and kv heads, the MLPs' hidden dim and the vocabulary
+#: (each where it divides; ``logical_to_spec`` drops the rest: yi-6b's 4
+#: kv heads on a 16-way axis stay whole).  Each ``model`` rank computes
+#: its own heads, ``ff`` columns and vocabulary rows
+#: (:class:`TensorParallel`).
+TRAIN_SPLITS = ("embed_fsdp", "experts", "heads", "kv_heads", "ff", "vocab")
+
+#: the splits of the recurrent layers' own leaves (Mamba2's, mLSTM's and
+#: sLSTM's): FSDP alone; their ``ff`` and ``state_heads`` stay whole and
+#: every ``model`` rank computes those layers alike
+RECURRENT_SPLITS = ("embed_fsdp", "experts")
+
+#: the splits a decode rank holds (``bridge.shard_decode``): tensor
+#: parallelism alone (the experts are cut where the batch takes the
+#: expert-parallel path; d_model stays whole)
+DECODE_SPLITS = ("heads", "kv_heads", "ff", "vocab")
 
 
-def train_spec(rules: Optional[ShardingRules], axes, shape) -> tuple:
+def train_spec(rules: Optional[ShardingRules], axes, shape,
+               splits=TRAIN_SPLITS) -> tuple:
     """The mesh axes of each dim of a parameter leaf (logical ``axes``,
     () for none) in sharded training: ``logical_to_spec``'s, divisibility
-    checked against ``shape``, of the dims named in ``TRAIN_SPLITS``;
-    every other dim None.  Its AdamW moments split alike."""
+    checked against ``shape``, of the dims named in ``splits``
+    (``TRAIN_SPLITS``; ``RECURRENT_SPLITS`` for a recurrent layer's
+    leaf); every other dim None.  Its AdamW moments split alike."""
     if rules is None:
         return ()
     axes = tuple(axes) or (None,) * len(shape)
     spec = logical_to_spec(rules, *axes, shape=shape)
-    return tuple(ax if name in TRAIN_SPLITS else None
+    return tuple(ax if name in splits else None
                  for ax, name in zip(spec, axes))
 
 
@@ -212,3 +228,118 @@ def _replaced(node, path, whole):
     if not isinstance(node, dict):
         return whole.get(path, node)
     return {k: _replaced(v, path + (k,), whole) for k, v in node.items()}
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over ``model``
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TensorParallel:
+    """A rank's place in tensor parallelism: the mesh axis that the rules
+    map ``heads`` to (``model``), split ``size`` ways, this rank
+    ``index``-th.  A leaf dim named ``heads``, ``kv_heads``, ``ff`` or
+    ``vocab`` that divides (:meth:`splits`) holds the rank's block: q
+    heads, kv heads, hidden columns, vocabulary rows; the layers compute
+    their block and hand the rest to the collectives below.
+
+    ``split_residual`` (training and prefill): the residual stream holds
+    the rank's block of d_model (``act_embed``), as the JAX package keeps
+    its checkpointed block inputs.  :meth:`whole` gathers it before each
+    norm, and a sublayer's output comes back in that layout
+    (:meth:`out`): a row-parallel product's partial sums reduce-scattered,
+    a whole output cut to the rank's block.  Every tensor that every rank
+    holds alike (the gathered stream, the normed input) then carries, on
+    each rank, the share of its gradient that the rank's own work gives:
+    the gather's backward sums them, and a leaf that ``model`` does not
+    split has its gradient summed over ``model`` by the step
+    (``train.optim._sync_grads``).  Without it (decode) the stream is
+    whole on every rank and a partial sum is all-reduced."""
+    rules: ShardingRules
+    axis: str
+    size: int
+    index: int
+    split_residual: bool = False
+
+    @property
+    def group(self):
+        return self.rules.mesh.group(self.axis)
+
+    def splits(self, logical: str, n: int) -> bool:
+        """A dim of ``n`` named ``logical`` is split over this axis."""
+        return self.rules.axis(logical) == self.axis and n % self.size == 0
+
+    def block(self, n: int) -> slice:
+        """This rank's block of a split dim of ``n``."""
+        k = n // self.size
+        return slice(self.index * k, (self.index + 1) * k)
+
+    def whole(self, x):
+        """The residual stream ``x`` whole along d_model (gathered where
+        it is split; differentiable)."""
+        if not self.split_residual:
+            return x
+        from repro_torch.core.collectives import (TENSOR_PARALLEL,
+                                                  gather_over, tagged)
+        with tagged(TENSOR_PARALLEL):
+            return gather_over([x], [x.dim() - 1], self.group)[0]
+
+    def shard(self, x):
+        """A tensor every rank holds whole and alike, in the residual's
+        layout: the rank's block of d_model where it is split."""
+        if not self.split_residual:
+            return x
+        return x[..., self.block(x.shape[-1])]
+
+    def out(self, y, kind: str, bias=None, dtype=None):
+        """A sublayer's output in the residual's layout.  ``kind``:
+        "partial" (each rank's share of a row-parallel product, f32 where
+        ``row_parallel`` made it: summed over the axis in f32 and rounded
+        once to ``dtype``, reduce-scattered where the stream is split),
+        "rows" (the rank's block of the sequence, dim 1: gathered) or
+        "whole" (alike on every rank).  ``bias`` (whole) is added once,
+        after the sum."""
+        from repro_torch.core.collectives import (TENSOR_PARALLEL,
+                                                  gather_over, reduce_scatter,
+                                                  sum_over, tagged)
+        with tagged(TENSOR_PARALLEL):
+            if kind == "rows":
+                y = gather_over([y], [1], self.group)[0]
+            if kind == "partial" and self.split_residual:
+                y = reduce_scatter([y], [y.dim() - 1], self.group)[0]
+                bias = None if bias is None else self.shard(bias)
+            elif kind == "partial":
+                y = sum_over(y, self.group)
+        if kind == "partial":
+            y = y if dtype is None else y.to(dtype)
+            return y if bias is None else y + bias
+        y = y if bias is None else y + bias
+        return self.shard(y)
+
+
+def tensor_parallel(rules: Optional[ShardingRules],
+                    d_model: Optional[int] = None
+                    ) -> Optional[TensorParallel]:
+    """The rank's :class:`TensorParallel`, or None where the rules split
+    nothing over the axis of ``heads`` (no rules, no such axis, one rank
+    along it).  ``d_model`` (training and prefill): the residual splits
+    over that axis too (``act_embed``, which must name it and divide
+    d_model)."""
+    if rules is None:
+        return None
+    axis = rules.axis("heads")
+    if axis is None or rules.axis_size(axis) == 1:
+        return None
+    if not isinstance(axis, str):
+        raise NotImplementedError(f"tensor parallelism over one mesh axis, "
+                                  f"not {axis}")
+    size = rules.axis_size(axis)
+    if d_model is not None and (rules.axis("act_embed") != axis
+                                or d_model % size):
+        raise NotImplementedError(
+            f"training and prefill split the residual's d_model "
+            f"({d_model}) over {axis!r} ({size}) with the heads: "
+            f"act_embed must name it and divide d_model")
+    return TensorParallel(rules, axis, size, rules.mesh.axis_index(axis),
+                          split_residual=d_model is not None)

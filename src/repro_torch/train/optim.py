@@ -13,8 +13,9 @@ elements.
 On a mesh of ranks (``train_step(..., rules)``) the parameters and the
 moments are the rank's shards (``bridge.shard_train``) and AdamW runs on
 them as they are; the gradients are first made whole sums over the ranks
-that split the batch, and the clip reads the global norm of the sharded
-gradients (``_sync_grads``, ``_sharded_norm``).
+that split the batch and, for a leaf that tensor parallelism leaves
+whole, over its ``model`` ranks, and the clip reads the global norm of the
+sharded gradients (``_sync_grads``, ``_sharded_norm``).
 """
 from __future__ import annotations
 
@@ -101,19 +102,31 @@ def _held_axes(spec) -> set:
             for a in ((ax,) if isinstance(ax, str) else ax)}
 
 
+def _summed_axes(rules) -> tuple:
+    """The mesh axes over which a rank's gradient is a share of the whole
+    one: the batch's (``act_batch``) and tensor parallelism's (each rank's
+    share of a whole leaf's gradient: ``sharding.TensorParallel``)."""
+    from repro_torch.models.sharding import tensor_parallel
+    axes = rules.axis("act_batch")
+    axes = set((axes,) if isinstance(axes, str) else tuple(axes or ()))
+    tp = tensor_parallel(rules)
+    if tp is not None:
+        axes.add(tp.axis)
+    return tuple(a for a in rules.mesh.axis_names if a in axes)
+
+
 @torch.no_grad()
 def _sync_grads(grads, specs, rules) -> list:
     """Each rank's gradients made the global ones: a leaf's gradient is
-    summed over the mesh axes that split the batch (``act_batch``) and do
-    not split the leaf (a leaf split over ``data`` had its sum from the
-    reduce-scatter of its gather), in f32 and rounded once to its dtype;
-    one collective for each set of axes."""
-    batch_axes = rules.axis("act_batch")
-    batch_axes = (batch_axes,) if isinstance(batch_axes, str) else \
-        tuple(batch_axes or ())
+    summed over the mesh axes that split the batch (``act_batch``) or
+    run tensor parallelism and do not split the leaf (a leaf split over
+    ``data`` had its sum over ``data`` from the reduce-scatter of its
+    gather; one split over ``model`` is whole on its rank), in f32 and
+    rounded once to its dtype; one collective for each set of axes."""
+    summed = _summed_axes(rules)
     buckets = {}
     for i, spec in enumerate(specs):
-        need = tuple(a for a in batch_axes if a not in _held_axes(spec))
+        need = tuple(a for a in summed if a not in _held_axes(spec))
         if need and rules.axis_size(need) > 1:
             buckets.setdefault(need, []).append(i)
     grads = list(grads)

@@ -585,14 +585,21 @@ def test_run_one_refuses_hybrid_on_a_mesh(fake_world, shape):
     recorded as NotImplementedError before the hybrid family had a pass
     on a mesh, now give ``ok`` records: the Mamba2 layers' FSDP gathers
     counted (two a layer in training: the pass and its recompute; one in
-    prefill) and K4 at the shared block's 13 uses."""
+    prefill) and K4 at the shared block's 13 uses.  Prefill's
+    reduce-scatters are tensor parallelism's alone: the shared block's
+    two row-parallel outputs at each of its 13 uses and the
+    vocabulary-parallel embedding; training adds the FSDP gradients'."""
     from repro_torch.launch.dryrun import run_one
 
     rec = run_one("zamba2-7b", shape, "pod")
     assert rec["ok"], rec.get("error")
     counts = rec["collectives"]["counts"]
     assert counts["all-gather"] > 81
-    assert (counts["reduce-scatter"] > 0) == (shape == "train_4k")
+    tp = 2 * 13 + 1
+    if shape == "prefill_32k":
+        assert counts["reduce-scatter"] == tp
+    else:
+        assert counts["reduce-scatter"] > tp
     assert "prefill_attention" in rec["cost"]["kernels"]
 
 
@@ -825,6 +832,41 @@ def test_wrapper_meta_branch_reports_its_cost(i):
                                     dtype=_dtype_name(cost.dtype))}, name
     # the outputs' allocation is the kernel's, not an aten op's traffic
     assert c.hbm_bytes == 0 and c.dot_flops == 0, name
+
+
+def test_row_parallel_counts_the_cards_bf16_product():
+    """``layers.row_parallel`` of bf16 operands on ``meta`` counts the
+    card's ops: one bf16 product with an f32 output (its flops, the bf16
+    operands read once and the f32 output written), no widened copy of
+    an operand, and a backward of two bf16 products; on the CPU the same
+    call widens the operands and returns the same shape and dtype."""
+    from repro_torch.launch.op_analysis import count
+    from repro_torch.models.layers import row_parallel
+
+    m, n, h, d = 6, 4, 8, 5
+
+    def step(a, w):
+        y = row_parallel(a, w, 2)
+        y.to(torch.bfloat16).float().sum().backward()
+        return y
+
+    a, w = (torch.empty(shape, dtype=torch.bfloat16, device="meta",
+                        requires_grad=True)
+            for shape in ((2, m // 2, n, h), (n, h, d)))
+    y, c = count(step, (a, w))
+    assert y.dtype == torch.float32 and y.shape == (2, m // 2, d)
+    assert a.grad.dtype == w.grad.dtype == torch.bfloat16
+    mm = {site: v for (op, site), v in c.ops.items() if op == "mm"}
+    k = n * h
+    fwd = [v for site, v in mm.items() if site != "models.layers.backward"]
+    assert fwd == [[1, 2 * m * k * d, 2 * (m * k + k * d) + 4 * m * d]]
+    assert mm["models.layers.backward"][:2] == [2, 2 * 2 * m * k * d]
+    widened = [v for (op, site), v in c.ops.items()
+               if op == "_to_copy" and site == "models.layers.row_parallel"]
+    assert not widened
+    cpu = row_parallel(torch.ones((2, 3, n, h), dtype=torch.bfloat16),
+                       torch.ones((n, h, d), dtype=torch.bfloat16), 2)
+    assert cpu.dtype == torch.float32 and torch.all(cpu == k)
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--jax-reference"]:

@@ -1288,3 +1288,31 @@ def test_kernels_without_backward_raise_under_grad(cuda):
         with torch.no_grad():
             call()
     torch.cuda.synchronize()
+
+
+def test_row_parallel_product_matches_widened(cuda):
+    """``layers.row_parallel`` of bf16 operands on the card (cuBLAS's
+    bf16 product with an f32 output, and its bf16 backward) against the
+    operands widened, as the CPU computes it: the output within 1e-5 of
+    its largest entry, each operand's gradient within one bf16 step of
+    its largest entry (a bf16-valued upstream gradient)."""
+    from repro_torch.models.layers import row_parallel
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = (torch.randn((2, 64, 4, 32), generator=gen, device=cuda) * 0.5).to(
+        torch.bfloat16).requires_grad_(True)
+    w = (torch.randn((4, 32, 96), generator=gen, device=cuda) * 0.02).to(
+        torch.bfloat16).requires_grad_(True)
+    g = torch.randn((2, 64, 96), generator=gen, device=cuda).to(
+        torch.bfloat16).float()
+    ways = []
+    for fn in (lambda: row_parallel(a, w, 2),
+               lambda: torch.einsum("bsnh,nhd->bsd", a.float(), w.float())):
+        y = fn()
+        ways.append((y, *torch.autograd.grad(y, (a, w), g)))
+    (y, da, dw), (y0, da0, dw0) = ways
+    assert y.dtype == torch.float32
+    for got, want, rel in ((y, y0, 1e-5), (da, da0, 2.0 ** -7),
+                           (dw, dw0, 2.0 ** -7)):
+        err = (got.float() - want.float()).abs().max()
+        assert err <= rel * want.float().abs().max(), (err, rel)

@@ -25,7 +25,13 @@ super-blocks and a tail layer) and reduced xlstm-1.3b at 4 (two
 super-blocks), 40 tokens a row (past the SSD chunk of 32).  Cases:
 training (``TRAIN``) in f32 and bf16 on (data 2, model 2), in f32 on (4,
 1) and with 3 rows, which do not divide over ``data``; prefill and four
-decode steps (``PREFILL``, ``DECODE``) in f32 and bf16 on (2, 2).
+decode steps (``PREFILL``, ``DECODE``) in f32 and bf16 on (2, 2).  The
+training cases run data parallelism and FSDP over the mesh with tensor
+parallelism off (``_without_tensor_parallelism``), and those of
+``TP_TRAIN`` again under the default rules, held to the same JAX runs:
+Zamba2's shared block and both families' embedding and head
+tensor-parallel over ``model``.  Prefill and decode run the default
+rules.
 """
 from __future__ import annotations
 
@@ -39,9 +45,10 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_sharded_train import (_bits, _flatten, _hold_tree,
-                                      _sharded_grads, _unflatten,
-                                      _unsharded_grads, _whole_leaves)
+from test_torch_sharded_train import (TP_UNSHARDED_REL, _bits, _flatten,
+                                      _hold_tree, _sharded_grads, _unflatten,
+                                      _unsharded_grads, _whole_leaves,
+                                      _without_tensor_parallelism)
 
 AXES = ("data", "model")
 ZAMBA, XLSTM = "zamba2-7b", "xlstm-1.3b"
@@ -60,6 +67,9 @@ TRAIN = {
     # 3 rows over 2 data ranks: every rank runs every row
     "xlstm-odd-f32": (XLSTM, "float32", (2, 2), 3),
 }
+#: the training cases run a second time with tensor parallelism over
+#: ``model`` (the default rules): those with more than one ``model`` rank
+TP_TRAIN = [c for c, (_, _, shape, _) in TRAIN.items() if shape[1] > 1]
 #: case -> (arch, dtype); 4 rows of SEQ tokens on (2, 2)
 PREFILL = {"zamba2-f32": (ZAMBA, "float32"), "zamba2-bf16": (ZAMBA, "bfloat16"),
            "xlstm-f32": (XLSTM, "float32"), "xlstm-bf16": (XLSTM, "bfloat16")}
@@ -114,6 +124,21 @@ BF16_REL = 2.0 ** -5
 #: every gradient, the decode steps' logits, states and pools (measured
 #: 6.1e-7 at most)
 UNSHARDED_REL = 1e-6
+#: tensor parallelism's runs (``TP_TRAIN``), where its roundings add to
+#: those above: its vocabulary-parallel log-sum-exp sums in another order,
+#: and in bf16 a few entries of the logits' gradient round the other way,
+#: which the biases summed over every token (the mLSTM's ``b_gates``)
+#: carry.  f32: the first step's ``nu``, a square of the gradient, within
+#: twice ``F32_REL`` (measured 1.17e-5, xlstm's ``b_gates``; its ``mu``
+#: 5.8e-6).  bf16 moments against JAX's within twice the gradients' bound
+#: (measured: ``mu`` 6.85% and ``nu`` 6.47% after the second step, xlstm's
+#: ``b_gates``; without tensor parallelism 2.98% and 5.09%).  bf16
+#: gradients against the port's unsharded ones within four bf16 steps of
+#: a leaf's largest entry (measured 1.59% xlstm's mLSTM ``out_norm``,
+#: 1.48% zamba2's ``embed``)
+TP_F32_NU0_REL = 2 * F32_REL
+TP_BF16_MOMENT_REL = {"mu": 2 * BF16_JAX_GRAD_REL, "nu": 2 * BF16_JAX_GRAD_REL}
+TP_BF16_GRAD_REL = 2.0 ** -5
 #: bf16 decode logit vectors (step * B + row) where JAX's top-1/top-2 gap
 #: is under twice the vector's largest difference (0.0156 zamba2, 0.0098
 #: xlstm) and the two deciding logits differ by a rounding step: the
@@ -407,11 +432,11 @@ def _leaves_np(states):
     return [t.float().numpy() for st in states for t in st]
 
 
-def _train_case(case, inp, rules, rank):
+def _train_case(case, inp, rules, rank, unsharded=True):
     """One training case on this rank: the first step's metrics and
     gradients (gathered), then two ``train_step(..., rules)`` calls;
-    rank 0 gathers the moments and parameters; in f32 the port's own
-    unsharded loss and gradients too."""
+    rank 0 gathers the moments and parameters, and where ``unsharded``
+    the port's own unsharded loss and gradients."""
     from repro_torch.bridge import gather_train, shard_train
     from repro_torch.models import model as TM
     from repro_torch.train import optim as O
@@ -422,7 +447,7 @@ def _train_case(case, inp, rules, rank):
         inp, f"train/{case}/batch{s}/").items()} for s in range(2)]
     p, _ = shard_train(full, None, cfg, rules)
     res = {}
-    if rank == 0:
+    if rank == 0 and unsharded:
         res["unsharded"] = _unsharded_grads(TM, O, full, batches[0], cfg)
     res["metrics"], res["gnorm"], res["grads"] = _sharded_grads(
         TM, O, p, batches[0], cfg, rules)
@@ -542,7 +567,11 @@ def _port_ranks(rank, world, inputs_path):
                                                    TRAIN.values()])}
     out = {"coords": meshes[MESH].mesh.coords}
     for case, (_, _, shape, _) in TRAIN.items():
-        out[f"train/{case}"] = _train_case(case, inp, meshes[shape], rank)
+        out[f"train/{case}"] = _train_case(
+            case, inp, _without_tensor_parallelism(meshes[shape]), rank)
+    for case in TP_TRAIN:
+        out[f"tp/{case}"] = _train_case(case, inp, meshes[TRAIN[case][2]],
+                                        rank, unsharded=False)
     for case in PREFILL:
         out[f"prefill/{case}"] = _prefill_case(case, inp, meshes[MESH])
     for case in DECODE:
@@ -606,10 +635,20 @@ def test_sharded_gradients_match_jax(runs, case):
     """The first step's nll and every gradient (gathered whole) against
     ``jax.value_and_grad`` of JAX's ``loss_fn`` under the same mesh's
     rules; every rank gathers the same gradients."""
+    _check_gradients(runs, case, f"train/{case}")
+
+
+@pytest.mark.parametrize("case", TP_TRAIN)
+def test_tensor_parallel_gradients_match_jax(runs, case):
+    """The same, tensor-parallel over ``model`` (the default rules)."""
+    _check_gradients(runs, case, f"tp/{case}")
+
+
+def _check_gradients(runs, case, port_key):
     ref, ranks, _ = runs
     dtype = TRAIN[case][1]
     key = f"train/{case}"
-    r0 = ranks[0][key]
+    r0 = ranks[0][port_key]
     want = _case(ref, f"{key}/grads/")
     _hold_tree(r0["grads"], want,
                F32_REL if dtype == "float32" else BF16_JAX_GRAD_REL, "grads")
@@ -617,7 +656,7 @@ def test_sharded_gradients_match_jax(runs, case):
         r0["metrics"]["nll"], float(ref[f"{key}/nll"]),
         rtol=F32_REL if dtype == "float32" else BF16_LOSS_REL)
     for r in ranks[1:]:
-        for k, g in r[key]["grads"].items():
+        for k, g in r[port_key]["grads"].items():
             assert np.array_equal(g, r0["grads"][k]), k
 
 
@@ -631,10 +670,24 @@ def test_sharded_train_steps_match_jax(runs, case):
     ``F32_REL`` of each leaf's largest entry, the second's and the
     parameters as ``MOMENT2_REL`` says; bf16: ``BF16_MOMENT_REL`` and each
     parameter within 2 lr a step plus a bf16 step of its size."""
+    _check_steps(runs, case, f"train/{case}")
+
+
+@pytest.mark.parametrize("case", TP_TRAIN)
+def test_tensor_parallel_train_steps_match_jax(runs, case):
+    """The same, tensor-parallel over ``model`` (the default rules): the
+    f32 first step's ``nu`` within ``TP_F32_NU0_REL``, bf16 moments
+    within ``TP_BF16_MOMENT_REL``."""
+    _check_steps(runs, case, f"tp/{case}", TP_F32_NU0_REL,
+                 TP_BF16_MOMENT_REL)
+
+
+def _check_steps(runs, case, port_key, f32_nu0_rel=F32_REL,
+                 bf16_moment_rel=BF16_MOMENT_REL):
     ref, ranks, _ = runs
     f32 = TRAIN[case][1] == "float32"
     key = f"train/{case}"
-    r0 = ranks[0][key]
+    r0 = ranks[0][port_key]
     for s in range(2):
         for k in ("loss", "nll", "grad_norm"):
             np.testing.assert_allclose(
@@ -642,12 +695,13 @@ def test_sharded_train_steps_match_jax(runs, case):
                 rtol=F32_REL if f32 else BF16_GNORM_REL if k == "grad_norm"
                 else BF16_LOSS_REL, err_msg=f"step {s} {k}")
     for r in ranks[1:]:
-        assert r[key]["steps"] == r0["steps"]
-        assert r[key]["whole"] == r0["whole"]
+        assert r[port_key]["steps"] == r0["steps"]
+        assert r[port_key]["whole"] == r0["whole"]
     for s in range(2):
         for name in ("mu", "nu"):
-            rel = (F32_REL if s == 0 else MOMENT2_REL) if f32 else \
-                BF16_MOMENT_REL[name]
+            first = f32_nu0_rel if name == "nu" else F32_REL
+            rel = (first if s == 0 else MOMENT2_REL) if f32 else \
+                bf16_moment_rel[name]
             _hold_tree(r0[f"step{s}/{name}"],
                        _case(ref, f"{key}/step{s}/{name}/"), rel,
                        f"step {s} {name}")
@@ -683,6 +737,23 @@ def test_sharded_matches_unsharded_port(runs, case):
     np.testing.assert_allclose(r0["gnorm"], ugnorm, rtol=tol)
     _hold_tree(r0["grads"], ugrads, UNSHARDED_REL if f32 else BF16_GRAD_REL,
                "grads")
+
+
+@pytest.mark.parametrize("case", TP_TRAIN)
+def test_tensor_parallel_matches_unsharded_port(runs, case):
+    """The same, tensor-parallel over ``model``: in f32 within
+    ``TP_UNSHARDED_REL`` (the ranks' partial products round apart before
+    their sum), in bf16 the nll and the norm as above and every gradient
+    within ``TP_BF16_GRAD_REL``."""
+    _, ranks, _ = runs
+    r0 = ranks[0][f"tp/{case}"]
+    um, ugnorm, ugrads = ranks[0][f"train/{case}"]["unsharded"]
+    f32 = TRAIN[case][1] == "float32"
+    tol = TP_UNSHARDED_REL if f32 else BF16_LOSS_REL
+    np.testing.assert_allclose(r0["metrics"]["nll"], um["nll"], rtol=tol)
+    np.testing.assert_allclose(r0["gnorm"], ugnorm, rtol=tol)
+    _hold_tree(r0["grads"], ugrads, TP_UNSHARDED_REL if f32 else
+               TP_BF16_GRAD_REL, "grads")
 
 
 @pytest.mark.parametrize("case", list(PREFILL))

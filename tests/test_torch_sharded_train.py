@@ -22,10 +22,14 @@ Cases (``CASES``): reduced phi-tiny-moe on (data 2, model 2) in f32 and
 bf16, on (data 4, model 1), and with a batch of 3 rows that does not
 divide over ``data`` (JAX's global MoE path; every rank runs every row);
 qwen2-moe (a shared expert), Llama-4 at 4 layers with ``layer_period`` 2
-(the interleaved pairs) and yi-6b (dense: data parallel and FSDP only,
-f32 and bf16) on (2, 2).  Held: loss, nll, aux and grad_norm, every
-gradient, and after two steps every parameter, ``mu`` and ``nu``,
-gathered; every rank's whole leaves equal.  The collectives alone
+(the interleaved pairs) and yi-6b (dense, f32 and bf16) on (2, 2), each
+with data parallelism, FSDP and expert parallelism and tensor
+parallelism off (``_without_tensor_parallelism``).  The cases of
+``TP_CASES`` run again under the default rules, tensor-parallel over
+``model``, held to the same JAX runs at tests/test_torch_tensor_parallel.py's
+bounds (yi-6b and qwen2-moe are held there).  Held: loss, nll, aux and
+grad_norm, every gradient, and after two steps every parameter, ``mu``
+and ``nu``, gathered; every rank's whole leaves equal.  The collectives alone
 against JAX's transposes of the same ``shard_map`` over 2 and 4 ranks,
 and the schema's logical axes and splits against JAX's for every family.
 """
@@ -70,6 +74,29 @@ REPLAYED = ("phi-tiny-moe-bf16",)
 _ROW1 = [(0, 1), (3, 1), (4, 1), (7, 1)]
 KNOWN_ROUTER_TIES = {("phi-tiny-moe-bf16", 0): _ROW1,
                      ("phi-tiny-moe-bf16", 1): _ROW1}
+#: the same, tensor-parallel over ``model``: those rows, and data shard
+#: 0's row 5 at layer 1 in the second step's pass and its recompute
+#: (calls 9 and 10): gaps of 0.0001 (the port) and 0.0037 (JAX), its
+#: log-probabilities 0.0067 apart
+_TP_TIES = _ROW1 + [(9, 5), (10, 5)]
+KNOWN_TP_ROUTER_TIES = {("phi-tiny-moe-bf16", 0): _TP_TIES,
+                        ("phi-tiny-moe-bf16", 1): _TP_TIES}
+#: the cases run a second time with tensor parallelism over ``model``
+#: (the default rules): those whose mesh has more than one ``model``
+#: rank and that tests/test_torch_tensor_parallel.py does not hold (its
+#: yi-6b f32 and bf16 and qwen2-moe f32 on (2, 2) are these configs)
+TP_CASES = ("phi-tiny-moe-f32", "phi-tiny-moe-bf16", "phi-tiny-moe-odd-f32",
+            "llama4-f32")
+#: ... their bounds where tensor parallelism's roundings add to those
+#: above (tests/test_torch_tensor_parallel.py's): bf16 gradients against
+#: JAX, the bf16 gradient norm, and the f32 pass against the unsharded
+#: port (the ranks' partial products round apart before their sum)
+TP_BF16_GRAD_REL = 2.0 ** -4
+TP_BF16_GNORM_REL = 1e-2
+TP_UNSHARDED_REL = 1e-5
+#: the logical axes that tensor parallelism splits over ``model``
+TENSOR_PARALLEL_AXES = ("heads", "kv_heads", "ff", "vocab", "act_heads",
+                        "act_ff", "act_embed")
 #: the cases also held against the port's own unsharded loss and
 #: gradients at the reduced configs' lossless capacity (factor 8.0)
 UNSHARDED = ("phi-tiny-moe-f32", "phi-tiny-moe-4x1-f32",
@@ -473,11 +500,22 @@ def _whole_leaves(O, TM, params, cfg, rules):
                     if not any(spec))
 
 
-def _port_case(case, inp, rules, rank, ckpt_out=None):
+def _without_tensor_parallelism(rules):
+    """``rules`` with tensor parallelism's logical axes mapped to no mesh
+    axis: data parallelism, FSDP and expert parallelism alone."""
+    return dataclasses.replace(rules, rules=dict(
+        rules.rules, **dict.fromkeys(TENSOR_PARALLEL_AXES)))
+
+
+def _port_case(case, inp, rules, rank, ckpt_out=None, tensor_parallel=False):
     """One case on this rank: the first step's loss and gradients, then
     two ``train_step(..., rules)`` calls; the gathered gradients,
     parameters and moments (rank 0), the whole leaves' bits after each
-    step (every rank)."""
+    step (every rank).  The mesh runs data parallelism, FSDP and expert
+    parallelism, and tensor parallelism only where ``tensor_parallel``
+    (the unsharded port's gradients are then left to the other run);
+    yi-6b-bf16's checkpoint is written from the trees' tensor-parallel
+    shards under ``rules``."""
     from repro_torch.bridge import gather_train, params_from_numpy, shard_train
     from repro_torch.models import model as TM
     from repro_torch.train import checkpoint as TC
@@ -485,6 +523,9 @@ def _port_case(case, inp, rules, rank, ckpt_out=None):
 
     arch, dtype, _, _ = CASES[case]
     _, cfg = _configs(arch)
+    tp_rules = rules
+    if not tensor_parallel:
+        rules = _without_tensor_parallelism(rules)
     full = params_from_numpy(_unflatten(inp, f"{arch}/params/"), cfg, "cpu")
     if dtype == "float32":      # the same weights widened (exact)
         full = _unflatten({k: v.float() for k, v in
@@ -506,8 +547,11 @@ def _port_case(case, inp, rules, rank, ckpt_out=None):
             for name, tree in (("mu", of.mu), ("nu", of.nu)):
                 res[f"step{s}/{name}"] = {k: v.numpy() for k, v in
                                           _flatten(tree, "").items()}
-    if case == "yi-6b-bf16":
-        TC.save_checkpoint(ckpt_out, p, opt, 2, cfg=cfg, rules=rules)
+    if case == "yi-6b-bf16" and not tensor_parallel:
+        # written from the tensor-parallel shards of the same trees
+        whole_p, whole_o = gather_train(p, opt, cfg, rules, dst=None)
+        tp_p, tp_o = shard_train(whole_p, whole_o, cfg, tp_rules)
+        TC.save_checkpoint(ckpt_out, tp_p, tp_o, 2, cfg=cfg, rules=tp_rules)
     pf, _ = gather_train(p, None, cfg, rules)
     if rank == 0:
         res["params"] = {k: v.float().numpy()
@@ -523,7 +567,7 @@ def _port_case(case, inp, rules, rank, ckpt_out=None):
                                                        lb_loss_weight=0.0))
         ps, _ = shard_train(full, None, flat, rules)
         res["lossless"] = _sharded_grads(TM, O, ps, batches[0], flat, rules)
-        if rank == 0:
+        if rank == 0 and not tensor_parallel:
             res["unsharded"] = _unsharded_grads(TM, O, full, batches[0],
                                                 flat)
     return res
@@ -531,7 +575,8 @@ def _port_case(case, inp, rules, rank, ckpt_out=None):
 
 def _port_replayed(rank, world, inputs_path, jax_path):
     """The cases of ``REPLAYED`` on this rank, under JAX's routing of the
-    same device (``_Replay``)."""
+    same device (``_Replay``), without tensor parallelism and (those of
+    ``TP_CASES``) with it."""
     torch.set_num_threads(1)
     from repro_torch.launch.mesh import Mesh, make_rules
     from repro_torch.models import moe as TMOE
@@ -540,11 +585,15 @@ def _port_replayed(rank, world, inputs_path, jax_path):
     out = {}
     for case in REPLAYED:
         rules = make_rules(Mesh(CASES[case][2], AXES))
-        with _Replay(TMOE, ref[f"{case}/routes/{rank}/ids"],
-                     ref[f"{case}/routes/{rank}/logp"]) as replay:
-            out[case] = _port_case(case, inp, rules, rank)
-        out[case]["ties"] = replay.differ
-        out[case]["router_calls"] = replay.calls
+        for key, tp in ((case, False), (f"tp/{case}", True)):
+            if tp and case not in TP_CASES:
+                continue
+            with _Replay(TMOE, ref[f"{case}/routes/{rank}/ids"],
+                         ref[f"{case}/routes/{rank}/logp"]) as replay:
+                out[key] = _port_case(case, inp, rules, rank,
+                                      tensor_parallel=tp)
+            out[key]["ties"] = replay.differ
+            out[key]["router_calls"] = replay.calls
     return out
 
 
@@ -580,6 +629,10 @@ def _port_ranks(rank, world, inputs_path, ckpt_in, ckpt_out, loop_dir):
         if case not in REPLAYED:
             out[case] = _port_case(case, inp, meshes[CASES[case][2]], rank,
                                    ckpt_out)
+    for case in TP_CASES:
+        if case not in REPLAYED:
+            out[f"tp/{case}"] = _port_case(case, inp, meshes[CASES[case][2]],
+                                           rank, tensor_parallel=True)
     TMOE._gather_slots = plain_gather
     out["indexed_under_grad"] = sum(indexed)
     out["gathered_slots"] = len(indexed)
@@ -780,25 +833,38 @@ def _hold_tree(got, want, rel, what, atol=0.0):
         assert err <= rel * np.abs(want[k]).max() + atol, (what, k, err)
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_sharded_gradients_match_jax(runs, case):
-    """The first step's nll, aux and every gradient (gathered whole)
-    against ``jax.value_and_grad`` of JAX's ``loss_fn`` under the same
-    mesh's rules; every rank gathers the same gradients."""
+def _check_gradients(runs, case, key, bf16_grad_rel):
+    """The port's run ``key`` of ``case``: the first step's nll, aux and
+    every gradient against JAX's; every rank the same gradients."""
     ref, ranks, _ = runs
     dtype = CASES[case][1]
-    r0 = ranks[0][case]
+    r0 = ranks[0][key]
     want = {k[len(case) + 7:]: v for k, v in ref.items()
             if k.startswith(f"{case}/grads/")}
-    rel = F32_REL if dtype == "float32" else BF16_GRAD_REL
+    rel = F32_REL if dtype == "float32" else bf16_grad_rel
     _hold_tree(r0["grads"], want, rel, "grads")
     nll, aux = ref[f"{case}/metrics"]
     tol = F32_REL if dtype == "float32" else BF16_LOSS_REL
     np.testing.assert_allclose(r0["metrics"]["nll"], nll, rtol=tol)
     np.testing.assert_allclose(r0["metrics"]["aux"], aux, rtol=tol, atol=1e-7)
     for r in ranks[1:]:
-        for k, g in r[case]["grads"].items():
+        for k, g in r[key]["grads"].items():
             assert np.array_equal(g, r0["grads"][k]), k
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sharded_gradients_match_jax(runs, case):
+    """The first step's nll, aux and every gradient (gathered whole)
+    against ``jax.value_and_grad`` of JAX's ``loss_fn`` under the same
+    mesh's rules; every rank gathers the same gradients."""
+    _check_gradients(runs, case, case, BF16_GRAD_REL)
+
+
+@pytest.mark.parametrize("case", TP_CASES)
+def test_tensor_parallel_gradients_match_jax(runs, case):
+    """The same, tensor-parallel over ``model`` (the default rules): bf16
+    gradients within ``TP_BF16_GRAD_REL``."""
+    _check_gradients(runs, case, f"tp/{case}", TP_BF16_GRAD_REL)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -820,19 +886,33 @@ def test_sharded_train_steps_match_jax(runs, case):
     (every one within 2 lr a step, all but 1e-4 of them within 2e-6).
     bf16: ``BF16_LOSS_REL``, ``BF16_MOMENT_REL`` and each parameter
     within 2 lr a step plus a bf16 step of its size."""
+    _check_steps(runs, case, case, BF16_LOSS_REL)
+
+
+@pytest.mark.parametrize("case", TP_CASES)
+def test_tensor_parallel_train_steps_match_jax(runs, case):
+    """The same, tensor-parallel over ``model`` (the default rules): the
+    bf16 gradient norm within ``TP_BF16_GNORM_REL``."""
+    _check_steps(runs, case, f"tp/{case}", TP_BF16_GNORM_REL)
+
+
+def _check_steps(runs, case, key, bf16_gnorm_rel):
+    """The port's run ``key`` of ``case``: two steps against JAX's
+    (``test_sharded_train_steps_match_jax``)."""
     ref, ranks, _ = runs
     dtype = CASES[case][1]
-    r0 = ranks[0][case]
+    r0 = ranks[0][key]
     f32 = dtype == "float32"
     for s in range(2):
         for k in ("loss", "nll", "aux", "grad_norm"):
+            tol = F32_REL if f32 else (bf16_gnorm_rel if k == "grad_norm"
+                                       else BF16_LOSS_REL)
             np.testing.assert_allclose(
                 r0["steps"][s][k], float(ref[f"{case}/step{s}/{k}"]),
-                rtol=F32_REL if f32 else BF16_LOSS_REL, atol=1e-7,
-                err_msg=f"step {s} {k}")
+                rtol=tol, atol=1e-7, err_msg=f"step {s} {k}")
     for r in ranks[1:]:
-        assert r[case]["steps"] == r0["steps"]
-        assert r[case]["whole"] == r0["whole"]
+        assert r[key]["steps"] == r0["steps"]
+        assert r[key]["whole"] == r0["whole"]
     for s in range(2):
         for name in ("mu", "nu"):
             pre = f"{case}/step{s}/{name}/"
@@ -865,13 +945,25 @@ def test_bf16_router_ties_are_named(runs):
     tie that the two runs' roundings explain (the two gaps between the
     k-th and (k + 1)-th log-probability sum to no more than twice the
     row's largest log-probability difference between the runs)."""
+    _check_ties(runs, "", KNOWN_ROUTER_TIES)
+
+
+@pytest.mark.parametrize("case", [c for c in REPLAYED if c in TP_CASES])
+def test_tensor_parallel_bf16_router_ties_are_named(runs, case):
+    """The same for the replayed runs tensor-parallel over ``model``: each
+    row routed otherwise is named in ``KNOWN_TP_ROUTER_TIES`` and is a
+    near tie."""
+    _check_ties(runs, "tp/", KNOWN_TP_ROUTER_TIES, (case,))
+
+
+def _check_ties(runs, prefix, known, cases=REPLAYED):
     _, ranks, _ = runs
-    for case in REPLAYED:
+    for case in cases:
         for rank, r in enumerate(ranks):
-            res = r[case]
+            res = r[prefix + case]
             assert res["router_calls"] == 12      # 3 passes x 4 calls
             got = sorted((c, row) for c, row, *_ in res["ties"])
-            assert got == sorted(KNOWN_ROUTER_TIES.get((case, rank), [])), \
+            assert got == sorted(known.get((case, rank), [])), \
                 (case, rank, res["ties"])
             for _, _, gap_port, gap_jax, moved in res["ties"]:
                 assert gap_port + gap_jax <= 2 * moved, res["ties"]
@@ -896,6 +988,19 @@ def test_sharded_matches_unsharded_port(runs, case):
         assert m["aux"] != um["aux"]
 
 
+@pytest.mark.parametrize("case", [c for c in TP_CASES if c in UNSHARDED])
+def test_tensor_parallel_matches_unsharded_port(runs, case):
+    """The same, tensor-parallel over ``model``: nll, the norm and every
+    gradient within ``TP_UNSHARDED_REL``."""
+    _, ranks, _ = runs
+    r0 = ranks[0]
+    (m, gnorm, grads) = r0[f"tp/{case}"]["lossless"]
+    um, ugnorm, ugrads = r0[case]["unsharded"]
+    np.testing.assert_allclose(m["nll"], um["nll"], rtol=TP_UNSHARDED_REL)
+    np.testing.assert_allclose(gnorm, ugnorm, rtol=TP_UNSHARDED_REL)
+    _hold_tree(grads, ugrads, TP_UNSHARDED_REL, "grads", atol=UNSHARDED_ATOL)
+
+
 #: one config of every family the schema covers, at full size (schemas
 #: only: nothing is allocated)
 SCHEMA_ARCHS = ["yi-6b", "command-r-35b", "qwen2-vl-72b", "qwen2-moe",
@@ -907,8 +1012,11 @@ SCHEMA_ARCHS = ["yi-6b", "command-r-35b", "qwen2-vl-72b", "qwen2-moe",
 def test_schema_axes_match_jax(arch):
     """Every leaf of the port's schema names the logical axes of the JAX
     package's ``ParamDef``, and ``param_specs`` on the production mesh
-    keeps JAX's ``param_specs`` of the dims it splits (``embed_fsdp``,
-    ``experts``) and leaves every other dim whole."""
+    keeps JAX's ``param_specs`` of the dims it splits (``TRAIN_SPLITS``:
+    ``embed_fsdp``, ``experts``, ``heads``, ``kv_heads``, ``ff``,
+    ``vocab``; a recurrent layer's leaf ``RECURRENT_SPLITS``) and leaves
+    every other dim whole; a model with attention or an MLP splits some
+    leaf over ``model``."""
     from jax.sharding import AbstractMesh, AxisType
 
     from repro.configs import get_config
@@ -934,27 +1042,35 @@ def test_schema_axes_match_jax(arch):
     trules = tmesh.make_rules(tmesh.Mesh((16, 16), AXES))
     jspecs = _flatten(JP.param_specs(cfg, jrules), "")
     tspecs = _flatten(TP.param_specs(tcfg, trules), "")
-    split = 0
+    from repro_torch.models.sharding import RECURRENT_SPLITS, TRAIN_SPLITS
+    split = over_model = 0
     for k, j in jspecs.items():
         j = tuple(j) + (None,) * (len(tschema[k].shape) - len(tuple(j)))
-        want = tuple(ax if name in ("embed_fsdp", "experts") else None
+        recurrent = k.startswith(("supers/", "mamba_layers/mamba/"))
+        names = RECURRENT_SPLITS if recurrent else TRAIN_SPLITS
+        want = tuple(ax if name in names else None
                      for ax, name in zip(j, jschema[k].axes))
         assert tspecs[k] == want, (k, tspecs[k], j)
         split += any(want)
-    assert split > 0
+        over_model += "model" in want
+    assert split > 0 and over_model > 0
 
 
 def test_init_params_on_a_rank_is_its_block(runs):
     """``init_params(..., rules)`` keeps the rank's block of the very
-    draws the unsharded call makes: experts over ``model``, d_model over
-    ``data``."""
+    draws the unsharded call makes: experts, q heads and the vocabulary
+    over ``model`` (reduced phi-tiny-moe's one kv head stays whole),
+    d_model over ``data``."""
     _, ranks, _ = runs
     assert all(r["init_equal"] for r in ranks)
     shapes = ranks[0]["init_shapes"]
     assert shapes["layers/moe/wi"] == (2, 2, 128, 256)
     assert shapes["layers/moe/wo"] == (2, 2, 256, 128)
-    assert shapes["layers/attn/wq"][1] == 128
-    assert shapes["embed"] == (512, 128)
+    assert shapes["layers/attn/wq"] == (2, 128, 2, 64)
+    assert shapes["layers/attn/wk"] == (2, 128, 1, 64)
+    assert shapes["layers/attn/wo"] == (2, 2, 64, 128)
+    assert shapes["embed"] == (256, 128)
+    assert shapes["lm_head"] == (128, 256)
     assert shapes["layers/ln1"] == (2, 256)
 
 
