@@ -187,10 +187,12 @@ Phases (any failure raises and the script exits non-zero):
      growing by half the whole tree) and restored re-sharded bit for bit;
      step 0's loss and grad_norm held against the unsharded ``train_step``
      of the same weights and rows after the ranks end;
- 16. the recurrent families on the same four ranks, zamba2-7b's shared
-     block tensor-parallel: zamba2-7b at 21 layers and xlstm-1.3b at 24
-     (``RECURRENT_DECODE_LAYERS``) decode 8 steps sharded (each rank its
-     rows of the recurrent states, zamba2's KV slots over both axes, K1
+ 16. the recurrent families on the same four ranks, their recurrent
+     layers split by heads and zamba2-7b's shared block tensor-parallel:
+     zamba2-7b at 21 layers and xlstm-1.3b at 24 in f32
+     (``RECURRENT_DECODE_LAYERS``, ``RECURRENT_DECODE_DTYPE``) decode 8
+     steps sharded (each rank its rows and heads of the recurrent states,
+     zamba2's KV slots over both axes, K1
      at its KV layers) against 8 unsharded steps, from the states and
      KV of each row's own prefill: the rank's rows' logits, states and
      appended KV held, the tokens whole; zamba2-7b at 15 layers prefills
@@ -228,6 +230,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -267,7 +270,7 @@ from repro_torch.models import layers as LAYERS  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.sharding import (  # noqa: E402
-    batch_rows, kv_block_axes)
+    batch_rows, kv_block_axes, shard_slices)
 from repro_torch.serving import TenantSpec, Workload  # noqa: E402
 from repro_torch.train.checkpoint import (  # noqa: E402
     restore_checkpoint, save_checkpoint)
@@ -3403,6 +3406,15 @@ def _tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
+def _recurrent_gib(params) -> float:
+    """GiB of the recurrent layers' own leaves in ``params`` (Mamba2's, the
+    mLSTM and sLSTM blocks'): what the head split divides over ``model``."""
+    parts = [params[k] for k in ("supers",) if k in params]
+    if "mamba_layers" in params:
+        parts.append(params["mamba_layers"]["mamba"])
+    return sum(_tree_bytes(t) for t in parts) / 2 ** 30
+
+
 #: the sharded decode cases' depth, cut for the run's time: tensor
 #: parallelism's collectives doubled a step's wall over gloo (yi-6b 232-365
 #: ms at 32 layers before, 647-696 ms with them, an H100 80GB HBM3, 700 W);
@@ -3851,18 +3863,11 @@ def _loss_and_grad_norm(params, batch, cfg, rules=None):
 
 def _shard_reckoning(cfg, rules):
     """(parameters a rank holds, its bytes of parameters, gradients and
-    AdamW moments) from ``abstract_params`` and ``param_specs``, nothing
-    allocated."""
-    ap = tree_leaves(M.abstract_params(cfg))
-    specs = _spec_leaves(M.param_specs(cfg, rules))
-    n = nbytes = 0
-    for t, spec in zip(ap, specs):
-        held = int(np.prod([rules.axis_size(ax) for ax in spec
-                            if ax is not None]))
-        k = t.numel() // held
-        n += k
-        nbytes += k * (2 * t.element_size() + 8)
-    return n, nbytes
+    AdamW moments) from ``abstract_params(cfg, rules)``, the rank's
+    blocks, nothing allocated."""
+    ap = tree_leaves(M.abstract_params(cfg, rules))
+    return (sum(t.numel() for t in ap),
+            sum(t.numel() * (2 * t.element_size() + 8) for t in ap))
 
 
 def _sharded_full_width(rules, rank, world):
@@ -4242,10 +4247,13 @@ RECURRENT_POS, RECURRENT_BS, RECURRENT_SLOTS = (41, 24, 33, 17), 8, 24
 #: two rows where the unsharded one multiplies four, cuBLAS picks another
 #: algorithm for each, and the bf16 roundings that differ carry through
 #: the layers and the steps.  Measured on an H100 80GB HBM3 (700 W), the
-#: same in six runs: zamba2-7b 0.02927 (rows 0-1) and 0.04683 (rows 2-3),
-#: xlstm-1.3b 0 and 0.04885; the bound is the power of two above the
-#: largest.  A rank holding another data index's rows reads far above it
-#: (``wrong_cut_rel``, printed beside it and held above the bound)
+#: same in six runs with the recurrent layers whole on every rank:
+#: zamba2-7b 0.02927 (rows 0-1) and 0.04683 (rows 2-3), xlstm-1.3b 0 and
+#: 0.04885; with the layers split by heads over ``model``, zamba2-7b
+#: 0.02174-0.04857.  The bound is the power of two above the largest.  A
+#: rank holding another data index's rows, or another ``model`` index's
+#: heads, reads far above it (``wrong_cut_rel``, ``wrong_heads_rel``,
+#: printed beside it and held above the bound)
 RECURRENT_STATE_REL = 2.0 ** -4
 #: zamba2-7b's prefill on the mesh: 4 rows of 1,024 tokens (two a data
 #: index), held to the unsharded prefill of the same weights and rows:
@@ -4258,13 +4266,14 @@ RECURRENT_PREFILL_ROWS, RECURRENT_PREFILL_SEQ = 4, 1024
 RECURRENT_PREFILL_LAYERS = 15
 #: largest |sharded - unsharded| of those, over each tensor's largest
 #: entry, with tensor parallelism over ``model`` (the default rules), as
-#: the recurrent states of decode are held (``RECURRENT_STATE_REL``): the
-#: shared block's row-parallel products are summed over the ranks in
-#: another order than one product's, so a few of their bf16 roundings
-#: fall the other way, and the Mamba2 layers after carry them (measured
-#: at 15 layers on an H100 80GB HBM3, 700 W: 0.0089-0.0204 of a tensor's
-#: largest entry, the conv state's the largest; without tensor
-#: parallelism the prefill came bit for bit and was held at 2^-6)
+#: zamba2-7b's decode states are held (``RECURRENT_STATE_REL``): the
+#: row-parallel products are summed over the ranks in another order than
+#: one product's, so a few of their bf16 roundings fall the other way,
+#: and the Mamba2 layers after carry them (measured at 15 layers on an
+#: H100 80GB HBM3, 700 W: 0.0089-0.0204 of a tensor's largest entry with
+#: the shared block alone tensor-parallel, 0.0174-0.0292 with the Mamba2
+#: layers split by heads too; without tensor parallelism the prefill came
+#: bit for bit and was held at 2^-6)
 RECURRENT_PREFILL_TP_REL = 2.0 ** -4
 #: training on the mesh: 2 rows a step (one a data index), the steps
 #: timed and one profiled; arch -> (layers, tokens a row).  Cuts, in the
@@ -4301,6 +4310,17 @@ RECURRENT_DEPTH_WHY = {
 #: at 81 layers, an H100 80GB HBM3, 700 W): zamba2-7b to 21 layers (3 of
 #: its 13 shared-block uses), xlstm-1.3b to 24 (3 of its 6 super-blocks)
 RECURRENT_DECODE_LAYERS = {ZAMBA2: 21, XLSTM: 24}
+#: the weights' dtype of each family's decode on the mesh.  xlstm-1.3b's
+#: is f32: split by heads, each row-parallel product sums the ranks' f32
+#: partials in another order than one product does, so in bf16 a few
+#: roundings fall otherwise, and the mLSTM and sLSTM blocks' exponential
+#: gates (``exp(i - m)``) carry them through 24 layers and 8 steps: in
+#: bf16 its states read 0.1033-0.177 of a leaf's largest entry (an H100
+#: 80GB HBM3, 700 W), past ``RECURRENT_STATE_REL``.  In f32 the split is
+#: held to the unsharded decode at that bound with the roundings out of
+#: the way; the bf16 split is held to JAX's sharded decode on the CPU
+#: (tests/test_torch_recurrent_mesh.py)
+RECURRENT_DECODE_DTYPE = {ZAMBA2: "bfloat16", XLSTM: "float32"}
 RECURRENT_TRAIN_ROWS, RECURRENT_TRAIN_STEPS = 2, 1
 RECURRENT_TRAIN_SEQ_FULL = 4096
 
@@ -4313,6 +4333,14 @@ def _recurrent_prefill_cfg():
 def _recurrent_decode_cfg(arch):
     return dataclasses.replace(get_config(arch),
                                num_layers=RECURRENT_DECODE_LAYERS[arch])
+
+
+def _decode_weights(arch, params):
+    """``params`` in the family's decode dtype (``RECURRENT_DECODE_DTYPE``):
+    f32 widens every leaf (exactly: the same weights)."""
+    if RECURRENT_DECODE_DTYPE[arch] == "bfloat16":
+        return params
+    return tree_unflatten(params, [t.float() for t in tree_leaves(params)])
 
 
 def _recurrent_train_cfg(arch):
@@ -4353,6 +4381,36 @@ def _state_leaves(cfg, states):
     return [(t, 2) for t in states[0]] + [(t, 1) for t in states[1]]
 
 
+def _next_model_index(rules):
+    """``rules`` as the rank of the same data index and the next ``model``
+    index sees them (its blocks of a leaf; no process group)."""
+    mesh = rules.mesh
+    coords = dict(mesh.coords, model=(mesh.coords["model"] + 1)
+                  % mesh.shape["model"])
+    rank = sum(coords[a] * math.prod(mesh.shape[b] for b in
+                                     mesh.axis_names[i + 1:])
+               for i, a in enumerate(mesh.axis_names))
+    return dataclasses.replace(rules, mesh=Mesh(
+        list(mesh.shape.values()), mesh.axis_names, rank=rank))
+
+
+def _rank_states(cfg, states, rules, rows):
+    """The leaves of whole recurrent states (every row and head) cut as
+    this rank holds them (``M.state_specs``: its heads where the layers
+    split them, the conv tails its channels), at the batch rows
+    ``rows``."""
+    specs = M.state_specs(cfg, rules, _state_leaves(cfg, states)[0][0]
+                          .shape[1 if cfg.family == "hybrid" else 2])
+    spec_leaves = list(specs) if cfg.family == "hybrid" else \
+        list(specs[0]) + list(specs[1])
+    out = []
+    for (t, dim), spec in zip(_state_leaves(cfg, states), spec_leaves):
+        index = list(shard_slices(rules, spec, t.shape))
+        index[dim] = rows
+        out.append(t[tuple(index)])
+    return out
+
+
 def _rel(got, want) -> float:
     got, want = got.float(), want.float()
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
@@ -4374,14 +4432,15 @@ def _recurrent_decode(arch, cfg, params, rules, rank, world):
     ``RECURRENT_SLOTS`` slots dealt from a seed, the same on every rank);
     ``SHARD_STEPS`` unsharded steps from the prefills' argmax, each fed the
     last step's, then the same steps sharded (``bridge.shard_decode``: the
-    rank's slots and its rows of the states), fed the unsharded tokens,
+    rank's slots, its rows and heads of the states and its heads of the
+    recurrent layers' leaves), fed the unsharded tokens,
     the launch counts set to 0 just before them and read just after.
     Held: the rank's rows' logits within ``SHARD_LOGIT_TOL``, argmax equal
     but for near ties, the tokens returned whole, the appended KV within
-    ``SHARD_KV_TOL`` (the rest bit for bit), the rank's states within
-    ``RECURRENT_STATE_REL``, K1 once a KV layer a step.  Then two sharded
-    steps timed and one profiled on every rank at once.  Returns its
-    numbers."""
+    ``SHARD_KV_TOL`` (the rest bit for bit), the rank's states (its rows
+    and heads) within ``RECURRENT_STATE_REL``, K1 once a KV layer a step.
+    Then two sharded steps timed and one profiled on every rank at once.
+    Returns its numbers."""
     pos, bs = RECURRENT_POS, RECURRENT_BS
     b, L = len(pos), M.num_kv_layers(cfg)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
@@ -4464,7 +4523,9 @@ def _recurrent_decode(arch, cfg, params, rules, rank, world):
     tp_calls, tp_ms = _tp_tagged()
     print(f"{arch} sharded decode, rank {rank}: tensor parallelism over "
           f"model: {_tree_bytes(p_r) / 2 ** 30:.3f} GiB of parameters held "
-          f"against the whole model's {_tree_bytes(params) / 2 ** 30:.3f}; "
+          f"against the whole model's {_tree_bytes(params) / 2 ** 30:.3f}, "
+          f"of the recurrent layers' {_recurrent_gib(p_r):.3f} against "
+          f"{_recurrent_gib(params):.3f}; "
           f"its collectives {tp_calls // SHARD_STEPS} a step, "
           f"{tp_ms / SHARD_STEPS:.2f} ms host a step", file=sys.stderr,
           flush=True)
@@ -4496,19 +4557,25 @@ def _recurrent_decode(arch, cfg, params, rules, rank, world):
                 toks[rows], torch.argmax(got[t], -1).to(torch.int32)):
             problems.append(f"step {t}'s tokens {toks.tolist()}")
     def state_gap(at):
-        return max(_rel(g, w.narrow(dim, at.start, at.stop - at.start))
-                   for (g, _), (w, dim) in zip(
-                       _state_leaves(cfg, st.states),
-                       _state_leaves(cfg, ref_states)))
+        return max(_rel(g, w) for (g, _), w in zip(
+            _state_leaves(cfg, st.states),
+            _rank_states(cfg, ref_states, rules, at)))
 
+    bound = RECURRENT_STATE_REL
     state_err = state_gap(rows)
-    if state_err > RECURRENT_STATE_REL:
+    if state_err > bound:
         problems.append(f"states {state_err} apart")
     other = _other_rows(rows, b)
     wrong = None if other is None else state_gap(other)
-    if wrong is not None and wrong <= RECURRENT_STATE_REL:
+    if wrong is not None and wrong <= bound:
         problems.append(f"another data index's rows read {wrong}: the "
                         f"bound cannot tell a wrong row cut")
+    wrong_heads = max(_rel(g, w) for (g, _), w in zip(
+        _state_leaves(cfg, st.states),
+        _rank_states(cfg, ref_states, _next_model_index(rules), rows)))
+    if wrong_heads <= bound:
+        problems.append(f"another model index's heads read {wrong_heads}: "
+                        f"the bound cannot tell a wrong head cut")
     kv_err = 0.0
     if L:
         n_loc = st.kv.slot_req.shape[0]
@@ -4560,12 +4627,16 @@ def _recurrent_decode(arch, cfg, params, rules, rank, world):
     busy = sum(ms for _, ms in prof_rows)
     k1 = sum(ms for n, ms in prof_rows if any(k in n for k in K1_KERNELS))
     return dict(positions=list(pos), rows=[rows.start, rows.stop],
-                steps=SHARD_STEPS, launches=launches,
+                dtype=RECURRENT_DECODE_DTYPE[arch], steps=SHARD_STEPS,
+                launches=launches,
+                recurrent_gib_here=_recurrent_gib(p_r),
+                recurrent_gib_whole=_recurrent_gib(params),
                 states_mib_here=held / 2 ** 20,
                 states_mib_whole=whole / 2 ** 20, max_abs_err=err,
                 step_max_abs_err=[round(e, 5) for e in step_err],
                 near_ties=ties, decided=decided, vectors=ref[..., 0].numel(),
-                state_rel_err=state_err, wrong_cut_rel=wrong,
+                state_rel_err=state_err, state_bound=bound,
+                wrong_cut_rel=wrong, wrong_heads_rel=wrong_heads,
                 kv_max_abs_err=kv_err,
                 problems=problems, sharded_loop_ms=sharded_ms,
                 unsharded_loop_ms=unsharded_ms,
@@ -4609,11 +4680,11 @@ def _recurrent_prefill(cfg, box, rules, rank):
             with torch.no_grad():
                 ref_last, ref_out = M.prefill(params, batch, cfg)
             def cut(at):
-                # nothing of it on the card
+                # nothing of it on the card; the states as the rank
+                # holds them (its heads, its conv channels)
                 return [t.cpu() for t in [ref_last[at]] + [
-                    t[:, at] for t in ref_out.kv] + [
-                    t.narrow(d, at.start, at.stop - at.start)
-                    for t, d in _state_leaves(cfg, ref_out.states)]]
+                    t[:, at] for t in ref_out.kv] + _rank_states(
+                        cfg, ref_out.states, rules, at)]
 
             ref = cut(rows)
             ref_wrong = None if other is None else cut(other)
@@ -4727,6 +4798,7 @@ def _recurrent_training(arch, rules, rank):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     held = torch.cuda.memory_allocated() - base
+    recurrent_here = _recurrent_gib(params)
     specs = _spec_leaves(M.param_specs(cfg, rules))
     batches = make_batches(SyntheticCorpus(vocab_size=cfg.vocab_size,
                                            seed=SEED),
@@ -4766,6 +4838,8 @@ def _recurrent_training(arch, rules, rank):
               f"{tp_calls} ({tp_ms:.0f} ms host), parameters held "
               f"{_tree_bytes(params) / 2 ** 30:.3f} GiB against the whole "
               f"model's {_tree_bytes(M.abstract_params(cfg)) / 2 ** 30:.3f}"
+              f" (the recurrent layers' {_recurrent_gib(params):.3f} "
+              f"against {_recurrent_gib(M.abstract_params(cfg)):.3f})"
               f", loss {vals['loss']:.5f}, peak "
               f"{(torch.cuda.max_memory_allocated() - base) / 2 ** 30:.3f} "
               f"GiB over the {base / 2 ** 30:.3f} held before",
@@ -4798,6 +4872,8 @@ def _recurrent_training(arch, rules, rank):
     return dict(
         layers=cfg.num_layers, seq_len=seq, rows=RECURRENT_TRAIN_ROWS,
         steps=RECURRENT_TRAIN_STEPS, params_here=n_here,
+        recurrent_gib_here=recurrent_here,
+        recurrent_gib_whole=_recurrent_gib(M.abstract_params(cfg)),
         state_gb=state / 1e9, held_gib=held / 2 ** 30, init_s=init_s,
         step_ms=[w * 1e3 for w in walls], steady_step_ms=steady * 1e3,
         tokens_per_s=RECURRENT_TRAIN_ROWS * seq / steady,
@@ -4826,8 +4902,8 @@ def _recurrent_parts(rules, rank, world):
     for arch in (ZAMBA2, XLSTM):
         t0 = time.perf_counter()
         cfg = _recurrent_decode_cfg(arch)
-        params = M.init_params(cfg, torch.Generator(device="cuda")
-                               .manual_seed(SEED), "cuda")
+        params = _decode_weights(arch, M.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda"))
         _same_on_ranks(tree_leaves(params), f"{arch} weights")
         print(f"{arch}, rank {rank}: weights drawn and checked in "
               f"{time.perf_counter() - t0:.1f} s", file=sys.stderr,
@@ -4883,18 +4959,22 @@ def recurrent_mesh_phase(ranks, counted):
     for arch in (ZAMBA2, XLSTM):
         for rank, d in enumerate(numbers[f"{arch} decode"]):
             paths[f"{arch} sharded decode, rank {rank}"] = d["launches"]
-            print(f"{arch} sharded decode [{card}], rank {rank}: rows "
+            print(f"{arch} sharded decode [{card}], rank {rank}: "
+                  f"{d['dtype']} weights, rows "
                   f"{d['rows']} of {d['positions']} (states "
                   f"{d['states_mib_here']:.2f} of {d['states_mib_whole']:.2f}"
-                  f" MiB here); {d['steps']} steps: K1 "
+                  f" MiB here, its rows' and heads'; the recurrent layers' "
+                  f"leaves {d['recurrent_gib_here']:.3f} of "
+                  f"{d['recurrent_gib_whole']:.3f} GiB); {d['steps']} steps: K1 "
                   f"{d['launches']['paged_decode_partials']} launches; "
                   f"logits max |sharded - unsharded| {d['max_abs_err']:.4g} "
                   f"(tolerance {SHARD_LOGIT_TOL}), by step "
                   f"{d['step_max_abs_err']}; argmax differs at near ties "
                   f"{d['near_ties']} ({d['decided']} of {d['vectors']} "
                   f"decided); states {d['state_rel_err']:.4g} of each "
-                  f"leaf's largest entry (tolerance {RECURRENT_STATE_REL};"
-                  f" another data index's rows read {d['wrong_cut_rel']})"
+                  f"leaf's largest entry (tolerance {d['state_bound']};"
+                  f" another data index's rows read {d['wrong_cut_rel']}, "
+                  f"another model index's heads {d['wrong_heads_rel']:.4g})"
                   f"; appended kv {d['kv_max_abs_err']:.4g} (tolerance "
                   f"{SHARD_KV_TOL}); step loop {d['sharded_loop_ms']:.2f} ms "
                   f"sharded, {d['unsharded_loop_ms']:.2f} unsharded; "
@@ -4929,7 +5009,9 @@ def recurrent_mesh_phase(ranks, counted):
             print(f"{arch} sharded training [{card}], rank {rank}: "
                   f"{d['layers']} layers, {d['rows']} x {d['seq_len']} "
                   f"tokens a step ({_recurrent_cut(arch)}); "
-                  f"{d['params_here'] / 1e9:.3f} B parameters held, state "
+                  f"{d['params_here'] / 1e9:.3f} B parameters held (the "
+                  f"recurrent layers' leaves {d['recurrent_gib_here']:.3f} "
+                  f"of {d['recurrent_gib_whole']:.3f} GiB), state "
                   f"reckoned {d['state_gb']:.2f} GB ({d['held_gib']:.2f} GiB"
                   f" on the card after init, {d['init_s']:.1f} s); step "
                   f"walls {[round(w, 1) for w in d['step_ms']]} ms, "
@@ -5049,7 +5131,8 @@ def _count_recurrent():
                                cfg.num_kv_heads, cfg.resolved_head_dim, b)
                 if L else None, peer=None,
                 states=M.init_states(cfg, b, "meta"))
-            p_r, st_r = shard_decode(M.abstract_params(cfg), st, cfg, rules)
+            p_r, st_r = shard_decode(
+                _decode_weights(arch, M.abstract_params(cfg)), st, cfg, rules)
             steps[f"{arch} decode"] = (cfg, (
                 lambda p, s, cfg=cfg: M.serve_step(p, s, cfg, rules=rules),
                 (p_r, st_r)))

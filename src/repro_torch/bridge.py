@@ -15,7 +15,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.params import ParamDef, build_schema
-from repro_torch.models.sharding import (batch_rows, kv_block_axes,
+from repro_torch.models.sharding import (Segments, kv_block_axes,
                                          shard_slices)
 
 
@@ -97,15 +97,16 @@ def shard_decode(params, state, cfg: ModelConfig, rules):
     its block of every attention, MLP (the shared expert's too) and
     vocabulary weight that tensor parallelism splits over ``model``
     (``params.decode_specs``: q heads, kv heads where they divide, hidden
-    columns, vocabulary rows; the router, the norms and the recurrent
-    layers' leaves stay whole).  Every other tensor is the same on every
-    rank and is shared, not copied; the shards are copies, so the step's
-    appends leave the full pools as they were.  The hybrid and ssm families' recurrent states
-    keep the rank's rows alone where the batch divides over
-    ``act_batch`` (``sharding.batch_rows``), as ``serve_step(rules)``
-    runs them.  The experts' weights over ``data`` (FSDP) stay whole:
-    GSPMD's gathers of them are not ported."""
-    from repro_torch.models.model import states_rows
+    columns, vocabulary rows, the recurrent layers' heads where they
+    divide; the router and the norms stay whole).  Every other tensor is
+    the same on every rank and is shared, not copied; the shards are
+    copies, so the step's appends leave the full pools as they were.  The
+    hybrid and ssm families' recurrent states keep the rank's rows where
+    the batch divides over ``act_batch`` (``sharding.batch_rows``) and
+    its heads where the layers split them (``model.state_specs``), as
+    ``serve_step(rules)`` runs them.  The experts' weights over ``data``
+    (FSDP) stay whole: GSPMD's gathers of them are not ported."""
+    from repro_torch.models.model import shard_states
     from repro_torch.models.moe import expert_parallel
 
     if cfg.moe is not None and expert_parallel(state.tokens.shape[0], cfg,
@@ -147,9 +148,8 @@ def shard_decode(params, state, cfg: ModelConfig, rules):
         t[shard_slices(rules, spec, t.shape)].clone(), params,
         decode_specs(cfg, rules))
     states = state.states
-    rows = batch_rows(rules, state.tokens.shape[0])
-    if states is not None and rows is not None:
-        states = states_rows(cfg, states, rows)
+    if states is not None:
+        states = shard_states(cfg, states, rules)
     return params, state._replace(kv=pools(state.kv), peer=pools(state.peer),
                                   states=states)
 
@@ -166,9 +166,9 @@ def shard_train(params, opt, cfg: ModelConfig, rules):
     """This rank's shard, for ``train_step(..., rules=rules)``, of full
     parameters and of their AdamW state ``opt`` (or None): each leaf's
     block as ``param_specs`` splits it (``embed_fsdp`` over ``data``;
-    ``experts``, ``heads``, ``kv_heads``, ``ff`` and ``vocab`` over
-    ``model``), copied; a leaf left whole is shared.
-    Returns (params, opt)."""
+    ``experts``, ``heads``, ``kv_heads``, ``ff``, ``vocab`` and the
+    recurrent layers' heads over ``model``), copied; a leaf left whole is
+    shared.  Returns (params, opt)."""
     from repro_torch.models.params import param_specs
 
     specs = param_specs(cfg, rules)
@@ -211,8 +211,10 @@ def gather_train(params, opt, cfg: ModelConfig, rules, dst=0):
     def gathered(t, spec):
         for d, ax in enumerate(spec):
             if ax is not None:
-                t = all_gather(t.movedim(d, 0), mesh.group(ax),
-                               mesh.group_order(ax)).movedim(0, d)
+                got = all_gather(t.movedim(d, 0), mesh.group(ax),
+                                 mesh.group_order(ax)).movedim(0, d)
+                t = ax.join(got.chunk(rules.axis_size(ax), d), d) \
+                    if isinstance(ax, Segments) else got
         return t
 
     def whole(t, spec):

@@ -10,9 +10,10 @@ GSPMD the global arguments and their shardings; a rank of the port holds
 its own share, which ``args`` is:
 
   train    -> ``train_step(..., rules)``: the rank's parameter shards
-              (``sharding.train_spec``: d_model over ``data``; experts,
-              heads, kv heads, ``ff`` and the vocabulary over ``model``),
-              their AdamW moments, the global batch
+              (``params.leaf_spec``: d_model over ``data``; experts,
+              heads, kv heads, ``ff``, the vocabulary and the recurrent
+              layers' heads over ``model``), their AdamW moments, the
+              global batch
   prefill  -> ``prefill(..., rules)``: the shards, the global batch
   decode   -> ``serve_step(..., rules)``: the rank's block of every
               weight that tensor parallelism splits over ``model`` and of
@@ -20,8 +21,9 @@ its own share, which ``args`` is:
               where the batch takes the expert-parallel path), the rest
               whole, the rank's slots of the KV pools, the hybrid and ssm
               families' recurrent states of the rank's rows (the batch
-              over ``act_batch``, where it divides), the rest of the
-              decode state whole
+              over ``act_batch``, where it divides) and heads (over
+              ``model``, where the layers' heads divide it;
+              ``model.state_specs``), the rest of the decode state whole
 
 Global shapes and dtypes are the JAX package's, pool slot counts
 included (``shards * ceil(n / shards)``).  The JAX package's dry run
@@ -30,9 +32,10 @@ whose per-request state is paged KV, and keeps it split for the hybrid
 and ssm families, whose recurrent states grow with the batch.  The
 port's decode step keeps tokens, positions and the pools' bookkeeping
 whole on every rank for every family, and for the recurrent families
-splits the states and the layers that read them over ``act_batch`` (the
-JAX package also splits their heads over ``model``, ``state_heads``,
-which the port leaves to a later slice); its MoE layers keep
+splits the states and the layers that read them over ``act_batch`` and
+their heads over ``model`` (``state_heads``, as the JAX package does; the
+conv tails hold the rank's channels where JAX keeps them whole over
+``model``); its MoE layers keep
 ``act_batch`` for their dispatch, the expert parallelism
 ``serve_step(rules)`` runs.  The JAX package's uncarried-pool baseline
 (an environment switch there) has no counterpart: the port's pools are
@@ -112,9 +115,10 @@ def abstract_decode_state(cfg: ModelConfig, shape: InputShape,
                           peer_fraction: float = 0.0) -> M.DecodeState:
     """The global ``DecodeState`` of ``shape`` on ``meta``: bf16 pools of
     ``shards * ceil(n / shards)`` slots (a peer pool of ``peer_fraction``
-    of them where it is above 0), the recurrent states of every row
-    stacked as the model returns them (``build_step`` keeps a rank's
-    rows), tokens, positions and M-RoPE ids."""
+    of them where it is above 0), the recurrent states of every row and
+    head stacked as the model returns them (``build_step`` keeps a rank's
+    rows and heads, ``bridge.shard_decode``), tokens, positions and
+    M-RoPE ids."""
     b, seq = shape.global_batch, shape.seq_len
     nkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     L_kv = M.num_kv_layers(cfg)

@@ -29,14 +29,17 @@ def rms_norm(x, scale, eps: float = 1e-5):
     return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dtype)
 
 
-def residual_norm(x, a, scale, eps: float = 1e-5):
+def residual_norm(x, a, scale, eps: float = 1e-5, tp=None):
     """``x + a`` and the RMS norm of it, as the JAX package computes them
     once XLA has compiled the block: the norm reads the sum before its
     rounding to x's dtype (XLA folds the bf16 round trip between the add
     and the norm's upcast away), while the residual stream keeps the
-    rounded sum.  Returns (x + a, norm)."""
+    rounded sum.  ``tp`` (a rank of tensor parallelism) splitting the
+    residual: ``x`` and ``a`` are the rank's block of d_model, and the
+    norm reads the unrounded sum gathered whole.  Returns (x + a, norm)."""
     s = x.float() + a.float()
-    return s.to(x.dtype), rms_norm(s, scale, eps).to(x.dtype)
+    return s.to(x.dtype), rms_norm(s if tp is None else tp.whole(s), scale,
+                                   eps).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):

@@ -49,7 +49,8 @@ they divide, gathered whole before K1; its heads' block of the output
 times its rows of ``wo``, the MLPs' hidden columns and the vocabulary's
 rows, each partial product summed over ``model``); the hybrid and ssm
 families' recurrent states and layers over the rank's rows
-(``act_batch``).
+(``act_batch``) and, where the layers' heads divide ``model``, over the
+rank's heads (``state_heads``; ``state_specs``).
 
 ``forward``, ``loss_fn`` and ``prefill`` with ``rules`` are a rank's
 share of the JAX package's sharded pass (every family): the
@@ -69,7 +70,12 @@ attention, the MLPs and the shared experts compute the rank's heads or
 hidden columns, their row-parallel outputs reduce-scattered back into
 the residual's layout; the embedding and the head are
 vocabulary-parallel (``loss_fn`` reduces the log-sum-exp and the target
-over the ranks); the recurrent layers compute alike on every rank.
+over the ranks); the recurrent layers (Mamba2, mLSTM, sLSTM) compute the
+rank's heads where they divide the axis (their leaves and states the
+rank's: ``params.leaf_spec``, ``state_specs``), their row-parallel
+outputs reduce-scattered likewise, and where they do not, compute whole
+on every rank on the gathered stream, their output cut to the
+residual's layout.
 """
 from __future__ import annotations
 
@@ -91,7 +97,8 @@ from repro_torch.models.moe import load_balance_loss, moe_layer
 from repro_torch.models.params import (  # noqa: F401  (re-exported)
     abstract_params, build_schema, check_family, init_params, is_interleaved,
     num_codebooks, param_count, param_specs)
-from repro_torch.models.sharding import (batch_rows, gather_fsdp, kv_block_axes,
+from repro_torch.models.sharding import (batch_rows, gather_fsdp,
+                                         kv_block_axes, shard_slices,
                                          strip_stacked, tensor_parallel)
 
 
@@ -253,12 +260,7 @@ def _block(x, s, lp, cfg: ModelConfig, attend, keep_sum: bool = False,
     a, kv = attend(u)
     if cfg.parallel_block:
         return x + a + L.mlp(u, lp["mlp"], cfg, tp), None, kv, None
-    if tp is not None and tp.split_residual:
-        s2 = x.float() + a.float()
-        x = s2.to(x.dtype)
-        u2 = L.rms_norm(tp.whole(s2), lp["ln2"], cfg.norm_eps).to(x.dtype)
-    else:
-        x, u2 = L.residual_norm(x, a, lp["ln2"], cfg.norm_eps)
+    x, u2 = L.residual_norm(x, a, lp["ln2"], cfg.norm_eps, tp)
     if "moe" in lp:
         y, probs, ids = moe_layer(u2, lp["moe"], cfg, rules=rules,
                                   local_rows=local_rows, tp=tp)
@@ -297,9 +299,10 @@ def _hybrid_layers(params, x, cfg: ModelConfig, states, single_token,
     inside each use's region would make 26 and 13, for one block's
     weights and their gradient held whole through the pass).  ``tp``: a
     rank of tensor parallelism: the shared block runs tensor-parallel,
-    every Mamba2 layer alike on every rank (on the gathered stream, its
-    output cut to the residual's layout).  Returns (x, the super-blocks'
-    kv, the new stacked states)."""
+    each Mamba2 layer over the rank's heads where they divide the axis
+    (``states`` the rank's), else whole on every rank on the gathered
+    stream, its output cut to the residual's layout.  Returns (x, the
+    super-blocks' kv, the new stacked states)."""
     per = cfg.hybrid.attn_period
     shared = params["shared_attn"]
     mspec = None
@@ -308,15 +311,16 @@ def _hybrid_layers(params, x, cfg: ModelConfig, states, single_token,
         mspec = strip_stacked(specs["mamba_layers"], 1)
         shared = gather_fsdp(shared, specs["shared_attn"], fsdp)
     if states is None:
-        st0 = S.init_ssm_state(cfg, x.shape[0], x.device)
+        st0 = S.init_ssm_state(cfg, x.shape[0], x.device, params[
+            "mamba_layers"]["mamba"]["norm"].shape[-1] // cfg.ssm.head_dim)
 
     def mamba(x, lp, st):
         if mspec is not None:
             lp = gather_fsdp(lp, mspec, fsdp)
         u = L.rms_norm(x if tp is None else tp.whole(x), lp["ln1"],
                        cfg.norm_eps)
-        y, st = S.mamba2_layer(u, lp["mamba"], cfg, st, single_token)
-        return x + (y if tp is None else tp.shard(y)), st
+        y, st = S.mamba2_layer(u, lp["mamba"], cfg, st, single_token, tp)
+        return x + y, st
 
     def shared_block(x, j):
         return _block(x, None, shared, cfg, lambda u: attend(j, u, shared),
@@ -341,9 +345,10 @@ def _xlstm_layers(params, x, cfg: ModelConfig, states, single_token,
     ``remat``: each block under ``torch.utils.checkpoint``.  ``fsdp``: the
     rules of a training rank's pass; each block gathers its weights split
     over ``data`` inside its recompute region.  ``tp``: a rank of tensor
-    parallelism; every block runs alike on every rank, on the gathered
-    stream, its output cut to the residual's layout.  Returns (x, the new
-    states in that layout)."""
+    parallelism; each block runs over the rank's heads where they divide
+    the axis (``states`` the rank's), else whole on every rank on the
+    gathered stream, its output cut to the residual's layout.  Returns
+    (x, the new states in that layout)."""
     per = cfg.xlstm.slstm_every
     supers = params["supers"]
     b = x.shape[0]
@@ -353,21 +358,15 @@ def _xlstm_layers(params, x, cfg: ModelConfig, states, single_token,
         mspec = strip_stacked(specs["mlstm"], 2)
         sspec = strip_stacked(specs["slstm"], 1)
 
-    def alike(block, x, lp, st):
-        if tp is None:
-            return block(x, lp, cfg, st, single_token)
-        x, st = block(tp.whole(x), lp, cfg, st, single_token)
-        return tp.shard(x), st
-
     def mblock(x, lp, st):
         if mspec is not None:
             lp = gather_fsdp(lp, mspec, fsdp)
-        return alike(X.mlstm_block, x, lp, st)
+        return X.mlstm_block(x, lp, cfg, st, single_token, tp)
 
     def sblock(x, lp, st):
         if sspec is not None:
             lp = gather_fsdp(lp, sspec, fsdp)
-        return alike(X.slstm_block, x, lp, st)
+        return X.slstm_block(x, lp, cfg, st, single_token, tp)
 
     mlstm = [_unbind(row) for row in _unbind(supers["mlstm"])]
     slstm = _unbind(supers["slstm"])
@@ -375,12 +374,14 @@ def _xlstm_layers(params, x, cfg: ModelConfig, states, single_token,
     for j in range(cfg.num_layers // per):
         row = []
         for i in range(per - 1):
-            st = X.init_mlstm_state(cfg, b, x.device) if states is None \
+            st = X.init_mlstm_state(cfg, b, x.device, mlstm[j][i]["wq"]
+                                    .shape[0]) if states is None \
                 else X.MLSTMState(*(t[j, i] for t in states[0]))
             x, st = _run(remat, mblock, x, mlstm[j][i], st)
             row.append(st)
         m_new.append(X.MLSTMState(*(torch.stack(t) for t in zip(*row))))
-        st = X.init_slstm_state(cfg, b, x.device) if states is None \
+        st = X.init_slstm_state(cfg, b, x.device, slstm[j]["w_rec"]
+                                .shape[0]) if states is None \
             else X.SLSTMState(*(t[j] for t in states[1]))
         x, st = _run(remat, sblock, x, slstm[j], st)
         s_new.append(st)
@@ -407,17 +408,49 @@ def init_states(cfg: ModelConfig, batch: int, device):
     return None
 
 
-def states_rows(cfg: ModelConfig, states, rows: slice):
-    """``init_states``' layout cut to the batch rows ``rows`` (copies):
-    the batch dim follows the stack dims, one for the hybrid family's
-    and the sLSTM states, two for the mLSTM states."""
-    def cut(st, lead):
-        return type(st)(*(t[(slice(None),) * lead + (rows,)].clone()
-                          for t in st))
+def state_specs(cfg: ModelConfig, rules, batch: int):
+    """The split of each leaf of ``init_states``' layout (``batch`` rows)
+    on a rank of ``rules``' mesh, as ``serve_step(rules)`` and the
+    sharded prefill hold them: the batch dim (after one stack dim, two for
+    the mLSTM states) over ``act_batch`` where the rows divide
+    (``batch_rows``); the heads dim, and the conv tails' channels, as the
+    layer's leaves split theirs (``param_specs``: Mamba2's conv tail as
+    its ``conv_b``, its heads' x channels and every B and C channel;
+    mLSTM's its heads' channels).  The JAX package splits the states over
+    ``state_heads`` too and keeps the conv tails whole over ``model``.
+    None for a family without states."""
+    if cfg.family not in ("hybrid", "ssm"):
+        return None
+    rows = None if batch_rows(rules, batch) is None \
+        else rules.axis("act_batch")
+    specs = param_specs(cfg, rules)
+    if cfg.family == "hybrid":
+        m = specs["mamba_layers"]["mamba"]
+        heads, conv = m["out_proj"][-2], m["conv_b"][-1]
+        return S.SSMState(s=(None, rows, heads, None, None),
+                          conv=(None, rows, None, conv))
+    m, sl = specs["supers"]["mlstm"], specs["supers"]["slstm"]
+    heads = m["wq"][-3]
+    return (X.MLSTMState(c=(None, None, rows, heads, None, None),
+                         n=(None, None, rows, heads, None),
+                         m=(None, None, rows, heads),
+                         conv=(None, None, rows, None, m["conv_b"][-1])),
+            X.SLSTMState(*((None, rows, sl["w_rec"][-4], None),) * 4))
+
+
+def shard_states(cfg: ModelConfig, states, rules):
+    """``init_states``' layout of the whole batch cut to this rank's block
+    (``state_specs``; copies)."""
+    batch = (states.s if cfg.family == "hybrid" else states[1].c).shape[1]
+    specs = state_specs(cfg, rules, batch)
+
+    def cut(st, sp):
+        return type(st)(*(t[shard_slices(rules, s, t.shape)].clone()
+                          for t, s in zip(st, sp)))
 
     if cfg.family == "hybrid":
-        return cut(states, 1)
-    return cut(states[0], 2), cut(states[1], 1)
+        return cut(states, specs)
+    return cut(states[0], specs[0]), cut(states[1], specs[1])
 
 
 def backbone(params, x, positions, cfg: ModelConfig, rules=None,
@@ -751,7 +784,9 @@ def serve_step(params, state: DecodeState, cfg: ModelConfig,
     The hybrid and ssm families on a mesh whose ``act_batch`` splits the
     rows (``_state_rows``): ``state.states`` holds the rank's rows alone
     (``bridge.shard_decode``) and the recurrent layers run over them;
-    tokens, positions and the pools' bookkeeping stay global.  Zamba2's
+    tokens, positions and the pools' bookkeeping stay global.  Where the
+    layers' heads divide ``model``, the states are the rank's heads too
+    (``state_specs``) and the layers run tensor-parallel.  Zamba2's
     shared attention block gathers its normed input over ``act_batch``,
     serves every row against the rank's slots (K1, merged over
     ``kv_blocks``) and keeps its rows of the output.  The logits returned
@@ -777,7 +812,7 @@ def serve_step(params, state: DecodeState, cfg: ModelConfig,
         x, _, states = _hybrid_layers(params, x, cfg, state.states, True,
                                       shared_attend, tp=tp)
     elif cfg.family == "ssm":
-        x, states = _xlstm_layers(params, x, cfg, state.states, True)
+        x, states = _xlstm_layers(params, x, cfg, state.states, True, tp=tp)
     else:
         s = None
         for i, lp in enumerate(_layers(params)):

@@ -11,6 +11,7 @@ trees line up key by key and shape by shape.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import math
 from dataclasses import dataclass
@@ -21,10 +22,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.sharding import (DECODE_SPLITS, RECURRENT_SPLITS,
-                                         TRAIN_SPLITS, shard_shape,
-                                         shard_slices, train_spec)
+                                         TRAIN_SPLITS, Segments, heads_axis,
+                                         shard_shape, shard_slices,
+                                         train_spec)
 from repro_torch.models.ssm import ssm_dims
-from repro_torch.models.xlstm import xlstm_dims
+from repro_torch.models.xlstm import slstm_dims, xlstm_dims
 
 TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -40,6 +42,13 @@ class ParamDef:
     #: each dim's logical sharding axis (``repro.models.params``'s); ()
     #: for none on any dim; ``models.sharding.train_spec`` reads them
     axes: Tuple[Optional[str], ...] = ()
+    #: a recurrent layer's leaf: the counts that must each divide tensor
+    #: parallelism's axis for its ``ff`` / ``state_heads`` dim to split
+    #: (the layer's heads; sLSTM's MLP: its heads and hidden width)
+    units: Tuple[int, ...] = ()
+    #: that dim's segments, (length, split by heads) each, where it is not
+    #: one run of per-head channels (``sharding.Segments``)
+    parts: Tuple[Tuple[int, bool], ...] = ()
 
     def __post_init__(self):
         if not self.axes:
@@ -53,9 +62,9 @@ def _stack(defs: dict, n: int, extra: int = 0) -> dict:
     ``(n, extra)`` for blocks stacked inside super-blocks."""
     lead = (n,) if not extra else (n, extra)
     return {k: _stack(v, n, extra) if isinstance(v, dict)
-            else ParamDef(lead + v.shape, v.init, v.dtype,
-                          v.stacked + len(lead),
-                          ("layers",) * len(lead) + v.axes)
+            else dataclasses.replace(v, shape=lead + v.shape,
+                                     stacked=v.stacked + len(lead),
+                                     axes=("layers",) * len(lead) + v.axes)
             for k, v in defs.items()}
 
 
@@ -109,61 +118,86 @@ def moe_schema(cfg: ModelConfig) -> dict:
 
 
 def mamba_schema(cfg: ModelConfig) -> dict:
+    """Mamba2's leaves.  Split by heads, a rank holds the z and x channels
+    and dt entries of its heads and every B and C channel (``in_proj``'s
+    columns z | x | B C | dt, the conv's x | B C); ``dt_bias``, ``A_log``
+    and ``D`` whole, of which it reads its heads'."""
     d = cfg.d_model
     sc = cfg.ssm
     d_inner, nh, conv_dim = ssm_dims(cfg)
     in_dim = d_inner + conv_dim + nh               # z, xBC, dt
+    bc = (2 * sc.state_dim, False)
+    heads = dict(units=(nh,))
     return {
-        "in_proj": ParamDef((d, in_dim), axes=("embed_fsdp", "ff")),
-        "conv_w": ParamDef((sc.conv_width, conv_dim), axes=(None, "ff")),
-        "conv_b": ParamDef((conv_dim,), "zeros", axes=("ff",)),
+        "in_proj": ParamDef((d, in_dim), axes=("embed_fsdp", "ff"),
+                            parts=((d_inner, True), (d_inner, True), bc,
+                                   (nh, True)), **heads),
+        "conv_w": ParamDef((sc.conv_width, conv_dim), axes=(None, "ff"),
+                           parts=((d_inner, True), bc), **heads),
+        "conv_b": ParamDef((conv_dim,), "zeros", axes=("ff",),
+                           parts=((d_inner, True), bc), **heads),
         "dt_bias": ParamDef((nh,), "const:-2.0", "float32"),
         "A_log": ParamDef((nh,), "const:0.5", "float32"),
         "D": ParamDef((nh,), "ones", "float32"),
-        "norm": ParamDef((d_inner,), "ones", axes=("ff",)),
-        "out_proj": ParamDef((d_inner, d), axes=("ff", "embed_fsdp")),
+        "norm": ParamDef((d_inner,), "ones", axes=("ff",), **heads),
+        "out_proj": ParamDef((d_inner, d), axes=("ff", "embed_fsdp"),
+                             **heads),
     }
 
 
 def mlstm_schema(cfg: ModelConfig) -> dict:
+    """An mLSTM block's leaves.  Split by heads, a rank holds the xm and z
+    columns of its heads (``w_up``'s xm | z), their conv channels, q, k
+    and v projections and rows of ``w_gates`` and ``w_down``;
+    ``b_gates`` (the heads' (i, f) pairs) whole."""
     d = cfg.d_model
     d_inner, nh, hd = xlstm_dims(cfg)
     W = cfg.xlstm.conv_width
+    heads = dict(units=(nh,))
     return {
         "ln": ParamDef((d,), "ones"),
-        "w_up": ParamDef((d, 2 * d_inner), axes=("embed_fsdp", "ff")),
-        "conv_w": ParamDef((W, d_inner), axes=(None, "ff")),
-        "conv_b": ParamDef((d_inner,), "zeros", axes=("ff",)),
-        "wq": ParamDef((nh, hd, hd), axes=("state_heads", None, None)),
-        "wk": ParamDef((nh, hd, hd), axes=("state_heads", None, None)),
-        "wv": ParamDef((nh, hd, hd), axes=("state_heads", None, None)),
-        "w_gates": ParamDef((d_inner, 2 * nh), axes=("ff", None)),
+        "w_up": ParamDef((d, 2 * d_inner), axes=("embed_fsdp", "ff"),
+                         parts=((d_inner, True), (d_inner, True)), **heads),
+        "conv_w": ParamDef((W, d_inner), axes=(None, "ff"), **heads),
+        "conv_b": ParamDef((d_inner,), "zeros", axes=("ff",), **heads),
+        "wq": ParamDef((nh, hd, hd), axes=("state_heads", None, None),
+                       **heads),
+        "wk": ParamDef((nh, hd, hd), axes=("state_heads", None, None),
+                       **heads),
+        "wv": ParamDef((nh, hd, hd), axes=("state_heads", None, None),
+                       **heads),
+        "w_gates": ParamDef((d_inner, 2 * nh), axes=("ff", None), **heads),
         "b_gates": ParamDef((2 * nh,), "const:3.0"),
         "out_norm": ParamDef((hd,), "ones"),
-        "w_down": ParamDef((d_inner, d), axes=("ff", "embed_fsdp")),
+        "w_down": ParamDef((d_inner, d), axes=("ff", "embed_fsdp"),
+                           **heads),
     }
 
 
 def slstm_schema(cfg: ModelConfig) -> dict:
+    """An sLSTM block's leaves.  Split by heads, a rank holds its heads'
+    input, recurrent and output weights, and, where the GEGLU MLP's
+    hidden width divides too, its columns of ``mlp_wi`` and ``mlp_wg``
+    and rows of ``mlp_wo``."""
     d = cfg.d_model
-    nh = cfg.num_heads
-    hd = d // nh
-    f2 = int(d * cfg.xlstm.proj_factor_slstm)
+    nh, hd, f2 = slstm_dims(cfg)
+    heads, mlp = dict(units=(nh,)), dict(units=(nh, f2))
     return {
         "ln": ParamDef((d,), "ones"),
         "w_in": ParamDef((d, nh, 4, hd),
-                         axes=("embed_fsdp", "state_heads", None, None)),
+                         axes=("embed_fsdp", "state_heads", None, None),
+                         **heads),
         "b_in": ParamDef((nh, 4, hd), "zeros",
-                         axes=("state_heads", None, None)),
+                         axes=("state_heads", None, None), **heads),
         "w_rec": ParamDef((nh, hd, 4, hd),
-                          axes=("state_heads", None, None, None)),
+                          axes=("state_heads", None, None, None), **heads),
         "gn": ParamDef((hd,), "ones"),
         "w_out": ParamDef((nh, hd, d),
-                          axes=("state_heads", None, "embed_fsdp")),
+                          axes=("state_heads", None, "embed_fsdp"), **heads),
         "ln2": ParamDef((d,), "ones"),
-        "mlp_wi": ParamDef((d, f2), axes=("embed_fsdp", "ff")),
-        "mlp_wg": ParamDef((d, f2), axes=("embed_fsdp", "ff")),
-        "mlp_wo": ParamDef((f2, d), axes=("ff", "embed_fsdp")),
+        "mlp_wi": ParamDef((d, f2), axes=("embed_fsdp", "ff"), **mlp),
+        "mlp_wg": ParamDef((d, f2), axes=("embed_fsdp", "ff"), **mlp),
+        "mlp_wo": ParamDef((f2, d), axes=("ff", "embed_fsdp"), **mlp),
     }
 
 
@@ -278,11 +312,23 @@ def _recurrent(path) -> bool:
 
 def leaf_spec(rules, path, pd: ParamDef) -> tuple:
     """The split of the leaf at ``path`` over a training rank's mesh:
-    ``train_spec`` with ``TRAIN_SPLITS``, a recurrent layer's leaf with
-    ``RECURRENT_SPLITS`` (their ``ff`` and ``state_heads`` over ``model``
-    are ROADMAP A8b)."""
-    return train_spec(rules, pd.axes, pd.shape,
-                      RECURRENT_SPLITS if _recurrent(path) else TRAIN_SPLITS)
+    ``train_spec`` with ``TRAIN_SPLITS``; a recurrent layer's leaf with
+    ``RECURRENT_SPLITS``: ``embed_fsdp`` where it divides, and its ``ff``
+    or ``state_heads`` dim over tensor parallelism's axis by heads where
+    the layer's counts divide it (``pd.units``,
+    ``sharding.heads_axis``), as :class:`~repro_torch.models.
+    sharding.Segments` where the dim holds segments every rank holds
+    alike (``pd.parts``; ``shard_slices`` gives the positions)."""
+    if not _recurrent(path):
+        return train_spec(rules, pd.axes, pd.shape, TRAIN_SPLITS)
+    spec = train_spec(rules, pd.axes, pd.shape, ("embed_fsdp",))
+    axis = heads_axis(rules, *pd.units) if pd.units else None
+    if axis is None:
+        return spec
+    head_dims = set(RECURRENT_SPLITS) - {"embed_fsdp"}
+    return tuple((Segments(axis, pd.parts) if pd.parts else axis)
+                 if name in head_dims else ax
+                 for ax, name in zip(spec, pd.axes))
 
 
 def _walk(schema, fn, path=()):
@@ -347,8 +393,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def param_specs(cfg: ModelConfig, rules):
     """Each leaf's split over a training rank's mesh (:func:`leaf_spec`:
     ``embed_fsdp`` over ``data``; ``experts``, ``heads``, ``kv_heads``,
-    ``ff`` and ``vocab`` over ``model``; each where it divides), the tree
-    of the parameters; () everywhere without rules."""
+    ``ff``, ``vocab`` and the recurrent layers' heads over ``model``;
+    each where it divides), the tree of the parameters; () everywhere
+    without rules."""
     return _walk(build_schema(cfg),
                  lambda path, pd: leaf_spec(rules, path, pd))
 
@@ -356,9 +403,15 @@ def param_specs(cfg: ModelConfig, rules):
 def decode_specs(cfg: ModelConfig, rules):
     """Each leaf's split on a decode rank (``bridge.shard_decode``):
     tensor parallelism alone (``DECODE_SPLITS`` where they divide; the
-    recurrent layers' leaves whole)."""
-    return _walk(build_schema(cfg), lambda path, pd: train_spec(
-        rules, pd.axes, pd.shape, () if _recurrent(path) else DECODE_SPLITS))
+    recurrent layers' leaves by heads as :func:`leaf_spec` splits them,
+    their d_model dims whole)."""
+    def spec(path, pd):
+        if not _recurrent(path):
+            return train_spec(rules, pd.axes, pd.shape, DECODE_SPLITS)
+        return tuple(None if name == "embed_fsdp" else ax for ax, name in
+                     zip(leaf_spec(rules, path, pd), pd.axes))
+
+    return _walk(build_schema(cfg), spec)
 
 
 def abstract_params(cfg: ModelConfig, rules=None):

@@ -14,7 +14,8 @@ over ``act_batch`` and ``experts``, the recurrent states' rows over
 (:func:`batch_rows`) and each parameter leaf and its AdamW moments split
 as :func:`train_spec` says; and tensor parallelism over ``model``
 (:class:`TensorParallel`): attention's heads, the MLPs' ``ff``, the
-vocabulary and, in training and prefill, the residual's d_model
+vocabulary, the recurrent layers' heads (``state_heads``, with their
+``ff`` channels) and, in training and prefill, the residual's d_model
 (``act_embed``), as ``DEFAULT_RULES`` split them in the JAX package.
 """
 from __future__ import annotations
@@ -111,9 +112,14 @@ def shard(x, rules: Optional[ShardingRules], *logical_axes):
 TRAIN_SPLITS = ("embed_fsdp", "experts", "heads", "kv_heads", "ff", "vocab")
 
 #: the splits of the recurrent layers' own leaves (Mamba2's, mLSTM's and
-#: sLSTM's): FSDP alone; their ``ff`` and ``state_heads`` stay whole and
-#: every ``model`` rank computes those layers alike
-RECURRENT_SPLITS = ("embed_fsdp", "experts")
+#: sLSTM's): FSDP, and their ``ff`` channels and ``state_heads`` over
+#: tensor parallelism's axis by heads, where the layer's heads divide it
+#: (:func:`heads_axis`; a layer whose heads do not stays
+#: whole and every ``model`` rank computes it alike).  A rank holds the
+#: channels of its heads; a dim that mixes per-head channels with
+#: channels every head reads (Mamba2's B and C) is laid out as
+#: :class:`Segments` (``models.params.leaf_spec``)
+RECURRENT_SPLITS = ("embed_fsdp", "ff", "state_heads")
 
 #: the splits a decode rank holds (``bridge.shard_decode``): tensor
 #: parallelism alone (the experts are cut where the batch takes the
@@ -160,24 +166,87 @@ def strip_stacked(node, n: int):
     return node[n:]
 
 
+class Segments(str):
+    """A spec entry for a dim laid out as consecutive segments (``parts``:
+    (length, split) each) over the mesh axis it names (it compares, and
+    looks groups up, as that name): a rank holds, in order, its block of
+    each split segment (block ``axis_index`` of ``axis_size``) and the
+    whole of each other.  Mamba2's ``in_proj`` columns (z | x | B C | dt):
+    the z and x channels and dt entries of the rank's heads, B and C
+    alike on every rank.  The positions held alike have a gradient that
+    is a share of the whole one (``train.optim._sync_grads`` sums them
+    over the axis)."""
+
+    def __new__(cls, axis: str, parts):
+        self = super().__new__(cls, axis)
+        self.parts = tuple((int(n), bool(split)) for n, split in parts)
+        return self
+
+    def __getnewargs__(self):
+        return str(self), self.parts
+
+    def __repr__(self) -> str:
+        return f"Segments({str(self)!r}, {self.parts})"
+
+    def _runs(self, size: int):
+        """(first local position, first global position, length, split)
+        of each segment on a rank, block 0 of the split ones."""
+        local = glob = 0
+        for n, split in self.parts:
+            k = n // size if split else n
+            yield local, glob, k, split
+            local, glob = local + k, glob + n
+
+    def index(self, size: int, i: int) -> list:
+        """The global positions rank ``i`` of ``size`` holds, in order."""
+        return [g + (i * k if split else 0) + j
+                for _, g, k, split in self._runs(size) for j in range(k)]
+
+    def length(self, size: int) -> int:
+        return sum(k for _, _, k, _ in self._runs(size))
+
+    def shared(self, size: int) -> list:
+        """The local positions every rank holds alike."""
+        return [at + j for at, _, k, split in self._runs(size)
+                if not split for j in range(k)]
+
+    def join(self, blocks, dim: int):
+        """The whole dim from every rank's block (``blocks``, in rank
+        order): each split segment's blocks laid end to end, each other
+        segment from the first rank."""
+        import torch
+        parts = []
+        for at, _, k, split in self._runs(len(blocks)):
+            parts.extend(b.narrow(dim, at, k)
+                         for b in (blocks if split else blocks[:1]))
+        return torch.cat(parts, dim)
+
+
 def shard_slices(rules: ShardingRules, spec, shape) -> tuple:
     """This rank's block of a leaf of ``shape`` split as ``spec``: one
-    slice per dim (chunk ``axis_index`` of ``axis_size`` along each split
-    dim)."""
+    index per dim (chunk ``axis_index`` of ``axis_size`` along each split
+    dim; along a :class:`Segments` dim, the list of its positions)."""
     out = []
     for n, ax in zip(shape, spec or (None,) * len(shape)):
         if ax is None:
             out.append(slice(None))
             continue
-        k = n // rules.axis_size(ax)
-        i = rules.mesh.axis_index(ax)
+        i, size = rules.mesh.axis_index(ax), rules.axis_size(ax)
+        if isinstance(ax, Segments):
+            if n != sum(k for k, _ in ax.parts):
+                raise ValueError(f"{ax!r} over a dim of {n}")
+            out.append(ax.index(size, i))
+            continue
+        k = n // size
         out.append(slice(i * k, (i + 1) * k))
     return tuple(out)
 
 
 def shard_shape(rules: ShardingRules, spec, shape) -> tuple:
     """The shape of this rank's block of a leaf of ``shape``."""
-    return tuple(n if ax is None else n // rules.axis_size(ax)
+    return tuple(n if ax is None else
+                 ax.length(rules.axis_size(ax)) if isinstance(ax, Segments)
+                 else n // rules.axis_size(ax)
                  for n, ax in zip(shape, spec or (None,) * len(shape)))
 
 
@@ -241,8 +310,9 @@ class TensorParallel:
     map ``heads`` to (``model``), split ``size`` ways, this rank
     ``index``-th.  A leaf dim named ``heads``, ``kv_heads``, ``ff`` or
     ``vocab`` that divides (:meth:`splits`) holds the rank's block: q
-    heads, kv heads, hidden columns, vocabulary rows; the layers compute
-    their block and hand the rest to the collectives below.
+    heads, kv heads, hidden columns, vocabulary rows; a recurrent layer
+    whose heads divide (:func:`heads_axis`) holds its heads; the layers
+    compute their block and hand the rest to the collectives below.
 
     ``split_residual`` (training and prefill): the residual stream holds
     the rank's block of d_model (``act_embed``), as the JAX package keeps
@@ -316,6 +386,23 @@ class TensorParallel:
             return y if bias is None else y + bias
         y = y if bias is None else y + bias
         return self.shard(y)
+
+
+def heads_axis(rules: Optional[ShardingRules], *counts: int
+               ) -> Optional[str]:
+    """The mesh axis a recurrent layer's heads split over, or None:
+    tensor parallelism's (the axis of ``heads``, more than one rank),
+    where ``state_heads`` and ``ff`` map to it too and each of ``counts``
+    (the layer's heads; for sLSTM's MLP, its heads and hidden width)
+    divides it."""
+    if rules is None:
+        return None
+    axis = rules.axis("heads")
+    if not isinstance(axis, str) or rules.axis_size(axis) == 1 \
+            or rules.axis("state_heads") != axis or rules.axis("ff") != axis:
+        return None
+    size = rules.axis_size(axis)
+    return axis if all(n % size == 0 for n in counts) else None
 
 
 def tensor_parallel(rules: Optional[ShardingRules],

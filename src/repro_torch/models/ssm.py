@@ -12,6 +12,11 @@ they are plain PyTorch on every device.
 Shapes follow the Mamba2 paper with ngroups=1:
   d_inner = expand * d_model,  nheads = d_inner // head_dim
   state S: (b, nheads, head_dim, state_dim)
+
+Under tensor parallelism a rank whose leaves hold its heads alone
+(``params.leaf_spec``) runs the layer over them: the leaves are its block
+(``params.mamba_schema``), the state its heads' and the conv tail its
+channels (its x channels, every B and C channel).
 """
 from __future__ import annotations
 
@@ -21,7 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import _silu, rms_norm
+from repro_torch.core.collectives import (TENSOR_PARALLEL, sum_grad_over,
+                                          sum_over, tagged)
+from repro_torch.models.layers import _silu, rms_norm, row_parallel
 
 
 class SSMState(NamedTuple):
@@ -29,10 +36,13 @@ class SSMState(NamedTuple):
     conv: torch.Tensor     # (b, W-1, conv_dim): the causal conv's tail
 
 
-def ssm_dims(cfg: ModelConfig):
+def ssm_dims(cfg: ModelConfig, heads: Optional[int] = None):
+    """(d_inner, nheads, conv_dim) of the layer, or of ``heads`` of its
+    heads (a rank's share: their x channels and every B and C)."""
     sc = cfg.ssm
-    d_inner = sc.expand * cfg.d_model
-    nheads = d_inner // sc.head_dim
+    nheads = sc.expand * cfg.d_model // sc.head_dim if heads is None \
+        else heads
+    d_inner = nheads * sc.head_dim
     conv_dim = d_inner + 2 * sc.state_dim      # x, B, C go through the conv
     return d_inner, nheads, conv_dim
 
@@ -108,18 +118,44 @@ def _ssd_chunked(xh, dt, A, B, C, chunk: int, s0=None):
     return y[:, :s], S
 
 
+def _gated_norm(g, scale, eps: float, width: int, tp):
+    """The RMS norm of the f32 ``g`` (b, s, the rank's channels) over all
+    ``width`` channels of the ranks of ``tp``: each rank's f32 sum of
+    squares summed over them, whose gradient sums the ranks' cotangents
+    (each consumes the sum for its own channels)."""
+    ss = torch.sum(torch.square(g), dim=-1, keepdim=True)
+    with tagged(TENSOR_PARALLEL):
+        ss = sum_grad_over(sum_over(ss, tp.group), tp.group)
+    return (g * torch.rsqrt(ss / width + eps)) * scale.float()
+
+
 def mamba2_layer(x, p, cfg: ModelConfig,
-                 state: Optional[SSMState] = None, single_token: bool = False
-                 ) -> Tuple[torch.Tensor, SSMState]:
-    """Mamba2 sublayer.  x: (b, s, d).  Returns (y, new_state)."""
+                 state: Optional[SSMState] = None, single_token: bool = False,
+                 tp=None) -> Tuple[torch.Tensor, SSMState]:
+    """Mamba2 sublayer.  x: (b, s, d).  Returns (y, new_state).
+
+    ``tp`` (a rank of tensor parallelism; ``x`` whole along d_model): y
+    comes back in the residual's layout.  Where ``p`` holds the rank's
+    heads alone (``params.mamba_schema``, as ``params.leaf_spec`` splits
+    it; ``state`` theirs too) the layer computes them: the gated norm's
+    sum of squares summed over the axis, ``out_proj`` row-parallel, its
+    f32 partial sums reduced by ``tp.out``; else the whole layer, its
+    output cut."""
     sc = cfg.ssm
-    d_inner, nheads, conv_dim = ssm_dims(cfg)
+    d_all, nh_all, _ = ssm_dims(cfg)
+    split = p["norm"].shape[-1] < d_all
+    d_inner, nheads, conv_dim = ssm_dims(
+        cfg, p["norm"].shape[-1] // sc.head_dim)
     b, s, d = x.shape
     f32 = torch.float32
+    per_head = [p[k] for k in ("dt_bias", "A_log", "D")]
+    if split:
+        per_head = [t[tp.block(nh_all)] for t in per_head]
+    dt_bias, A_log, D = per_head
 
     zxbcdt = torch.einsum("bsd,dk->bsk", x, p["in_proj"])
     z, xbc, dt = torch.split(zxbcdt, [d_inner, conv_dim, nheads], dim=-1)
-    dt = softplus(dt.float() + p["dt_bias"].float())
+    dt = softplus(dt.float() + dt_bias.float())
 
     conv_tail = state.conv if state is not None else None
     xbc, new_tail = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_tail)
@@ -127,7 +163,7 @@ def mamba2_layer(x, p, cfg: ModelConfig,
                            dim=-1)
     xh = xs.reshape(b, s, nheads, sc.head_dim)
 
-    A = -torch.exp(p["A_log"].float())                     # (nh,)
+    A = -torch.exp(A_log.float())                          # (nh,)
     s_prev = state.s if state is not None else None
 
     if single_token:
@@ -145,22 +181,30 @@ def mamba2_layer(x, p, cfg: ModelConfig,
         y, S = _ssd_chunked(xh, dt, A, B.float(), C.float(), sc.chunk_size,
                             s_prev)
 
-    y = y + xh.float() * p["D"].float()[None, None, :, None]
+    y = y + xh.float() * D.float()[None, None, :, None]
     y = y.reshape(b, s, d_inner).to(x.dtype)
     # gated RMSNorm (mamba2): norm(y * silu(z)), the product read before
     # its rounding to x's dtype, as the jitted JAX layer computes it (XLA
     # folds the round trip between the multiply and the norm's upcast)
-    y = rms_norm(y.float() * _silu(z).float(), p["norm"],
-                 cfg.norm_eps).to(x.dtype)
+    g = y.float() * _silu(z).float()
+    new = SSMState(s=S, conv=new_tail)
+    if split:
+        y = _gated_norm(g, p["norm"], cfg.norm_eps, nh_all * sc.head_dim,
+                        tp).to(x.dtype)
+        return tp.out(row_parallel(y, p["out_proj"], 1), "partial",
+                      dtype=x.dtype), new
+    y = rms_norm(g, p["norm"], cfg.norm_eps).to(x.dtype)
     out = torch.einsum("bsk,kd->bsd", y, p["out_proj"])
-    return out, SSMState(s=S, conv=new_tail)
+    return (out if tp is None else tp.out(out, "whole")), new
 
 
-def init_ssm_state(cfg: ModelConfig, batch: int, device) -> SSMState:
-    """Zero state: ``s`` in f32, the conv tail in bf16 whatever the
-    weights' dtype, as the JAX package starts it."""
+def init_ssm_state(cfg: ModelConfig, batch: int, device,
+                   heads: Optional[int] = None) -> SSMState:
+    """Zero state (of ``heads`` of the heads, all by default): ``s`` in
+    f32, the conv tail in bf16 whatever the weights' dtype, as the JAX
+    package starts it."""
     sc = cfg.ssm
-    d_inner, nheads, conv_dim = ssm_dims(cfg)
+    d_inner, nheads, conv_dim = ssm_dims(cfg, heads)
     return SSMState(
         s=torch.zeros((batch, nheads, sc.head_dim, sc.state_dim),
                       dtype=torch.float32, device=device),

@@ -10,7 +10,10 @@ mesh each rank runs these blocks over its own rows (``models.model``),
 which is what the JAX package's sLSTM ``shard_map`` over the batch does;
 the gradient of ``w_rec``, reduced once at that region's exit there, is
 summed over the batch's ranks once a step with the other leaves no axis
-splits (``train.optim._sync_grads``).  There is no Pallas kernel for
+splits (``train.optim._sync_grads``).  Under tensor parallelism a rank
+whose leaves hold its heads alone (``params.leaf_spec``) runs them: its
+block of the leaves (``params.mlstm_schema``, ``slstm_schema``), its
+heads' states and its channels' conv tail.  There is no Pallas kernel for
 these blocks in the JAX package: they are plain PyTorch on every device.
 
 Recurrent state is Harvest's "lossy + reconstructible" durability class.
@@ -23,7 +26,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import _gelu, _silu, residual_norm, rms_norm
+from repro_torch.core.collectives import (TENSOR_PARALLEL, reduce_scatter,
+                                          tagged)
+from repro_torch.models.layers import (_gelu, _silu, residual_norm, rms_norm,
+                                       row_parallel)
 from repro_torch.models.ssm import softplus
 
 LOG_EPS = -1e30
@@ -49,6 +55,12 @@ def xlstm_dims(cfg: ModelConfig):
     nh = cfg.num_heads
     hd = d_inner // nh
     return d_inner, nh, hd
+
+
+def slstm_dims(cfg: ModelConfig):
+    """An sLSTM block's (heads, head width, GEGLU hidden width)."""
+    nh, d = cfg.num_heads, cfg.d_model
+    return nh, d // nh, int(d * cfg.xlstm.proj_factor_slstm)
 
 
 def log_sigmoid(x):
@@ -149,14 +161,30 @@ def mlstm_chunkwise(q, k, v, i_raw, f_raw, state: Optional[MLSTMState],
     return h, (C_prev, n_prev, m_prev)
 
 
+def _alike(block, x, p, cfg, state, single_token, tp):
+    """``block`` whole on every rank of ``tp``: on the gathered stream, its
+    output cut to the residual's layout."""
+    y, state = block(tp.whole(x), p, cfg, state, single_token)
+    return tp.shard(y), state
+
+
 def mlstm_block(x, p, cfg: ModelConfig, state: Optional[MLSTMState] = None,
-                single_token: bool = False
+                single_token: bool = False, tp=None
                 ) -> Tuple[torch.Tensor, MLSTMState]:
     """Full mLSTM block: LN -> up-proj -> conv -> qkv -> cell -> gate ->
-    down."""
-    d_inner, nh, hd = xlstm_dims(cfg)
+    down.  ``tp`` (a rank of tensor parallelism): ``x`` and the output in
+    the residual's layout; where ``p`` holds the rank's heads alone (as
+    ``params.leaf_spec`` splits it; ``state`` theirs too): the gates'
+    partial sums over its channels reduce-scattered to its heads' (i, f)
+    pairs, ``w_down`` row-parallel (``out_norm`` is per head); else the
+    block whole on every rank."""
+    _, nh_all, hd = xlstm_dims(cfg)
+    nh = p["wq"].shape[0]
+    if tp is not None and nh == nh_all:
+        return _alike(mlstm_block, x, p, cfg, state, single_token, tp)
+    d_inner = nh * hd
     b, s, _ = x.shape
-    u = rms_norm(x, p["ln"], cfg.norm_eps)
+    u = rms_norm(x if tp is None else tp.whole(x), p["ln"], cfg.norm_eps)
     up = torch.einsum("bsd,dk->bsk", u, p["w_up"])   # (b, s, 2*d_inner)
     xm, z = torch.chunk(up, 2, dim=-1)
 
@@ -175,12 +203,18 @@ def mlstm_block(x, p, cfg: ModelConfig, state: Optional[MLSTMState] = None,
     q = heads(conv, p["wq"])
     k = heads(conv, p["wk"])
     v = heads(xm, p["wv"])
-    gates = torch.einsum("bsk,kg->bsg", xm, p["w_gates"]) + p["b_gates"]
+    if tp is None:
+        gates = torch.einsum("bsk,kg->bsg", xm, p["w_gates"]) + p["b_gates"]
+    else:
+        with tagged(TENSOR_PARALLEL):
+            part = reduce_scatter([row_parallel(xm, p["w_gates"], 1)], [2],
+                                  tp.group)[0]
+        gates = part.to(x.dtype) + p["b_gates"][tp.block(2 * nh_all)]
     i_raw, f_raw = gates.reshape(b, s, nh, 2).unbind(-1)
 
     if single_token:
         st = state if state is not None else init_mlstm_state(cfg, b,
-                                                              x.device)
+                                                              x.device, nh)
         h, new_state = mlstm_step(q[:, 0], k[:, 0], v[:, 0],
                                   i_raw[:, 0], f_raw[:, 0], st)
         h = h[:, None]
@@ -192,7 +226,9 @@ def mlstm_block(x, p, cfg: ModelConfig, state: Optional[MLSTMState] = None,
 
     h = rms_norm(h.to(x.dtype), p["out_norm"], cfg.norm_eps)
     h = h.reshape(b, s, d_inner) * _silu(z)
-    y = torch.einsum("bsk,kd->bsd", h, p["w_down"])
+    if tp is None:
+        return x + torch.einsum("bsk,kd->bsd", h, p["w_down"]), new_state
+    y = tp.out(row_parallel(h, p["w_down"], 1), "partial", dtype=x.dtype)
     return x + y, new_state
 
 
@@ -223,17 +259,27 @@ def _slstm_cell(carry, g_t, w_rec):
 
 
 def slstm_block(x, p, cfg: ModelConfig, state: Optional[SLSTMState] = None,
-                single_token: bool = False
+                single_token: bool = False, tp=None
                 ) -> Tuple[torch.Tensor, SLSTMState]:
     """sLSTM block: LN -> sequential exp-gated scalar cell -> GN -> GEGLU
-    MLP."""
+    MLP.  ``tp`` (a rank of tensor parallelism): ``x`` and the output in
+    the residual's layout; where ``p`` holds the rank's heads alone (as
+    ``params.leaf_spec`` splits it; ``state`` theirs too), whose cells
+    alone it runs, ``w_out`` row-parallel (the residual norm then reads
+    the f32 sum gathered where the residual is split), and the MLP by
+    columns and rows where ``p`` holds its block of the hidden width too,
+    else whole; where ``p`` holds every head, the block whole on every
+    rank."""
+    nh_all, _, f2 = slstm_dims(cfg)
+    if tp is not None and p["w_rec"].shape[0] == nh_all:
+        return _alike(slstm_block, x, p, cfg, state, single_token, tp)
     b, s, _ = x.shape
-    u = rms_norm(x, p["ln"], cfg.norm_eps)
+    u = rms_norm(x if tp is None else tp.whole(x), p["ln"], cfg.norm_eps)
     # input contributions for 4 gates (z, i, f, o): (b, s, nh, 4, hd)
     gx = torch.einsum("bsd,dngk->bsngk", u, p["w_in"]) + p["b_in"]
 
     if state is None:
-        state = init_slstm_state(cfg, b, x.device)
+        state = init_slstm_state(cfg, b, x.device, p["w_rec"].shape[0])
     carry = tuple(state)
     w_rec = p["w_rec"].float()
     hs = []
@@ -244,20 +290,31 @@ def slstm_block(x, p, cfg: ModelConfig, state: Optional[SLSTMState] = None,
     new_state = SLSTMState(*carry)
 
     hs = rms_norm(hs.to(x.dtype), p["gn"], cfg.norm_eps)
-    y, u2 = residual_norm(x, torch.einsum("bsnh,nhd->bsd", hs, p["w_out"]),
-                          p["ln2"], cfg.norm_eps)
+    a = torch.einsum("bsnh,nhd->bsd", hs, p["w_out"]) if tp is None else \
+        tp.out(row_parallel(hs, p["w_out"], 2), "partial", dtype=x.dtype)
+    y, u2 = residual_norm(x, a, p["ln2"], cfg.norm_eps, tp)
 
     # post GEGLU MLP (proj factor 4/3)
     hh = torch.einsum("bsd,df->bsf", u2, p["mlp_wi"])
     gg = torch.einsum("bsd,df->bsf", u2, p["mlp_wg"])
-    y = y + torch.einsum("bsf,fd->bsd", _gelu(gg) * hh, p["mlp_wo"])
-    return y, new_state
+    act = _gelu(gg) * hh
+    if tp is None:
+        return y + torch.einsum("bsf,fd->bsd", act, p["mlp_wo"]), new_state
+    if p["mlp_wo"].shape[0] < f2:
+        m = tp.out(row_parallel(act, p["mlp_wo"], 1), "partial", dtype=x.dtype)
+    else:
+        m = tp.out(torch.einsum("bsf,fd->bsd", act, p["mlp_wo"]), "whole")
+    return y + m, new_state
 
 
-def init_mlstm_state(cfg: ModelConfig, batch: int, device) -> MLSTMState:
-    """Zero state, ``m`` at LOG_EPS; the conv tail in bf16 whatever the
-    weights' dtype, as the JAX package starts it."""
+def init_mlstm_state(cfg: ModelConfig, batch: int, device,
+                     heads: Optional[int] = None) -> MLSTMState:
+    """Zero state (of ``heads`` of the heads, all by default), ``m`` at
+    LOG_EPS; the conv tail in bf16 whatever the weights' dtype, as the JAX
+    package starts it."""
     d_inner, nh, hd = xlstm_dims(cfg)
+    if heads is not None:
+        nh, d_inner = heads, heads * hd
     f32 = torch.float32
     return MLSTMState(
         c=torch.zeros((batch, nh, hd, hd), dtype=f32, device=device),
@@ -268,8 +325,11 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, device) -> MLSTMState:
     )
 
 
-def init_slstm_state(cfg: ModelConfig, batch: int, device) -> SLSTMState:
-    nh = cfg.num_heads
-    hd = cfg.d_model // nh
+def init_slstm_state(cfg: ModelConfig, batch: int, device,
+                     heads: Optional[int] = None) -> SLSTMState:
+    """Zero state (of ``heads`` of the heads, all by default), ``m`` at
+    LOG_EPS."""
+    nh_all, hd, _ = slstm_dims(cfg)
+    nh = nh_all if heads is None else heads
     z = torch.zeros((batch, nh, hd), dtype=torch.float32, device=device)
     return SLSTMState(c=z, n=z, m=torch.full_like(z, LOG_EPS), h=z)

@@ -14,8 +14,10 @@ On a mesh of ranks (``train_step(..., rules)``) the parameters and the
 moments are the rank's shards (``bridge.shard_train``) and AdamW runs on
 them as they are; the gradients are first made whole sums over the ranks
 that split the batch and, for a leaf that tensor parallelism leaves
-whole, over its ``model`` ranks, and the clip reads the global norm of the
-sharded gradients (``_sync_grads``, ``_sharded_norm``).
+whole, over its ``model`` ranks (and, of a leaf split by heads, the
+positions every rank holds alike: Mamba2's B and C columns), and the clip
+reads the global norm of the sharded gradients (``_sync_grads``,
+``_sharded_norm``).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 
 from repro_torch.core.collectives import all_reduce
 from repro_torch.models import model as M
+from repro_torch.models.sharding import Segments
 
 #: elements of a leaf updated at once (64 MB of f32 per temporary)
 PIECE = 1 << 24
@@ -115,26 +118,58 @@ def _summed_axes(rules) -> tuple:
     return tuple(a for a in rules.mesh.axis_names if a in axes)
 
 
+def _parts(spec, rules):
+    """(dim, local positions or None for the whole leaf, the mesh axes
+    that split it) of each part of a leaf of ``spec`` whose ranks hold it
+    alike or apart: the leaf itself, or along a ``Segments`` dim its
+    rank's own positions and those every rank of that axis holds alike."""
+    held = _held_axes(spec)
+    for d, ax in enumerate(spec):
+        if isinstance(ax, Segments):
+            shared = ax.shared(rules.axis_size(ax))
+            own = sorted(set(range(ax.length(rules.axis_size(ax))))
+                         - set(shared))
+            return [(d, idx, h) for idx, h in ((own, held),
+                                                (shared, held - {str(ax)}))
+                    if idx]
+    return [(None, None, held)]
+
+
+def _index(idx, device):
+    return torch.tensor(idx, dtype=torch.long, device=device)
+
+
+def _part(g, d, idx):
+    return g if idx is None else g.index_select(d, _index(idx, g.device))
+
+
 @torch.no_grad()
 def _sync_grads(grads, specs, rules) -> list:
     """Each rank's gradients made the global ones: a leaf's gradient is
     summed over the mesh axes that split the batch (``act_batch``) or
     run tensor parallelism and do not split the leaf (a leaf split over
     ``data`` had its sum over ``data`` from the reduce-scatter of its
-    gather; one split over ``model`` is whole on its rank), in f32 and
-    rounded once to its dtype; one collective for each set of axes."""
+    gather; one split over ``model`` is whole on its rank; of one split
+    as ``Segments``, the positions every rank holds alike are summed over
+    its axis too), in f32 and rounded once to its dtype; one collective
+    for each set of axes."""
     summed = _summed_axes(rules)
     buckets = {}
     for i, spec in enumerate(specs):
-        need = tuple(a for a in summed if a not in _held_axes(spec))
-        if need and rules.axis_size(need) > 1:
-            buckets.setdefault(need, []).append(i)
+        for d, idx, held in _parts(spec, rules):
+            need = tuple(a for a in summed if a not in held)
+            if need and rules.axis_size(need) > 1:
+                buckets.setdefault(need, []).append((i, d, idx))
     grads = list(grads)
-    for axes, idx in buckets.items():
-        flat = torch.cat([grads[i].float().reshape(-1) for i in idx])
+    for axes, parts in buckets.items():
+        got = [_part(grads[i], d, idx) for i, d, idx in parts]
+        flat = torch.cat([g.float().reshape(-1) for g in got])
         all_reduce(flat, "sum", rules.mesh.group(axes))
-        for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
-            grads[i] = part.view(grads[i].shape).to(grads[i].dtype)
+        for (i, d, idx), g, part in zip(parts, got,
+                                        flat.split([g.numel() for g in got])):
+            part = part.view(g.shape).to(g.dtype)
+            grads[i] = part if idx is None else grads[i].index_copy(
+                d, _index(idx, part.device), part)
     return grads
 
 
@@ -142,14 +177,16 @@ def _sync_grads(grads, specs, rules) -> list:
 def _sharded_norm(grads, specs, rules) -> torch.Tensor:
     """The global norm of the whole gradients from the ranks' shards:
     each distinct shard counted once (a leaf's sum of squares over the
-    number of ranks that hold the same block), summed over the world."""
+    number of ranks that hold the same block, a ``Segments`` leaf's
+    positions held alike apart from its own), summed over the world."""
     world = rules.mesh.size
     total = None
     for g, spec in zip(grads, specs):
-        held = math.prod(rules.axis_size(ax) for ax in spec if ax is not None)
-        s = sum(torch.sum(torch.square(piece.float()))
-                for piece in _pieces(g)) * (held / world)
-        total = s if total is None else total + s
+        for d, idx, held in _parts(spec, rules):
+            share = math.prod(rules.axis_size(ax) for ax in held) / world
+            s = sum(torch.sum(torch.square(piece.float()))
+                    for piece in _pieces(_part(g, d, idx))) * share
+            total = s if total is None else total + s
     return torch.sqrt(all_reduce(total, "sum", None))
 
 

@@ -587,15 +587,17 @@ def test_run_one_refuses_hybrid_on_a_mesh(fake_world, shape):
     counted (two a layer in training: the pass and its recompute; one in
     prefill) and K4 at the shared block's 13 uses.  Prefill's
     reduce-scatters are tensor parallelism's alone: the shared block's
-    two row-parallel outputs at each of its 13 uses and the
-    vocabulary-parallel embedding; training adds the FSDP gradients'."""
+    two row-parallel outputs at each of its 13 uses, the
+    vocabulary-parallel embedding and each of the 81 Mamba2 layers'
+    row-parallel ``out_proj`` (its 112 heads split by 7 a rank); training
+    adds the FSDP gradients'."""
     from repro_torch.launch.dryrun import run_one
 
     rec = run_one("zamba2-7b", shape, "pod")
     assert rec["ok"], rec.get("error")
     counts = rec["collectives"]["counts"]
     assert counts["all-gather"] > 81
-    tp = 2 * 13 + 1
+    tp = 2 * 13 + 1 + 81
     if shape == "prefill_32k":
         assert counts["reduce-scatter"] == tp
     else:

@@ -9,7 +9,10 @@ returning the rank's rows of the logits, the KV and the final states;
 ``serve_step(rules)`` running the recurrent layers over the rank's rows of
 the states (``bridge.shard_decode`` cuts them), Zamba2's shared attention
 gathering its normed input over ``data`` to serve every row against the
-rank's slots, the tokens gathered whole.
+rank's slots, the tokens gathered whole.  Under the default rules the
+Mamba2, mLSTM and sLSTM layers run over the rank's heads too (their heads
+divide the ``model`` axis here), and the states the rank holds are its
+rows' and its heads' (``_state_cut``).
 
 The JAX reference runs in one subprocess, this file run as a script
 (``XLA_FLAGS=--xla_force_host_platform_device_count=4`` set before jax
@@ -30,8 +33,8 @@ training cases run data parallelism and FSDP over the mesh with tensor
 parallelism off (``_without_tensor_parallelism``), and those of
 ``TP_TRAIN`` again under the default rules, held to the same JAX runs:
 Zamba2's shared block and both families' embedding and head
-tensor-parallel over ``model``.  Prefill and decode run the default
-rules.
+tensor-parallel over ``model``, and the recurrent layers split by
+heads.  Prefill and decode run the default rules.
 """
 from __future__ import annotations
 
@@ -165,6 +168,32 @@ def _rows(rank, shape=MESH, b=B):
         return slice(None)
     i = rank // shape[1]
     return slice(i * b // n, (i + 1) * b // n)
+
+
+def _state_cut(arch, j, a, rank, shape=MESH):
+    """State leaf ``j`` (in the JAX package's leaf order) of every row and
+    head, ``a``, cut to what a rank of ``shape`` holds: its rows
+    (``_rows``) and its ``model`` index's block of the heads; a conv
+    tail its channels (zamba2's: its heads' x channels and every B and C
+    channel; the mLSTM's: its heads' channels), reckoned from
+    ``ssm_dims`` and ``xlstm_dims``."""
+    from repro_torch.models.ssm import ssm_dims
+    from repro_torch.models.xlstm import xlstm_dims
+    _, cfg = _configs(arch)
+    lead = 2 if arch == XLSTM and j < 4 else 1
+    a = a[(slice(None),) * lead + (_rows(rank, shape, a.shape[lead]),)]
+    n, i = shape[1], rank % shape[1]
+    d_inner, nh = (ssm_dims(cfg) if arch == ZAMBA else xlstm_dims(cfg))[:2]
+    assert nh % n == 0
+    if (arch, j) in ((ZAMBA, 1), (XLSTM, 3)):       # the conv tails
+        k = d_inner // n
+        keep = np.arange(i * k, (i + 1) * k)
+        if arch == ZAMBA:
+            keep = np.concatenate([keep, np.arange(
+                d_inner, d_inner + 2 * cfg.ssm.state_dim)])
+        return a[..., keep]
+    k = nh // n
+    return a[(slice(None),) * (lead + 1) + (slice(i * k, (i + 1) * k),)]
 
 
 def _tokens(cfg, b, seed):
@@ -760,8 +789,9 @@ def test_tensor_parallel_matches_unsharded_port(runs, case):
 def test_sharded_prefill_matches_jax(runs, case):
     """``prefill(rules)``: each rank's rows (its data index's half of the
     batch) of JAX's sharded prefill: the last-token logits, zamba2's
-    stacked k and v, every final state (f32 within ``F32_REL`` of each
-    tensor's largest entry, bf16 within ``BF16_REL``)."""
+    stacked k and v, every final state its rows' and heads'
+    (``_state_cut``) (f32 within ``F32_REL`` of each tensor's largest
+    entry, bf16 within ``BF16_REL``)."""
     ref, ranks, _ = runs
     arch, dtype = PREFILL[case]
     rel = F32_REL if dtype == "float32" else BF16_REL
@@ -777,11 +807,8 @@ def test_sharded_prefill_matches_jax(runs, case):
             assert "k" not in got
         assert len(got["states"]) == n_states
         for j, g in enumerate(got["states"]):
-            want = ref[f"{key}/states/{j}"]
-            # the batch dim follows the stack dims (two for the mLSTM's)
-            lead = 2 if arch == XLSTM and j < 4 else 1
-            _hold(g, want[(slice(None),) * lead + (rows,)], rel,
-                  f"state {j}")
+            _hold(g, _state_cut(arch, j, ref[f"{key}/states/{j}"], rank),
+                  rel, f"state {j}")
 
 
 def _check_bf16_logits(want, got, ties=()):
@@ -805,9 +832,10 @@ def _decode_rows(ranks, key, what):
 def test_sharded_serve_step_matches_jax(runs, case):
     """Four ``serve_step(rules)`` steps against JAX's sharded
     ``serve_step``: each rank holds its rows' states alone (the batch
-    over ``data``), its rows' logits held to JAX's (f32 within
-    ``F32_REL`` of the largest; bf16 under tests/test_torch_engine.py's
-    near-tie guard, the tokens identical), its rows' new states, and
+    over ``data``), of its heads alone (the heads over ``model``), its
+    rows' logits held to JAX's (f32 within ``F32_REL`` of the largest;
+    bf16 under tests/test_torch_engine.py's near-tie guard, the tokens
+    identical), its rows' and heads' new states (``_state_cut``), and
     zamba2's pool shards against the matching slots of JAX's pools."""
     ref, ranks, inp = runs
     arch, dtype = DECODE[case]
@@ -821,12 +849,11 @@ def test_sharded_serve_step_matches_jax(runs, case):
         assert np.array_equal(logs.argmax(-1), want.argmax(-1))
     rel = F32_REL if dtype == "float32" else BF16_REL
     for rank, r in enumerate(ranks):
-        rows = _rows(rank)
         got = r[key]
         for j, g in enumerate(got["states"]):
             w = ref[f"{key}/states/{j}"]
             lead = 2 if arch == XLSTM and j < 4 else 1
-            w = w[(slice(None),) * lead + (rows,)]
+            w = _state_cut(arch, j, w, rank)
             assert got["state_rows"][j] == w.shape
             assert w.shape[lead] == B // MESH[0]
             _hold(g, w, rel, f"rank {rank} state {j}")
@@ -854,10 +881,8 @@ def test_sharded_serve_step_matches_unsharded(runs, case):
         _check_bf16_logits(un["logits"], logs)
     rel = UNSHARDED_REL if dtype == "float32" else BF16_REL
     for rank, r in enumerate(ranks):
-        rows = _rows(rank)
         for j, g in enumerate(r[key]["states"]):
-            lead = 2 if arch == XLSTM and j < 4 else 1
-            _hold(g, un["states"][j][(slice(None),) * lead + (rows,)], rel,
+            _hold(g, _state_cut(arch, j, un["states"][j], rank), rel,
                   f"rank {rank} state {j}")
     if arch == ZAMBA:
         for name in ("pool_k", "pool_v"):

@@ -1014,9 +1014,12 @@ def test_schema_axes_match_jax(arch):
     package's ``ParamDef``, and ``param_specs`` on the production mesh
     keeps JAX's ``param_specs`` of the dims it splits (``TRAIN_SPLITS``:
     ``embed_fsdp``, ``experts``, ``heads``, ``kv_heads``, ``ff``,
-    ``vocab``; a recurrent layer's leaf ``RECURRENT_SPLITS``) and leaves
+    ``vocab``; a recurrent layer's leaf ``RECURRENT_SPLITS``, its ``ff``
+    and ``state_heads`` over ``model`` only where the layer's heads divide
+    the axis, and sLSTM's MLP where its hidden width does too) and leaves
     every other dim whole; a model with attention or an MLP splits some
-    leaf over ``model``."""
+    leaf over ``model``; Mamba2's ``in_proj`` and conv leaves split as
+    segments (the rank's heads' channels, B and C whole)."""
     from jax.sharding import AbstractMesh, AxisType
 
     from repro.configs import get_config
@@ -1042,18 +1045,39 @@ def test_schema_axes_match_jax(arch):
     trules = tmesh.make_rules(tmesh.Mesh((16, 16), AXES))
     jspecs = _flatten(JP.param_specs(cfg, jrules), "")
     tspecs = _flatten(TP.param_specs(tcfg, trules), "")
-    from repro_torch.models.sharding import RECURRENT_SPLITS, TRAIN_SPLITS
+    from repro_torch.models.sharding import (RECURRENT_SPLITS, TRAIN_SPLITS,
+                                             Segments)
     split = over_model = 0
     for k, j in jspecs.items():
         j = tuple(j) + (None,) * (len(tschema[k].shape) - len(tuple(j)))
         recurrent = k.startswith(("supers/", "mamba_layers/mamba/"))
         names = RECURRENT_SPLITS if recurrent else TRAIN_SPLITS
+        if recurrent and not _recurrent_heads_divide(tcfg, k, 16):
+            names = ("embed_fsdp",)
         want = tuple(ax if name in names else None
                      for ax, name in zip(j, jschema[k].axes))
         assert tspecs[k] == want, (k, tspecs[k], j)
+        segmented = k.endswith(("/in_proj", "/conv_w", "/conv_b")) \
+            and k.startswith("mamba_layers/")
+        assert any(isinstance(ax, Segments) for ax in tspecs[k]) \
+            == (segmented and "model" in want), k
         split += any(want)
         over_model += "model" in want
     assert split > 0 and over_model > 0
+
+
+def _recurrent_heads_divide(cfg, key, n):
+    """The recurrent layer of the leaf ``key`` splits over ``n`` ranks of
+    ``model``: its heads divide them (Mamba2's d_inner / head_dim, the
+    xLSTM blocks' ``num_heads``), and for sLSTM's MLP its hidden width
+    too."""
+    if key.startswith("mamba_layers/"):
+        heads = [cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim]
+    else:
+        heads = [cfg.num_heads]
+        if "/mlp_" in key:
+            heads.append(int(cfg.d_model * cfg.xlstm.proj_factor_slstm))
+    return all(h % n == 0 for h in heads)
 
 
 def test_init_params_on_a_rank_is_its_block(runs):
